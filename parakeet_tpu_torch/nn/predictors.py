@@ -1,0 +1,85 @@
+"""Variance predictors (counterpart of ``parakeet_tpu/nn/predictors.py``),
+inference only, (B, T, C) layout.
+
+PyTorch needs each layer's input width up front, so the constructors take
+``idim`` where flax infers it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .conv import SameConv1d
+
+__all__ = ["DurationPredictor", "VariancePredictor", "VarianceEmbedding"]
+
+_LN_EPS = 1e-6          # flax LayerNorm's default epsilon
+
+
+class _ConvStack(nn.Module):
+    """(conv1d -> relu -> LayerNorm) x n, then a linear map to 1."""
+
+    def __init__(self, idim: int, n_layers: int, n_chans: int,
+                 kernel_size: int):
+        super().__init__()
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            self.add_module(f"conv_{i}", SameConv1d(
+                idim if i == 0 else n_chans, n_chans, kernel_size))
+            self.add_module(f"norm_{i}", nn.LayerNorm(n_chans, eps=_LN_EPS))
+        self.linear = nn.Linear(n_chans, 1)
+
+    def forward(self, xs):
+        h = xs
+        for i in range(self.n_layers):
+            h = F.relu(getattr(self, f"conv_{i}")(h))
+            h = getattr(self, f"norm_{i}")(h)
+        return self.linear(h)[..., 0]
+
+
+class DurationPredictor(nn.Module):
+    """Log-durations, or with ``inference=True`` integer durations
+    ``clip(round(exp(x) - offset), 0)`` (round half to even, as jnp.round).
+    Padded tokens (``pad_mask`` True) get 0."""
+
+    def __init__(self, idim: int, n_layers: int = 2, n_chans: int = 384,
+                 kernel_size: int = 3, offset: float = 1.0):
+        super().__init__()
+        self.offset = offset
+        self.stack = _ConvStack(idim, n_layers, n_chans, kernel_size)
+
+    def forward(self, xs, pad_mask=None, inference: bool = False):
+        out = self.stack(xs)
+        if inference:
+            out = torch.clamp(torch.round(torch.exp(out) - self.offset),
+                              min=0)
+        if pad_mask is not None:
+            out = out.masked_fill(pad_mask, 0.0)
+        return out
+
+
+class VariancePredictor(nn.Module):
+    """Pitch / energy predictor; returns (B, T, 1), 0 where ``pad_mask``."""
+
+    def __init__(self, idim: int, n_layers: int = 2, n_chans: int = 384,
+                 kernel_size: int = 3):
+        super().__init__()
+        self.stack = _ConvStack(idim, n_layers, n_chans, kernel_size)
+
+    def forward(self, xs, pad_mask=None):
+        out = self.stack(xs)[..., None]
+        if pad_mask is not None:
+            out = out.masked_fill(pad_mask, 0.0)
+        return out
+
+
+class VarianceEmbedding(nn.Module):
+    """conv1d embedding of a scalar track (B, T, 1) -> (B, T, out_dim)."""
+
+    def __init__(self, out_dim: int, kernel_size: int = 9):
+        super().__init__()
+        self.conv = SameConv1d(1, out_dim, kernel_size)
+
+    def forward(self, xs):
+        return self.conv(xs)

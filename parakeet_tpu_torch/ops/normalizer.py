@@ -1,0 +1,25 @@
+"""Feature normalization (counterpart of
+``parakeet_tpu/ops/normalizer.py::ZScore``)."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ZScore"]
+
+
+class ZScore:
+    """Elementwise (x - mu) / sigma with stored (D,) statistics, broadcast
+    over leading axes.  The statistics follow the input's device and
+    dtype."""
+
+    def __init__(self, mu, sigma):
+        self.mu = torch.as_tensor(mu)
+        self.sigma = torch.as_tensor(sigma)
+
+    def transform(self, x: torch.Tensor) -> torch.Tensor:
+        return (x - self.mu.to(x)) / self.sigma.to(x)
+
+    def inverse(self, z: torch.Tensor) -> torch.Tensor:
+        return z * self.sigma.to(z) + self.mu.to(z)
+
+    __call__ = transform
