@@ -13,20 +13,41 @@ Phases, one line each (the checks raise; nothing is caught):
    PyTorch version, at a small shape and at the main shape (B=1,
    T=268,800, 30 layers, the widths of recipes/pwgan/conf/default.yaml):
    max abs error against a stated tolerance, and median times;
-3. the slice: a port ``TTSEngine`` on bf16 FastSpeech2 and PWGGenerator at
-   the recipes' widths with weights drawn from a fixed ``torch.Generator``
-   seed answers six requests (one over the largest text bucket, so it is
-   split); every wav must be finite with ``n_frames * 300`` samples, K1
-   must have launched once per layer for every chunk, and one request
-   must give the same wav alone and inside a batch, and agree with the
-   wav of the eager residual stack (no kernel) within a stated tolerance.
+3. the serving slice: a port ``TTSEngine`` on bf16 FastSpeech2 and
+   PWGGenerator at the recipes' widths with weights drawn from a fixed
+   ``torch.Generator`` seed answers six requests (one over the largest
+   text bucket, so it is split); every wav must be finite with
+   ``n_frames * 300`` samples, K1 must have launched once per layer for
+   every chunk, and one request must give the same wav alone and inside a
+   batch, and agree with the wav of the eager residual stack (no kernel)
+   within a stated tolerance;
+4. kernels K2a/K2b (the residual stack's training forward and backward,
+   one group of ten layers) and K3a/K3b (discriminator layers 1..9,
+   forward and backward) against their plain PyTorch versions, at a small
+   shape and at the training shape (B=8, T=25,500: the PWGAN recipe's
+   batch_size and batch_max_steps): max abs errors against stated
+   tolerances, gradients bit-identical from run to run, median times;
+5. the training slice: a port ``Trainer`` over ``StandardUpdater`` runs
+   the PWGAN GAN step of recipes/pwgan/conf/default.yaml for four steps at
+   its full widths on seeded synthetic (wav, mel) batches, with
+   discriminator_train_start_steps=2, so steps 0-1 run the discriminator-
+   off program and steps 2-3 the GAN program.  Every metric must be
+   finite, the parameters must move, each kernel must launch the expected
+   number of times per step, the residual stack, first conv and upsampler
+   must get non-zero gradients, and step 0 must agree with the same step
+   on the eager impls (no kernel) within stated tolerances.  It prints ms
+   per step with the kernels and with the eager impls.
 
 The line before the last is a JSON object with each kernel's launches on
-the main path, error and times; the last line is the run's result.
-Without a CUDA device it raises and prints no result.
+its path (K1: serving; K2a-K3b: training), error and times; the last line
+is the run's result.  Without a CUDA device it raises and prints no
+result.  ``--profile DIR`` also writes a ``torch.profiler`` table of one
+GAN step with the kernels to DIR.
 """
+import argparse
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import time
@@ -54,6 +75,15 @@ FRAMES_PER_TOKEN = 7                # 128 tokens -> 896 frames, as bench.py
 REQUEST_LENGTHS = (20, 45, 77, 100, 128, 150)
 MAIN_T = 268800                     # 896 frames * hop 300
 SMALL = (2, 3000)                   # (B, T) of the small K1 check
+# recipes/pwgan/conf/default.yaml: discriminator_params without impl,
+# batch_size, batch_max_steps, the optimizers, updater and STFT losses
+DISC_CONFIG = dict(layers=10, conv_channels=64)
+TRAIN_B, TRAIN_T = 8, 25500
+GEN_LR, DISC_LR = 1e-4, 5e-5
+LAMBDA_ADV = 4.0
+STFT_LOSS = dict(fft_sizes=(1024, 2048, 512), hop_sizes=(120, 240, 50),
+                 win_lengths=(600, 1200, 240))
+TRAIN_STEPS, DISC_START = 4, 2
 # the random AM's log-durations are centred on log(5) with a spread of
 # about 0.25: ~4 frames (~50 ms at hop 300 / 24 kHz) per phone, so that
 # utterances have a speech-like length within the 7-frame capacity
@@ -74,6 +104,27 @@ INVARIANCE_REL_TOL = 2 ** -4
 # range (measured at these widths on the CPU); 2^-4 still fails a wrong
 # tap, weight or bias layout, which changes the wav entirely
 REFERENCE_REL_TOL = 2 ** -4
+# K2a/K2b and K3a/K3b against their plain versions on the card: both
+# round at the same points and differ in the order of float32 sums (and
+# the kernels' fast tanh and sigmoid), which now and then flips a bf16
+# rounding of an operand (2^-8 relative) and carries it through the
+# group's ten layers (the discriminator's nine); 2^-5 of each output's
+# range bounds that, as for K1.  A wrong tap, weight block or reduction
+# is off by the whole range.
+K2_REL_TOL = K3_REL_TOL = 2 ** -5
+# step 0 with the kernels against step 0 on the eager impls (float32, no
+# kernel).  The kernels' bf16 operands move the fake by ~1% of its range
+# (as the serving wav), which moves the STFT losses by less than 2^-5 of
+# their value.  The stack weights' gradient is compared through the
+# spectral-convergence term: the log-magnitude term's gradient at a random
+# generator is dominated by near-silent STFT bins, and moving the fake by
+# 1e-3 of its range alone changes it by 116% in relative L2 (float64 on
+# the CPU, B=2, T=1200), so no bf16 path can match it.  Through the
+# spectral term the gradient is held to 2^-3 in relative L2: bf16 in 30
+# layers and the ReLU kinks after the skip sum, whose sign flips under
+# bf16 noise (measured 0.027 with the plain versions on the CPU).
+STEP_LOSS_REL_TOL = 2 ** -5
+STEP_GRAD_REL_L2 = 2 ** -3
 
 
 def seeded_init_(module, gen):
@@ -263,15 +314,367 @@ def phase_slice(record):
     return record
 
 
+def _hold(what, got, ref, rel_tol):
+    """Max abs error of got against ref, held to rel_tol of ref's range;
+    returns (err, tol)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    tol = rel_tol * max(ref.abs().max().item(), 1e-6)
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"{what}: max abs err {err} > tol {tol}")
+    return err, tol
+
+
+def _report(tag, held):
+    return ", ".join(f"{n} {e:.4g} (tol {t:.4g})" for n, (e, t) in held)
+
+
+def _record(name, source, replaces, errs, ms, plain_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"parakeet_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": max(e for _, (e, _) in errs), "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_k2():
+    """K2a and K2b against their plain versions on one group of ten
+    layers of the recipe's stack; returns their records."""
+    from parakeet_tpu_torch.models.parallel_wavegan import ResidualStack
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    from parakeet_tpu_torch.ops.kernels import pwg_stack_train as k2
+    gen = torch.Generator().manual_seed(SEED + 3)
+    stack = ResidualStack(**{k: PWG_CONFIG[k] for k in (
+        "layers", "stacks", "residual_channels", "gate_channels",
+        "skip_channels")}, aux_channels=ODIM)
+    seeded_init_(stack, gen)
+    stack = stack.cuda()
+    per = PWG_CONFIG["layers"] // PWG_CONFIG["stacks"]
+    dil = stack.dilations()[:per]
+    with torch.no_grad():
+        wg, wso, bso = k1.pack_stack_weights(stack.fused_weights(), 64, ODIM)
+    wg16 = wg[:per].to(torch.bfloat16).contiguous()
+    wso16 = wso[:per].to(torch.bfloat16).contiguous()
+    bso = bso[:per].contiguous()
+    for b, t in (SMALL, (TRAIN_B, TRAIN_T)):
+        x = torch.randn((b, t, 64), generator=gen).cuda()
+        c16 = torch.randn((b, t, ODIM), generator=gen).cuda().to(
+            torch.bfloat16)
+        fwd = (lambda: k1.fused_group_forward_save(
+            x, c16, wg16, wso16, bso, dilations=dil))
+        got = fwd()
+        ref = k1.group_forward_reference(x, c16, wg16, wso16, bso,
+                                         dilations=dil)
+        torch.cuda.synchronize()
+        held_a = [(n, _hold(f"K2a {n} B={b} T={t}", g, r, K2_REL_TOL))
+                  for n, g, r in zip(("x_next", "skip", "saved"), got, ref)]
+        dxo = torch.randn((b, t, 64), generator=gen).cuda()
+        dsk = torch.randn((b, t, 64), generator=gen).cuda()
+        bwd = (lambda: k2.fused_group_backward(
+            got[2], c16, wg16, wso16, dxo, dsk, dilations=dil))
+        got_b = bwd()
+        ref_b = k2.group_backward_reference(got[2], c16, wg16, wso16, dxo,
+                                            dsk, dilations=dil)
+        again = bwd()
+        torch.cuda.synchronize()
+        names = ("dx", "dc", "dwg", "dwso", "dbso")
+        held_b = [(n, _hold(f"K2b {n} B={b} T={t}", g, r, K2_REL_TOL))
+                  for n, g, r in zip(names, got_b, ref_b)]
+        if not all(torch.equal(u, v) for u, v in zip(got_b, again)):
+            raise AssertionError("K2b: two runs gave different gradients")
+        ms_a, plain_a = cuda_ms(fwd, 10), cuda_ms(
+            lambda: k1.group_forward_reference(x, c16, wg16, wso16, bso,
+                                               dilations=dil), 3)
+        ms_b, plain_b = cuda_ms(bwd, 10), cuda_ms(
+            lambda: k2.group_backward_reference(got[2], c16, wg16, wso16,
+                                                dxo, dsk, dilations=dil), 3)
+        print(f"K2a B={b} T={t} (one group of {per} layers): "
+              f"{_report('K2a', held_a)}; kernel {ms_a:.4f} ms, plain "
+              f"{plain_a:.4f} ms (median)")
+        print(f"K2b B={b} T={t}: {_report('K2b', held_b)}; bit-identical "
+              f"on a second run; kernel {ms_b:.4f} ms, plain {plain_b:.4f} "
+              f"ms (median)")
+    return (_record("pwg_residual_stack_fwd_save", "pwg_stack.cu",
+                    "parakeet_tpu/ops/pallas/pwg_stack.py:93", held_a, ms_a,
+                    plain_a),
+            _record("pwg_residual_stack_bwd", "pwg_stack_bwd.cu",
+                    "parakeet_tpu/ops/pallas/pwg_stack_train.py:76", held_b,
+                    ms_b, plain_b))
+
+
+def phase_k3():
+    """K3a and K3b against their plain versions; returns their records."""
+    from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
+    gen = torch.Generator().manual_seed(SEED + 4)
+    nl = len(k3.DISC_TAIL_DILS)
+    kernels = [torch.randn((3, 64, 1 if j == nl - 1 else 64), generator=gen)
+               / math.sqrt(192) for j in range(nl)]
+    biases = [0.05 * torch.randn(k.shape[-1], generator=gen)
+              for k in kernels]
+    wk, bk = k3.pack_disc_weights(kernels, biases)
+    wk, bk = wk.cuda(), bk.cuda()
+    slope = 0.2
+    for b, t in (SMALL, (TRAIN_B, TRAIN_T)):
+        h = torch.randn((b, t, 64), generator=gen).cuda()
+        fwd = (lambda: k3.fused_disc_forward(h, wk, bk, slope=slope,
+                                             save=True))
+        got = fwd()
+        ref = k3.disc_forward_reference(h, wk, bk, slope=slope)
+        torch.cuda.synchronize()
+        held_a = [(n, _hold(f"K3a {n} B={b} T={t}", g, r, K3_REL_TOL))
+                  for n, g, r in zip(("logits", "saved"), got, ref)]
+        dlog = torch.randn((b, t), generator=gen).cuda()
+        bwd = (lambda: k3.fused_disc_backward(
+            got[1], dlog, wk, slope=slope, need_dx=True, need_weights=True))
+        got_b = bwd()
+        ref_b = k3.disc_backward_reference(got[1], dlog, wk, slope=slope)
+        again = bwd()
+        torch.cuda.synchronize()
+        held_b = [(n, _hold(f"K3b {n} B={b} T={t}", g, r, K3_REL_TOL))
+                  for n, g, r in zip(("dh", "dW", "db"), got_b, ref_b)]
+        if not all(torch.equal(u, v) for u, v in zip(got_b, again)):
+            raise AssertionError("K3b: two runs gave different gradients")
+        ms_a, plain_a = cuda_ms(fwd, 10), cuda_ms(
+            lambda: k3.disc_forward_reference(h, wk, bk, slope=slope), 3)
+        ms_b, plain_b = cuda_ms(bwd, 10), cuda_ms(
+            lambda: k3.disc_backward_reference(got[1], dlog, wk,
+                                               slope=slope), 3)
+        print(f"K3a B={b} T={t} (with save): {_report('K3a', held_a)}; "
+              f"kernel {ms_a:.4f} ms, plain {plain_a:.4f} ms (median)")
+        print(f"K3b B={b} T={t} (dh, dW, db): {_report('K3b', held_b)}; "
+              f"bit-identical on a second run; kernel {ms_b:.4f} ms, plain "
+              f"{plain_b:.4f} ms (median)")
+    return (_record("pwg_disc_fwd", "pwg_disc.cu",
+                    "parakeet_tpu/ops/pallas/pwg_disc.py:143", held_a, ms_a,
+                    plain_a),
+            _record("pwg_disc_bwd", "pwg_disc.cu",
+                    "parakeet_tpu/ops/pallas/pwg_disc.py:195", held_b, ms_b,
+                    plain_b))
+
+
+def _train_counters():
+    from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    from parakeet_tpu_torch.ops.kernels import pwg_stack_train as k2
+    return {"K1": k1.fused_residual_stack,
+            "K2a": k1.fused_group_forward_save,
+            "K2b": k2.fused_group_backward,
+            "K3a": k3.fused_disc_forward,
+            "K3b": k3.fused_disc_backward}
+
+
+def expected_launches(disc_on):
+    """Kernel launches of one train step at the recipe's widths.
+
+    Generator update: K2a once per layer; K2b gate, dw and dx per layer
+    and one reduction per group.  GAN steps add the discriminator on the
+    fake (K3a), its input gradient only (K3b's reverse pass: the
+    discriminator's weights are constants there), the regeneration of the
+    fake without a gradient (K1, once per layer), and the discriminator
+    update: K3a on real and fake, each with K3b's reverse pass, its dW
+    pass and two reductions.
+    """
+    layers, stacks = PWG_CONFIG["layers"], PWG_CONFIG["stacks"]
+    n = {"K1": 0, "K2a": layers, "K2b": 3 * layers + stacks, "K3a": 0,
+         "K3b": 0}
+    if disc_on:
+        n.update(K1=layers, K3a=1 + 2, K3b=1 + 2 * 4)
+    return n
+
+
+def build_trainer(impl, out_dir):
+    """A Trainer over the recipe's GAN step: 'kernels' (stack 'fused',
+    discriminator 'auto', as recipes/pwgan/conf/default.yaml selects) or
+    'eager' (no kernel).  Same seeded weights, batches and noise."""
+    from parakeet_tpu_torch.models import (PWGDiscriminator, PWGGenerator,
+                                           init_pwg_train_state,
+                                           make_pwg_train_step)
+    from parakeet_tpu_torch.training import (StandardUpdater, Trainer,
+                                             build_optimizer, seed_everything)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    g = PWGGenerator(aux_channels=ODIM, stack_impl=(
+        "fused" if impl == "kernels" else "eager"), **PWG_CONFIG)
+    d = PWGDiscriminator(impl="auto" if impl == "kernels" else "eager",
+                         **DISC_CONFIG)
+    seeded_init_(g, gen)
+    seeded_init_(d, gen)
+    g, d = g.cuda(), d.cuda()
+    frames = TRAIN_T // 300 + 2 * PWG_CONFIG["aux_context_window"]
+    batches = [{"wav": (0.3 * torch.randn((TRAIN_B, TRAIN_T),
+                                          generator=gen)).cuda(),
+                "mel": torch.randn((TRAIN_B, frames, ODIM),
+                                   generator=gen).cuda()}
+               for _ in range(TRAIN_STEPS)]
+    state = init_pwg_train_state(
+        g, d, build_optimizer(g.parameters(), "adam", GEN_LR),
+        build_optimizer(d.parameters(), "adam", DISC_LR),
+        seed_everything(SEED + 6, device="cuda"))
+    step = make_pwg_train_step(g, d, lambda_adv=LAMBDA_ADV,
+                               discriminator_train_start_steps=DISC_START,
+                               **STFT_LOSS)
+    log = []
+
+    def timed_step(st, batch):
+        counters = _train_counters()
+        before = {k: f.launches for k, f in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, metrics = step(st, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        grads = {"stack": g.stack.conv_kernel.grad.clone(),
+                 "first_conv": torch.cat([p.grad.flatten() for p in
+                                          g.first_conv.parameters()]),
+                 "upsampler": torch.cat([p.grad.flatten() for p in
+                                         g.upsample_net.parameters()])}
+        log.append({"ms": ms, "metrics": {k: float(v) for k, v in
+                                          metrics.items()},
+                    "launches": {k: f.launches - before[k]
+                                 for k, f in counters.items()},
+                    "grads": grads})
+        return st, metrics
+
+    updater = StandardUpdater(timed_step, state, batches)
+    trainer = Trainer(updater, stop_trigger=(TRAIN_STEPS, "iteration"),
+                      out=str(out_dir))
+    return trainer, g, d, log, step, state, batches
+
+
+def step0_spectral_grad(g, batch):
+    """The stack weights' gradient of step 0's spectral-convergence loss:
+    the step's noise (the state's generator, as seeded), batch and
+    weights."""
+    from parakeet_tpu_torch.ops.stft_loss import multi_resolution_stft_loss
+    from parakeet_tpu_torch.training import seed_everything
+    rng = seed_everything(SEED + 6, device="cuda")
+    wav = batch["wav"]
+    noise = torch.randn((*wav.shape, 1), generator=rng, device=wav.device,
+                        dtype=wav.dtype)
+    sc, _ = multi_resolution_stft_loss(g(noise, batch["mel"])[..., 0], wav,
+                                       **STFT_LOSS)
+    sc.backward()
+    grad = g.stack.conv_kernel.grad.clone()
+    g.zero_grad(set_to_none=True)
+    return grad
+
+
+def phase_train(records, profile_dir=None):
+    out = pathlib.Path("build") / "chip_smoke_train"
+    trainer, g, d, log, step, state, batches = build_trainer(
+        "kernels", out / "kernels")
+    eager, g_e, _, log_e, _, _, batches_e = build_trainer("eager",
+                                                          out / "eager")
+    sc_grad = step0_spectral_grad(g, batches[0])
+    sc_grad_e = step0_spectral_grad(g_e, batches_e[0])
+    params0 = {f"{m}.{n}": p.detach().clone() for m, mod in
+               (("generator", g), ("discriminator", d))
+               for n, p in mod.named_parameters()}
+    counters = _train_counters()
+    for f in counters.values():
+        f.launches = 0
+    trainer.run()
+    totals = {k: f.launches for k, f in counters.items()}
+    eager.run()
+    if any(f.launches != totals[k] for k, f in counters.items()):
+        raise AssertionError("the eager impls launched a kernel")
+    for i, (k, e) in enumerate(zip(log, log_e)):
+        disc_on = i >= DISC_START
+        bad = {n: v for n, v in k["metrics"].items()
+               if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"step {i}: non-finite metrics {bad}")
+        if k["launches"] != expected_launches(disc_on):
+            raise AssertionError(f"step {i}: launches {k['launches']}, "
+                                 f"expected {expected_launches(disc_on)}")
+        for name, grad in k["grads"].items():
+            if not (torch.isfinite(grad).all() and grad.abs().max() > 0):
+                raise AssertionError(f"step {i}: {name} gradient is zero "
+                                     "or not finite")
+        if (k["metrics"]["discriminator_loss"] > 0) != disc_on:
+            raise AssertionError(f"step {i}: discriminator loss "
+                                 f"{k['metrics']['discriminator_loss']}")
+        print(f"train step {i} ({'GAN' if disc_on else 'disc off'}): "
+              f"kernels {k['ms']:.2f} ms, eager {e['ms']:.2f} ms; "
+              + ", ".join(f"{n} {v:.5g}" for n, v in k["metrics"].items())
+              + f"; launches {k['launches']}")
+    # every submodule's parameters moved (first_conv.kernel alone may not:
+    # weight norm over its one input channel fixes its direction, so its
+    # gradient is zero up to rounding)
+    moved = {}
+    for m, mod in (("generator", g), ("discriminator", d)):
+        for n, p in mod.named_parameters():
+            key = f"{m}.{n.split('.')[0]}"
+            moved[key] = moved.get(key, False) or not torch.equal(
+                params0[f"{m}.{n}"], p.detach())
+    if not all(moved.values()):
+        raise AssertionError(f"parameters did not move: "
+                             f"{[k for k, v in moved.items() if not v]}")
+    # step 0 with the kernels against step 0 on the eager impls
+    k0, e0 = log[0], log_e[0]
+    loss, loss_e = (k0["metrics"]["generator_loss"],
+                    e0["metrics"]["generator_loss"])
+    loss_err = abs(loss - loss_e)
+    if not loss_err <= STEP_LOSS_REL_TOL * abs(loss_e):
+        raise AssertionError(f"step 0 generator loss {loss} against eager "
+                             f"{loss_e}")
+    rel_l2 = ((sc_grad - sc_grad_e).norm() / sc_grad_e.norm()).item()
+    if not rel_l2 <= STEP_GRAD_REL_L2:
+        raise AssertionError(f"step 0 stack-weight gradient: relative L2 "
+                             f"{rel_l2} > {STEP_GRAD_REL_L2}")
+    gk, ge = k0["grads"]["stack"], e0["grads"]["stack"]
+    rel_full = ((gk - ge).norm() / ge.norm()).item()
+    print(f"train: {TRAIN_STEPS} steps at B={TRAIN_B}, T={TRAIN_T}, all "
+          f"metrics finite, every submodule's parameters moved; step 0 "
+          f"against eager: generator loss {loss:.6g} vs {loss_e:.6g} "
+          f"(|diff| {loss_err:.3g}, tol "
+          f"{STEP_LOSS_REL_TOL * abs(loss_e):.3g}), stack-weight gradient "
+          f"of the spectral-convergence loss relative L2 {rel_l2:.4g} (tol "
+          f"{STEP_GRAD_REL_L2}; of the whole loss {rel_full:.4g}, not "
+          f"held); launches over the run {totals}")
+    for name, rec in records.items():
+        rec["launches"] = totals[name]
+    if profile_dir is not None:
+        profile_step(step, state, batches[0], pathlib.Path(profile_dir))
+
+
+def profile_step(step, state, batch, out_dir):
+    """One GAN step with the kernels under torch.profiler: device time by
+    kernel, written to out_dir/train_step_profile.txt."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    step(state, batch)                     # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=40)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "train_step_profile.txt").write_text(
+        f"wall {wall * 1e3:.2f} ms (profiled)\n{table}\n")
+    print(f"profile: one GAN step, profiled wall {wall * 1e3:.2f} ms -> "
+          f"{out_dir / 'train_step_profile.txt'}")
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="also profile one GAN step into DIR")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
                            "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
-    record = phase_slice(phase_k1())
-    print(json.dumps({"kernels": [record]}))
+    k1 = phase_slice(phase_k1())
+    k2a, k2b = phase_k2()
+    k3a, k3b = phase_k3()
+    phase_train({"K2a": k2a, "K2b": k2b, "K3a": k3a, "K3b": k3b},
+                args.profile)
+    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,16 +6,21 @@ find, and is held against it by the ``tests/test_torch_*.py`` parity
 tests.  It imports ``torch`` and never ``jax``, ``flax`` or ``yaml``.
 
 Ported so far: the serving main path, phone ids -> ``FastSpeech2.inference``
--> edge-padded mel -> ``PWGGenerator`` -> waveform, inference only.  The
-Parallel WaveGAN residual stack runs through a hand-written CUDA kernel
-(``ops/kernels/pwg_stack.py``, source in ``csrc/pwg_stack.cu``) on CUDA
-tensors and through its plain PyTorch version on CPU tensors.
+-> edge-padded mel -> ``PWGGenerator`` -> waveform, and the Parallel
+WaveGAN training step (``models/pwg_updater.py`` through
+``training.Trainer``).  The PWG residual stack and discriminator run
+through hand-written CUDA kernels (``ops/kernels/``, sources in
+``csrc/``) on CUDA tensors and through their plain PyTorch versions on
+CPU tensors.
 
 Subpackages
 -----------
 ops       tensor functions: masking, positions, length regulation, kernels
 nn        FastSpeech2 building blocks: transformer, predictors, postnet
-models    FastSpeech2 (inference) and the Parallel WaveGAN generator
+models    FastSpeech2 (inference), the Parallel WaveGAN generator and
+          discriminator, and the PWGAN train and eval steps
+training  trainer, updater, optimizers, train state, seeding
+utils     profiler windows on torch.profiler
 bridge    load a flattened flax parameter tree into a port module
 serving   bucketed batched synthesis engine
 """

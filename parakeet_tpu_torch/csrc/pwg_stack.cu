@@ -1,5 +1,12 @@
-// Parallel WaveGAN residual stack, inference: one gated residual layer per
-// launch (kernel K1 of the port).
+// Parallel WaveGAN residual stack, forward: one gated residual layer per
+// launch (kernel K1 of the port, inference; with a save pointer, kernel K2a,
+// the training forward).
+//
+// K2a replaces parakeet_tpu/ops/pallas/pwg_stack.py::_group_save_kernel:
+// K1 plus a write of each layer's input rows as bf16, (B, T, cr), which the
+// backward (pwg_stack_bwd.cu, K2b) rebuilds the gate from.  The TPU pads
+// those rows to 128 lanes for Mosaic's DMA alignment; here they keep cr.
+// The save is a template branch, so K1 is compiled without it.
 //
 // Replaces the Pallas TPU kernel parakeet_tpu/ops/pallas/pwg_stack.py::
 // _group_kernel (body _group_body), which runs a whole group of ten layers
@@ -49,7 +56,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "common.cuh"
+
 using namespace nvcuda;
+using ptk::BATCH;
+using ptk::pack4;
 
 namespace {
 
@@ -81,46 +92,10 @@ struct Geometry {
   }
 };
 
-// Global loads below are issued in batches into registers before any of
-// them is used, so that a thread waits for one round trip per batch and
-// not one per element.
-constexpr int BATCH = 8;
-
-// copy a (rows, G) bf16 row-major matrix into shared rows of pitch LDW
-template <int CR>
-__device__ void stage_weights(__nv_bfloat16* dst,
-                              const __nv_bfloat16* __restrict__ src,
-                              int rows) {
-  constexpr int VPR = Geometry<CR>::G / 8;   // 16-byte vectors per row
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  const int n = rows * VPR;
-  for (int base = threadIdx.x; base < n; base += BATCH * THREADS) {
-    uint4 v[BATCH];
-#pragma unroll
-    for (int k = 0; k < BATCH; ++k) {
-      const int i = base + k * THREADS;
-      if (i < n) v[k] = s[i];
-    }
-#pragma unroll
-    for (int k = 0; k < BATCH; ++k) {
-      const int i = base + k * THREADS;
-      if (i < n)
-        *reinterpret_cast<uint4*>(dst + (i / VPR) * Geometry<CR>::LDW +
-                                  (i % VPR) * 8) = v[k];
-    }
-  }
-}
-
-__device__ __forceinline__ uint2 pack4(float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 out;
-  out.x = *reinterpret_cast<uint32_t*>(&lo);
-  out.y = *reinterpret_cast<uint32_t*>(&hi);
-  return out;
-}
-
-template <int CR>
+// SAVE (kernel K2a, the training forward) also writes the layer's input
+// rows as bf16 to `saved`; K1 is the SAVE = false instance, which holds no
+// trace of that code.
+template <int CR, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
 pwg_layer_kernel(const float* __restrict__ x_in,
                  float* __restrict__ x_out_f32,
@@ -130,6 +105,7 @@ pwg_layer_kernel(const float* __restrict__ x_in,
                  const __nv_bfloat16* __restrict__ wso,
                  const float* __restrict__ bso,
                  float* __restrict__ skip,
+                 __nv_bfloat16* __restrict__ saved,
                  int B, int T, int CA, int KP, int d, int skip_init,
                  int round_out) {
   using Geo = Geometry<CR>;
@@ -154,8 +130,8 @@ pwg_layer_kernel(const float* __restrict__ x_in,
   __nv_bfloat16* h_s = a_s + geo.a_elems();
 
   // the layer's weights stay in shared memory for all of this block's tiles
-  stage_weights<CR>(w_s, wg, KP);
-  stage_weights<CR>(wso_s, wso, CR);
+  ptk::stage_rows<THREADS>(w_s, wg, KP, G, LDW);
+  ptk::stage_rows<THREADS>(wso_s, wso, CR, G, LDW);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -238,6 +214,22 @@ pwg_layer_kernel(const float* __restrict__ x_in,
     }
     __syncthreads();
 
+    if constexpr (SAVE) {
+      // K2a: the layer's input rows exactly as the products consume them
+      // (the bf16 centre tap), for the backward.  Each warp saves its own
+      // 16 rows, which it alone overwrites with staging further down.
+      constexpr int SV = CR / 8;             // 16-byte vectors per row
+      for (int i = lane; i < 16 * SV; i += 32) {
+        const int r = i / SV;
+        const int t = t0 + r0 + r;
+        if (t < T)
+          reinterpret_cast<uint4*>(
+              saved + (static_cast<size_t>(b) * T + t) * CR)[i % SV] =
+              *reinterpret_cast<const uint4*>(a_s + (r0 + r) * lda + 2 * CR +
+                                              (i % SV) * 8);
+      }
+    }
+
     // gate = operand rows @ wg   (16 x KP) @ (KP x G)
 #pragma unroll
     for (int n = 0; n < NF; ++n) wmma::fill_fragment(acc[n], 0.f);
@@ -262,11 +254,7 @@ pwg_layer_kernel(const float* __restrict__ x_in,
       const int j = i - r * CR;
       const float ga = st_s[r * LDS + j];
       const float gb = st_s[r * LDS + CR + j];
-      // tanh(a) = 1 - 2 / (e^2a + 1), sigmoid(b) = 1 - 1 / (e^b + 1), with
-      // the fast exponential and division (the limits at +-inf are exact)
-      const float th = 1.f - __fdividef(2.f, __expf(2.f * ga) + 1.f);
-      const float sg = 1.f - __fdividef(1.f, __expf(gb) + 1.f);
-      const float hv = th * sg;
+      const float hv = ptk::fast_tanh(ga) * ptk::fast_sigmoid(gb);
       h_s[(r0 + r) * LDH + j] = __float2bfloat16_rn(hv);
     }
     __syncwarp();
@@ -332,18 +320,17 @@ pwg_layer_kernel(const float* __restrict__ x_in,
   }
 }
 
-template <int CR>
+template <int CR, bool SAVE>
 cudaError_t launch(const void* x_in, void* x_out_f32, void* x_out_bf16,
                    const void* c, const void* wg, const void* wso,
-                   const void* bso, void* skip, int B, int T, int CA, int KP,
-                   int d, int skip_init, int round_out, cudaStream_t stream) {
+                   const void* bso, void* skip, void* saved, int B, int T,
+                   int CA, int KP, int d, int skip_init, int round_out,
+                   cudaStream_t stream) {
   const size_t smem = Geometry<CR>(KP).bytes();
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0;
+  cudaError_t err = ptk::sm_count(&sms);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(pwg_layer_kernel<CR>,
+    err = cudaFuncSetAttribute(pwg_layer_kernel<CR, SAVE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -351,14 +338,30 @@ cudaError_t launch(const void* x_in, void* x_out_f32, void* x_out_bf16,
   // staged weights are loaded once per block and layer
   const long long ntiles = static_cast<long long>((T + TM - 1) / TM) * B;
   const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
-  pwg_layer_kernel<CR><<<grid, THREADS, smem, stream>>>(
+  pwg_layer_kernel<CR, SAVE><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(x_in), static_cast<float*>(x_out_f32),
       static_cast<__nv_bfloat16*>(x_out_bf16),
       static_cast<const __nv_bfloat16*>(c),
       static_cast<const __nv_bfloat16*>(wg),
       static_cast<const __nv_bfloat16*>(wso), static_cast<const float*>(bso),
-      static_cast<float*>(skip), B, T, CA, KP, d, skip_init, round_out);
+      static_cast<float*>(skip), static_cast<__nv_bfloat16*>(saved), B, T,
+      CA, KP, d, skip_init, round_out);
   return cudaGetLastError();
+}
+
+template <int CR>
+cudaError_t launch_cr(const void* x_in, void* x_out_f32, void* x_out_bf16,
+                      const void* c, const void* wg, const void* wso,
+                      const void* bso, void* skip, void* saved, int B, int T,
+                      int CA, int KP, int d, int skip_init, int round_out,
+                      cudaStream_t s) {
+  if (saved != nullptr)
+    return launch<CR, true>(x_in, x_out_f32, x_out_bf16, c, wg, wso, bso,
+                            skip, saved, B, T, CA, KP, d, skip_init,
+                            round_out, s);
+  return launch<CR, false>(x_in, x_out_f32, x_out_bf16, c, wg, wso, bso,
+                           skip, saved, B, T, CA, KP, d, skip_init,
+                           round_out, s);
 }
 
 }  // namespace
@@ -366,15 +369,17 @@ cudaError_t launch(const void* x_in, void* x_out_f32, void* x_out_bf16,
 // One layer.  x_in: (B, T, CR) f32; exactly one of x_out_f32 (B, T, CR) f32
 // and x_out_bf16 (B, T, CR) bf16 is non-null; c: (B, T, CA) bf16; wg:
 // (KP, 2CR) bf16 with KP = 3CR + round_up(CA + 1, 16); wso: (CR, 2CR) bf16;
-// bso: (2CR) f32; skip: (B, T, CR) f32, written (skip_init) or accumulated.
-// CR is 32 or 64.  Returns a cudaError_t value, or -1 for arguments the
+// bso: (2CR) f32; skip: (B, T, CR) f32, written (skip_init) or accumulated;
+// saved: null (K1) or (B, T, CR) bf16, the layer's input rows (K2a).  CR
+// is 32 or 64.  Returns a cudaError_t value, or -1 for arguments the
 // kernel does not take.
 extern "C" int pwg_stack_layer(const void* x_in, void* x_out_f32,
                                void* x_out_bf16, const void* c,
                                const void* wg, const void* wso,
-                               const void* bso, void* skip, int B, int T,
-                               int CR, int CA, int KP, int dilation,
-                               int skip_init, int round_out, void* stream) {
+                               const void* bso, void* skip, void* saved,
+                               int B, int T, int CR, int CA, int KP,
+                               int dilation, int skip_init, int round_out,
+                               void* stream) {
   if (B <= 0 || B > 65535 || T <= 0 || CA <= 0 || dilation < 0) return -1;
   if (KP % 16 != 0 || KP < 3 * CR + CA + 1) return -1;
   if ((x_out_f32 == nullptr) == (x_out_bf16 == nullptr)) return -1;
@@ -382,12 +387,14 @@ extern "C" int pwg_stack_layer(const void* x_in, void* x_out_f32,
   cudaError_t err;
   switch (CR) {
     case 32:
-      err = launch<32>(x_in, x_out_f32, x_out_bf16, c, wg, wso, bso, skip, B,
-                       T, CA, KP, dilation, skip_init, round_out, s);
+      err = launch_cr<32>(x_in, x_out_f32, x_out_bf16, c, wg, wso, bso, skip,
+                          saved, B, T, CA, KP, dilation, skip_init,
+                          round_out, s);
       break;
     case 64:
-      err = launch<64>(x_in, x_out_f32, x_out_bf16, c, wg, wso, bso, skip, B,
-                       T, CA, KP, dilation, skip_init, round_out, s);
+      err = launch_cr<64>(x_in, x_out_f32, x_out_bf16, c, wg, wso, bso, skip,
+                          saved, B, T, CA, KP, dilation, skip_init,
+                          round_out, s);
       break;
     default:
       return -1;

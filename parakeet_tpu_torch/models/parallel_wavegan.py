@@ -1,4 +1,4 @@
-"""Parallel WaveGAN generator, inference (counterpart of
+"""Parallel WaveGAN generator and discriminator (counterpart of
 ``parakeet_tpu/models/parallel_wavegan.py``).
 
 The formulation follows the JAX package, not PyTorch's convolution
@@ -12,8 +12,8 @@ Kernels start at zero: load or initialize weights before use.
 The compute dtype is the parameters' dtype (``module.to(torch.bfloat16)``);
 weight norm is always folded in float32.  Products take their operands in
 the compute dtype and accumulate in float32, like ``jnp.dot(...,
-preferred_element_type=float32)``.  Inference only: no dropout, no causal
-variant, no discriminators yet.
+preferred_element_type=float32)``.  Not ported: dropout, the causal
+variant and ``ResidualPWGDiscriminator``.
 """
 from __future__ import annotations
 
@@ -26,11 +26,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.geometry import time_shift as _shift
+from ..ops.kernels.pwg_disc import fused_disc_supported, fused_disc_tail
 from ..ops.kernels.pwg_stack import (fused_residual_stack,
                                      fused_stack_supported)
+from ..ops.kernels.pwg_stack_train import fused_residual_stack_train
 
-__all__ = ["PWGGenerator", "pwg_inference", "conv1d_taps", "WNConv1d",
-           "UpsampleNet", "ConvInUpsampleNet", "ResidualStack", "edge_pad"]
+__all__ = ["PWGGenerator", "PWGDiscriminator", "pwg_inference",
+           "conv1d_taps", "WNConv1d", "UpsampleNet", "ConvInUpsampleNet",
+           "ResidualStack", "edge_pad", "stack_route"]
 
 _WN_EPS = 1e-12
 _F32 = torch.float32
@@ -104,6 +107,14 @@ class WNConv1d(nn.Module):
                       if use_weight_norm else None)
         self.bias = (nn.Parameter(torch.zeros(features))
                      if use_bias else None)
+
+    def effective_weights(self):
+        """(weight-norm-folded kernel, bias) in float32; the bias is zeros
+        without one (what a fused kernel consumes)."""
+        kernel = _wn(self.kernel, self.scale)
+        bias = (self.bias.to(_F32) if self.bias is not None
+                else kernel.new_zeros(kernel.shape[-1]))
+        return kernel, bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.kernel.dtype
@@ -185,6 +196,30 @@ class ConvInUpsampleNet(nn.Module):
         return self.upsample(self.conv_in(c))
 
 
+def stack_route(impl: str, supported: bool, on_cuda: bool,
+                grad_needed: bool, dropout: float = 0.0) -> str:
+    """Which path ``ResidualStack`` takes: 'eager', 'k1' (the fused
+    inference forward) or 'train' (the differentiable K2 groups).
+
+    K1 writes its outputs from a kernel, outside autograd, so it runs only
+    when no gradient is needed.  'fused' trains through K2 ('pallas' in
+    the JAX package); 'auto' fuses only inference on CUDA, as the JAX
+    'auto' fuses only deterministic calls.
+    """
+    if impl == "eager":
+        return "eager"
+    if impl == "fused":
+        if not grad_needed:
+            return "k1"
+        if dropout != 0.0:
+            raise ValueError("impl='fused' training has no dropout path; use "
+                             "impl='eager' (or 'auto') when dropout > 0")
+        return "train"
+    if impl == "auto":
+        return "k1" if supported and on_cuda and not grad_needed else "eager"
+    raise ValueError(f"unknown ResidualStack impl {impl!r}")
+
+
 class ResidualStack(nn.Module):
     """L gated dilated-conv residual layers with layer-stacked parameters.
 
@@ -192,22 +227,27 @@ class ResidualStack(nn.Module):
     skip += skip_conv(h); x = (out_conv(h) + x) * sqrt(0.5)``.  Returns
     (x_final, skip_sum); callers apply the sqrt(1 / L) skip scale.
 
-    ``impl``: 'eager' (the JAX package's 'xla' layer loop, any device),
-    'fused' (``ops/kernels/pwg_stack.py::fused_residual_stack``: the CUDA
-    kernel K1 on CUDA tensors, its plain version on CPU tensors), or
-    'auto' (fused on CUDA tensors when the configuration is supported,
-    eager otherwise).
+    ``impl`` (see ``stack_route``): 'eager' (the JAX package's 'xla'
+    layer loop, any device); 'fused' (without a gradient the K1 forward of
+    ``ops/kernels/pwg_stack.py``, under autograd the K2a/K2b groups of
+    ``ops/kernels/pwg_stack_train.py``: the CUDA kernels on CUDA tensors,
+    their plain versions on CPU tensors); or 'auto' (K1 on CUDA tensors
+    when the configuration is supported and no gradient is needed, eager
+    otherwise).  ``dropout`` is accepted as the JAX module's field; the
+    port has no dropout, so a non-zero value raises in training.
     """
 
     def __init__(self, layers: int = 30, stacks: int = 3,
                  kernel_size: int = 3, residual_channels: int = 64,
                  gate_channels: int = 128, skip_channels: int = 64,
                  aux_channels: Optional[int] = 80, bias: bool = True,
-                 use_weight_norm: bool = True, impl: str = "auto"):
+                 use_weight_norm: bool = True, impl: str = "auto",
+                 dropout: float = 0.0):
         super().__init__()
         if impl not in ("eager", "fused", "auto"):
             raise ValueError(f"unknown ResidualStack impl {impl!r}")
         self.layers, self.stacks, self.impl = layers, stacks, impl
+        self.dropout = dropout
         self.residual_channels = residual_channels
         self.skip_channels = skip_channels
         self.supported = fused_stack_supported(
@@ -245,16 +285,23 @@ class ResidualStack(nn.Module):
 
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None):
         dt = self.conv_kernel.dtype
-        fused = self.impl == "fused" or (
-            self.impl == "auto" and self.supported and x.is_cuda)
-        if fused:
-            if c is None:
-                raise ValueError("the fused residual stack needs c")
-            xf, skips = fused_residual_stack(x, c, self.fused_weights(),
-                                             dilations=self.dilations(),
-                                             stacks=self.stacks)
-            return xf.to(dt), skips
-        return self._eager(x, c, dt)
+        grad_needed = torch.is_grad_enabled() and (
+            x.requires_grad or (c is not None and c.requires_grad)
+            or any(p.requires_grad for p in self.parameters()))
+        route = stack_route(self.impl, self.supported, x.is_cuda,
+                            grad_needed, self.dropout)
+        if route == "eager":
+            if grad_needed and self.dropout != 0.0:
+                raise NotImplementedError("ResidualStack dropout is not "
+                                          "ported")
+            return self._eager(x, c, dt)
+        if c is None:
+            raise ValueError("the fused residual stack needs c")
+        fused = (fused_residual_stack if route == "k1"
+                 else fused_residual_stack_train)
+        xf, skips = fused(x, c, self.fused_weights(),
+                          dilations=self.dilations(), stacks=self.stacks)
+        return xf.to(dt), skips
 
     def fused_weights(self):
         """The stacked effective (weight-norm-folded, float32) weights
@@ -372,3 +419,68 @@ def pwg_inference(generator: PWGGenerator, mel: torch.Tensor,
                             device=mel.device)
     wav = generator(noise, edge_pad(mel, w))
     return wav[0, :, 0] if squeeze else wav[..., 0]
+
+
+class PWGDiscriminator(nn.Module):
+    """Stack of dilated convs + LeakyReLU; (B, T, 1) -> (B, T, 1) logits.
+
+    Submodules carry the flax names (``conv_0`` .. ``conv_{layers-2}``,
+    ``conv_last``), so ``bridge.load_flax_params`` loads the JAX tree.
+    ``impl``: 'eager' (per-layer shifted matmuls in the parameters' dtype,
+    the JAX package's 'xla'), 'fused' (layer 0 in PyTorch, layers 1..9
+    through ``ops/kernels/pwg_disc.py``: kernels K3a/K3b on CUDA tensors,
+    their plain versions on CPU tensors) or 'auto' (fused on CUDA tensors
+    at float32 when the configuration is supported, eager otherwise, as
+    the JAX 'auto' fuses only at float32).
+    """
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 kernel_size: int = 3, layers: int = 10,
+                 conv_channels: int = 64, dilation_factor: int = 1,
+                 negative_slope: float = 0.2, bias: bool = True,
+                 use_weight_norm: bool = True, impl: str = "eager"):
+        super().__init__()
+        if impl not in ("eager", "fused", "auto"):
+            raise ValueError(f"unknown PWGDiscriminator impl {impl!r}")
+        self.layers, self.impl = layers, impl
+        self.negative_slope = negative_slope
+        self.supported = fused_disc_supported(
+            in_channels, out_channels, kernel_size, layers, conv_channels,
+            dilation_factor)
+        if impl == "fused" and not self.supported:
+            raise ValueError("fused discriminator unsupported for this "
+                             "PWGDiscriminator configuration")
+        cin = in_channels
+        for i in range(layers - 1):
+            dilation = 1 if i == 0 else (
+                i if dilation_factor == 1 else dilation_factor ** i)
+            self.add_module(f"conv_{i}", WNConv1d(
+                cin, conv_channels, kernel_size, dilation, use_bias=bias,
+                use_weight_norm=use_weight_norm))
+            cin = conv_channels
+        self.conv_last = WNConv1d(cin, out_channels, kernel_size, 1,
+                                  use_bias=bias,
+                                  use_weight_norm=use_weight_norm)
+
+    def convs(self):
+        return [getattr(self, f"conv_{i}") for i in range(self.layers - 1)] + [
+            self.conv_last]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        slope = self.negative_slope
+        convs = self.convs()
+        dt = convs[0].kernel.dtype
+        fused = self.impl == "fused" or (
+            self.impl == "auto" and self.supported and x.is_cuda
+            and dt == _F32)
+        if fused:
+            h = F.leaky_relu(convs[0](x), slope)
+            weights = [conv.effective_weights() for conv in convs[1:]]
+            logits = fused_disc_tail(h, [k for k, _ in weights],
+                                     [b for _, b in weights],
+                                     negative_slope=slope)
+            return logits.to(dt)
+        h = x
+        for conv in convs[:-1]:
+            h = F.leaky_relu(conv(h), slope)
+        return convs[-1](h)

@@ -70,3 +70,25 @@ def test_chip_smoke_configs_are_the_recipes():
                                 if k not in skip}
     assert smoke.ODIM == fs2["n_mels"] == pwg["n_mels"]
     assert smoke.SAMPLE_RATE == fs2["fs"] == pwg["fs"]
+
+
+def test_chip_smoke_training_slice_is_the_pwgan_recipe():
+    smoke = _load_chip_smoke()
+    pwg = yaml.safe_load(
+        (REPO / "recipes/pwgan/conf/default.yaml").read_text())
+    assert smoke.DISC_CONFIG == {k: v for k, v in
+                                 pwg["discriminator_params"].items()
+                                 if k != "impl"}
+    assert (smoke.TRAIN_B, smoke.TRAIN_T) == (pwg["batch_size"],
+                                              pwg["batch_max_steps"])
+    assert smoke.GEN_LR == pwg["generator_optimizer"]["learning_rate"]
+    assert smoke.DISC_LR == pwg["discriminator_optimizer"]["learning_rate"]
+    assert pwg["generator_optimizer"]["optim"] == "adam"
+    assert pwg["discriminator_optimizer"]["optim"] == "adam"
+    assert smoke.LAMBDA_ADV == pwg["updater"]["lambda_adv"]
+    assert {k: list(v) for k, v in smoke.STFT_LOSS.items()} == \
+        pwg["stft_loss_params"]
+    # the recipe trains the stack through the fused kernels ('pallas', the
+    # port's 'fused') and lets 'auto' pick the fused discriminator
+    assert pwg["generator_params"]["stack_impl"] == "pallas"
+    assert pwg["discriminator_params"]["impl"] == "auto"
