@@ -36,13 +36,34 @@ Phases, one line each (the checks raise; nothing is caught):
    number of times per step, the residual stack, first conv and upsampler
    must get non-zero gradients, and step 0 must agree with the same step
    on the eager impls (no kernel) within stated tolerances.  It prints ms
-   per step with the kernels and with the eager impls.
+   per step with the kernels and with the eager impls;
+6. kernel K4 (flash attention: forward K4a, dK/dV pass K4b, dQ pass K4c)
+   against its plain PyTorch versions in float32 and bf16, at a small
+   shape (B=2, T=200, H=2, dk=32, key lengths 200 and 131, with query
+   rows masked as well, jax's segment rule) and at both shapes of the
+   FastSpeech2 training step (B=16, H=4, dk=96: the encoder's T=64, key
+   lengths 48-64, and the decoder's T=1024, key lengths 700-1024): max
+   abs errors against stated tolerances, gradients bit-identical from run
+   to run, median times of the forward and of forward + backward;
+7. the FastSpeech2 training slice: two port ``Trainer``s run four steps
+   each of the FastSpeech2 model of benchmarks/flash_sweep.py (adim 384,
+   4 heads, 4 + 4 layers, float32, Adam 1e-4) at its 1024-frame point
+   (B=16, 64 tokens) on seeded synthetic batches of varied lengths, one
+   with attn_impl='flash' and one with 'dense', from the same weights and
+   generator seed.  Every metric must be finite, every submodule's
+   parameters and the BatchNorm statistics must move, K4a, K4b and K4c
+   must each launch 8 times per step in the flash run (4 encoder + 4
+   decoder layers) and never in the dense run, and step 0 must agree
+   between the two within stated tolerances.  It prints ms per step for
+   both; then ``inference(max_frames=1024)`` of the trained flash model
+   (K4a under no_grad) must agree with a dense copy of it.
 
 The line before the last is a JSON object with each kernel's launches on
-its path (K1: serving; K2a-K3b: training), error and times; the last line
-is the run's result.  Without a CUDA device it raises and prints no
-result.  ``--profile DIR`` also writes a ``torch.profiler`` table of one
-GAN step with the kernels to DIR.
+its path (K1: serving; K2a-K3b: PWGAN training; K4a-K4c: FastSpeech2
+training), error and times; the last line is the run's result.  Without a
+CUDA device it raises and prints no result.  ``--profile DIR`` also
+writes ``torch.profiler`` tables of one GAN step with the kernels and of
+one FastSpeech2 step with flash attention to DIR.
 """
 import argparse
 import json
@@ -125,6 +146,51 @@ K2_REL_TOL = K3_REL_TOL = 2 ** -5
 # bf16 noise (measured 0.027 with the plain versions on the CPU).
 STEP_LOSS_REL_TOL = 2 ** -5
 STEP_GRAD_REL_L2 = 2 ** -3
+# benchmarks/flash_sweep.py's FastSpeech2(...) call without dtype and
+# attn_impl (idim and odim are IDIM and ODIM): attention dropout 0 in both
+# stacks, every other rate at its default; float32, Adam 1e-4
+FS2_TRAIN_CONFIG = dict(
+    adim=384, aheads=4, elayers=4, eunits=1536, dlayers=4, dunits=1536,
+    transformer_enc_attn_dropout_rate=0.0,
+    transformer_dec_attn_dropout_rate=0.0)
+FS2_LR = 1e-4
+# its 1024-frame point: 16,384 frame tokens a step (--tokens), and 64
+# tokens an utterance since 1024 % 96 != 0; lengths vary below those
+FS2_B, FS2_FRAMES, FS2_TOKENS = 16, 1024, 64
+FS2_MIN_FRAMES, FS2_MIN_TOKENS = 700, 48
+FS2_STEPS = 4
+# K4's shapes: (B, T, H, dk, key lengths as a tuple or, as an int, the
+# least of a seeded spread up to T, whether query rows are masked too): a
+# small one, then both of the FastSpeech2 step's, the encoder's over text
+# tokens and the decoder's over frames (the last gives the kernel records)
+FS2_HEADS = FS2_TRAIN_CONFIG["aheads"]
+FS2_DK = FS2_TRAIN_CONFIG["adim"] // FS2_HEADS
+K4_SHAPES = ((2, 200, 2, 32, (200, 131), True),
+             (FS2_B, FS2_TOKENS, FS2_HEADS, FS2_DK, FS2_MIN_TOKENS, False),
+             (FS2_B, FS2_FRAMES, FS2_HEADS, FS2_DK, FS2_MIN_FRAMES, False))
+# K4 against its plain versions, relative to each output's range.  float32:
+# the kernels' 3xTF32 products keep ~22 bits and every sum runs in
+# another order than cuBLAS's; the gradients sum T = 1024 terms whose
+# (dp - di) factor cancels, so they lose a few more bits than the
+# forward: 2^-14 (measured at most 1.8e-5 of the range, dk at the main
+# shape).  bf16: the outputs are bf16 (one ulp is 2^-8 of a value) and a
+# float32 difference in the order of sums now and then flips the bf16
+# rounding of p or ds: 2^-7, two ulps of the largest value (measured at
+# most 1.0e-3 of the range).
+K4_REL_TOL = {"float32": 2 ** -14, "bfloat16": 2 ** -7}
+# step 0 with flash attention against step 0 with the dense core: both run
+# float32 (TF32 off), and every query row attends to the same keys (a
+# key-padding mask), so they differ by float32 rounding only (the
+# kernels' 3xTF32 products against cuBLAS float32), carried through eight
+# layers, the Postnet's batch statistics and one backward.  The loss is
+# held to 2^-14 relative and the decoder's self_attn.q weight gradients to
+# 2^-10 relative L2.
+FS2_LOSS_REL_TOL = 2 ** -14
+FS2_GRAD_REL_L2 = 2 ** -10
+# inference of the trained model, flash against dense, on valid frames:
+# the same float32 rounding through eight layers and the Postnet, 2^-12
+# of after_outs' range
+FS2_INFER_REL_TOL = 2 ** -12
 
 
 def seeded_init_(module, gen):
@@ -168,11 +234,11 @@ def phase_card():
     from parakeet_tpu_torch.ops.kernels._build import load_library
     t0 = time.perf_counter()
     lib = load_library()
-    ptxas = [ln.strip() for ln in lib.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    spills = [ln.strip() for ln in lib.log.splitlines() if "spill" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path}; "
-          + " | ".join(ptxas))
+          f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path}; spills: "
+          + (" | ".join(spills) or "none"))
 
 
 def phase_k1():
@@ -637,9 +703,10 @@ def phase_train(records, profile_dir=None):
         profile_step(step, state, batches[0], pathlib.Path(profile_dir))
 
 
-def profile_step(step, state, batch, out_dir):
-    """One GAN step with the kernels under torch.profiler: device time by
-    kernel, written to out_dir/train_step_profile.txt."""
+def profile_step(step, state, batch, out_dir, name="train_step",
+                 what="GAN step"):
+    """One step under torch.profiler: device time by kernel, written to
+    out_dir/<name>_profile.txt."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     step(state, batch)                     # warm
@@ -652,16 +719,284 @@ def profile_step(step, state, batch, out_dir):
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "train_step_profile.txt").write_text(
-        f"wall {wall * 1e3:.2f} ms (profiled)\n{table}\n")
-    print(f"profile: one GAN step, profiled wall {wall * 1e3:.2f} ms -> "
-          f"{out_dir / 'train_step_profile.txt'}")
+    path = out_dir / f"{name}_profile.txt"
+    path.write_text(f"wall {wall * 1e3:.2f} ms (profiled)\n{table}\n")
+    print(f"profile: one {what}, profiled wall {wall * 1e3:.2f} ms -> "
+          f"{path}")
+
+
+def _k4_counters():
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    return {"K4a": k4.flash_attention_forward,
+            "K4b": k4.flash_attention_dkv, "K4c": k4.flash_attention_dq}
+
+
+def _spread_lengths(gen, b, lo, hi):
+    """b lengths in [lo, hi], the first hi (so the batch spans hi)."""
+    lengths = torch.randint(lo, hi + 1, (b,), generator=gen)
+    lengths[0] = hi
+    return lengths
+
+
+def phase_k4():
+    """K4a, K4b and K4c against their plain versions in float32 and bf16;
+    returns their records (the times of the last shape, float32)."""
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    gen = torch.Generator().manual_seed(SEED + 7)
+    records = {}
+    for b, t, h, dk, lengths, mask_rows in K4_SHAPES:
+        if isinstance(lengths, int):
+            lengths = _spread_lengths(gen, b, lengths, t)
+        kv_valid = (torch.arange(t)[None] < torch.as_tensor(
+            lengths)[:, None]).to(torch.int32).cuda()
+        q_valid = (kv_valid.clone() if mask_rows
+                   else torch.ones_like(kv_valid))
+        scale = 1.0 / math.sqrt(dk)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn((b, h, t, dk), generator=gen).cuda()
+                           .to(dtype) for _ in range(4))
+            args = (q, k, v, q_valid, kv_valid)
+            o, lse = k4.flash_attention_forward(*args, sm_scale=scale)
+            ref_o, ref_lse = k4.flash_attention_reference(*args,
+                                                          sm_scale=scale)
+            di = (o.float() * do.float()).sum(-1)
+            bwd_args = args + (do, lse, di)
+
+            def bwd():
+                return (k4.flash_attention_dq(*bwd_args, sm_scale=scale),
+                        *k4.flash_attention_dkv(*bwd_args, sm_scale=scale))
+
+            def plain_bwd():
+                return (k4.flash_attention_dq_reference(*bwd_args,
+                                                        sm_scale=scale),
+                        *k4.flash_attention_dkv_reference(*bwd_args,
+                                                          sm_scale=scale))
+
+            got, again, ref = bwd(), bwd(), plain_bwd()
+            torch.cuda.synchronize()
+            tol = K4_REL_TOL[str(dtype).split(".")[1]]
+            tag = f"B={b} T={t} H={h} dk={dk} {dtype}"
+            held = [("o", _hold(f"K4a o {tag}", o, ref_o, tol)),
+                    ("lse", _hold(f"K4a lse {tag}", lse, ref_lse, tol))]
+            held += [(n, _hold(f"K4{'c' if n == 'dq' else 'b'} {n} {tag}",
+                               g, r, tol))
+                     for n, g, r in zip(("dq", "dk", "dv"), got, ref)]
+            if not all(torch.equal(u, w) for u, w in zip(got, again)):
+                raise AssertionError(f"K4b/K4c {tag}: two runs gave "
+                                     "different gradients")
+
+            def fwd_bwd(fwd, bwd_fn):
+                return fwd(*args, sm_scale=scale), bwd_fn()
+
+            ms_f = cuda_ms(lambda: k4.flash_attention_forward(
+                *args, sm_scale=scale), 10)
+            plain_f = cuda_ms(lambda: k4.flash_attention_reference(
+                *args, sm_scale=scale), 5)
+            ms_fb = cuda_ms(lambda: fwd_bwd(k4.flash_attention_forward,
+                                            bwd), 10)
+            plain_fb = cuda_ms(lambda: fwd_bwd(k4.flash_attention_reference,
+                                               plain_bwd), 5)
+            print(f"K4 {tag}: {_report('K4', held)}; bit-identical "
+                  f"gradients on a second run; forward kernel {ms_f:.4f} "
+                  f"ms, plain {plain_f:.4f} ms; forward + backward kernels "
+                  f"{ms_fb:.4f} ms, plain {plain_fb:.4f} ms (median)")
+            if dtype == torch.float32:
+                times = [cuda_ms(lambda f=f: f(*bwd_args, sm_scale=scale), n)
+                         for f, n in ((k4.flash_attention_dkv, 10),
+                                      (k4.flash_attention_dkv_reference, 5),
+                                      (k4.flash_attention_dq, 10),
+                                      (k4.flash_attention_dq_reference, 5))]
+                print(f"K4 {tag}: K4b (dk, dv) {times[0]:.4f} ms, plain "
+                      f"{times[1]:.4f} ms; K4c (dq) {times[2]:.4f} ms, plain "
+                      f"{times[3]:.4f} ms (median)")
+                records = {
+                    "K4a": _record("flash_attention_fwd", "flash_attn.cu",
+                                   "parakeet_tpu/nn/flash.py:88",
+                                   held[:2], ms_f, plain_f),
+                    "K4b": _record("flash_attention_bwd_dkv",
+                                   "flash_attn.cu",
+                                   "parakeet_tpu/nn/flash.py:88",
+                                   held[3:], *times[:2]),
+                    "K4c": _record("flash_attention_bwd_dq",
+                                   "flash_attn.cu",
+                                   "parakeet_tpu/nn/flash.py:88",
+                                   held[2:3], *times[2:])}
+    return records
+
+
+def fs2_batches(gen, b=FS2_B, n_frames=FS2_FRAMES, n_tokens=FS2_TOKENS,
+                steps=FS2_STEPS):
+    """``steps`` synthetic batches on the card: token ids, durations that
+    sum to each utterance's frames, mel targets, pitch and energy.  Lengths
+    spread down to FS2_MIN_TOKENS / FS2_TOKENS and FS2_MIN_FRAMES /
+    FS2_FRAMES of the padded ones."""
+    min_tokens = n_tokens * FS2_MIN_TOKENS // FS2_TOKENS
+    min_frames = n_frames * FS2_MIN_FRAMES // FS2_FRAMES
+    batches = []
+    for _ in range(steps):
+        tokens = _spread_lengths(gen, b, min_tokens, n_tokens)
+        frames = _spread_lengths(gen, b, min_frames, n_frames)
+        text = torch.zeros((b, n_tokens), dtype=torch.long)
+        durations = torch.zeros((b, n_tokens), dtype=torch.long)
+        for i, (n, f) in enumerate(zip(tokens.tolist(), frames.tolist())):
+            text[i, :n] = torch.randint(1, IDIM, (n,), generator=gen)
+            cuts = torch.sort(torch.randint(0, f - n + 1, (n - 1,),
+                                            generator=gen)).values
+            edges = torch.cat([torch.zeros(1, dtype=torch.long), cuts,
+                               torch.tensor([f - n])])
+            durations[i, :n] = edges.diff() + 1
+        batch = {"text": text, "text_lengths": tokens,
+                 "speech": torch.randn((b, n_frames, ODIM), generator=gen),
+                 "speech_lengths": frames, "durations": durations,
+                 "pitch": torch.randn((b, n_tokens, 1), generator=gen),
+                 "energy": torch.randn((b, n_tokens, 1), generator=gen)}
+        batches.append({k: v.cuda() for k, v in batch.items()})
+    return batches
+
+
+def build_fs2_trainer(impl, out_dir):
+    """A Trainer over the port's FastSpeech2 step with attn_impl ``impl``;
+    the same seeded weights, batches and dropout generator for every
+    impl."""
+    from parakeet_tpu_torch.models import (FastSpeech2, init_fs2_train_state,
+                                           make_fs2_train_step)
+    from parakeet_tpu_torch.training import (StandardUpdater, Trainer,
+                                             build_optimizer, seed_everything)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    model = FastSpeech2(IDIM, ODIM, attn_impl=impl, **FS2_TRAIN_CONFIG)
+    seeded_init_(model, gen)
+    model = model.cuda()
+    batches = fs2_batches(gen)
+    opt = build_optimizer(model.parameters(), "adam", FS2_LR)
+    state = init_fs2_train_state(model, opt,
+                                 seed_everything(SEED + 9, device="cuda"))
+    step = make_fs2_train_step(model, opt)
+    dlayers = FS2_TRAIN_CONFIG["dlayers"]
+    log = []
+
+    def timed_step(st, batch):
+        counters = _k4_counters()
+        before = {k: f.launches for k, f in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, metrics = step(st, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        q_grad = torch.cat([
+            getattr(model.decoder, f"layer_{i}").self_attn.q.weight.grad
+            .flatten() for i in range(dlayers)])
+        log.append({"ms": ms, "metrics": {k: float(v) for k, v in
+                                          metrics.items()},
+                    "launches": {k: f.launches - before[k]
+                                 for k, f in counters.items()},
+                    "q_grad": q_grad.clone()})
+        return st, metrics
+
+    updater = StandardUpdater(timed_step, state, batches)
+    trainer = Trainer(updater, stop_trigger=(FS2_STEPS, "iteration"),
+                      out=str(out_dir))
+    return trainer, model, log, step, state, batches
+
+
+def phase_fs2_train(records, profile_dir=None):
+    from parakeet_tpu_torch.models import FastSpeech2
+    out = pathlib.Path("build") / "chip_smoke_fs2"
+    trainer, model, log, step, state, batches = build_fs2_trainer(
+        "flash", out / "flash")
+    dense, model_d, log_d, _, _, _ = build_fs2_trainer("dense",
+                                                       out / "dense")
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()
+              if "running" in n}
+    counters = _k4_counters()
+    for f in counters.values():
+        f.launches = 0
+    trainer.run()
+    totals = {k: f.launches for k, f in counters.items()}
+    dense.run()
+    if any(f.launches != totals[k] for k, f in counters.items()):
+        raise AssertionError("the dense run launched K4")
+    per_step = FS2_TRAIN_CONFIG["elayers"] + FS2_TRAIN_CONFIG["dlayers"]
+    for i, (k, d) in enumerate(zip(log, log_d)):
+        for run in (k, d):
+            bad = {n: v for n, v in run["metrics"].items()
+                   if not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"FastSpeech2 step {i}: non-finite "
+                                     f"metrics {bad}")
+        if k["launches"] != dict.fromkeys(counters, per_step):
+            raise AssertionError(f"FastSpeech2 step {i}: K4 launches "
+                                 f"{k['launches']}, expected {per_step} "
+                                 "of each")
+        print(f"fs2 train step {i}: flash {k['ms']:.2f} ms, dense "
+              f"{d['ms']:.2f} ms; " + ", ".join(
+                  f"{n} {v:.5g}" for n, v in k["metrics"].items())
+              + f"; launches {k['launches']}")
+    moved = {}
+    for n, p in model.named_parameters():
+        key = n.split(".")[0]
+        moved[key] = moved.get(key, False) or not torch.equal(
+            params0[n], p.detach())
+    moved.update({n: not torch.equal(b, dict(model.named_buffers())[n])
+                  for n, b in stats0.items()})
+    if not all(moved.values()):
+        raise AssertionError(f"did not move: "
+                             f"{[k for k, v in moved.items() if not v]}")
+    loss, loss_d = (log[0]["metrics"]["loss"], log_d[0]["metrics"]["loss"])
+    loss_err = abs(loss - loss_d)
+    if not loss_err <= FS2_LOSS_REL_TOL * abs(loss_d):
+        raise AssertionError(f"FastSpeech2 step 0 loss {loss} (flash) "
+                             f"against {loss_d} (dense)")
+    gq, gq_d = log[0]["q_grad"], log_d[0]["q_grad"]
+    rel_l2 = ((gq - gq_d).norm() / gq_d.norm()).item()
+    if not rel_l2 <= FS2_GRAD_REL_L2:
+        raise AssertionError(f"FastSpeech2 step 0 decoder q-weight "
+                             f"gradient: relative L2 {rel_l2} > "
+                             f"{FS2_GRAD_REL_L2}")
+    print(f"fs2 train: {FS2_STEPS} steps at B={FS2_B}, {FS2_FRAMES} frames, "
+          f"{FS2_TOKENS} tokens, float32, all metrics finite, every "
+          f"submodule's parameters and the BatchNorm statistics moved; "
+          f"step 0 flash against dense: loss {loss:.7g} vs {loss_d:.7g} "
+          f"(|diff| {loss_err:.3g}, tol {FS2_LOSS_REL_TOL * abs(loss_d):.3g})"
+          f", decoder q-weight gradient relative L2 {rel_l2:.4g} (tol "
+          f"{FS2_GRAD_REL_L2:.4g}); K4 launches over the run {totals}")
+    for name, rec in records.items():
+        rec["launches"] = totals[name]
+    # serving side: the trained flash model against a dense copy of it
+    copy_d = FastSpeech2(IDIM, ODIM, attn_impl="dense",
+                         **FS2_TRAIN_CONFIG).cuda()
+    copy_d.load_state_dict(model.state_dict())
+    text, lengths = batches[0]["text"], batches[0]["text_lengths"]
+    before = {k: f.launches for k, f in counters.items()}
+    with torch.no_grad():
+        got = model.inference(text, lengths, max_frames=FS2_FRAMES)
+        n_infer = {k: f.launches - before[k] for k, f in counters.items()}
+        want = copy_d.inference(text, lengths, max_frames=FS2_FRAMES)
+    torch.cuda.synchronize()
+    if n_infer != {"K4a": per_step, "K4b": 0, "K4c": 0}:
+        raise AssertionError(f"inference launched {n_infer}")
+    if not torch.equal(got["frame_lengths"], want["frame_lengths"]):
+        raise AssertionError("inference: frame lengths differ")
+    lengths_out = want["frame_lengths"]
+    valid = (torch.arange(FS2_FRAMES, device=lengths_out.device)[None]
+             < lengths_out[:, None])
+    err, tol = _hold("inference after_outs on valid frames",
+                     got["after_outs"][valid], want["after_outs"][valid],
+                     FS2_INFER_REL_TOL)
+    print(f"fs2 inference (max_frames={FS2_FRAMES}, no_grad): flash "
+          f"against dense after_outs on valid frames max abs err {err:.4g} "
+          f"(tol {tol:.4g}); frames {lengths_out.tolist()}; "
+          f"launches {n_infer}")
+    if profile_dir is not None:
+        profile_step(step, state, batches[0], pathlib.Path(profile_dir),
+                     name="fs2_step", what="FastSpeech2 step (flash)")
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
-                        help="also profile one GAN step into DIR")
+                        help="also profile one GAN step and one "
+                             "FastSpeech2 step into DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -674,7 +1009,10 @@ def main():
     k3a, k3b = phase_k3()
     phase_train({"K2a": k2a, "K2b": k2b, "K3a": k3a, "K3b": k3b},
                 args.profile)
-    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b]}))
+    k4 = phase_k4()
+    phase_fs2_train(k4, args.profile)
+    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k4["K4a"],
+                                  k4["K4b"], k4["K4c"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

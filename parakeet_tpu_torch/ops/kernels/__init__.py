@@ -1,5 +1,10 @@
 """Hand-written GPU kernels of the port, each beside its plain PyTorch
-version (counterparts of ``parakeet_tpu/ops/pallas``)."""
+version (counterparts of ``parakeet_tpu/ops/pallas`` and of the Pallas
+flash-attention kernel that ``parakeet_tpu/nn/flash.py`` wraps)."""
+from .flash_attn import (flash_attention, flash_attention_dkv,
+                         flash_attention_dkv_reference, flash_attention_dq,
+                         flash_attention_dq_reference,
+                         flash_attention_forward, flash_attention_reference)
 from .pwg_disc import (disc_backward_reference, disc_forward_reference,
                        fused_disc_backward, fused_disc_forward,
                        fused_disc_supported, fused_disc_tail)
@@ -16,4 +21,7 @@ __all__ = ["fused_residual_stack", "fused_residual_stack_reference",
            "group_backward_reference", "fused_residual_stack_train",
            "fused_disc_tail", "fused_disc_supported", "fused_disc_forward",
            "fused_disc_backward", "disc_forward_reference",
-           "disc_backward_reference"]
+           "disc_backward_reference", "flash_attention",
+           "flash_attention_forward", "flash_attention_dkv",
+           "flash_attention_dq", "flash_attention_reference",
+           "flash_attention_dkv_reference", "flash_attention_dq_reference"]

@@ -1,5 +1,5 @@
-"""Kernels K1, K2a/K2b and K3a/K3b (parakeet_tpu_torch/csrc/) against
-their plain PyTorch versions on the card.  These tests need a CUDA device
+"""Kernels K1, K2a/K2b, K3a/K3b and K4a-K4c (parakeet_tpu_torch/csrc/)
+against their plain PyTorch versions on the card.  These tests need a CUDA device
 and the CUDA toolkit; without them they skip.  On a machine with the card:
 
     python -m pytest tests/test_torch_cuda.py --noconftest
@@ -208,3 +208,112 @@ def test_stack_grads_on_the_card_match_eager(cuda, impl):
         assert got is not None and torch.isfinite(got).all()
         err = (got - want).abs().max().item()
         assert err <= 0.05 * want.abs().max().item() + 1e-6
+
+
+# ---- K4 (flash attention) against its plain versions on the card ----
+# Relative to each output's range, as chip_smoke.py holds them: float32
+# (3xTF32 products, other sum orders) 2^-14; bf16 (bf16 outputs, an
+# occasional flip of p's or ds's bf16 rounding) 2^-7.
+K4_TOL = {torch.float32: 2 ** -14, torch.bfloat16: 2 ** -7}
+
+
+def _k4_inputs(cuda, b, h, tq, tk, d, dtype, key_lengths, mask_rows, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn((b, h, tq, d), generator=gen).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, h, tk, d), generator=gen).to(cuda, dtype)
+            for _ in range(2))
+    kv_valid = (torch.arange(tk)[None] < torch.tensor(key_lengths)[:, None])
+    kv_valid = kv_valid.to(cuda, torch.int32)
+    q_valid = (kv_valid.clone() if mask_rows
+               else torch.ones((b, tq), dtype=torch.int32, device=cuda))
+    return q, k, v, q_valid, kv_valid, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,tq,tk,d,key_lengths,mask_rows", [
+    (2, 2, 200, 200, 32, (200, 131), True),
+    (1, 3, 77, 150, 48, (150,), False),
+    (2, 1, 300, 300, 128, (300, 17), False),
+    # FastSpeech2's encoder self-attention (flash_sweep widths, 64 tokens)
+    (4, 4, 64, 64, 96, (64, 48, 57, 50), False)])
+def test_k4_matches_plain_versions(cuda, dtype, b, h, tq, tk, d,
+                                   key_lengths, mask_rows):
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    q, k, v, qv, kv, do = _k4_inputs(cuda, b, h, tq, tk, d, dtype,
+                                     key_lengths, mask_rows, tq + d)
+    args, scale = (q, k, v, qv, kv), d ** -0.5
+    n0 = k4.flash_attention_forward.launches
+    o, lse = k4.flash_attention_forward(*args, sm_scale=scale)
+    assert k4.flash_attention_forward.launches - n0 == 1
+    want_o, want_lse = k4.flash_attention_reference(*args, sm_scale=scale)
+    tol = K4_TOL[dtype]
+
+    def hold(got, want, what):
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all(), what
+        err = (got - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), (what, err)
+
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    hold(o, want_o, "o")
+    hold(lse, want_lse, "lse")
+    di = (o.float() * do.float()).sum(-1)
+    bwd = args + (do, lse, di)
+    grads = (k4.flash_attention_dq(*bwd, sm_scale=scale),
+             *k4.flash_attention_dkv(*bwd, sm_scale=scale))
+    again = (k4.flash_attention_dq(*bwd, sm_scale=scale),
+             *k4.flash_attention_dkv(*bwd, sm_scale=scale))
+    want = (k4.flash_attention_dq_reference(*bwd, sm_scale=scale),
+            *k4.flash_attention_dkv_reference(*bwd, sm_scale=scale))
+    for name, g, a, w in zip(("dq", "dk", "dv"), grads, again, want):
+        assert g.dtype == dtype
+        hold(g, w, name)
+        assert torch.equal(g, a), f"{name} differs between two runs"
+
+
+def test_k4_autograd_matches_autograd_of_the_plain_version(cuda):
+    """The autograd Function (K4a forward, K4b and K4c backward) gives q, k
+    and v the gradients that autograd through the plain float32 forward
+    gives; one launch of each kernel."""
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    q, k, v, qv, kv, w = _k4_inputs(cuda, 2, 2, 150, 150, 64, torch.float32,
+                                    (150, 90), False, 5)
+    counters = (k4.flash_attention_forward, k4.flash_attention_dkv,
+                k4.flash_attention_dq)
+    grads = []
+    for kernel in (True, False):
+        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+        n0 = [f.launches for f in counters]
+        if kernel:
+            out = k4.flash_attention(tq, tk, tv, qv, kv)
+        else:
+            out, _ = k4.flash_attention_reference(tq, tk, tv, qv, kv,
+                                                  sm_scale=64 ** -0.5)
+        (out * w).sum().backward()
+        assert [f.launches - m for f, m in zip(counters, n0)] == (
+            [1, 1, 1] if kernel else [0, 0, 0])
+        grads.append((tq.grad, tk.grad, tv.grad))
+    for got, want in zip(*grads):
+        assert got is not None and torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= K4_TOL[torch.float32] * want.abs().max().item()
+
+
+def test_k4_rejects_what_it_does_not_take(cuda):
+    from parakeet_tpu_torch.nn.flash import make_flash_attn_core
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    q, k, v, qv, kv, _ = _k4_inputs(cuda, 1, 1, 64, 64, 192, torch.float32,
+                                    (64,), False, 0)
+    with pytest.raises(NotImplementedError, match="K4"):
+        k4.flash_attention_forward(q, k, v, qv, kv, sm_scale=1.0)
+    x = torch.zeros((1, 64, 1, 192), device=cuda)
+    with pytest.raises(NotImplementedError, match="K4"):
+        make_flash_attn_core()(x, x, x)
+    half = torch.zeros((1, 1, 64, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="K4"):
+        k4.flash_attention_forward(half, half, half, qv, kv, sm_scale=1.0)
+    q32 = torch.zeros((1, 1, 64, 32), device=cuda)
+    with pytest.raises(ValueError, match="every tensor"):
+        k4.flash_attention_forward(q32, q32, q32, qv.cpu(), kv,
+                                   sm_scale=1.0)

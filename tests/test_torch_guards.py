@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it imports no JAX and no YAML, its chip
 smoke test refuses to run without a card, and the smoke test's model
-configurations are the recipes'."""
+configurations are the recipes' and the flash sweep's."""
+import ast
 import importlib.util
 import pathlib
 import shutil
@@ -18,7 +19,7 @@ import parakeet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(len(names))
+print(" ".join(names))
 print(sorted(m for m in ("jax", "jaxlib", "flax", "optax", "yaml",
                          "parakeet_tpu") if m in sys.modules))
 """
@@ -28,8 +29,12 @@ def test_port_imports_no_jax_and_no_yaml():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    count, loaded = proc.stdout.split("\n")[:2]
-    assert int(count) >= 15          # every submodule was imported
+    names, loaded = proc.stdout.split("\n")[:2]
+    names = set(names.split())
+    assert len(names) >= 15          # every submodule was imported
+    assert {"parakeet_tpu_torch.nn.flash", "parakeet_tpu_torch.nn.dropout",
+            "parakeet_tpu_torch.ops.kernels.flash_attn",
+            "parakeet_tpu_torch.models.fs2_updater"} <= names
     assert loaded == "[]", f"the port pulled in {loaded}"
 
 
@@ -92,3 +97,68 @@ def test_chip_smoke_training_slice_is_the_pwgan_recipe():
     # port's 'fused') and lets 'auto' pick the fused discriminator
     assert pwg["generator_params"]["stack_impl"] == "pallas"
     assert pwg["discriminator_params"]["impl"] == "auto"
+
+
+def test_chip_smoke_fs2_training_slice_is_the_flash_sweep_model():
+    """chip_smoke.py's FastSpeech2 training config is the FastSpeech2(...)
+    call of benchmarks/flash_sweep.py (without dtype and attn_impl), read
+    with ast, at its 1024-frame point: batch = tokens / frames with the
+    default --tokens, 64 text tokens, Adam at 1e-4."""
+    smoke = _load_chip_smoke()
+    tree = ast.parse((REPO / "benchmarks/flash_sweep.py").read_text())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "FastSpeech2"]
+    assert len(calls) == 1
+    kw = {k.arg: k.value for k in calls[0].keywords}
+    assert isinstance(kw.pop("dtype"), ast.Name)
+    assert isinstance(kw.pop("attn_impl"), ast.Name)
+    # names bound to a literal in the script (odim = 80)
+    consts = {t.id: n.value for n in ast.walk(tree)
+              if isinstance(n, ast.Assign) for t in n.targets
+              if isinstance(t, ast.Name) and isinstance(n.value,
+                                                        ast.Constant)}
+    sweep = {k: ast.literal_eval(consts.get(getattr(v, "id", None), v))
+             for k, v in kw.items()}
+    assert sweep == dict(idim=smoke.IDIM, odim=smoke.ODIM,
+                         **smoke.FS2_TRAIN_CONFIG)
+    defaults = {a.dest: a.default for a in _sweep_parser(tree)}
+    assert smoke.FS2_B * smoke.FS2_FRAMES == defaults["tokens"]
+    assert smoke.FS2_FRAMES in defaults["frames"]
+    # t = 96 if frames % 96 == 0 else 64 (flash_sweep.py's bench_point)
+    assert smoke.FS2_FRAMES % 96 != 0 and smoke.FS2_TOKENS == 64
+    opt = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+           and getattr(n.func, "id", None) == "build_optimizer"]
+    assert [ast.literal_eval(a) for a in opt[0].args] == ["adam",
+                                                         smoke.FS2_LR]
+
+
+def test_fs2_sweep_fails_without_a_card():
+    proc = subprocess.run([sys.executable, "fs2_sweep.py", "--frames", "64"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "needs a CUDA device" in proc.stderr
+    assert "frames" not in proc.stdout
+
+
+def test_fs2_sweep_points_are_the_flash_sweep_points():
+    """fs2_sweep.py's --frames and --tokens defaults are flash_sweep.py's."""
+    def defaults(path):
+        tree = ast.parse((REPO / path).read_text())
+        return {a.dest: a.default for a in _sweep_parser(tree)}
+    port, jax_side = defaults("fs2_sweep.py"), defaults(
+        "benchmarks/flash_sweep.py")
+    assert port["frames"] == jax_side["frames"]
+    assert port["tokens"] == jax_side["tokens"]
+
+
+def _sweep_parser(tree):
+    """The add_argument calls of flash_sweep.py's parser, as objects with
+    ``dest`` and ``default``."""
+    class Arg:
+        def __init__(self, call):
+            self.dest = ast.literal_eval(call.args[0]).lstrip("-")
+            self.default = next(ast.literal_eval(k.value)
+                                for k in call.keywords if k.arg == "default")
+    return [Arg(n) for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", None) == "add_argument"]

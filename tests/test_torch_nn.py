@@ -146,16 +146,30 @@ def test_transformer_encoder_matches_jax(input_layer):
 
 
 def test_attn_impl_flash_and_long_auto_raise():
-    with pytest.raises(NotImplementedError, match="K4"):
-        ttr.MultiHeadAttention(H, D, attn_impl="flash")
+    """Flash attention (kernel K4) is ported: 'flash', and 'auto' at
+    AUTO_FLASH_MIN_T, run it (its plain version on the CPU) and agree with
+    the dense core; what still raises is an unknown attn_impl and a head
+    width K4 does not take (dk = 8 here)."""
+    from parakeet_tpu_torch.models.fastspeech2 import make_attn_core
     with pytest.raises(ValueError, match="unknown attn_impl"):
-        ttr.MultiHeadAttention(H, D, attn_impl="ring")
-    auto = ttr.MultiHeadAttention(H, D, attn_impl="auto")
-    x = torch.zeros(1, ttr.AUTO_FLASH_MIN_T, D)
+        make_attn_core("ring")
+    narrow = ttr.MultiHeadAttention(H, D, attn_core=make_attn_core("flash"))
+    x = torch.zeros(1, 8, D)
     with pytest.raises(NotImplementedError, match="K4"):
-        auto(x, x, x)
-    short = torch.zeros(1, ttr.AUTO_FLASH_MIN_T - 1, D)
-    assert auto(short, short, short).shape == short.shape
+        narrow(x, x, x)
+    d, h = 32, 2
+    dense = ttr.MultiHeadAttention(h, d)
+    x = torch.from_numpy(_np(11, 1, ttr.AUTO_FLASH_MIN_T, d))
+    want = dense(x, x, x)
+    for impl in ("flash", "auto"):
+        mha = ttr.MultiHeadAttention(h, d, attn_core=make_attn_core(impl))
+        mha.load_state_dict(dense.state_dict())
+        torch.testing.assert_close(mha(x, x, x), want, **F32_TOL)
+    short = x[:, :-1]
+    auto = ttr.MultiHeadAttention(h, d, attn_core=make_attn_core("auto"))
+    auto.load_state_dict(dense.state_dict())
+    torch.testing.assert_close(auto(short, short, short),
+                               dense(short, short, short), rtol=0, atol=0)
 
 
 def test_predictors_match_jax():
