@@ -22,11 +22,15 @@ Phases, one line each (the checks raise; nothing is caught):
    batch, and agree with the wav of the eager residual stack (no kernel)
    within a stated tolerance;
 4. kernels K2a/K2b (the residual stack's training forward and backward,
-   one group of ten layers) and K3a/K3b (discriminator layers 1..9,
-   forward and backward) against their plain PyTorch versions, at a small
-   shape and at the training shape (B=8, T=25,500: the PWGAN recipe's
-   batch_size and batch_max_steps): max abs errors against stated
-   tolerances, gradients bit-identical from run to run, median times;
+   one group of ten layers) and K3a/K3b/K3c (discriminator layers 1..9:
+   forward, backward from the saved layer inputs, backward that rebuilds
+   them from the layer-0 output) against their plain PyTorch versions, at
+   a small shape and at the training shape (B=8, T=25,500: the PWGAN
+   recipe's batch_size and batch_max_steps): max abs errors against
+   stated tolerances, gradients bit-identical from run to run, K3c's dh
+   bitwise K3b's and its dW and db within a stated tolerance of K3b's,
+   median times (also of K3a without saving + K3c against K3a saving +
+   K3b);
 5. the training slice: a port ``Trainer`` over ``StandardUpdater`` runs
    the PWGAN GAN step of recipes/pwgan/conf/default.yaml for four steps at
    its full widths on seeded synthetic (wav, mel) batches, with
@@ -56,14 +60,32 @@ Phases, one line each (the checks raise; nothing is caught):
    decoder layers) and never in the dense run, and step 0 must agree
    between the two within stated tolerances.  It prints ms per step for
    both; then ``inference(max_frames=1024)`` of the trained flash model
-   (K4a under no_grad) must agree with a dense copy of it.
+   (K4a under no_grad) must agree with a dense copy of it;
+8. the PWGAN recipe through its CLI (``parakeet_tpu_torch.recipes.pwgan.
+   train.main``, on the card by default) with recipes/pwgan/conf/
+   default.yaml at full widths and ``discriminator_params.vjp_mode
+   recompute``, on a seeded synthetic dump in the recipe's format under
+   build/: 4 steps (the discriminator from step 2, evaluation and a
+   snapshot every 2, 2 snapshots kept), a second run to 6 that must resume
+   from the newest snapshot at iteration 4 (an epoch boundary) and run
+   steps 4-5 only, and a straight 6-step run from an empty directory whose
+   last metrics must equal the resumed run's bitwise.  Every step must
+   launch the expected kernels (K3c, never K3b; K3a never saving), every
+   train and eval metric must be finite, and each run must leave its 2
+   newest snapshots and their ledger;
+9. the training bench (``parakeet_tpu_torch.benchmarks.train_pwgan``) at
+   batch 6 with ``--disc-vjp save`` and ``recompute`` in turns: its
+   ``pwgan_train_avg_ips`` for both.
 
 The line before the last is a JSON object with each kernel's launches on
-its path (K1: serving; K2a-K3b: PWGAN training; K4a-K4c: FastSpeech2
-training), error and times; the last line is the run's result.  Without a
-CUDA device it raises and prints no result.  ``--profile DIR`` also
-writes ``torch.profiler`` tables of one GAN step with the kernels and of
-one FastSpeech2 step with flash attention to DIR.
+its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
+K4a-K4c: FastSpeech2 training), error, times, bound (the larger of its
+bytes over the H100's memory rate and its operations over its peak for
+the operands' type, from this run's shapes) and, where one PyTorch call
+computes the same function, that call's time; the last line is the run's
+result.  Without a CUDA device it raises and prints no result.
+``--profile DIR`` also writes ``torch.profiler`` tables of one GAN step
+with the kernels and of one FastSpeech2 step with flash attention to DIR.
 """
 import argparse
 import json
@@ -133,6 +155,22 @@ REFERENCE_REL_TOL = 2 ** -4
 # range bounds that, as for K1.  A wrong tap, weight block or reduction
 # is off by the whole range.
 K2_REL_TOL = K3_REL_TOL = 2 ** -5
+# K3c against its plain version: each rebuilds the layer inputs from h,
+# the kernel with K3a's float32 sum order and the plain version with
+# cuBLAS's, so now and then a pre-activation near zero takes the other
+# LeakyReLU slope (a factor 5 on its dpre) and a few rows of dh move by
+# up to ~10% of dh's range (emulated on the CPU by summing the plain
+# forward in another order: 6.7% at B=2, T=3,000 and 9.0% at B=4,
+# T=25,500, 1.6-1.8% in relative L2).  Held in relative L2, 2^-4; its
+# arithmetic is pinned by the checks against K3b below, and K3b's against
+# its plain version on shared streams.
+K3C_REL_L2 = 2 ** -4
+# K3c against K3b on K3a's saved streams: K3c rebuilds the streams with
+# K3a's code (bitwise equal) and runs K3b's reverse pass, so dh must be
+# bitwise K3b's; dW and db sum the same float32 terms grouped by tile
+# instead of by chunk of rows, 2^-14 of their range (measured 1.4e-6 of
+# dW's range at the training shape)
+K3C_VS_K3B_REL_TOL = 2 ** -14
 # step 0 with the kernels against step 0 on the eager impls (float32, no
 # kernel).  The kernels' bf16 operands move the fake by ~1% of its range
 # (as the serving wav), which moves the STFT losses by less than 2^-5 of
@@ -191,6 +229,42 @@ FS2_GRAD_REL_L2 = 2 ** -10
 # the same float32 rounding through eight layers and the Postnet, 2^-12
 # of after_outs' range
 FS2_INFER_REL_TOL = 2 ** -12
+# the PWGAN recipe's run through its CLI: recipes/pwgan/conf/default.yaml
+# at full widths on a seeded synthetic dump (16 train utterances: two
+# batches of 8, so iteration 4 ends epoch 2; 8 dev utterances: one eval
+# batch, the loader drops a partial one) of 120-200 mel frames, over the
+# 85 + 2 * 2 frames a clip needs
+RECIPE_CONF = "recipes/pwgan/conf/default.yaml"
+RECIPE_SPLITS = {"train": 16, "dev": 8}
+RECIPE_FRAMES = (120, 200)
+RECIPE_DISC_START, RECIPE_INTERVAL, RECIPE_SNAPSHOTS = 2, 2, 2
+RECIPE_OPTS = ["discriminator_params.vjp_mode", "recompute",
+               "updater.discriminator_train_start_steps",
+               str(RECIPE_DISC_START),
+               "save_interval_steps", str(RECIPE_INTERVAL),
+               "eval_interval_steps", str(RECIPE_INTERVAL),
+               "num_snapshots", str(RECIPE_SNAPSHOTS)]
+RECIPE_STEPS, RECIPE_RESUME_STEPS = 4, 6
+# the training bench: save against recompute, in turns, at batch 6
+BENCH_BATCH, BENCH_ITERS = 6, 10
+# NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
+# FLOP/s by operand type (float32 outside the tensor cores)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# operations per row and layer of the recipe's residual stack (residual
+# 64, gate 128, skip 64, aux 80): the forward's gate products (three taps
+# and the aux 1x1) and skip/residual products; the backward recomputes
+# the gate and runs the transposed and weight products of both
+_C, _G, _S, _A = 64, 128, 64, ODIM
+STACK_FWD_FLOPS = 2 * (3 * _C * _G + _A * _G + _G // 2 * (_C + _S))
+STACK_BWD_FLOPS = (2 * (3 * _C * _G + _A * _G)
+                   + 2 * 2 * (_G // 2 * (_C + _S) + 3 * _C * _G + _A * _G))
+# per row of the discriminator's layers 1..9: eight 64 -> 64 k=3 convs and
+# the 64 -> 1 output conv; its backward transposes them (dx) and forms dW;
+# K3c also re-runs layers 1..8
+DISC_FWD_FLOPS = 8 * 2 * 3 * _C * _C + 2 * 3 * _C
+DISC_BWD_FLOPS = 2 * DISC_FWD_FLOPS
+DISC_RC_FLOPS = 8 * 2 * 3 * _C * _C + DISC_BWD_FLOPS
 
 
 def seeded_init_(module, gen):
@@ -274,11 +348,15 @@ def phase_k1():
         print(f"K1 B={b} T={t}: " + ", ".join(
             f"{n} max_abs_err {e:.6g} (tol {tl:.6g})" for n, e, tl in errs)
             + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
+        limit = bound(nbytes(x, c, *weights.values(), got_x, got_s),
+                      b * t * len(kw["dilations"]) * STACK_FWD_FLOPS,
+                      torch.bfloat16)
         record = {"name": "pwg_residual_stack", "route": "cuda",
                   "source": "parakeet_tpu_torch/csrc/pwg_stack.cu",
                   "replaces": "parakeet_tpu/ops/pallas/pwg_stack.py:84",
                   "max_abs_err": max(e for _, e, _ in errs),
-                  "ms": ms, "plain_ms": plain_ms}
+                  "ms": ms, "plain_ms": plain_ms, **limit,
+                  "library_ms": None}
     return record
 
 
@@ -391,16 +469,43 @@ def _hold(what, got, ref, rel_tol):
     return err, tol
 
 
+def _hold_l2(what, got, ref, rel_l2):
+    """Relative L2 error of got against ref, held to rel_l2; returns
+    (max abs err, relative L2)."""
+    got, ref = got.double(), ref.double()
+    rel = ((got - ref).norm() / max(ref.norm().item(), 1e-12)).item()
+    if not (torch.isfinite(got).all() and rel <= rel_l2):
+        raise AssertionError(f"{what}: relative L2 {rel} > {rel_l2}")
+    return (got - ref).abs().max().item(), rel
+
+
 def _report(tag, held):
     return ", ".join(f"{n} {e:.4g} (tol {t:.4g})" for n, (e, t) in held)
 
 
-def _record(name, source, replaces, errs, ms, plain_ms):
+def nbytes(*tensors):
+    """Bytes of the tensors (each read or written once)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, flops, dtype):
+    """The least time the card could take for work that moves ``n_bytes``
+    and does ``flops`` operations on ``dtype`` operands: {bound_ms,
+    bound_by}."""
+    by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _record(name, source, replaces, errs, ms, plain_ms, limit,
+            library_ms=None):
     return {"name": name, "route": "cuda",
             "source": f"parakeet_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0,
             "max_abs_err": max(e for _, (e, _) in errs), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, **limit, "library_ms": library_ms}
 
 
 def phase_k2():
@@ -460,16 +565,22 @@ def phase_k2():
         print(f"K2b B={b} T={t}: {_report('K2b', held_b)}; bit-identical "
               f"on a second run; kernel {ms_b:.4f} ms, plain {plain_b:.4f} "
               f"ms (median)")
+    row_layers = b * t * per
+    limit_a = bound(nbytes(x, c16, wg16, wso16, bso, *got),
+                    row_layers * STACK_FWD_FLOPS, torch.bfloat16)
+    limit_b = bound(nbytes(got[2], c16, wg16, wso16, dxo, dsk, *got_b),
+                    row_layers * STACK_BWD_FLOPS, torch.bfloat16)
     return (_record("pwg_residual_stack_fwd_save", "pwg_stack.cu",
                     "parakeet_tpu/ops/pallas/pwg_stack.py:93", held_a, ms_a,
-                    plain_a),
+                    plain_a, limit_a),
             _record("pwg_residual_stack_bwd", "pwg_stack_bwd.cu",
                     "parakeet_tpu/ops/pallas/pwg_stack_train.py:76", held_b,
-                    ms_b, plain_b))
+                    ms_b, plain_b, limit_b))
 
 
 def phase_k3():
-    """K3a and K3b against their plain versions; returns their records."""
+    """K3a, K3b and K3c against their plain versions, and K3c against K3b;
+    returns their records."""
     from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
     gen = torch.Generator().manual_seed(SEED + 4)
     nl = len(k3.DISC_TAIL_DILS)
@@ -510,12 +621,54 @@ def phase_k3():
         print(f"K3b B={b} T={t} (dh, dW, db): {_report('K3b', held_b)}; "
               f"bit-identical on a second run; kernel {ms_b:.4f} ms, plain "
               f"{plain_b:.4f} ms (median)")
+        # K3c takes h in bf16, as _DiscTailRecompute keeps it
+        h16 = h.to(torch.bfloat16)
+        rc = (lambda: k3.fused_disc_backward_recompute(
+            h16, dlog, wk, bk, slope=slope, need_dx=True, need_weights=True))
+        got_c = rc()
+        ref_c = k3.disc_backward_recompute_reference(h16, dlog, wk, bk,
+                                                     slope=slope)
+        again = rc()
+        torch.cuda.synchronize()
+        held_c = [(n, _hold_l2(f"K3c {n} B={b} T={t}", g, r, K3C_REL_L2))
+                  for n, g, r in zip(("dh", "dW", "db"), got_c, ref_c)]
+        if not all(torch.equal(u, v) for u, v in zip(got_c, again)):
+            raise AssertionError("K3c: two runs gave different gradients")
+        if not torch.equal(got_c[0], got_b[0]):
+            raise AssertionError(f"K3c dh B={b} T={t} is not K3b's bitwise")
+        vs_b = [(n, _hold(f"K3c {n} against K3b B={b} T={t}", g, r,
+                          K3C_VS_K3B_REL_TOL))
+                for n, g, r in zip(("dW", "db"), got_c[1:], got_b[1:])]
+        nosave = (lambda: k3.fused_disc_forward(h, wk, bk, slope=slope,
+                                                save=False))
+        ms_c = cuda_ms(rc, 10)
+        plain_c = cuda_ms(lambda: k3.disc_backward_recompute_reference(
+            h16, dlog, wk, bk, slope=slope), 3)
+        ms_rc_path = cuda_ms(lambda: (nosave(), rc()), 10)
+        ms_save_path = cuda_ms(lambda: (fwd(), bwd()), 10)
+        print(f"K3c B={b} T={t} (dh, dW, db): max abs err, relative L2 "
+              f"(tol {K3C_REL_L2}): " + ", ".join(
+                  f"{n} {e:.4g}, {r:.4g}" for n, (e, r) in held_c) + "; "
+              f"against K3b: dh bitwise, {_report('K3c', vs_b)}; "
+              f"bit-identical on a second run; kernel {ms_c:.4f} ms, plain "
+              f"{plain_c:.4f} ms; K3a without saving + K3c {ms_rc_path:.4f} "
+              f"ms, K3a saving + K3b {ms_save_path:.4f} ms (median)")
+    rows = b * t
+    limit_a = bound(nbytes(h, wk, bk, *got), rows * DISC_FWD_FLOPS,
+                    torch.bfloat16)
+    limit_b = bound(nbytes(got[1], dlog, wk, *got_b),
+                    rows * DISC_BWD_FLOPS, torch.bfloat16)
+    limit_c = bound(nbytes(h16, dlog, wk, bk, *got_c),
+                    rows * DISC_RC_FLOPS, torch.bfloat16)
     return (_record("pwg_disc_fwd", "pwg_disc.cu",
                     "parakeet_tpu/ops/pallas/pwg_disc.py:143", held_a, ms_a,
-                    plain_a),
+                    plain_a, limit_a),
             _record("pwg_disc_bwd", "pwg_disc.cu",
                     "parakeet_tpu/ops/pallas/pwg_disc.py:195", held_b, ms_b,
-                    plain_b))
+                    plain_b, limit_b),
+            _record("pwg_disc_bwd_recompute", "pwg_disc.cu",
+                    "parakeet_tpu/ops/pallas/pwg_disc.py:355", held_c, ms_c,
+                    plain_c, limit_c))
 
 
 def _train_counters():
@@ -526,25 +679,33 @@ def _train_counters():
             "K2a": k1.fused_group_forward_save,
             "K2b": k2.fused_group_backward,
             "K3a": k3.fused_disc_forward,
-            "K3b": k3.fused_disc_backward}
+            "K3b": k3.fused_disc_backward,
+            "K3c": k3.fused_disc_backward_recompute}
 
 
-def expected_launches(disc_on):
+def expected_launches(disc_on, vjp_mode="save"):
     """Kernel launches of one train step at the recipe's widths.
 
     Generator update: K2a once per layer; K2b gate, dw and dx per layer
     and one reduction per group.  GAN steps add the discriminator on the
-    fake (K3a), its input gradient only (K3b's reverse pass: the
-    discriminator's weights are constants there), the regeneration of the
-    fake without a gradient (K1, once per layer), and the discriminator
-    update: K3a on real and fake, each with K3b's reverse pass, its dW
-    pass and two reductions.
+    fake (K3a), its input gradient only (the discriminator's weights are
+    constants there), the regeneration of the fake without a gradient
+    (K1, once per layer), and the discriminator update: K3a on real and
+    fake, each with the gradients of h and the weights.  With
+    ``vjp_mode='save'`` K3a saves and K3b runs its reverse pass for the
+    input gradient, and its reverse pass, dW pass and two reductions for
+    each update; with 'recompute' K3a saves nothing and K3c runs once for
+    the input gradient, and once with two reductions for each update.
     """
     layers, stacks = PWG_CONFIG["layers"], PWG_CONFIG["stacks"]
     n = {"K1": 0, "K2a": layers, "K2b": 3 * layers + stacks, "K3a": 0,
-         "K3b": 0}
+         "K3b": 0, "K3c": 0}
     if disc_on:
-        n.update(K1=layers, K3a=1 + 2, K3b=1 + 2 * 4)
+        n.update(K1=layers, K3a=1 + 2)
+        if vjp_mode == "save":
+            n["K3b"] = 1 + 2 * 4
+        else:
+            n["K3c"] = 1 + 2 * 3
     return n
 
 
@@ -806,21 +967,46 @@ def phase_k4():
                                       (k4.flash_attention_dkv_reference, 5),
                                       (k4.flash_attention_dq, 10),
                                       (k4.flash_attention_dq_reference, 5))]
+                # the library's attention on the same inputs: PyTorch's
+                # scaled_dot_product_attention with the same validity mask
+                mask = kv_valid[:, None, None, :].bool()
+                if mask_rows:
+                    mask = mask & q_valid[:, None, :, None].bool()
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                lib_f = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                             scale=scale), 10)
+                qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+                lib_fb = cuda_ms(lambda: torch.autograd.grad(
+                    sdpa(qg, kg, vg, attn_mask=mask, scale=scale),
+                    (qg, kg, vg), do), 10)
                 print(f"K4 {tag}: K4b (dk, dv) {times[0]:.4f} ms, plain "
                       f"{times[1]:.4f} ms; K4c (dq) {times[2]:.4f} ms, plain "
-                      f"{times[3]:.4f} ms (median)")
+                      f"{times[3]:.4f} ms; scaled_dot_product_attention "
+                      f"forward {lib_f:.4f} ms, forward + backward "
+                      f"{lib_fb:.4f} ms (median)")
+                # score pairs this data needs: valid query rows times valid
+                # keys, per item and head
+                pairs = h * (q_valid.sum(1).double()
+                             * kv_valid.sum(1).double()).sum().item()
+                dq, dk_, dv = got
                 records = {
                     "K4a": _record("flash_attention_fwd", "flash_attn.cu",
                                    "parakeet_tpu/nn/flash.py:88",
-                                   held[:2], ms_f, plain_f),
+                                   held[:2], ms_f, plain_f,
+                                   bound(nbytes(*args, o, lse),
+                                         4 * dk * pairs, dtype), lib_f),
                     "K4b": _record("flash_attention_bwd_dkv",
                                    "flash_attn.cu",
                                    "parakeet_tpu/nn/flash.py:88",
-                                   held[3:], *times[:2]),
+                                   held[3:], *times[:2],
+                                   bound(nbytes(*bwd_args, dk_, dv),
+                                         8 * dk * pairs, dtype)),
                     "K4c": _record("flash_attention_bwd_dq",
                                    "flash_attn.cu",
                                    "parakeet_tpu/nn/flash.py:88",
-                                   held[2:3], *times[2:])}
+                                   held[2:3], *times[2:],
+                                   bound(nbytes(*bwd_args, dq),
+                                         6 * dk * pairs, dtype))}
     return records
 
 
@@ -992,6 +1178,133 @@ def phase_fs2_train(records, profile_dir=None):
                      name="fs2_step", what="FastSpeech2 step (flash)")
 
 
+def phase_recipe(record):
+    """The PWGAN recipe through its CLI, ``--device cuda`` by default:
+    RECIPE_STEPS steps from an empty directory, a second run to
+    RECIPE_RESUME_STEPS that resumes from the newest snapshot, and a
+    straight run to RECIPE_RESUME_STEPS to compare it with.  Sets K3c's
+    launches in ``record``."""
+    import shutil
+    from parakeet_tpu_torch.recipes.pwgan import train
+    from parakeet_tpu_torch.recipes.pwgan.dump import write_synthetic_dump
+    out = pathlib.Path("build") / "chip_smoke_recipe"
+    shutil.rmtree(out, ignore_errors=True)
+    md = write_synthetic_dump(out / "dump", seed=SEED + 10,
+                              splits=RECIPE_SPLITS, frames=RECIPE_FRAMES,
+                              n_mels=ODIM, n_shift=300)
+    counters = _train_counters()
+    log = []
+    make = train.make_pwg_train_step
+
+    def timed_step_factory(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed_step(state, batch):
+            before = {k: f.launches for k, f in counters.items()}
+            i = state.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            log.append({"step": i, "ms": 1e3 * (time.perf_counter() - t0),
+                        "launches": {k: f.launches - before[k]
+                                     for k, f in counters.items()}})
+            return state, metrics
+        return timed_step
+
+    def run(name, directory, want):
+        """Train to want[-1] + 1 steps in ``directory`` and check the run:
+        the steps it took, each step's launches, finite train and eval
+        metrics, the snapshots left and the ledger."""
+        log.clear()
+        last = want[-1] + 1
+        trainer = train.main([
+            "--config", RECIPE_CONF, "--train-metadata", str(md["train"]),
+            "--dev-metadata", str(md["dev"]), "--output-dir",
+            str(out / directory), "--opts", *RECIPE_OPTS,
+            "train_max_steps", str(last)])
+        if [s["step"] for s in log] != list(want):
+            raise AssertionError(f"recipe {name} run took steps "
+                                 f"{[s['step'] for s in log]}, not "
+                                 f"{list(want)}")
+        for s in log:
+            expect = expected_launches(s["step"] >= RECIPE_DISC_START,
+                                       "recompute")
+            if s["launches"] != expect:
+                raise AssertionError(f"recipe {name} step {s['step']}: "
+                                     f"launches {s['launches']}, expected "
+                                     f"{expect}")
+        obs = {k: float(v) for k, v in trainer.observation.items()}
+        bad = {k: v for k, v in obs.items() if not math.isfinite(v)}
+        if bad or "eval/generator_loss" not in obs:
+            raise AssertionError(f"recipe {name}: metrics {obs}")
+        ckpt = trainer.out / "checkpoints"
+        files = sorted(p.name for p in ckpt.iterdir())
+        keep = [last - RECIPE_INTERVAL * i
+                for i in reversed(range(RECIPE_SNAPSHOTS))]
+        if files != ["records.jsonl"] + [f"snapshot_iter_{i}.npz"
+                                         for i in keep]:
+            raise AssertionError(f"recipe {name}: checkpoints {files}")
+        ledger = [json.loads(line)["iteration"] for line in
+                  (ckpt / "records.jsonl").read_text().splitlines()]
+        if ledger != keep or trainer.updater.state.iteration != last:
+            raise AssertionError(f"recipe {name}: ledger {ledger}, "
+                                 f"{trainer.updater.state}")
+        print(f"recipe {name} run: steps {list(want)} ("
+              + ", ".join(f"{s['ms']:.2f}" for s in log)
+              + f" ms); snapshots {files[1:]}; " + ", ".join(
+                  f"{k} {v:.6g}" for k, v in obs.items()))
+        return obs
+
+    train.make_pwg_train_step = timed_step_factory
+    k3a = counters["K3a"]
+    for f in counters.values():
+        f.launches = 0
+    k3a.saves = 0
+    try:
+        run("first", "resumed", range(RECIPE_STEPS))
+        got = run("resumed", "resumed",
+                  range(RECIPE_STEPS, RECIPE_RESUME_STEPS))
+        want = run("straight", "straight", range(RECIPE_RESUME_STEPS))
+    finally:
+        train.make_pwg_train_step = make
+    totals = {k: f.launches for k, f in counters.items()}
+    saves = k3a.saves
+    if not (totals["K3c"] > 0 and totals["K3b"] == 0 and totals["K3a"] > 0
+            and saves == 0):
+        raise AssertionError(f"recipe launches {totals}, K3a saving "
+                             f"{saves} times")
+    # the resumed run against the straight one: the same clips, noise and
+    # weights at step 4, and every kernel's sums in a fixed order, so the
+    # last step's and the evaluation's metrics must agree bitwise
+    if got != want:
+        raise AssertionError(f"resumed run {got} against straight {want}")
+    print(f"recipe: resumed at iteration {RECIPE_STEPS} and ran steps "
+          f"{RECIPE_STEPS}-{RECIPE_RESUME_STEPS - 1} only; its step "
+          f"{RECIPE_RESUME_STEPS - 1} and eval metrics equal the straight "
+          f"run's bitwise; launches over the three runs {totals}, K3a "
+          f"saving {saves} times")
+    record["launches"] = totals["K3c"]
+
+
+def phase_bench():
+    """The training bench with the discriminator's backward saving and
+    recomputing, in turns (save, recompute, recompute, save)."""
+    from parakeet_tpu_torch.benchmarks import train_pwgan
+    ips = {"save": [], "recompute": []}
+    for mode in ("save", "recompute", "recompute", "save"):
+        (rec,) = train_pwgan.main(["--disc-vjp", mode, "--batch-sizes",
+                                   str(BENCH_BATCH), "--iters",
+                                   str(BENCH_ITERS)])
+        if not rec["value"] > 0:
+            raise AssertionError(f"bench {mode}: {rec}")
+        ips[mode].append(rec["value"])
+    print(f"bench: pwgan_train_avg_ips at batch {BENCH_BATCH}, "
+          f"{BENCH_ITERS} iterations, sequences/s: save {ips['save']}, "
+          f"recompute {ips['recompute']}; recompute / save "
+          f"{sum(ips['recompute']) / sum(ips['save']):.4f}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -1006,12 +1319,14 @@ def main():
     phase_card()
     k1 = phase_slice(phase_k1())
     k2a, k2b = phase_k2()
-    k3a, k3b = phase_k3()
+    k3a, k3b, k3c = phase_k3()
     phase_train({"K2a": k2a, "K2b": k2b, "K3a": k3a, "K3b": k3b},
                 args.profile)
     k4 = phase_k4()
     phase_fs2_train(k4, args.profile)
-    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k4["K4a"],
+    phase_recipe(k3c)
+    phase_bench()
+    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c, k4["K4a"],
                                   k4["K4b"], k4["K4c"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,14 +26,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.geometry import time_shift as _shift
-from ..ops.kernels.pwg_disc import fused_disc_supported, fused_disc_tail
+from ..ops.kernels.pwg_disc import (VJP_MODES, fused_disc_supported,
+                                    fused_disc_tail)
 from ..ops.kernels.pwg_stack import (fused_residual_stack,
                                      fused_stack_supported)
 from ..ops.kernels.pwg_stack_train import fused_residual_stack_train
 
 __all__ = ["PWGGenerator", "PWGDiscriminator", "pwg_inference",
            "conv1d_taps", "WNConv1d", "UpsampleNet", "ConvInUpsampleNet",
-           "ResidualStack", "edge_pad", "stack_route"]
+           "ResidualStack", "edge_pad", "stack_route", "init_pwg_params_"]
 
 _WN_EPS = 1e-12
 _F32 = torch.float32
@@ -431,18 +432,25 @@ class PWGDiscriminator(nn.Module):
     through ``ops/kernels/pwg_disc.py``: kernels K3a/K3b on CUDA tensors,
     their plain versions on CPU tensors) or 'auto' (fused on CUDA tensors
     at float32 when the configuration is supported, eager otherwise, as
-    the JAX 'auto' fuses only at float32).
+    the JAX 'auto' fuses only at float32).  ``vjp_mode`` picks the fused
+    route's backward, as the JAX field: 'save' (K3a saves every layer's
+    input, K3b reads them) or 'recompute' (K3a saves nothing, K3c rebuilds
+    the inputs from the layer-0 output).
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  kernel_size: int = 3, layers: int = 10,
                  conv_channels: int = 64, dilation_factor: int = 1,
                  negative_slope: float = 0.2, bias: bool = True,
-                 use_weight_norm: bool = True, impl: str = "eager"):
+                 use_weight_norm: bool = True, impl: str = "eager",
+                 vjp_mode: str = "save"):
         super().__init__()
         if impl not in ("eager", "fused", "auto"):
             raise ValueError(f"unknown PWGDiscriminator impl {impl!r}")
-        self.layers, self.impl = layers, impl
+        if vjp_mode not in VJP_MODES:
+            raise ValueError(f"vjp_mode must be one of {VJP_MODES}, got "
+                             f"{vjp_mode!r}")
+        self.layers, self.impl, self.vjp_mode = layers, impl, vjp_mode
         self.negative_slope = negative_slope
         self.supported = fused_disc_supported(
             in_channels, out_channels, kernel_size, layers, conv_channels,
@@ -478,9 +486,42 @@ class PWGDiscriminator(nn.Module):
             weights = [conv.effective_weights() for conv in convs[1:]]
             logits = fused_disc_tail(h, [k for k, _ in weights],
                                      [b for _, b in weights],
-                                     negative_slope=slope)
+                                     negative_slope=slope,
+                                     vjp_mode=self.vjp_mode)
             return logits.to(dt)
         h = x
         for conv in convs[:-1]:
             h = F.leaky_relu(conv(h), slope)
         return convs[-1](h)
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations, whose
+# standard deviation is then sqrt(1 / fan_in) (0.8796 is the truncated
+# unit normal's)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_pwg_params_(module: nn.Module, gen: torch.Generator) -> None:
+    """Draw ``module``'s Parallel WaveGAN parameters from ``gen`` (a CPU
+    generator) as the JAX modules' flax initializers do: every kernel
+    lecun-normal over its fan-in (the kernel size times the input
+    channels; the residual stack's layer axis is a batch axis), weight-norm
+    scales one, biases zero."""
+    for path, mod in module.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if "kernel" in name:
+                shape = p.shape[1:] if isinstance(mod, ResidualStack) \
+                    else p.shape
+                fan_in = math.prod(shape[:-1])
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                value = torch.empty(p.shape, dtype=_F32)
+                nn.init.trunc_normal_(value, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=gen)
+                p.copy_(value)
+            elif "scale" in name:
+                p.fill_(1.0)
+            elif "bias" in name:
+                p.zero_()
+            else:
+                raise ValueError(f"no initializer for {path}.{name}")

@@ -18,8 +18,9 @@ import torch
 __all__ = ["seed_everything"]
 
 
-def seed_everything(seed: int, device="cpu") -> torch.Generator:
-    """Seed python, numpy and torch; return a generator on ``device``."""
+def seed_everything(seed: int, device="cuda") -> torch.Generator:
+    """Seed python, numpy and torch; return a generator on ``device``
+    (the card unless the caller asks for the CPU)."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)

@@ -4,9 +4,11 @@
 The step is a function ``(TrainState, batch) -> (TrainState, metrics)``
 (in PyTorch it updates the state's modules and optimizers in place and
 returns it); the updater owns the host-side iteration and epoch counters
-and the data iterator.  Not ported yet: the mesh (data and tensor
-parallelism) and snapshots (``save``/``load``), which wait for the
-port's checkpoint module.
+and the data iterator.  ``save``/``load`` write and read snapshots in the
+JAX package's npz format: the train state under the JAX ``TrainState``'s
+keys (``bridge.train_state_arrays``), the updater's counters in the
+metadata.  Not ported yet: the mesh (data and tensor parallelism, ROADMAP
+queue 1 item 18).
 """
 from __future__ import annotations
 
@@ -14,10 +16,16 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
+import numpy as np
+import torch
+
+from ..bridge import load_train_state, train_state_arrays
+from .checkpoint import load_pytree, save_pytree
 from .reporter import report
 from .state import TrainState
 
-__all__ = ["UpdaterState", "UpdaterBase", "StandardUpdater"]
+__all__ = ["UpdaterState", "UpdaterBase", "StandardUpdater",
+           "to_device_batch"]
 
 
 @dataclasses.dataclass
@@ -41,6 +49,13 @@ class UpdaterBase:
     def set_state_dict(self, state_dict) -> None:
         self.state.iteration = int(state_dict["iteration"])
         self.state.epoch = int(state_dict["epoch"])
+
+    def save(self, path) -> None:
+        save_pytree(path, {}, metadata=self.state_dict())
+
+    def load(self, path) -> None:
+        _, meta = load_pytree(path)
+        self.set_state_dict(meta)
 
 
 class StandardUpdater(UpdaterBase):
@@ -114,3 +129,27 @@ class StandardUpdater(UpdaterBase):
         self.last_metrics = metrics
         for name, value in metrics.items():
             report(self.reports_prefix + name, value)
+
+    # -- persistence --------------------------------------------------------
+    def save(self, path) -> None:
+        """Snapshot: modules, optimizers, step and the generator's state;
+        the iteration and epoch in the metadata.  Rank 0 writes."""
+        save_pytree(path, train_state_arrays(self.train_state),
+                    metadata=self.state_dict())
+
+    def load(self, path) -> None:
+        """Load a snapshot of the port or of the JAX package into the
+        train state in place (tensors land on the parameters' device) and
+        take its counters.  The data iterator restarts at the loaded
+        epoch."""
+        flat, meta = load_pytree(path)
+        load_train_state(self.train_state, flat)
+        self.set_state_dict(meta)
+        self._iterator = None
+        self._epoch_count = 0
+
+
+def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[
+        str, torch.Tensor]:
+    """A numpy batch dict as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}

@@ -1,4 +1,4 @@
-"""Kernels K1, K2a/K2b, K3a/K3b and K4a-K4c (parakeet_tpu_torch/csrc/)
+"""Kernels K1, K2a/K2b, K3a/K3b/K3c and K4a-K4c (parakeet_tpu_torch/csrc/)
 against their plain PyTorch versions on the card.  These tests need a CUDA device
 and the CUDA toolkit; without them they skip.  On a machine with the card:
 
@@ -172,6 +172,103 @@ def test_k3_matches_plain_versions(cuda, b, t):
     dx_only = k3.fused_disc_backward(saved, dlog, wk, slope=0.2,
                                      need_dx=True, need_weights=False)
     assert dx_only[1] is None and torch.equal(dx_only[0], grads[0])
+
+
+# K3c against its plain version, which rebuilds the layer inputs in
+# another float32 sum order: a pre-activation near zero may take the other
+# LeakyReLU slope, which moves a few rows of dh by up to ~10% of its
+# range; held in relative L2 (as chip_smoke.py holds it)
+K3C_REL_L2 = 2 ** -4
+# K3c against K3b: the same rebuilt streams and reverse pass, so dh is
+# bitwise K3b's; dW and db are summed by tile instead of by chunk of rows
+K3C_VS_K3B_TOL = 2 ** -14
+
+
+@pytest.mark.parametrize("b,t", [(2, 1000), (1, 37), (3, 801), (2, 30000)])
+def test_k3c_matches_plain_version_and_k3b(cuda, b, t):
+    """(2, 30000) has more tiles than the card has SMs, so a block walks
+    several."""
+    from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
+    gen = torch.Generator().manual_seed(b * t + 1)
+    kernels = [torch.randn((3, 64, 1 if j == 8 else 64), generator=gen)
+               / 14 for j in range(9)]
+    biases = [0.05 * torch.randn(k.shape[-1], generator=gen)
+              for k in kernels]
+    wk, bk = (a.to(cuda) for a in k3.pack_disc_weights(kernels, biases))
+    h = torch.randn((b, t, 64), generator=gen).to(cuda).to(torch.bfloat16)
+    dlog = torch.randn((b, t), generator=gen).to(cuda)
+    n0 = k3.fused_disc_backward_recompute.launches
+    grads = k3.fused_disc_backward_recompute(h, dlog, wk, bk, slope=0.2,
+                                             need_dx=True, need_weights=True)
+    assert k3.fused_disc_backward_recompute.launches - n0 == 3
+    again = k3.fused_disc_backward_recompute(h, dlog, wk, bk, slope=0.2,
+                                             need_dx=True, need_weights=True)
+    want = k3.disc_backward_recompute_reference(h, dlog, wk, bk, slope=0.2)
+    for name, g, a, w in zip(("dh", "dW", "db"), grads, again, want):
+        assert torch.isfinite(g).all(), name
+        rel = ((g - w).norm() / w.norm()).item()
+        assert rel <= K3C_REL_L2, (name, rel)
+        assert torch.equal(g, a), f"{name} differs between two runs"
+    _, saved = k3.fused_disc_forward(h, wk, bk, slope=0.2, save=True)
+    save_path = k3.fused_disc_backward(saved, dlog, wk, slope=0.2,
+                                       need_dx=True, need_weights=True)
+    assert torch.equal(grads[0], save_path[0])
+    for name, g, w in zip(("dW", "db"), grads[1:], save_path[1:]):
+        err = (g - w).abs().max().item()
+        assert err <= K3C_VS_K3B_TOL * w.abs().max().item(), (name, err)
+    n0 = k3.fused_disc_backward_recompute.launches
+    dx_only = k3.fused_disc_backward_recompute(
+        h, dlog, wk, bk, slope=0.2, need_dx=True, need_weights=False)
+    w_only = k3.fused_disc_backward_recompute(
+        h, dlog, wk, bk, slope=0.2, need_dx=False, need_weights=True)
+    assert k3.fused_disc_backward_recompute.launches - n0 == 1 + 3
+    assert dx_only[1] is None and torch.equal(dx_only[0], grads[0])
+    assert w_only[0] is None and torch.equal(w_only[1], grads[1])
+
+
+def test_disc_recompute_grads_on_the_card_match_save(cuda):
+    """PWGDiscriminator(impl='fused') trains through K3a without saving and
+    K3c with vjp_mode='recompute', and through K3a saving and K3b with
+    'save': the same gradients (the wav's bitwise up to layer 0's
+    backward, the weights' within K3c's tolerance against K3b), and
+    within bf16 accuracy of the eager float32 module's: 2^-5 in relative
+    L2 (the plain versions on the CPU measured at most 0.0084)."""
+    from parakeet_tpu_torch.models.parallel_wavegan import PWGDiscriminator
+    from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
+    gen = torch.Generator().manual_seed(5)
+    wav = 0.3 * torch.randn((2, 3000, 1), generator=gen)
+    ct = torch.randn((2, 3000, 1), generator=gen)
+    grads = {}
+    ref = None
+    for impl, mode in (("fused", "save"), ("fused", "recompute"),
+                       ("eager", "save")):
+        d = PWGDiscriminator(impl=impl, vjp_mode=mode)
+        if ref is None:
+            with torch.no_grad():
+                for p in d.parameters():
+                    p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            ref = d.state_dict()
+        d.load_state_dict(ref)
+        d.to(cuda)
+        before = (k3.fused_disc_forward.saves,
+                  k3.fused_disc_backward.launches,
+                  k3.fused_disc_backward_recompute.launches)
+        x = wav.to(cuda).requires_grad_()
+        (d(x) * ct.to(cuda)).sum().backward()
+        after = (k3.fused_disc_forward.saves,
+                 k3.fused_disc_backward.launches,
+                 k3.fused_disc_backward_recompute.launches)
+        launched = [a - b for a, b in zip(after, before)]
+        if impl == "fused":
+            assert launched == ([1, 4, 0] if mode == "save" else [0, 0, 3])
+        grads[impl, mode] = [x.grad] + [p.grad for p in d.parameters()]
+    for got, want, full in zip(grads["fused", "recompute"],
+                               grads["fused", "save"],
+                               grads["eager", "save"]):
+        err = (got - want).abs().max().item()
+        assert err <= K3C_VS_K3B_TOL * want.abs().max().item() + 1e-7
+        rel = ((got - full).norm() / full.norm()).item()
+        assert rel <= 2 ** -5, rel
 
 
 @pytest.mark.parametrize("impl", ["fused", "auto"])

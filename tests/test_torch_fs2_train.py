@@ -220,7 +220,8 @@ def test_trainer_runs_three_fs2_steps(tmp_path):
                 p.copy_(torch.randn(p.shape, generator=gen)
                         / math.sqrt(max(p[0].numel(), 1)))
     opt = build_optimizer(model.parameters(), "adam", learning_rate=1e-3)
-    state = init_fs2_train_state(model, opt, seed_everything(0))
+    state = init_fs2_train_state(model, opt,
+                                 seed_everything(0, device="cpu"))
     batches = [_torch_batch(_batch((12, 10), (128, 100 + 5 * i), 10 + i))
                for i in range(3)]
     seen = []

@@ -34,7 +34,13 @@ def test_port_imports_no_jax_and_no_yaml():
     assert len(names) >= 15          # every submodule was imported
     assert {"parakeet_tpu_torch.nn.flash", "parakeet_tpu_torch.nn.dropout",
             "parakeet_tpu_torch.ops.kernels.flash_attn",
-            "parakeet_tpu_torch.models.fs2_updater"} <= names
+            "parakeet_tpu_torch.models.fs2_updater",
+            "parakeet_tpu_torch.training.config",
+            "parakeet_tpu_torch.training.checkpoint",
+            "parakeet_tpu_torch.training.extensions.snapshot",
+            "parakeet_tpu_torch.data.dataloader",
+            "parakeet_tpu_torch.recipes.pwgan.train",
+            "parakeet_tpu_torch.benchmarks.train_pwgan"} <= names
     assert loaded == "[]", f"the port pulled in {loaded}"
 
 
@@ -130,6 +136,27 @@ def test_chip_smoke_fs2_training_slice_is_the_flash_sweep_model():
            and getattr(n.func, "id", None) == "build_optimizer"]
     assert [ast.literal_eval(a) for a in opt[0].args] == ["adam",
                                                          smoke.FS2_LR]
+
+
+def test_chip_smoke_recipe_phase_resumes_at_an_epoch_boundary():
+    """The recipe phase runs the recipe's own YAML with the discriminator
+    in 'recompute', and resumes where an epoch ends (the snapshot holds no
+    loader state) on a snapshot it wrote, with a dev set of at least one
+    batch and clips that every utterance is long enough for."""
+    smoke = _load_chip_smoke()
+    pwg = yaml.safe_load((REPO / smoke.RECIPE_CONF).read_text())
+    opts = dict(zip(smoke.RECIPE_OPTS[::2], smoke.RECIPE_OPTS[1::2]))
+    assert opts["discriminator_params.vjp_mode"] == "recompute"
+    batch = pwg["batch_size"]
+    assert smoke.RECIPE_SPLITS["train"] % batch == 0
+    per_epoch = smoke.RECIPE_SPLITS["train"] // batch
+    assert smoke.RECIPE_STEPS % per_epoch == 0
+    assert smoke.RECIPE_STEPS % smoke.RECIPE_INTERVAL == 0
+    assert smoke.RECIPE_RESUME_STEPS % smoke.RECIPE_INTERVAL == 0
+    assert smoke.RECIPE_SPLITS["dev"] >= batch
+    frames = pwg["batch_max_steps"] // pwg["n_shift"]
+    acw = pwg["generator_params"]["aux_context_window"]
+    assert smoke.RECIPE_FRAMES[0] > frames + 2 * acw
 
 
 def test_fs2_sweep_fails_without_a_card():

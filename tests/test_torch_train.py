@@ -386,7 +386,8 @@ def test_trainer_runs_across_the_warmup_boundary(tmp_path):
                             / math.sqrt(max(p[0].numel(), 1)))
     g_opt = build_optimizer(g.parameters(), "adam", learning_rate=1e-3)
     d_opt = build_optimizer(d.parameters(), "adam", learning_rate=5e-4)
-    state = tupd.init_pwg_train_state(g, d, g_opt, d_opt, seed_everything(0))
+    state = tupd.init_pwg_train_state(g, d, g_opt, d_opt,
+                                      seed_everything(0, device="cpu"))
     step = tupd.make_pwg_train_step(g, d, discriminator_train_start_steps=2,
                                     **STFT_KW)
     t = (FRAMES - 2) * 6
