@@ -87,7 +87,9 @@ K4a-K4c: FastSpeech2 training), error, times, bound (the larger of its
 bytes over the H100's memory rate and its operations over its peak for
 the operands' type, from this run's shapes; K4's float32 products at the
 3xTF32 rate, a third of the TF32 peak) and, where one PyTorch call
-computes the same function, that call's time; the last line is the run's
+computes the same function, that call's time (for K4b and K4c both,
+scaled_dot_product_attention's backward, one call that computes dq, dk
+and dv); the last line is the run's
 result.  Without a CUDA device it raises and prints no result.
 ``--profile DIR`` also writes ``torch.profiler`` tables of one GAN step
 with the kernels and of one FastSpeech2 step with flash attention to DIR.
@@ -96,6 +98,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import time
@@ -316,11 +319,45 @@ def phase_card():
     from parakeet_tpu_torch.ops.kernels._build import load_library
     t0 = time.perf_counter()
     lib = load_library()
-    spills = [ln.strip() for ln in lib.log.splitlines() if "spill" in ln
-              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    entries = ptxas_entries(lib.log)
+    spills = [f"{name} {regs} registers, {st}/{ld} bytes spilled/loaded"
+              for name, regs, st, ld in entries if st or ld]
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path}; spills: "
           + (" | ".join(spills) or "none"))
+    print("ptxas, K4: " + ", ".join(
+        f"{name} {regs} ({st + ld})" for name, regs, st, ld in entries
+        if name.startswith("flash_")) + " (registers a thread, spill bytes)")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+# a kernel of csrc/ in the anonymous namespace of its file: its name, then
+# K4's template arguments (element type, DP)
+_KERNEL_NAME = re.compile(
+    r"_cu_[0-9a-f]+\d+([A-Za-z]\w*?)(?:I(f|13__nv_bfloat16)Li(\d+)E|I|E)")
+
+
+def ptxas_entries(log):
+    """(kernel, registers, spill bytes stored, loaded) of each entry
+    function in an ``nvcc -Xptxas -v`` log; K4's kernels are named with
+    their element type and DP, as ``flash_dq_kernel<float, 96>``."""
+    entries, name, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        if m := _PTXAS_ENTRY.search(ln):
+            k = _KERNEL_NAME.search(m.group(1))
+            name = m.group(1) if k is None else k.group(1)
+            if k is not None and k.group(2):
+                dtype = "float" if k.group(2) == "f" else "bf16"
+                name += f"<{dtype}, {k.group(3)}>"
+            spill = (0, 0)
+        elif m := _PTXAS_SPILL.search(ln):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := _PTXAS_REGS.search(ln)) and name is not None:
+            entries.append((name, int(m.group(1)), *spill))
+            name = None
+    return entries
 
 
 def phase_k1():
@@ -1028,8 +1065,12 @@ def phase_k4():
                   f"backward kernels {ms_fb:.4f} ms, plain {plain_fb:.4f} "
                   f"ms; scaled_dot_product_attention forward {lib_f:.4f} "
                   f"ms, backward {lib_b:.4f} ms, forward + backward "
-                  f"{lib_fb:.4f} ms (median)")
+                  f"{lib_fb:.4f} ms (median); K4b + K4c "
+                  f"{times[0] + times[2]:.4f} ms against SDPA's backward "
+                  f"{lib_b:.4f} ms")
             if dtype == torch.float32:
+                # K4b's and K4c's library call: SDPA's backward, one call
+                # that computes dq, dk and dv
                 records = {
                     "K4a": _record("flash_attention_fwd", "flash_attn.cu",
                                    "parakeet_tpu/nn/flash.py:88",
@@ -1037,11 +1078,11 @@ def phase_k4():
                     "K4b": _record("flash_attention_bwd_dkv",
                                    "flash_attn.cu",
                                    "parakeet_tpu/nn/flash.py:88",
-                                   held_b, *times[:2], limit_b),
+                                   held_b, *times[:2], limit_b, lib_b),
                     "K4c": _record("flash_attention_bwd_dq",
                                    "flash_attn.cu",
                                    "parakeet_tpu/nn/flash.py:88",
-                                   held_c, *times[2:], limit_c)}
+                                   held_c, *times[2:], limit_c, lib_b)}
     return records
 
 

@@ -22,57 +22,77 @@
 //
 // Every kernel has four warps and owns 64 rows: 64 query rows (K4a, K4c)
 // or 64 key rows (K4b); each warp owns 16 of them and walks the other
-// sequence in tiles of BN rows.  Products run on the tensor cores with
-// float32 accumulators.  float32 operands use the 3xTF32 split: x = hi +
-// lo with hi and lo TF32 values, a.b = hi.hi + hi.lo + lo.hi, which keeps
-// ~22 of float32's 24 bits (plain TF32 keeps 11, about three decimal
-// digits, which would miss a float32 tolerance).
+// sequence in tiles of BN rows, 32 in float32 and 64 in bf16 (32 in K4b
+// and K4c at DP = 128).  All three are written for the H100 with mma.sync
+// fragments, whose register layouts the PTX ISA documents, and float32
+// accumulators.  float32 operands use the 3xTF32 split: x = hi + lo with
+// hi and lo TF32 values, a.b = hi.hi + hi.lo + lo.hi, which keeps ~22 of
+// float32's 24 bits (plain TF32 keeps 11, about three decimal digits,
+// which would miss a float32 tolerance).  What the three share:
+//   - scores never leave registers: a thread holds rows lane/4 and
+//     lane/4 + 8 of each m16n8 accumulator tile, and a tile of scores
+//     becomes the A operand of the next product directly (bf16: two n8
+//     tiles repack as one k16 fragment; TF32: the A fragment holds
+//     columns t and t + 4, the accumulator 2t and 2t + 1, so each k8 step
+//     takes its streamed rows in the order 0, 2, 4, 6, 1, 3, 5, 7 and
+//     reads the B operand's rows in that same order: the sum over k does
+//     not depend on it);
+//   - operands in shared memory are read by ldmatrix in bf16 (.trans
+//     where a product contracts over the streamed rows) and by 32-bit
+//     loads on a pitch of D + 4 floats in float32 (no bank conflicts,
+//     read along rows or down columns), where each operand is split by
+//     clearing the 13 low mantissa bits (hi, exactly a TF32 value) and
+//     one subtraction (lo = x - hi, exact): no cvt in the loop;
+//   - streamed tiles (and their per-row vectors) are copied by 16-byte
+//     (4-byte) cp.async into a ring of two stages, so the next tile loads
+//     while this one computes; rows past T are zero-filled by the
+//     src-size form and their pairs masked to p = 0 exactly; D is padded
+//     to DP (32, 64, 96 or 128) with zero columns.
 //
-// K4a (forward) is written for the H100 with mma.sync fragments, whose
-// register layouts the PTX ISA documents:
-//   - one pass over the keys with the online softmax, as jax's multi-step
-//     kernel: per row a running max m and sum l; at every key tile the O
-//     accumulator is rescaled by alpha = exp(m_old - m_new) in registers
-//     and gains T(exp(s - m_new)) . v; it is divided by l once at the end;
-//   - S = QK^T, P and O never leave registers: a thread holds rows lane/4
-//     and lane/4 + 8 of each m16n8 tile, row max and row sum are two quad
-//     shuffles, and the S accumulators become P.V's A operand directly
-//     (bf16: two n8 tiles repack as one k16 fragment; TF32: the A fragment
-//     holds columns t and t + 4, the accumulator 2t and 2t + 1, so each k8
-//     step takes its keys in the order 0, 2, 4, 6, 1, 3, 5, 7 and loads
-//     V's rows in that same order: the sum over k does not depend on it);
-//   - Q is loaded once into registers (bf16 through ldmatrix); K and V are
-//     read from shared memory by ldmatrix (.trans for V) in bf16 and by
-//     32-bit loads on a pitch of D + 4 floats (no bank conflicts) in
-//     float32, where each operand is split by clearing the 13 low mantissa
-//     bits (hi, exactly a TF32 value) and one subtraction (lo = x - hi,
-//     exact): no cvt in the loop;
-//   - K/V tiles (and their validities) are copied by 16-byte cp.async into
-//     a ring of two stages, so the next tile loads while this one
-//     computes; rows past Tk are zero-filled by the src-size form and
-//     their columns masked to p = 0 exactly, as before.
-// BN is 64 keys in bf16 and 32 in float32.  With Q, S, P and O in
+// K4a (forward): one pass over the keys with the online softmax, as jax's
+// multi-step kernel: per row a running max m and sum l (two quad
+// shuffles each); at every key tile the O accumulator is rescaled by
+// alpha = exp(m_old - m_new) in registers and gains T(exp(s - m_new)) . v;
+// it is divided by l once at the end.  Q is loaded once into registers
+// (bf16 through ldmatrix); K and V stream.  With Q, S, P and O in
 // registers, ptxas gives the D = 96 instances 238 registers a thread in
 // float32 (two blocks an SM) and 168 in bf16 (three), with 51-54 KB of
 // shared memory a block; capping float32 at three blocks an SM spills and
-// ran slower on the H100.  Rounding points: s in float32;
-// p = exp(s - m_new) rounded to v's type at the running max of its tile
+// ran slower on the H100.  Rounding points: s in float32; p = exp(s -
+// m_new) rounded to v's type at the running max of its tile
 // (flash_attention_reference with block_k = K4A_BLOCK_K states exactly
 // this); l summed from the unrounded p; lse = m + log l; o = acc * (1 / l)
 // cast to q's type.
 //
-// What bounds K4a: at T = 1024, D = 96 the products (4 T^2 D per head)
-// dominate and only the tiles and o touch device memory; in float32 the
-// three TF32 products per step (165 TFLOP/s of float32 products at the
-// TF32 peak) bound it, in bf16 the products and the exp per score.  Left
-// for later: wgmma with TMA and warp specialisation, skipping key tiles
-// that lie wholly outside a sequence, D > 128.
+// K4c (dQ), 64 query rows a block: Q and dO of the block are staged once;
+// K, V and kv_valid stream.  Per key tile, S = Q K^T and dP = dO V^T into
+// accumulators, then p = exp(s - lse) and ds = ((dp - di) * p) * scale in
+// place (lse, di and q_valid of the thread's two rows in registers), then
+// dQ += T(ds) K, K read as the B operand the other way.  dQ is written
+// from its accumulators.
 //
-// K4b and K4c (written first, simple and right) use wmma: m16n16k16 bf16
-// and m16n16k8 TF32 products, with scores staged through shared memory.
-// Gradients have no atomics: K4b owns a key tile and loops over query
-// tiles, K4c owns a query tile and loops over key tiles, so two runs give
+// K4b (dK, dV), 64 key rows a block: K and V of the block are staged
+// once; Q, dO and the tile's q_valid, lse and di stream.  Per query tile,
+// S^T = K Q^T, p^T in place (each column's lse and q_valid from the
+// stage), dV += T(p^T) dO, then dP^T = V dO^T, ds^T in place and dK +=
+// T(ds^T) Q.  dK and dV stay in registers for the whole loop.
+//
+// In both backward kernels the resident strips (Q/dO, K/V) are re-read
+// from shared memory at every tile, not held in registers: with both
+// strips, the D-wide accumulators and two score tiles in registers, the
+// float32 instances at D = 96 would spill.  The rounding points are the
+// plain versions': s, dp and di in float32; p and ds in float32, rounded
+// to the operand type only as the A operand of their product.  Neither
+// has atomics: K4b owns its keys and K4c its queries, so two runs give
 // bit-identical gradients.
+//
+// What bounds them: at T = 1024, D = 96 the products (4, 8 and 6 T^2 D
+// per head for K4a, K4b and K4c) dominate and only the tiles and the
+// outputs touch device memory; in float32 the three TF32 products per
+// step (165 TFLOP/s of float32 products at the TF32 peak) bound them, in
+// bf16 the products and the exp per score.  Left for later: wgmma with
+// TMA and warp specialisation, skipping tiles that lie wholly outside a
+// sequence, D > 128.
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -83,8 +103,6 @@
 namespace ptk {
 namespace {
 
-namespace wmma = nvcuda::wmma;
-
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int BM = 16 * WARPS;          // rows a block owns
@@ -93,158 +111,13 @@ constexpr float MASK_VALUE = static_cast<float>(-0.7 * double(FLT_MAX));
 
 using bf16 = __nv_bfloat16;
 
-template <typename T>
-struct Mma;
-
-// bf16: one m16n16k16 product per step.
-template <>
-struct Mma<bf16> {
-  static constexpr int BN = 64;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  __device__ static bf16 cast(float v) { return __float2bfloat16_rn(v); }
-
-  // acc[n] += A (16 x kdim, row-major, lda) . B (kdim x 16 NF); B is
-  // row-major (element (k, n) at b[k * ldb + n]) or, with B_COL, stored
-  // as the rows of its transpose (element (k, n) at b[n * ldb + k]).
-  template <bool B_COL, int NF>
-  __device__ static void strip(Acc (&acc)[NF], const bf16* a, int lda,
-                               const bf16* b, int ldb, int kdim) {
-    using LB = std::conditional_t<B_COL, wmma::col_major, wmma::row_major>;
-    for (int k = 0; k < kdim; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + k, lda);
-#pragma unroll
-      for (int n = 0; n < NF; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-        wmma::load_matrix_sync(
-            fb, B_COL ? b + n * 16 * ldb + k : b + k * ldb + n * 16, ldb);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
-  }
-};
-
-// float32: three m16n16k8 TF32 products per step (3xTF32).
-template <>
-struct Mma<float> {
-  static constexpr int BN = 32;
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
-  __device__ static float cast(float v) { return v; }
-
-  template <typename F>
-  __device__ static void split(F& hi, F& lo) {
-#pragma unroll
-    for (int t = 0; t < hi.num_elements; ++t) {
-      const float v = hi.x[t];
-      const float h = wmma::__float_to_tf32(v);
-      hi.x[t] = h;
-      lo.x[t] = wmma::__float_to_tf32(v - h);
-    }
-  }
-
-  template <bool B_COL, int NF>
-  __device__ static void strip(Acc (&acc)[NF], const float* a, int lda,
-                               const float* b, int ldb, int kdim) {
-    using LB = std::conditional_t<B_COL, wmma::col_major, wmma::row_major>;
-    using FA = wmma::fragment<wmma::matrix_a, 16, 16, 8,
-                              wmma::precision::tf32, wmma::row_major>;
-    using FB = wmma::fragment<wmma::matrix_b, 16, 16, 8,
-                              wmma::precision::tf32, LB>;
-    for (int k = 0; k < kdim; k += 8) {
-      FA ahi, alo;
-      wmma::load_matrix_sync(ahi, a + k, lda);
-      split(ahi, alo);
-#pragma unroll
-      for (int n = 0; n < NF; ++n) {
-        FB bhi, blo;
-        wmma::load_matrix_sync(
-            bhi, B_COL ? b + n * 16 * ldb + k : b + k * ldb + n * 16, ldb);
-        split(bhi, blo);
-        wmma::mma_sync(acc[n], alo, bhi, acc[n]);
-        wmma::mma_sync(acc[n], ahi, blo, acc[n]);
-        wmma::mma_sync(acc[n], ahi, bhi, acc[n]);
-      }
-    }
-  }
-};
-
-template <typename Acc, int NF>
-__device__ void zero(Acc (&acc)[NF]) {
-#pragma unroll
-  for (int n = 0; n < NF; ++n) wmma::fill_fragment(acc[n], 0.f);
-}
-
-// Shared-memory geometry of K4b and K4c.  DP is D rounded up to 32, 64,
-// 96 or 128 (the padded columns are zero).  D-wide tiles have a pitch of
-// DP + 8 elements, score strips BN + 8 floats: every row start is 16-byte
-// aligned and every wmma fragment start 32-byte aligned.
-template <typename T, int DP>
-struct Geo {
-  static constexpr int BN = Mma<T>::BN;
-  static constexpr int LD = DP + 8;
-  static constexpr int LS = BN + 8;
-  // float32: p and ds overwrite the float32 scores in place
-  static constexpr bool kAlias = std::is_same<T, float>::value;
-  static constexpr size_t kTileM = size_t(BM) * LD * sizeof(T);
-  static constexpr size_t kTileN = size_t(BN) * LD * sizeof(T);
-  static constexpr size_t kS = size_t(BM) * LS * sizeof(float);
-  static constexpr size_t kP = kAlias ? 0 : size_t(BM) * LS * sizeof(T);
-  static constexpr size_t kScratch = size_t(WARPS) * 256 * sizeof(float);
-  // two streamed tiles hold the float32 epilogue strip of all 64 rows
-  static_assert(2 * kTileN == size_t(BM) * LD * sizeof(float),
-                "the epilogue reuses the two streamed tiles");
-  // dQ: Q | dO | K | V | S | P | scratch | rows (q_valid, lse, di) | kv
-  static constexpr size_t kDq = 2 * kTileM + 2 * kTileN + kS + kP +
-                                kScratch + 3 * BM * sizeof(float) +
-                                BN * sizeof(int);
-  // dK/dV: K | V | Q | dO | S | P | scratch | rows (q_valid, lse, di) of
-  // the streamed queries | kv_valid of the block's keys
-  static constexpr size_t kDkv = 2 * kTileM + 2 * kTileN + kS + kP +
-                                 kScratch + 3 * BN * sizeof(float) +
-                                 BM * sizeof(int);
-};
-
-// Copy rows [row0, row0 + nrows) of a (T_len, D) row-major matrix into
-// shared rows of pitch LD, zero past T_len and in columns [D, DP).
-template <typename T, int DP>
-__device__ void stage(T* dst, const T* __restrict__ src, int row0, int nrows,
-                      int tlen, int D) {
-  constexpr int EV = 16 / sizeof(T);        // elements per 16-byte vector
-  constexpr int VPR = DP / EV;
-  constexpr int LD = DP + 8;
-  const int n = nrows * VPR;
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * EV;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < tlen && c < D)
-      v = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
-}
-
 __device__ __forceinline__ float logit(float dot, float scale, int qv,
                                        int kv) {
   const float s = dot * scale;
   return s + (qv == kv ? 0.f : MASK_VALUE);
 }
 
-// Write a warp's float32 strip (16 rows of pitch LD in `e`) as T to out
-// rows [row0, row0 + 16) below tlen.
-template <typename T, int DP>
-__device__ void write_rows(const float* e, T* __restrict__ out, int row0,
-                           int tlen, int D) {
-  constexpr int LD = DP + 8;
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, c = i % D;
-    if (row0 + r < tlen)
-      out[static_cast<size_t>(row0 + r) * D + c] = Mma<T>::cast(e[r * LD + c]);
-  }
-}
-
-// ------------------------------------------------------------------ K4a
+// ------------------------------------------------------ device functions
 // mma.sync, ldmatrix and cp.async as inline PTX (sm_80 and later).
 
 // c += a . b, m16n8k16, bf16 operands, float32 accumulators
@@ -333,6 +206,127 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// acc = A . B^T for one warp: A the warp's 16 rows of a resident matrix,
+// B the BN rows of a streamed tile, both of pitch LD in shared memory;
+// acc[j] holds columns 8j + 2t, 8j + 2t + 1 of rows g and g + 8.
+template <typename T, int DP, int BN, int LD>
+__device__ __forceinline__ void tile_abt(float (&acc)[BN / 8][4],
+                                         const T* a, const T* b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int c2 = 0; c2 < DP / 32; ++c2) {
+      uint32_t a0[4], a1[4];
+      ldsm_x4(a0, a + (lane & 15) * LD + c2 * 32 + (lane >> 4) * 8);
+      ldsm_x4(a1, a + (lane & 15) * LD + c2 * 32 + 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        uint32_t kb[4];
+        ldsm_x4(kb, b + (j * 8 + (lane & 7)) * LD + c2 * 32 +
+                        (lane >> 3) * 8);
+        mma_bf16(acc[j], a0, kb[0], kb[1]);
+        mma_bf16(acc[j], a1, kb[2], kb[3]);
+      }
+    }
+  } else {
+    const float* ap = reinterpret_cast<const float*>(a) + g * LD + t;
+    const float* bp = reinterpret_cast<const float*>(b) + g * LD + t;
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t ahi[4], alo[4];
+      split_tf32(ap[kk * 8], ahi[0], alo[0]);
+      split_tf32(ap[8 * LD + kk * 8], ahi[1], alo[1]);
+      split_tf32(ap[kk * 8 + 4], ahi[2], alo[2]);
+      split_tf32(ap[8 * LD + kk * 8 + 4], ahi[3], alo[3]);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float* p = bp + j * 8 * LD + kk * 8;
+        uint32_t bhi0, blo0, bhi1, blo1;
+        split_tf32(p[0], bhi0, blo0);
+        split_tf32(p[4], bhi1, blo1);
+        mma_3xtf32(acc[j], ahi, alo, bhi0, bhi1, blo0, blo1);
+      }
+    }
+  }
+}
+
+// acc += T(x) . B for one warp: x (16 rows by BN, laid out as tile_abt
+// leaves it) is the A operand straight from registers, B the BN rows of a
+// streamed tile (pitch LD); the product contracts over those rows.
+template <typename T, int DP, int BN, int LD>
+__device__ __forceinline__ void tile_xb(float (&acc)[DP / 8][4],
+                                        const float (&x)[BN / 8][4],
+                                        const T* b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t xa[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                              pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                              pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                              pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+      for (int n2 = 0; n2 < DP / 16; ++n2) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, b + (kk * 16 + (lane & 15)) * LD + n2 * 16 +
+                              (lane >> 4) * 8);
+        mma_bf16(acc[2 * n2], xa, vb[0], vb[1]);
+        mma_bf16(acc[2 * n2 + 1], xa, vb[2], vb[3]);
+      }
+    }
+  } else {
+    const float* bp = reinterpret_cast<const float*>(b) + 2 * t * LD + g;
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      // A fragment columns t, t + 4 are rows 2t, 2t + 1 of this k step
+      uint32_t xhi[4], xlo[4];
+      split_tf32(x[kk][0], xhi[0], xlo[0]);
+      split_tf32(x[kk][2], xhi[1], xlo[1]);
+      split_tf32(x[kk][1], xhi[2], xlo[2]);
+      split_tf32(x[kk][3], xhi[3], xlo[3]);
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        const float* p = bp + kk * 8 * LD + n * 8;
+        uint32_t bhi0, blo0, bhi1, blo1;
+        split_tf32(p[0], bhi0, blo0);
+        split_tf32(p[LD], bhi1, blo1);
+        mma_3xtf32(acc[n], xhi, xlo, bhi0, bhi1, blo0, blo1);
+      }
+    }
+  }
+}
+
+// Write a warp's accumulator strip (the thread's rows row0 and row0 + 8,
+// columns 8n + 2t and 8n + 2t + 1) as T to out rows below tlen and
+// columns below D.
+template <typename T, int ND>
+__device__ __forceinline__ void store_acc(T* __restrict__ out,
+                                          const float (&acc)[ND][4],
+                                          int row0, int tlen, int D) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (col >= D) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= tlen) continue;
+      T* dst = out + static_cast<size_t>(row) * D + col;
+      if constexpr (std::is_same<T, bf16>::value)
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+      else
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K4a
 // K4a's geometry: BN keys a tile (K4A_BLOCK_K in ops/kernels/
 // flash_attn.py), a pitch of DP + 16 bytes (conflict-free ldmatrix rows in
 // bf16, 32-bit fragment loads in float32), and a ring of STAGES stages of
@@ -542,44 +536,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       oacc[n][3] *= alpha[1];
     }
 
-    // O += T(P) V
-    if constexpr (kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint32_t pa[4] = {
-            pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-            pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-            pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-            pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
-#pragma unroll
-        for (int n2 = 0; n2 < DP / 16; ++n2) {
-          uint32_t vb[4];
-          ldsm_x4_trans(vb, vs + (kk * 16 + (lane & 15)) * LD + n2 * 16 +
-                                (lane >> 4) * 8);
-          mma_bf16(oacc[2 * n2], pa, vb[0], vb[1]);
-          mma_bf16(oacc[2 * n2 + 1], pa, vb[2], vb[3]);
-        }
-      }
-    } else {
-      const float* vf = reinterpret_cast<const float*>(vs);
-#pragma unroll
-      for (int kk = 0; kk < NT; ++kk) {
-        // A fragment columns t, t + 4 are keys 2t, 2t + 1 of this k step
-        uint32_t phi[4], plo[4];
-        split_tf32(sacc[kk][0], phi[0], plo[0]);
-        split_tf32(sacc[kk][2], phi[1], plo[1]);
-        split_tf32(sacc[kk][1], phi[2], plo[2]);
-        split_tf32(sacc[kk][3], phi[3], plo[3]);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          const float* p = vf + (kk * 8 + 2 * t) * LD + n * 8 + g;
-          uint32_t bhi0, blo0, bhi1, blo1;
-          split_tf32(p[0], bhi0, blo0);
-          split_tf32(p[LD], bhi1, blo1);
-          mma_3xtf32(oacc[n], phi, plo, bhi0, bhi1, blo0, blo1);
-        }
-      }
-    }
+    tile_xb<T, DP, BN, LD>(oacc, sacc, vs);     // O += T(P) V
     __syncthreads();                     // every warp is done with stage s
     if (it + G::STAGES < ntiles) issue_tile(it + G::STAGES, s);
     cp_async_commit();
@@ -597,241 +554,265 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (col >= D) continue;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= Tq) continue;
-      T* dst = o + qoff + static_cast<size_t>(row) * D + col;
-      const float a = oacc[n][2 * r] * inv[r], c = oacc[n][2 * r + 1] * inv[r];
-      if constexpr (kBf16)
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, c);
-      else
-        *reinterpret_cast<float2*>(dst) = make_float2(a, c);
-    }
+    oacc[n][0] *= inv[0];
+    oacc[n][1] *= inv[0];
+    oacc[n][2] *= inv[1];
+    oacc[n][3] *= inv[1];
   }
+  store_acc<T>(o + qoff, oacc, row0, Tq, D);
 }
+
+// ------------------------------------------------------------ K4b, K4c
+// The backward kernels' geometry: K4a's BN and pitch; the block's 64 rows
+// of two matrices resident (K4c: Q, dO; K4b: K, V); a ring of STAGES
+// stages, each two streamed tiles and NVEC vectors of BN 32-bit values
+// (K4c: kv_valid; K4b: q_valid, lse, di).  At D = 96 that is 100-103 KB
+// in float32 (BN 32) and 79-80 KB in bf16 (BN 64): two blocks an SM,
+// which the registers allow too (ptxas: K4c 177 and K4b 209 a thread in
+// float32, 244 and 254 in bf16, no spills).  Both kernels declare a
+// minimum of one block an SM: without it ptxas traded spills for the
+// register count of a third block (168 registers and an 8-byte spill in
+// float32 at DP = 128, 16 bytes in bf16 at BN 32), and the float32
+// instances ran slower on the H100.
+template <typename T, int DP, int NVEC>
+struct BwdGeo {
+  // K4a's tiles, but 32 rows in bf16 at DP = 128, where 64 spill in K4b
+  static constexpr int BN = DP > 96 ? 32 : FwdGeo<T, DP>::BN;
+  static constexpr int LD = FwdGeo<T, DP>::LD;
+  static constexpr int STAGES = 2;
+  static constexpr size_t kRows = size_t(BM) * LD * sizeof(T);
+  static constexpr size_t kTile = size_t(BN) * LD * sizeof(T);
+  static constexpr size_t kStage = 2 * kTile + NVEC * BN * sizeof(float);
+  static constexpr size_t kSmem = 2 * kRows + STAGES * kStage;
+  static_assert(kRows % 16 == 0 && kStage % 16 == 0,
+                "tiles stay 16-byte aligned");
+};
 
 // ------------------------------------------------------------------ K4c
 template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const int* __restrict__ qvalid,
                 const int* __restrict__ kvalid, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ di,
                 T* __restrict__ dq, int H, int Tq, int Tk, int D,
                 float scale) {
-  using G = Geo<T, DP>;
-  using M = Mma<T>;
-  constexpr int BN = G::BN, LD = G::LD, LS = G::LS;
+  using G = BwdGeo<T, DP, 1>;
+  constexpr int BN = G::BN, LD = G::LD, NT = BN / 8, ND = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* dos = reinterpret_cast<T*>(smem + G::kTileM);
-  T* ks = reinterpret_cast<T*>(smem + 2 * G::kTileM);
-  T* vs = reinterpret_cast<T*>(smem + 2 * G::kTileM + G::kTileN);
-  unsigned char* rest = smem + 2 * G::kTileM + 2 * G::kTileN;
-  float* ss = reinterpret_cast<float*>(rest);
-  T* ps = G::kAlias ? reinterpret_cast<T*>(ss)
-                    : reinterpret_cast<T*>(rest + G::kS);
-  float* scratch = reinterpret_cast<float*>(rest + G::kS + G::kP);
-  int* qv_s = reinterpret_cast<int*>(rest + G::kS + G::kP + G::kScratch);
-  float* lse_s = reinterpret_cast<float*>(qv_s + BM);
-  float* di_s = lse_s + BM;
-  int* kv_s = reinterpret_cast<int*>(di_s + BM);
+  T* dos = reinterpret_cast<T*>(smem + G::kRows);
+  auto stage = [&](int s) { return smem + 2 * G::kRows + s * G::kStage; };
+  auto ktile = [&](int s) { return reinterpret_cast<T*>(stage(s)); };
+  auto vtile = [&](int s) {
+    return reinterpret_cast<T*>(stage(s) + G::kTile);
+  };
+  auto kvtile = [&](int s) {
+    return reinterpret_cast<int*>(stage(s) + 2 * G::kTile);
+  };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;       // fragment row, quad lane
   const int bh = blockIdx.y, b = bh / H;
   const int q0 = blockIdx.x * BM;
   const size_t qoff = static_cast<size_t>(bh) * Tq * D;
   const size_t koff = static_cast<size_t>(bh) * Tk * D;
+  const int* kvb = kvalid + static_cast<size_t>(b) * Tk;
+  const int ntiles = (Tk + BN - 1) / BN;
 
-  stage<T, DP>(qs, q + qoff, q0, BM, Tq, D);
-  stage<T, DP>(dos, dout + qoff, q0, BM, Tq, D);
-  for (int i = threadIdx.x; i < BM; i += THREADS) {
-    const bool in = q0 + i < Tq;
-    const size_t row = static_cast<size_t>(bh) * Tq + q0 + i;
-    qv_s[i] = in ? qvalid[static_cast<size_t>(b) * Tq + q0 + i] : 0;
-    lse_s[i] = in ? lse[row] : 0.f;
-    di_s[i] = in ? di[row] : 0.f;
+  auto issue_tile = [&](int tile, int s) {
+    const int k0 = tile * BN;
+    load_rows_async<T, DP, LD>(ktile(s), k + koff, k0, BN, Tk, D);
+    load_rows_async<T, DP, LD>(vtile(s), v + koff, k0, BN, Tk, D);
+    for (int i = threadIdx.x; i < BN; i += THREADS)
+      cp_async4(kvtile(s) + i, k0 + i < Tk ? kvb + k0 + i : kvb,
+                k0 + i < Tk);
+  };
+
+  // Q and dO go with tile 0, then tile 1: one commit group per tile
+  // (possibly empty), so that wait_group<1> at the top of step i means
+  // tile i has landed
+  load_rows_async<T, DP, LD>(qs, q + qoff, q0, BM, Tq, D);
+  load_rows_async<T, DP, LD>(dos, dout + qoff, q0, BM, Tq, D);
+  issue_tile(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) issue_tile(1, 1);
+  cp_async_commit();
+
+  // the statistics of the thread's rows row0 and row0 + 8
+  const int row0 = q0 + warp * 16 + g;
+  bool in[2];
+  int qv[2];
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    in[r] = row < Tq;
+    const size_t i = static_cast<size_t>(bh) * Tq + row;
+    qv[r] = in[r] ? qvalid[static_cast<size_t>(b) * Tq + row] : 0;
+    lse_r[r] = in[r] ? lse[i] : 0.f;
+    di_r[r] = in[r] ? di[i] : 0.f;
   }
-
+  float dqacc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    dqacc[n][0] = dqacc[n][1] = dqacc[n][2] = dqacc[n][3] = 0.f;
   const T* qw = qs + warp * 16 * LD;
   const T* dow = dos + warp * 16 * LD;
-  float* sw = ss + warp * 16 * LS;
-  T* pw = ps + warp * 16 * LS;
-  float* scr = scratch + warp * 256;
-  const int* qvw = qv_s + warp * 16;
-  const float* lsew = lse_s + warp * 16;
-  const float* diw = di_s + warp * 16;
 
-  typename M::Acc dqacc[DP / 16];
-  zero(dqacc);
-  for (int k0 = 0; k0 < Tk; k0 += BN) {
-    __syncthreads();
-    stage<T, DP>(ks, k + koff, k0, BN, Tk, D);
-    stage<T, DP>(vs, v + koff, k0, BN, Tk, D);
-    for (int i = threadIdx.x; i < BN; i += THREADS)
-      kv_s[i] = k0 + i < Tk ? kvalid[static_cast<size_t>(b) * Tk + k0 + i]
-                            : 0;
-    __syncthreads();
-    {
-      typename M::Acc acc[BN / 16];
-      zero(acc);
-      M::template strip<true, BN / 16>(acc, qw, LD, ks, LD, DP);
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<1>();
+    __syncthreads();                     // tile it is in stage it % 2
+    const int s = it % G::STAGES, k0 = it * BN;
+    const int* kvs = kvtile(s);
+    float sacc[NT][4], dpacc[NT][4];
+    tile_abt<T, DP, BN, LD>(sacc, qw, ktile(s));
+    tile_abt<T, DP, BN, LD>(dpacc, dow, vtile(s));
+    // p = exp(s - lse), then ds = ((dp - di) * p) * scale in place of s
 #pragma unroll
-      for (int n = 0; n < BN / 16; ++n)
-        wmma::store_matrix_sync(sw + n * 16, acc[n], LS,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * BN; i += 32) {
-      const int rr = i / BN, c = i % BN;
-      float p = 0.f;
-      if (k0 + c < Tk)
-        p = expf(logit(sw[rr * LS + c], scale, qvw[rr], kv_s[c]) - lsew[rr]);
-      sw[rr * LS + c] = p;
-    }
-    __syncwarp();
-    // dp, 16 columns at a time, then ds = ((dp - di) * p) * scale
-#pragma unroll 1
-    for (int n = 0; n < BN / 16; ++n) {
-      typename M::Acc acc[1];
-      zero(acc);
-      M::template strip<true, 1>(acc, dow, LD, vs + n * 16 * LD, LD, DP);
-      wmma::store_matrix_sync(scr, acc[0], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int i = lane; i < 256; i += 32) {
-        const int rr = i >> 4, c = n * 16 + (i & 15);
-        const float p = sw[rr * LS + c];
-        pw[rr * LS + c] = M::cast(((scr[i] - diw[rr]) * p) * scale);
+    for (int j = 0; j < NT; ++j) {
+      const int c = j * 8 + 2 * t;
+      const int2 kv2 = *reinterpret_cast<const int2*>(kvs + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, odd = e & 1;
+        const float p =
+            in[r] && k0 + c + odd < Tk
+                ? __expf(logit(sacc[j][e], scale, qv[r],
+                               odd ? kv2.y : kv2.x) - lse_r[r])
+                : 0.f;
+        sacc[j][e] = ((dpacc[j][e] - di_r[r]) * p) * scale;
       }
-      __syncwarp();
     }
-    M::template strip<false, DP / 16>(dqacc, pw, LS, ks, LD, BN);
+    tile_xb<T, DP, BN, LD>(dqacc, sacc, ktile(s));   // dQ += T(dS) K
+    __syncthreads();                     // every warp is done with stage s
+    if (it + G::STAGES < ntiles) issue_tile(it + G::STAGES, s);
+    cp_async_commit();
   }
-  __syncthreads();
-  float* ew = reinterpret_cast<float*>(ks) + warp * 16 * LD;
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n)
-    wmma::store_matrix_sync(ew + n * 16, dqacc[n], LD, wmma::mem_row_major);
-  __syncwarp();
-  write_rows<T, DP>(ew, dq + qoff, q0 + warp * 16, Tq, D);
+  cp_async_wait<0>();
+  store_acc<T>(dq + qoff, dqacc, row0, Tq, D);
 }
 
 // ------------------------------------------------------------------ K4b
 template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ qvalid,
                  const int* __restrict__ kvalid, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ di,
                  T* __restrict__ dk, T* __restrict__ dv, int H, int Tq,
                  int Tk, int D, float scale) {
-  using G = Geo<T, DP>;
-  using M = Mma<T>;
-  constexpr int BN = G::BN, LD = G::LD, LS = G::LS;
+  using G = BwdGeo<T, DP, 3>;
+  constexpr int BN = G::BN, LD = G::LD, NT = BN / 8, ND = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
-  T* vs = reinterpret_cast<T*>(smem + G::kTileM);
-  T* qs = reinterpret_cast<T*>(smem + 2 * G::kTileM);
-  T* dos = reinterpret_cast<T*>(smem + 2 * G::kTileM + G::kTileN);
-  unsigned char* rest = smem + 2 * G::kTileM + 2 * G::kTileN;
-  float* ss = reinterpret_cast<float*>(rest);
-  T* ps = G::kAlias ? reinterpret_cast<T*>(ss)
-                    : reinterpret_cast<T*>(rest + G::kS);
-  float* scratch = reinterpret_cast<float*>(rest + G::kS + G::kP);
-  int* qv_s = reinterpret_cast<int*>(rest + G::kS + G::kP + G::kScratch);
-  float* lse_s = reinterpret_cast<float*>(qv_s + BN);
-  float* di_s = lse_s + BN;
-  int* kv_s = reinterpret_cast<int*>(di_s + BN);
+  T* vs = reinterpret_cast<T*>(smem + G::kRows);
+  auto stage = [&](int s) { return smem + 2 * G::kRows + s * G::kStage; };
+  auto qtile = [&](int s) { return reinterpret_cast<T*>(stage(s)); };
+  auto dotile = [&](int s) {
+    return reinterpret_cast<T*>(stage(s) + G::kTile);
+  };
+  // q_valid | lse | di of the tile's queries
+  auto vec = [&](int s, int i) { return stage(s) + 2 * G::kTile +
+                                        i * BN * sizeof(float); };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;       // fragment row, quad lane
   const int bh = blockIdx.y, b = bh / H;
   const int k0 = blockIdx.x * BM;
   const size_t qoff = static_cast<size_t>(bh) * Tq * D;
   const size_t koff = static_cast<size_t>(bh) * Tk * D;
+  const int* qvb = qvalid + static_cast<size_t>(b) * Tq;
+  const float* lseb = lse + static_cast<size_t>(bh) * Tq;
+  const float* dib = di + static_cast<size_t>(bh) * Tq;
+  const int ntiles = (Tq + BN - 1) / BN;
 
-  stage<T, DP>(ks, k + koff, k0, BM, Tk, D);
-  stage<T, DP>(vs, v + koff, k0, BM, Tk, D);
-  for (int i = threadIdx.x; i < BM; i += THREADS)
-    kv_s[i] = k0 + i < Tk ? kvalid[static_cast<size_t>(b) * Tk + k0 + i] : 0;
+  auto issue_tile = [&](int tile, int s) {
+    const int i0 = tile * BN;
+    load_rows_async<T, DP, LD>(qtile(s), q + qoff, i0, BN, Tq, D);
+    load_rows_async<T, DP, LD>(dotile(s), dout + qoff, i0, BN, Tq, D);
+    for (int i = threadIdx.x; i < BN; i += THREADS) {
+      const bool ok = i0 + i < Tq;
+      const int at = ok ? i0 + i : 0;
+      cp_async4(vec(s, 0) + i * sizeof(int), qvb + at, ok);
+      cp_async4(vec(s, 1) + i * sizeof(float), lseb + at, ok);
+      cp_async4(vec(s, 2) + i * sizeof(float), dib + at, ok);
+    }
+  };
 
+  // K and V go with tile 0, then tile 1 (one commit group per tile)
+  load_rows_async<T, DP, LD>(ks, k + koff, k0, BM, Tk, D);
+  load_rows_async<T, DP, LD>(vs, v + koff, k0, BM, Tk, D);
+  issue_tile(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) issue_tile(1, 1);
+  cp_async_commit();
+
+  // the validity of the thread's keys krow0 and krow0 + 8
+  const int krow0 = k0 + warp * 16 + g;
+  bool in[2];
+  int kv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow0 + 8 * r;
+    in[r] = row < Tk;
+    kv[r] = in[r] ? kvalid[static_cast<size_t>(b) * Tk + row] : 0;
+  }
+  float dkacc[ND][4], dvacc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    dkacc[n][0] = dkacc[n][1] = dkacc[n][2] = dkacc[n][3] = 0.f;
+    dvacc[n][0] = dvacc[n][1] = dvacc[n][2] = dvacc[n][3] = 0.f;
+  }
   const T* kw = ks + warp * 16 * LD;
   const T* vw = vs + warp * 16 * LD;
-  float* sw = ss + warp * 16 * LS;
-  T* pw = ps + warp * 16 * LS;
-  float* scr = scratch + warp * 256;
-  const int* kvw = kv_s + warp * 16;
-  const int krow0 = k0 + warp * 16;
 
-  typename M::Acc dkacc[DP / 16], dvacc[DP / 16];
-  zero(dkacc);
-  zero(dvacc);
-  for (int i0 = 0; i0 < Tq; i0 += BN) {
-    __syncthreads();
-    stage<T, DP>(qs, q + qoff, i0, BN, Tq, D);
-    stage<T, DP>(dos, dout + qoff, i0, BN, Tq, D);
-    for (int i = threadIdx.x; i < BN; i += THREADS) {
-      const bool in = i0 + i < Tq;
-      const size_t row = static_cast<size_t>(bh) * Tq + i0 + i;
-      qv_s[i] = in ? qvalid[static_cast<size_t>(b) * Tq + i0 + i] : 0;
-      lse_s[i] = in ? lse[row] : 0.f;
-      di_s[i] = in ? di[row] : 0.f;
-    }
-    __syncthreads();
-    // s^T for the warp's 16 keys against the BN queries
-    {
-      typename M::Acc acc[BN / 16];
-      zero(acc);
-      M::template strip<true, BN / 16>(acc, kw, LD, qs, LD, DP);
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<1>();
+    __syncthreads();                     // tile it is in stage it % 2
+    const int s = it % G::STAGES, i0 = it * BN;
+    const int* qvs = reinterpret_cast<const int*>(vec(s, 0));
+    const float* lses = reinterpret_cast<const float*>(vec(s, 1));
+    const float* dis = reinterpret_cast<const float*>(vec(s, 2));
+    // p^T = exp(s^T - lse) in place: column c is query i0 + c
+    float sacc[NT][4];
+    tile_abt<T, DP, BN, LD>(sacc, kw, qtile(s));
 #pragma unroll
-      for (int n = 0; n < BN / 16; ++n)
-        wmma::store_matrix_sync(sw + n * 16, acc[n], LS,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * BN; i += 32) {
-      const int rr = i / BN, c = i % BN;
-      float p = 0.f;
-      if (i0 + c < Tq && krow0 + rr < Tk)
-        p = expf(logit(sw[rr * LS + c], scale, qv_s[c], kvw[rr]) - lse_s[c]);
-      sw[rr * LS + c] = p;
-      pw[rr * LS + c] = M::cast(p);
-    }
-    __syncwarp();
-    M::template strip<false, DP / 16>(dvacc, pw, LS, dos, LD, BN);
-    __syncwarp();
-    // dp^T = v . do^T, 16 query columns at a time; ds^T overwrites p^T
-#pragma unroll 1
-    for (int n = 0; n < BN / 16; ++n) {
-      typename M::Acc acc[1];
-      zero(acc);
-      M::template strip<true, 1>(acc, vw, LD, dos + n * 16 * LD, LD, DP);
-      wmma::store_matrix_sync(scr, acc[0], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int i = lane; i < 256; i += 32) {
-        const int rr = i >> 4, c = n * 16 + (i & 15);
-        const float p = sw[rr * LS + c];
-        pw[rr * LS + c] = M::cast(((scr[i] - di_s[c]) * p) * scale);
+    for (int j = 0; j < NT; ++j) {
+      const int c = j * 8 + 2 * t;
+      const int2 qv2 = *reinterpret_cast<const int2*>(qvs + c);
+      const float2 l2 = *reinterpret_cast<const float2*>(lses + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, odd = e & 1;
+        sacc[j][e] = in[r] && i0 + c + odd < Tq
+                         ? __expf(logit(sacc[j][e], scale,
+                                        odd ? qv2.y : qv2.x, kv[r]) -
+                                  (odd ? l2.y : l2.x))
+                         : 0.f;
       }
-      __syncwarp();
     }
-    M::template strip<false, DP / 16>(dkacc, pw, LS, qs, LD, BN);
+    tile_xb<T, DP, BN, LD>(dvacc, sacc, dotile(s));  // dV += T(P^T) dO
+    // ds^T = ((dp^T - di) * p^T) * scale in place of p^T
+    float dpacc[NT][4];
+    tile_abt<T, DP, BN, LD>(dpacc, vw, dotile(s));
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(dis + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sacc[j][e] =
+            ((dpacc[j][e] - ((e & 1) ? d2.y : d2.x)) * sacc[j][e]) * scale;
+    }
+    tile_xb<T, DP, BN, LD>(dkacc, sacc, qtile(s));   // dK += T(dS^T) Q
+    __syncthreads();                     // every warp is done with stage s
+    if (it + G::STAGES < ntiles) issue_tile(it + G::STAGES, s);
+    cp_async_commit();
   }
-  __syncthreads();
-  float* ew = reinterpret_cast<float*>(qs) + warp * 16 * LD;
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n)
-    wmma::store_matrix_sync(ew + n * 16, dkacc[n], LD, wmma::mem_row_major);
-  __syncwarp();
-  write_rows<T, DP>(ew, dk + koff, krow0, Tk, D);
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n)
-    wmma::store_matrix_sync(ew + n * 16, dvacc[n], LD, wmma::mem_row_major);
-  __syncwarp();
-  write_rows<T, DP>(ew, dv + koff, krow0, Tk, D);
+  cp_async_wait<0>();
+  store_acc<T>(dk + koff, dkacc, krow0, Tk, D);
+  store_acc<T>(dv + koff, dvacc, krow0, Tk, D);
 }
 
 bool bad_args(int B, int H, int Tq, int Tk, int D) {
@@ -871,7 +852,7 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* qv,
                float scale, cudaStream_t s) {
   const dim3 grid((Tq + BM - 1) / BM, B * H);
   auto kernel = flash_dq_kernel<T, DP>;
-  return run(kernel, Geo<T, DP>::kDq, [&](size_t smem) {
+  return run(kernel, BwdGeo<T, DP, 1>::kSmem, [&](size_t smem) {
     kernel<<<grid, THREADS, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(qv),
@@ -888,7 +869,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* qv,
                 int Tk, int D, float scale, cudaStream_t s) {
   const dim3 grid((Tk + BM - 1) / BM, B * H);
   auto kernel = flash_dkv_kernel<T, DP>;
-  return run(kernel, Geo<T, DP>::kDkv, [&](size_t smem) {
+  return run(kernel, BwdGeo<T, DP, 3>::kSmem, [&](size_t smem) {
     kernel<<<grid, THREADS, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(qv),

@@ -22,13 +22,15 @@ from ..ops.kernels.flash_attn import flash_attention, flash_head_dim_supported
 
 __all__ = ["make_flash_attn_core", "make_auto_attn_core", "AUTO_FLASH_MIN_T"]
 
-# The JAX package's crossover, measured on a TPU v5e (fp32 FastSpeech2
-# train steps at constant tokens): 'auto' takes flash attention once both
-# lengths reach it, at the head widths K4 takes (dense at every other).
-# Kept for parity: where 'auto' should switch on an H100 is decided with
-# fs2_sweep.py once all three K4 passes are redesigned, since a training
-# step runs all three (PERF.md, "Open questions").
-AUTO_FLASH_MIN_T = 1024
+# 'auto' takes flash attention once both lengths reach this, at the head
+# widths K4 takes (dense at every other).  Measured on an NVIDIA H100 80GB
+# HBM3 at 700 W with fs2_sweep.py (float32 FastSpeech2 train steps at
+# 16,384 frame tokens, adim 384 over 4 heads), two runs: the flash step
+# over the dense one is 0.958 and 0.967 at 512 frames, 0.934-0.940 at
+# 1024, 0.902-0.904 at 2048, 0.822-0.838 at 4096 and 0.752-0.760 at 8192;
+# no-grad inference 0.60-0.94.  512 is the shortest length measured, so
+# 'auto' switches there (PERF.md, section 6).
+AUTO_FLASH_MIN_T = 512
 
 
 def _validity(mask, b, tq, tk, device=None):
@@ -87,7 +89,7 @@ def make_auto_attn_core(*, threshold: int = AUTO_FLASH_MIN_T,
     raises at a width K4 does not take).  ``dense_fallback = True`` makes
     ``MultiHeadAttention`` fall back to dense, instead of raising, when
     training with attention-weight dropout.  The default threshold is the
-    TPU's (``AUTO_FLASH_MIN_T``)."""
+    H100's (``AUTO_FLASH_MIN_T``)."""
     flash = make_flash_attn_core(seq_block=seq_block)
 
     def dispatch(q, k, v, mask=None):

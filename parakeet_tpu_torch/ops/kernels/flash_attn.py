@@ -36,10 +36,20 @@ versions below, which state the kernels' arithmetic:
   T(ds)^T q``, ``dq = T(ds) k``, float32 sums, each cast to its input's
   type.
 
-The kernels sum in another order (and float32 products run as 3xTF32
-splits), so they agree with the plain versions to float32 rounding, and
-to a bf16 rounding of p or ds in bf16.  Out-of-range rows are masked by
-the kernels themselves: no caller pads T.
+The three kernels are written for the H100 with ``mma.sync`` fragments
+(the source's header has the details): each block owns 64 rows and
+walks the other sequence in tiles double-buffered by ``cp.async`` (32
+rows in float32; 64 in bf16, but 32 in the backward passes at D above
+96), and the scores, p, dp and ds never leave registers.  K4a owns
+query rows and makes one pass over the keys with the online softmax; K4c
+owns query rows and streams key tiles; K4b owns key rows and streams
+query tiles.  The backward passes use the
+final lse, so they round where the plain versions do, and they have no
+atomics: two runs give bit-identical gradients.  The kernels sum in
+another order (and float32 products run as 3xTF32 splits), so they agree
+with the plain versions to float32 rounding, and to a bf16 rounding of p
+or ds in bf16.  Out-of-range rows are masked by the kernels themselves:
+no caller pads T.
 """
 from __future__ import annotations
 

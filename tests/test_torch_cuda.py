@@ -335,7 +335,12 @@ def _k4_inputs(cuda, b, h, tq, tk, d, dtype, key_lengths, mask_rows, seed):
     # FastSpeech2's encoder self-attention (flash_sweep widths, 64 tokens)
     (4, 4, 64, 64, 96, (64, 48, 57, 50), False),
     # Tk a multiple of neither key tile, Tq != Tk, masked query rows
-    (2, 2, 130, 211, 64, (211, 100), False)])
+    (2, 2, 130, 211, 64, (211, 100), False),
+    # FastSpeech2's decoder self-attention (flash_sweep widths, 1024
+    # frames) at a small batch, ragged key lengths
+    (2, 4, 1024, 1024, 96, (1024, 731), False),
+    # D = 80, padded to DP = 96 with zero columns; masked query rows
+    (2, 2, 333, 333, 80, (333, 250), True)])
 def test_k4_matches_plain_versions(cuda, dtype, b, h, tq, tk, d,
                                    key_lengths, mask_rows):
     """K4a against the plain version unblocked and blocked at its own key
