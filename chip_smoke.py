@@ -325,24 +325,29 @@ def phase_card():
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path}; spills: "
           + (" | ".join(spills) or "none"))
-    print("ptxas, K4: " + ", ".join(
-        f"{name} {regs} ({st + ld})" for name, regs, st, ld in entries
-        if name.startswith("flash_")) + " (registers a thread, spill bytes)")
+    for tag, prefix in (("K2b", "k2b_"), ("K4", "flash_")):
+        print(f"ptxas, {tag}: " + ", ".join(
+            f"{name} {regs} ({st + ld})" for name, regs, st, ld in entries
+            if name.startswith(prefix)) + " (registers a thread, spill "
+            "bytes)")
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # a kernel of csrc/ in the anonymous namespace of its file: its name, then
-# K4's template arguments (element type, DP)
+# K4's template arguments (element type, DP) or another kernel's first
+# integer one (K2b's and K1's residual width)
 _KERNEL_NAME = re.compile(
-    r"_cu_[0-9a-f]+\d+([A-Za-z]\w*?)(?:I(f|13__nv_bfloat16)Li(\d+)E|I|E)")
+    r"_cu_[0-9a-f]+\d+([A-Za-z]\w*?)"
+    r"(?:I(f|13__nv_bfloat16)Li(\d+)E|ILi(\d+)E|I|E)")
 
 
 def ptxas_entries(log):
     """(kernel, registers, spill bytes stored, loaded) of each entry
     function in an ``nvcc -Xptxas -v`` log; K4's kernels are named with
-    their element type and DP, as ``flash_dq_kernel<float, 96>``."""
+    their element type and DP, as ``flash_dq_kernel<float, 96>``, others
+    with a first integer template argument, as ``k2b_dw_kernel<64>``."""
     entries, name, spill = [], None, (0, 0)
     for ln in log.splitlines():
         if m := _PTXAS_ENTRY.search(ln):
@@ -351,6 +356,8 @@ def ptxas_entries(log):
             if k is not None and k.group(2):
                 dtype = "float" if k.group(2) == "f" else "bf16"
                 name += f"<{dtype}, {k.group(3)}>"
+            elif k is not None and k.group(4):
+                name += f"<{k.group(4)}>"
             spill = (0, 0)
         elif m := _PTXAS_SPILL.search(ln):
             spill = (int(m.group(1)), int(m.group(2)))
@@ -553,6 +560,23 @@ def _record(name, source, replaces, errs, ms, plain_ms, limit,
             "plain_ms": plain_ms, **limit, "library_ms": library_ms}
 
 
+def k2b_passes(k2, saved, c16, wg16, wso16, dxo, dsk, dil):
+    """Each K2b pass's median time over one group (CUDA events around its
+    launches), the bytes it must move (from the shapes) and the rate."""
+    b, t = dxo.shape[:2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = k2.time_group_backward_passes(saved, c16, wg16, wso16, dxo, dsk,
+                                       dilations=dil)
+    moved = k2.k2b_pass_bytes(b, t, dxo.shape[-1], c16.shape[-1], len(dil),
+                              k2.k2b_chunks(b * t, sms)[0])
+    print(f"K2b passes B={b} T={t} (median ms over the group, bytes "
+          "reckoned from the shapes, GB/s): " + ", ".join(
+              f"{k} {ms[k]:.4f} ms {moved[k] / 1e6:.1f} MB "
+              f"{moved[k] / ms[k] / 1e6:.0f} GB/s" for k in ms)
+          + f"; sum {sum(ms.values()):.4f} ms, {sum(moved.values()) / 1e6:.1f}"
+          f" MB, {sum(moved.values()) / sum(ms.values()) / 1e6:.0f} GB/s")
+
+
 def phase_k2():
     """K2a and K2b against their plain versions on one group of ten
     layers of the recipe's stack; returns their records."""
@@ -610,6 +634,7 @@ def phase_k2():
         print(f"K2b B={b} T={t}: {_report('K2b', held_b)}; bit-identical "
               f"on a second run; kernel {ms_b:.4f} ms, plain {plain_b:.4f} "
               f"ms (median)")
+        k2b_passes(k2, got[2], c16, wg16, wso16, dxo, dsk, dil)
     row_layers = b * t * per
     limit_a = bound(nbytes(x, c16, wg16, wso16, bso, *got),
                     row_layers * STACK_FWD_FLOPS, torch.bfloat16)
@@ -731,19 +756,22 @@ def _train_counters():
 def expected_launches(disc_on, vjp_mode="save"):
     """Kernel launches of one train step at the recipe's widths.
 
-    Generator update: K2a once per layer; K2b gate, dw and dx per layer
-    and one reduction per group.  GAN steps add the discriminator on the
-    fake (K3a), its input gradient only (the discriminator's weights are
-    constants there), the regeneration of the fake without a gradient
-    (K1, once per layer), and the discriminator update: K3a on real and
-    fake, each with the gradients of h and the weights.  With
-    ``vjp_mode='save'`` K3a saves and K3b runs its reverse pass for the
-    input gradient, and its reverse pass, dW pass and two reductions for
-    each update; with 'recompute' K3a saves nothing and K3c runs once for
-    the input gradient, and once with two reductions for each update.
+    Generator update: K2a once per layer; K2b per group a prep, gate, dw
+    and dx per layer, and one reduction (``k2b_launches``).  GAN steps
+    add the discriminator on the fake (K3a), its input gradient only (the
+    discriminator's weights are constants there), the regeneration of the
+    fake without a gradient (K1, once per layer), and the discriminator
+    update: K3a on real and fake, each with the gradients of h and the
+    weights.  With ``vjp_mode='save'`` K3a saves and K3b runs its reverse
+    pass for the input gradient, and its reverse pass, dW pass and two
+    reductions for each update; with 'recompute' K3a saves nothing and K3c
+    runs once for the input gradient, and once with two reductions for
+    each update.
     """
+    from parakeet_tpu_torch.ops.kernels.pwg_stack_train import k2b_launches
     layers, stacks = PWG_CONFIG["layers"], PWG_CONFIG["stacks"]
-    n = {"K1": 0, "K2a": layers, "K2b": 3 * layers + stacks, "K3a": 0,
+    n = {"K1": 0, "K2a": layers,
+         "K2b": stacks * k2b_launches(layers // stacks), "K3a": 0,
          "K3b": 0, "K3c": 0}
     if disc_on:
         n.update(K1=layers, K3a=1 + 2)

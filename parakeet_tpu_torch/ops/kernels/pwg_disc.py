@@ -41,13 +41,24 @@ import torch
 
 from ..geometry import time_shift
 from .pwg_stack import _bf, check_launch, check_tensor, kernel_call
-from .pwg_stack_train import dw_chunks
 
 __all__ = ["fused_disc_tail", "fused_disc_supported", "DISC_TAIL_DILS",
            "VJP_MODES", "pack_disc_weights", "fused_disc_forward",
            "fused_disc_backward", "fused_disc_backward_recompute",
            "disc_forward_reference", "disc_backward_reference",
            "disc_backward_recompute_reference"]
+
+_TK = 64            # rows per step of the dW kernel (pwg_disc.cu TK)
+
+
+def dw_chunks(rows: int, device: torch.device):
+    """(chunks, rows per chunk) of a weight-gradient pass: one chunk per
+    SM, each a multiple of the kernel's 64-row step."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per = -(-rows // sms)
+    per = -(-per // _TK) * _TK
+    return -(-rows // per), per
+
 
 # layers 1..8 (dilation = layer index) + the k=3 d=1 output conv
 DISC_TAIL_DILS = (1, 2, 3, 4, 5, 6, 7, 8, 1)

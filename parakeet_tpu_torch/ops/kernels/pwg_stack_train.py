@@ -10,10 +10,11 @@ packing stay in autograd.  Without autograd, or when nothing needs a
 gradient, ``ResidualStack`` runs K1 instead.
 
 On CUDA tensors the backward launches the kernels of
-``parakeet_tpu_torch/csrc/pwg_stack_bwd.cu`` (three per layer and one
-reduction per group; ``fused_group_backward.launches`` counts them) or
-raises; on CPU tensors it runs ``group_backward_reference``, the plain
-statement of the same arithmetic.  The gradient is the exact transpose of
+``parakeet_tpu_torch/csrc/pwg_stack_bwd.cu`` (``k2b_launches``: a prep
+pass, then gate, dw and dx per layer, and one reduction per group;
+``fused_group_backward.launches`` counts them) or raises; on CPU tensors
+it runs ``group_backward_reference``, the plain statement of the same
+arithmetic.  The gradient is the exact transpose of
 the bf16 forward, as on the TPU: dx, dh, da, db and dc stay float32 and
 only the products' operands dso and dg are rounded to bf16.  The bf16
 rounding of x at a group's entry and exit passes the gradient through.
@@ -22,21 +23,23 @@ from __future__ import annotations
 
 import ctypes
 import math
+import statistics
 from typing import Dict, Sequence
 
 import torch
 
 from ..geometry import time_shift
-from .pwg_stack import (_bf, _check_stack_args, aux_operand,
+from .pwg_stack import (_aux_width, _bf, _check_stack_args, aux_operand,
                         check_launch, check_tensor, fused_group_forward_save,
                         group_operand, kernel_call, pack_stack_weights)
 
 __all__ = ["fused_residual_stack_train", "fused_group_backward",
-           "group_backward_reference"]
+           "group_backward_reference", "k2b_launches", "k2b_chunks",
+           "k2b_smem_bytes", "k2b_pass_bytes", "aux_rows",
+           "time_group_backward_passes"]
 
 _SQRT_HALF = math.sqrt(0.5)
 _F32, _BF16 = torch.float32, torch.bfloat16
-_TK = 64            # rows per step of the dw kernel (pwg_stack_bwd.cu TK)
 
 
 def group_backward_reference(saved, c, wg, wso, dx_out, dskip, *,
@@ -82,23 +85,95 @@ def group_backward_reference(saved, c, wg, wso, dx_out, dskip, *,
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_GATE_ARGS = (_P,) * 8 + (_I,) * 6 + (_P,)
-_DX_ARGS = (_P,) * 6 + (_I,) * 7 + (_P,)
-_DW_ARGS = (_P,) * 7 + (_I,) * 8 + (_LL, _P)
-_REDUCE_ARGS = (_P, _P, _I, _LL, _P)
+_ARGS = {
+    "pwg_stack_bwd_prep": (_P,) * 3 + (_I,) * 5 + (_P,),
+    "pwg_stack_bwd_gate": (_P,) * 9 + (_I,) * 9 + (_LL, _P),
+    "pwg_stack_bwd_dw": (_P,) * 4 + (_I,) * 9 + (_LL, _P),
+    "pwg_stack_bwd_dx": (_P,) * 6 + (_I,) * 9 + (_P,),
+    "pwg_reduce_partials": (_P, _P, _I, _LL, _P),
+}
+# which pass each launch belongs to (``time_group_backward_passes``)
+_PASS = {"pwg_stack_bwd_prep": "prep", "pwg_stack_bwd_gate": "gate",
+         "pwg_stack_bwd_dw": "dw", "pwg_stack_bwd_dx": "dx",
+         "pwg_reduce_partials": "reduce"}
+
+# pwg_stack_bwd.cu's geometry: rows per tile, threads per block, the
+# stages of each pass's cp.async ring
+K2B_TILE_ROWS, K2B_THREADS = 64, 256
+_STAGES = {"gate": 2, "dw": 3, "dx": 2}
+# the most dynamic shared memory a block may have on the H100 (227 KB)
+SMEM_LIMIT = 232_448
 
 
-def dw_chunks(rows: int, device: torch.device):
-    """(chunks, rows per chunk) of a weight-gradient pass: one chunk per
-    SM, each a multiple of the kernel's 64-row step."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def k2b_launches(layers: int, need_weights: bool = True) -> int:
+    """Kernel launches of K2b for one group of ``layers`` layers: the
+    prep, then gate and dx per layer, with the weight gradients dw per
+    layer and one reduction."""
+    return 3 * layers + 2 if need_weights else 2 * layers + 1
+
+
+def k2b_chunks(rows: int, sms: int):
+    """(chunks, rows per chunk): every K2b pass gives each of at most
+    ``sms`` blocks one contiguous chunk of the flattened rows, and each
+    chunk's weight-gradient partials are added in chunk order."""
     per = -(-rows // sms)
-    per = -(-per // _TK) * _TK
     return -(-rows // per), per
 
 
+def k2b_smem_bytes(cr: int, ca: int):
+    """Dynamic shared memory of each K2b kernel a block (the prep kernel's
+    4 KB are static), as pwg_stack_bwd.cu computes it (``gate_elems``,
+    ``dw_elems``, ``dx_elems``): the weights stay resident, the streamed
+    row tiles have their stages.  Rows are padded by 8 elements."""
+    kp = 3 * cr + _aux_width(ca)
+    cap = -(-ca // 16) * 16
+    tm = K2B_TILE_ROWS
+    gate = ((kp + cr) * (2 * cr + 8) + _STAGES["gate"] * tm * (kp + cr + 16)
+            + 2 * tm * (cr + 8))
+    dw = _STAGES["dw"] * tm * (kp + 8 + 2 * cr + 8)
+    dx = (6 * cr * (cr + 8) + 2 * cr * (cap + 8)
+          + _STAGES["dx"] * 3 * tm * (2 * cr + 8))
+    return {"prep": 16 * K2B_THREADS, "gate": 2 * gate, "dw": 2 * dw,
+            "dx": 2 * dx}
+
+
+def k2b_pass_bytes(b: int, t: int, cr: int, ca: int, layers: int,
+                   chunks: int, need_weights: bool = True):
+    """Device-memory bytes each K2b pass must move for one group, counted
+    from the shapes: each operand read once and each result written once
+    (the shifted taps are the same rows as the centre's), partials
+    included.  Keys as ``time_group_backward_passes``."""
+    rows = b * t
+    kp = 3 * cr + _aux_width(ca)
+    g = 2 * cr
+    w = 1 if need_weights else 0
+    prep = rows * cr * (4 + 2) + w * chunks * cr * 4
+    gate = layers * (rows * (cr * 2 + ca * 2 + cr * 4 + cr * 2 + g * 2)
+                     + w * chunks * (cr + 1) * g * 4)
+    dx = layers * rows * (g * 2 + cr * 4 + cr * 4 + ca * 4) \
+        + (layers - 1) * rows * ca * 4
+    out = {"prep": prep, "gate": gate, "dx": dx}
+    if need_weights:
+        part = layers * (kp + cr + 1) * g * 4
+        out["dw"] = layers * (rows * (cr * 2 + ca * 2 + g * 2)
+                              + chunks * kp * g * 4)
+        out["reduce"] = chunks * part + part
+    return out
+
+
+def aux_rows(c16: torch.Tensor, kp: int, cr: int):
+    """c as the K2b kernels read the gate operand's aux columns, and its
+    width: c16 itself where its rows are 16-byte vectors (ca % 8 == 0; the
+    kernels add the 1 and the zeros), else the bf16 [c | 1 | 0] of
+    ``aux_operand`` (kp - 3cr columns), built once per group."""
+    ca = c16.shape[-1]
+    if ca % 8 == 0:
+        return c16, ca
+    return aux_operand(c16, kp, cr).to(_BF16).contiguous(), kp - 3 * cr
+
+
 def _group_backward_cuda(saved, c16, wg16, wso16, dx_out, dskip, dilations,
-                         need_weights):
+                         need_weights, timer=None):
     n, b, t, cr = saved.shape
     ca = c16.shape[-1]
     kp = wg16.shape[1]
@@ -109,61 +184,69 @@ def _group_backward_cuda(saved, c16, wg16, wso16, dx_out, dskip, dilations,
     check_tensor("wso", wso16, (n, cr, 2 * cr), _BF16, dev)
     cap = -(-ca // 16) * 16
     counter = fused_group_backward
+    fns = {name: kernel_call(name, args) for name, args in _ARGS.items()}
+
+    def run(name, *args):
+        call = (lambda: fns[name](*args))
+        err = call() if timer is None else timer(_PASS[name], call)
+        check_launch(name, err)
+        counter.launches += 1
+
     with torch.cuda.device(dev):
         dxc = dx_out.to(_F32).contiguous()
         dsk = dskip.to(_F32).contiguous()
         check_tensor("dx_out", dxc, (b, t, cr), _F32, dev)
         check_tensor("dskip", dsk, (b, t, cr), _F32, dev)
-        # the products' weights: [W_skip | W_out]^T for dh, the centre,
-        # t-d and t+d tap blocks of wg transposed for dx, Wa^T for dc
-        wsot = wso16.transpose(1, 2).contiguous()
+        c_op, cw = aux_rows(c16, kp, cr)
+        # dx's weights: the centre, t-d and t+d tap blocks of wg transposed;
+        # dc's: Wa^T, padded to cap columns
         wdx = torch.cat([wg16[:, 2 * cr:3 * cr].transpose(1, 2),
                          wg16[:, :cr].transpose(1, 2),
                          wg16[:, cr:2 * cr].transpose(1, 2)], 1).contiguous()
         wdc = torch.zeros((n, 2 * cr, cap), dtype=_BF16, device=dev)
         wdc[:, :, :ca] = wg16[:, 3 * cr:3 * cr + ca].transpose(1, 2)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nparts, chunk = k2b_chunks(b * t, sms)
+        dsk16 = torch.empty((b, t, cr), dtype=_BF16, device=dev)
         dg = torch.empty((b, t, 2 * cr), dtype=_BF16, device=dev)
-        h = torch.empty((b, t, cr), dtype=_BF16, device=dev)
         # two fresh buffers for the dx of successive layers: the caller's
         # dx_out is read, never written
         bufs = (torch.empty_like(dxc), torch.empty_like(dxc))
         dc = torch.empty((b, t, ca), dtype=_F32, device=dev)
         p = (kp + cr + 1) * 2 * cr          # one layer's partial block
+        part = sk_part = None
         if need_weights:
-            nchunk, chunk_rows = dw_chunks(b * t, dev)
-            part = torch.empty((nchunk, n, p), dtype=_F32, device=dev)
+            part = torch.empty((nparts, n, p), dtype=_F32, device=dev)
+            sk_part = torch.empty((nparts, cr), dtype=_F32, device=dev)
+
+        def ptr(a):
+            return None if a is None else a.data_ptr()
+
         stream = torch.cuda.current_stream(dev).cuda_stream
-        gate = kernel_call("pwg_stack_bwd_gate", _GATE_ARGS)
-        dxk = kernel_call("pwg_stack_bwd_dx", _DX_ARGS)
-        dwk = kernel_call("pwg_stack_bwd_dw", _DW_ARGS)
+        run("pwg_stack_bwd_prep", dsk.data_ptr(), dsk16.data_ptr(),
+            ptr(sk_part), b, t, cr, nparts, chunk, stream)
         for k, j in enumerate(range(n - 1, -1, -1)):
             d = int(dilations[j])
             dx_nxt = bufs[k % 2]
-            check_launch("pwg_stack_bwd_gate", gate(
-                saved[j].data_ptr(), c16.data_ptr(), wg16[j].data_ptr(),
-                wsot[j].data_ptr(), dxc.data_ptr(), dsk.data_ptr(),
-                dg.data_ptr(), h.data_ptr(), b, t, cr, ca, kp, d, stream))
-            counter.launches += 1
+            part_j = None if part is None else part[0, j].data_ptr()
+            run("pwg_stack_bwd_gate", saved[j].data_ptr(), c_op.data_ptr(),
+                wg16[j].data_ptr(), wso16[j].data_ptr(), dxc.data_ptr(),
+                dsk16.data_ptr(), ptr(sk_part), dg.data_ptr(), part_j, b, t,
+                cr, ca, cw, kp, d, nparts, chunk, n * p, stream)
             if need_weights:
-                check_launch("pwg_stack_bwd_dw", dwk(
-                    saved[j].data_ptr(), c16.data_ptr(), dg.data_ptr(),
-                    h.data_ptr(), dsk.data_ptr(), dxc.data_ptr(),
-                    part[0, j].data_ptr(), b, t, cr, ca, kp, d, nchunk,
-                    chunk_rows, n * p, stream))
-                counter.launches += 1
-            check_launch("pwg_stack_bwd_dx", dxk(
-                dg.data_ptr(), wdx[j].data_ptr(), wdc[j].data_ptr(),
-                dxc.data_ptr(), dx_nxt.data_ptr(), dc.data_ptr(), b, t, cr,
-                ca, cap, d, int(j == n - 1), stream))
-            counter.launches += 1
+                run("pwg_stack_bwd_dw", saved[j].data_ptr(), c_op.data_ptr(),
+                    dg.data_ptr(), part_j, b, t, cr, ca, cw, kp, d, nparts,
+                    chunk, n * p, stream)
+            run("pwg_stack_bwd_dx", dg.data_ptr(), wdx[j].data_ptr(),
+                wdc[j].data_ptr(), dxc.data_ptr(), dx_nxt.data_ptr(),
+                dc.data_ptr(), b, t, cr, ca, cap, d, int(j == n - 1), nparts,
+                chunk, stream)
             dxc = dx_nxt
         if not need_weights:
             return dxc, dc, None, None, None
         out = torch.empty((n, kp + cr + 1, 2 * cr), dtype=_F32, device=dev)
-        reduce = kernel_call("pwg_reduce_partials", _REDUCE_ARGS)
-        check_launch("pwg_reduce_partials", reduce(
-            part.data_ptr(), out.data_ptr(), nchunk, n * p, stream))
-        counter.launches += 1
+        run("pwg_reduce_partials", part.data_ptr(), out.data_ptr(), nparts,
+            n * p, stream)
     return dxc, dc, out[:, :kp], out[:, kp:kp + cr], out[:, kp + cr]
 
 
@@ -187,7 +270,37 @@ def fused_group_backward(saved, c16, wg16, wso16, dx_out, dskip, *,
                                 dilations, need_weights)
 
 
-fused_group_backward.launches = 0   # gate, dw and dx launches; reductions
+fused_group_backward.launches = 0   # every K2b launch (k2b_launches)
+
+
+def time_group_backward_passes(saved, c16, wg16, wso16, dx_out, dskip, *,
+                               dilations: Sequence[int], reps: int = 10,
+                               warmup: int = 2):
+    """Median milliseconds of each K2b pass over one group on the card,
+    from CUDA events around each launch, summed over the group's
+    launches of that pass: {"prep", "gate", "dw", "dx", "reduce"}."""
+    totals = []
+    for rep in range(warmup + reps):
+        events = []
+
+        def timer(kind, call):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = call()
+            stop.record()
+            events.append((kind, start, stop))
+            return err
+
+        _group_backward_cuda(saved, c16, wg16, wso16, dx_out, dskip,
+                             dilations, True, timer=timer)
+        torch.cuda.synchronize()
+        if rep >= warmup:
+            ms = dict.fromkeys(_PASS.values(), 0.0)
+            for kind, start, stop in events:
+                ms[kind] += start.elapsed_time(stop)
+            totals.append(ms)
+    return {k: statistics.median(m[k] for m in totals) for k in totals[0]}
 
 
 class _StackGroup(torch.autograd.Function):

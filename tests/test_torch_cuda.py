@@ -89,13 +89,15 @@ def _hold(got, want, what):
     assert err <= REL_TOL * max(want.abs().max().item(), 1e-6), (what, err)
 
 
-def _k2_inputs(cuda, cr, ca, b, t, seed):
+def _k2_inputs(cuda, cr, ca, b, t, seed, layers=6, stacks=2):
+    """One group's inputs: the first of ``stacks`` groups of a stack of
+    ``layers`` layers (dilations 1, 2, 4, ...)."""
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
-    stack, gen = _stack(cr, ca, layers=6, stacks=2, seed=seed)
+    stack, gen = _stack(cr, ca, layers=layers, stacks=stacks, seed=seed)
     stack.to(cuda)
     with torch.no_grad():
         wg, wso, bso = k1.pack_stack_weights(stack.fused_weights(), cr, ca)
-    per = 3
+    per = layers // stacks
     x = torch.randn((b, t, cr), generator=gen).to(cuda)
     c16 = torch.randn((b, t, ca), generator=gen).to(cuda).to(torch.bfloat16)
     dxo = torch.randn((b, t, cr), generator=gen).to(cuda)
@@ -105,13 +107,22 @@ def _k2_inputs(cuda, cr, ca, b, t, seed):
             stack.dilations()[:per], dxo, dsk)
 
 
-@pytest.mark.parametrize("cr,ca,b,t", [(64, 80, 2, 1000), (32, 20, 1, 333),
-                                       (64, 13, 3, 129)])
-def test_k2_matches_plain_versions(cuda, cr, ca, b, t):
+@pytest.mark.parametrize("cr,ca,b,t,layers,stacks", [
+    (64, 80, 2, 1000, 6, 2), (32, 20, 1, 333, 6, 2), (64, 13, 3, 129, 6, 2),
+    # a full group of ten layers (dilations 1...512): the d = 256 and 512
+    # taps fall off both ends of every item and cross tile edges inside it
+    (64, 80, 3, 700, 10, 1),
+    # B * T = 4133, a multiple of no tile or chunk size
+    (64, 80, 1, 4133, 6, 2),
+    # aux widths that are not multiples of 8, with many tiles a chunk
+    (32, 20, 2, 9001, 10, 1), (64, 13, 2, 8999, 6, 2),
+    # the recipe's widths, ten layers, chunks of many tiles
+    (64, 80, 4, 20000, 10, 1)])
+def test_k2_matches_plain_versions(cuda, cr, ca, b, t, layers, stacks):
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
     from parakeet_tpu_torch.ops.kernels import pwg_stack_train as k2
-    x, c16, wg, wso, bso, dil, dxo, dsk = _k2_inputs(cuda, cr, ca, b, t,
-                                                     cr + ca + 7)
+    x, c16, wg, wso, bso, dil, dxo, dsk = _k2_inputs(
+        cuda, cr, ca, b, t, cr + ca + 7, layers, stacks)
     n0 = k1.fused_group_forward_save.launches
     got = k1.fused_group_forward_save(x, c16, wg, wso, bso, dilations=dil)
     assert k1.fused_group_forward_save.launches - n0 == len(dil)
@@ -123,7 +134,7 @@ def test_k2_matches_plain_versions(cuda, cr, ca, b, t):
     grads = k2.fused_group_backward(got[2], c16, wg, wso, dxo, dsk,
                                     dilations=dil)
     assert torch.equal(dxo, dxo_in) and torch.equal(dsk, dsk_in)
-    assert k2.fused_group_backward.launches - n0 == 3 * len(dil) + 1
+    assert k2.fused_group_backward.launches - n0 == k2.k2b_launches(len(dil))
     again = k2.fused_group_backward(got[2], c16, wg, wso, dxo, dsk,
                                     dilations=dil)
     want = k2.group_backward_reference(got[2], c16, wg, wso, dxo, dsk,
@@ -136,10 +147,30 @@ def test_k2_matches_plain_versions(cuda, cr, ca, b, t):
     n0 = k2.fused_group_backward.launches
     dx_only = k2.fused_group_backward(got[2], c16, wg, wso, dxo, dsk,
                                       dilations=dil, need_weights=False)
-    assert k2.fused_group_backward.launches - n0 == 2 * len(dil)
+    assert k2.fused_group_backward.launches - n0 == k2.k2b_launches(
+        len(dil), need_weights=False)
     assert dx_only[2:] == (None, None, None)
     assert torch.equal(dx_only[0], grads[0])
     assert torch.equal(dx_only[1], grads[1])
+
+
+@pytest.mark.parametrize("cr", [32, 64])
+def test_k2b_shared_memory_matches_the_kernels(cuda, cr):
+    """The launcher's ``k2b_smem_bytes`` is the kernels' own count
+    (``pwg_stack_bwd_smem``), within the card's 227 KB, at every aux width
+    the kernels take from the narrowest to the widest."""
+    import ctypes
+
+    from parakeet_tpu_torch.ops.kernels import pwg_stack_train as k2
+    from parakeet_tpu_torch.ops.kernels._build import load_library
+    fn = load_library().cdll.pwg_stack_bwd_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    for ca in (1, 13, 20, 80, 127):
+        kp, cap = 3 * cr + -(-(ca + 1) // 16) * 16, -(-ca // 16) * 16
+        want = k2.k2b_smem_bytes(cr, ca)
+        for i, kind in enumerate(("gate", "dw", "dx")):
+            assert fn(i, cr, kp, cap) == want[kind] <= k2.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("b,t", [(2, 1000), (1, 37), (3, 801)])
