@@ -12,7 +12,9 @@ Phases, one line each (the checks raise; nothing is caught):
 2. kernel K1 (the fused Parallel WaveGAN residual stack) against its plain
    PyTorch version, at a small shape and at the main shape (B=1,
    T=268,800, 30 layers, the widths of recipes/pwgan/conf/default.yaml):
-   max abs error against a stated tolerance, and median times;
+   max abs error against a stated tolerance, bit-identity on a second
+   run, median times, and the bytes a call must move with one layer per
+   launch, its rate and share of the card's 3.35 TB/s;
 3. the serving slice: a port ``TTSEngine`` on bf16 FastSpeech2 and
    PWGGenerator at the recipes' widths with weights drawn from a fixed
    ``torch.Generator`` seed answers six requests (one over the largest
@@ -27,7 +29,8 @@ Phases, one line each (the checks raise; nothing is caught):
    them from the layer-0 output) against their plain PyTorch versions, at
    a small shape and at the training shape (B=8, T=25,500: the PWGAN
    recipe's batch_size and batch_max_steps): max abs errors against
-   stated tolerances, gradients bit-identical from run to run, K3c's dh
+   stated tolerances, outputs and gradients bit-identical from run to
+   run (K2a's bytes, rate and share as K1's), K3c's dh
    bitwise K3b's and its dW and db within a stated tolerance of K3b's,
    median times (also of K3a without saving + K3c against K3a saving +
    K3b);
@@ -93,6 +96,9 @@ and dv); the last line is the run's
 result.  Without a CUDA device it raises and prints no result.
 ``--profile DIR`` also writes ``torch.profiler`` tables of one GAN step
 with the kernels and of one FastSpeech2 step with flash attention to DIR.
+``--parent DIR`` also times K1 and K2a of another checkout (the parent
+commit, unpacked with ``git archive`` into DIR) on the same inputs, in
+turns: parent, change, change, parent.
 """
 import argparse
 import json
@@ -325,7 +331,8 @@ def phase_card():
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path}; spills: "
           + (" | ".join(spills) or "none"))
-    for tag, prefix in (("K2b", "k2b_"), ("K4", "flash_")):
+    for tag, prefix in (("K1/K2a", "pwg_layer_"), ("K2b", "k2b_"),
+                        ("K4", "flash_")):
         print(f"ptxas, {tag}: " + ", ".join(
             f"{name} {regs} ({st + ld})" for name, regs, st, ld in entries
             if name.startswith(prefix)) + " (registers a thread, spill "
@@ -336,28 +343,36 @@ _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # a kernel of csrc/ in the anonymous namespace of its file: its name, then
-# K4's template arguments (element type, DP) or another kernel's first
-# integer one (K2b's and K1's residual width)
-_KERNEL_NAME = re.compile(
-    r"_cu_[0-9a-f]+\d+([A-Za-z]\w*?)"
-    r"(?:I(f|13__nv_bfloat16)Li(\d+)E|ILi(\d+)E|I|E)")
+# its template arguments, if any (K4's element type and DP, K2b's residual
+# width, K1/K2a's residual width and SAVE)
+_KERNEL_NAME = re.compile(r"_cu_[0-9a-f]+\d+([A-Za-z]\w*?)(I|E)")
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(f)|13__nv_bfloat16")
+
+
+def kernel_name(mangled):
+    """A csrc/ kernel's name as ``flash_dq_kernel<float, 96>``,
+    ``k2b_dw_kernel<64>`` or ``pwg_layer_kernel<64, false>``, from its
+    mangled name (itself where it is not one of those)."""
+    k = _KERNEL_NAME.search(mangled)
+    if k is None:
+        return mangled
+    if k.group(2) == "E":
+        return k.group(1)
+    args, pos = [], k.end()
+    while (m := _TEMPLATE_ARG.match(mangled, pos)) is not None:
+        args.append(m.group(1) or {"0": "false", "1": "true"}.get(
+            m.group(2)) or ("float" if m.group(3) else "bf16"))
+        pos = m.end()
+    return f"{k.group(1)}<{', '.join(args)}>"
 
 
 def ptxas_entries(log):
     """(kernel, registers, spill bytes stored, loaded) of each entry
-    function in an ``nvcc -Xptxas -v`` log; K4's kernels are named with
-    their element type and DP, as ``flash_dq_kernel<float, 96>``, others
-    with a first integer template argument, as ``k2b_dw_kernel<64>``."""
+    function in an ``nvcc -Xptxas -v`` log, named by ``kernel_name``."""
     entries, name, spill = [], None, (0, 0)
     for ln in log.splitlines():
         if m := _PTXAS_ENTRY.search(ln):
-            k = _KERNEL_NAME.search(m.group(1))
-            name = m.group(1) if k is None else k.group(1)
-            if k is not None and k.group(2):
-                dtype = "float" if k.group(2) == "f" else "bf16"
-                name += f"<{dtype}, {k.group(3)}>"
-            elif k is not None and k.group(4):
-                name += f"<{k.group(4)}>"
+            name = kernel_name(m.group(1))
             spill = (0, 0)
         elif m := _PTXAS_SPILL.search(ln):
             spill = (int(m.group(1)), int(m.group(2)))
@@ -367,8 +382,46 @@ def ptxas_entries(log):
     return entries
 
 
-def phase_k1():
-    """K1 against its plain version; returns the kernel record."""
+def layer_traffic(k1, b, t, ms, layers, stacks, save):
+    """The bytes K1 (or K2a, ``save``) must move with one layer per launch
+    (``k1_layer_bytes``), the rate of a call that took ``ms`` and its
+    share of the card's 3.35 TB/s."""
+    moved = k1.k1_layer_bytes(b, t, 64, ODIM, layers, stacks, save)
+    floor_ms = 1e3 * moved / PEAK_BYTES_PER_S
+    return (f"{moved / 1e9:.4f} GB with one layer per launch "
+            f"(k1_layer_bytes), {moved / ms / 1e6:.0f} GB/s, "
+            f"{100 * floor_ms / ms:.1f}% of 3.35 TB/s (floor "
+            f"{floor_ms:.4f} ms)")
+
+
+def load_parent(root):
+    """``parakeet_tpu_torch.ops.kernels.pwg_stack`` of the checkout at
+    ``root`` (``--parent``), imported as the package ``parent_ptt``; it
+    builds its own kernels under ``root``'s build/."""
+    import importlib
+    import importlib.util
+    import sys
+    pkg = pathlib.Path(root).resolve() / "parakeet_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_ptt", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_ptt"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_ptt.ops.kernels.pwg_stack")
+
+
+def in_turns(ours, theirs, reps):
+    """Median ms of ``theirs`` (the parent's kernel) and ``ours``, timed
+    parent, change, change, parent: ([parent, parent], [change, change])."""
+    a, b, c, d = (cuda_ms(f, reps) for f in (theirs, ours, ours, theirs))
+    return [a, d], [b, c]
+
+
+def phase_k1(parent=None):
+    """K1 against its plain version; returns the kernel record.  With
+    ``parent`` (the parent checkout's pwg_stack module), also times the
+    parent's kernel on the same inputs, in turns."""
     from parakeet_tpu_torch.models.parallel_wavegan import ResidualStack
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -379,12 +432,14 @@ def phase_k1():
     stack = stack.cuda()
     weights = stack.fused_weights()
     kw = dict(dilations=stack.dilations(), stacks=stack.stacks)
+    layers = len(kw["dilations"])
     record = None
     for b, t in (SMALL, (1, MAIN_T)):
         x = torch.randn((b, t, 64), generator=gen).cuda()
         c = torch.randn((b, t, ODIM), generator=gen).cuda()
         got_x, got_s = k1.fused_residual_stack(x, c, weights, **kw)
         ref_x, ref_s = k1.fused_residual_stack_reference(x, c, weights, **kw)
+        again = k1.fused_residual_stack(x, c, weights, **kw)
         torch.cuda.synchronize()
         errs = []
         for name, got, ref in (("x", got_x, ref_x), ("skip", got_s, ref_s)):
@@ -394,15 +449,27 @@ def phase_k1():
                 raise AssertionError(f"K1 {name} at B={b} T={t}: max abs err "
                                      f"{err} > tol {tol}")
             errs.append((name, err, tol))
-        ms = cuda_ms(lambda: k1.fused_residual_stack(x, c, weights, **kw), 20)
+        if not (torch.equal(again[0], got_x) and torch.equal(again[1], got_s)):
+            raise AssertionError("K1: two runs gave different results")
+        run = (lambda: k1.fused_residual_stack(x, c, weights, **kw))
+        ms = cuda_ms(run, 20)
         plain_ms = cuda_ms(
             lambda: k1.fused_residual_stack_reference(x, c, weights, **kw), 5)
-        print(f"K1 B={b} T={t}: " + ", ".join(
+        print(f"K1 B={b} T={t} ({layers} layers): " + ", ".join(
             f"{n} max_abs_err {e:.6g} (tol {tl:.6g})" for n, e, tl in errs)
-            + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
+            + f"; bit-identical on a second run; kernel {ms:.4f} ms "
+            f"({ms / layers:.4f} a layer), plain {plain_ms:.4f} ms (median); "
+            + layer_traffic(k1, b, t, ms, layers, stack.stacks, False))
+        if parent is not None and b == 1:
+            theirs, ours = in_turns(run, lambda: parent.fused_residual_stack(
+                x, c, weights, **kw), 20)
+            print(f"K1 B={b} T={t}, parent, change, change, parent: "
+                  f"{theirs[0]:.4f}, {ours[0]:.4f}, {ours[1]:.4f}, "
+                  f"{theirs[1]:.4f} ms; parent "
+                  + layer_traffic(k1, b, t, statistics.mean(theirs), layers,
+                                  stack.stacks, False))
         limit = bound(nbytes(x, c, *weights.values(), got_x, got_s),
-                      b * t * len(kw["dilations"]) * STACK_FWD_FLOPS,
-                      torch.bfloat16)
+                      b * t * layers * STACK_FWD_FLOPS, torch.bfloat16)
         record = {"name": "pwg_residual_stack", "route": "cuda",
                   "source": "parakeet_tpu_torch/csrc/pwg_stack.cu",
                   "replaces": "parakeet_tpu/ops/pallas/pwg_stack.py:84",
@@ -577,9 +644,10 @@ def k2b_passes(k2, saved, c16, wg16, wso16, dxo, dsk, dil):
           f" MB, {sum(moved.values()) / sum(ms.values()) / 1e6:.0f} GB/s")
 
 
-def phase_k2():
+def phase_k2(parent=None):
     """K2a and K2b against their plain versions on one group of ten
-    layers of the recipe's stack; returns their records."""
+    layers of the recipe's stack; returns their records.  With ``parent``
+    (as ``phase_k1``), also times the parent's K2a, in turns."""
     from parakeet_tpu_torch.models.parallel_wavegan import ResidualStack
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
     from parakeet_tpu_torch.ops.kernels import pwg_stack_train as k2
@@ -605,9 +673,12 @@ def phase_k2():
         got = fwd()
         ref = k1.group_forward_reference(x, c16, wg16, wso16, bso,
                                          dilations=dil)
+        again_a = fwd()
         torch.cuda.synchronize()
         held_a = [(n, _hold(f"K2a {n} B={b} T={t}", g, r, K2_REL_TOL))
                   for n, g, r in zip(("x_next", "skip", "saved"), got, ref)]
+        if not all(torch.equal(u, v) for u, v in zip(got, again_a)):
+            raise AssertionError("K2a: two runs gave different results")
         dxo = torch.randn((b, t, 64), generator=gen).cuda()
         dsk = torch.randn((b, t, 64), generator=gen).cuda()
         bwd = (lambda: k2.fused_group_backward(
@@ -629,8 +700,18 @@ def phase_k2():
             lambda: k2.group_backward_reference(got[2], c16, wg16, wso16,
                                                 dxo, dsk, dilations=dil), 3)
         print(f"K2a B={b} T={t} (one group of {per} layers): "
-              f"{_report('K2a', held_a)}; kernel {ms_a:.4f} ms, plain "
-              f"{plain_a:.4f} ms (median)")
+              f"{_report('K2a', held_a)}; bit-identical on a second run; "
+              f"kernel {ms_a:.4f} ms ({ms_a / per:.4f} a layer), plain "
+              f"{plain_a:.4f} ms (median); "
+              + layer_traffic(k1, b, t, ms_a, per, 1, True))
+        if parent is not None and b == TRAIN_B:
+            theirs, ours = in_turns(fwd, lambda: parent.fused_group_forward_save(
+                x, c16, wg16, wso16, bso, dilations=dil), 10)
+            print(f"K2a B={b} T={t}, parent, change, change, parent: "
+                  f"{theirs[0]:.4f}, {ours[0]:.4f}, {ours[1]:.4f}, "
+                  f"{theirs[1]:.4f} ms; parent "
+                  + layer_traffic(k1, b, t, statistics.mean(theirs), per, 1,
+                                  True))
         print(f"K2b B={b} T={t}: {_report('K2b', held_b)}; bit-identical "
               f"on a second run; kernel {ms_b:.4f} ms, plain {plain_b:.4f} "
               f"ms (median)")
@@ -1414,6 +1495,10 @@ def main():
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="also profile one GAN step and one "
                              "FastSpeech2 step into DIR")
+    parser.add_argument("--parent", metavar="DIR", default=None,
+                        help="also time K1 and K2a of the checkout in DIR "
+                             "(another commit, unpacked with git archive) "
+                             "on the same inputs, in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -1421,8 +1506,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
-    k1 = phase_slice(phase_k1())
-    k2a, k2b = phase_k2()
+    parent = None if args.parent is None else load_parent(args.parent)
+    k1 = phase_slice(phase_k1(parent))
+    k2a, k2b = phase_k2(parent)
     k3a, k3b, k3c = phase_k3()
     phase_train({"K2a": k2a, "K2b": k2b, "K3a": k3a, "K3b": k3b},
                 args.profile)

@@ -14,7 +14,10 @@ On CUDA tensors both launch the hand-written kernel in
 ``parakeet_tpu_torch/csrc/pwg_stack.cu``, one launch per layer, or raise;
 ``fused_residual_stack.launches`` and ``fused_group_forward_save.launches``
 count those launches.  On CPU tensors they run ``group_forward_reference``,
-the plain PyTorch statement of the same arithmetic.
+the plain PyTorch statement of the same arithmetic.  The launcher's
+geometry is stated as plain functions: ``k1_warps`` and
+``k1_smem_bytes`` (a block's warps and shared memory) and
+``k1_layer_bytes`` (the bytes its launches must move).
 
 Rounding points, copied from the TPU kernel: x and c enter as bf16;
 inside a group of layers x is carried in float32; every matmul operand
@@ -38,10 +41,14 @@ from ._build import load_library
 __all__ = ["fused_residual_stack", "fused_residual_stack_reference",
            "fused_group_forward_save", "group_forward_reference",
            "fused_stack_supported", "pack_stack_weights", "check_tensor",
-           "kernel_call"]
+           "kernel_call", "aux_rows", "k1_warps", "k1_smem_bytes",
+           "k1_layer_bytes", "SMEM_LIMIT"]
 
 _SQRT_HALF = math.sqrt(0.5)
 _F32, _BF16 = torch.float32, torch.bfloat16
+# the most dynamic shared memory a block may have on the H100 (227 KB)
+SMEM_LIMIT = 232_448
+K1_MAX_WARPS = 8        # pwg_stack.cu's MAX_WARPS
 
 
 def fused_stack_supported(residual_channels: int, gate_channels: int,
@@ -114,6 +121,61 @@ def aux_operand(c: torch.Tensor, kp: int, cr: int) -> torch.Tensor:
     zeros = torch.zeros((b, t, kp - 3 * cr - ca - 1), dtype=_F32,
                         device=c.device)
     return torch.cat([_bf(c), ones, zeros], dim=-1)
+
+
+def aux_rows(c16: torch.Tensor, kp: int, cr: int):
+    """c as the kernels read the gate operand's aux columns, and its
+    width: c16 itself where its rows are 16-byte vectors (ca % 8 == 0; the
+    kernels add the 1 and the zeros), else the bf16 [c | 1 | 0] of
+    ``aux_operand`` (kp - 3cr columns), built once per call."""
+    ca = c16.shape[-1]
+    if ca % 8 == 0:
+        return c16, ca
+    return aux_operand(c16, kp, cr).to(_BF16).contiguous(), kp - 3 * cr
+
+
+def _k1_smem(cr: int, ca: int, warps: int) -> int:
+    aw = _aux_width(ca)
+    weights = 2 * (3 * cr + aw + cr) * (2 * cr + 8) + 4 * 2 * cr
+    stage = 16 * (4 * (3 * cr + 8) + 2 * (aw + 8))
+    return weights + warps * stage
+
+
+def k1_warps(cr: int, ca: int) -> int:
+    """Warps of a K1/K2a block, as pwg_stack.cu's ``Geometry::warps``
+    picks them: 8, or as many 16-row stages as fit beside the weights (7
+    at cr 64 with ca >= 96).  Each warp walks its own tiles of 16 rows."""
+    return max(w for w in range(1, K1_MAX_WARPS + 1)
+               if w == 1 or _k1_smem(cr, ca, w) <= SMEM_LIMIT)
+
+
+def k1_smem_bytes(cr: int, ca: int) -> int:
+    """Dynamic shared memory of a K1/K2a block, as pwg_stack.cu's
+    ``Geometry`` counts it: wg and wso in bf16 rows of 2cr + 8 and bso in
+    float32, resident; a stage a warp of 16 rows of float32 taps (rows of
+    3cr + 8) and bf16 [c | 1 | 0] columns (rows of its width + 8)."""
+    return _k1_smem(cr, ca, k1_warps(cr, ca))
+
+
+def k1_layer_bytes(b: int, t: int, cr: int, ca: int, layers: int,
+                   stacks: int, save: bool) -> int:
+    """Device-memory bytes that the launches of ``layers`` layers must
+    move, counted from the shapes with one layer per launch: each layer
+    reads x in float32 once (its shifted taps are the same rows), c as
+    the kernel reads it (``aux_rows``) and the skip sum, and writes the
+    skip sum and x_next.  ``save``: ``stacks`` calls of
+    ``fused_group_forward_save`` (K2a), each of which starts its skip sum
+    (no read in its first layer), writes each layer's bf16 input rows and
+    ends in float32; else one ``fused_residual_stack`` call (K1), which
+    starts the skip sum once and writes its last x in bf16.  The weights
+    (read once a block, from L2) are left out."""
+    rows = b * t
+    cw = ca if ca % 8 == 0 else _aux_width(ca)
+    per_layer = cr * 4 + cw * 2 + 2 * cr * 4 + cr * 4 + (cr * 2 if save
+                                                          else 0)
+    starts = stacks if save else 1
+    last_bf16 = 0 if save else cr * 2
+    return rows * (layers * per_layer - starts * cr * 4 - last_bf16)
 
 
 def group_forward_reference(x, c, wg, wso, bso, *, dilations: Sequence[int],
@@ -195,7 +257,7 @@ def check_tensor(name: str, a: torch.Tensor, shape, dtype, device) -> None:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_LAYER_ARGS = (_P,) * 9 + (_I,) * 8 + (_P,)
+_LAYER_ARGS = (_P,) * 9 + (_I,) * 9 + (_P,)
 
 
 def _check_stack_args(x, c, n, stacks, what):
@@ -219,6 +281,7 @@ def _run_layers(x_cur, c16, wg16, wso16, bso, dilations, *, per, out,
     b, t, cr = x_cur.shape
     ca = c16.shape[-1]
     kp = wg16.shape[1]
+    c_op, cw = aux_rows(c16, kp, cr)
     x_nxt = torch.empty_like(x_cur)
     skip = torch.empty((b, t, cr), dtype=_F32, device=x_cur.device)
     fn = kernel_call("pwg_stack_layer", _LAYER_ARGS)
@@ -229,11 +292,11 @@ def _run_layers(x_cur, c16, wg16, wso16, bso, dilations, *, per, out,
         dst = out if last else x_nxt
         bf16_out = dst.dtype == _BF16
         err = fn(x_cur.data_ptr(), None if bf16_out else dst.data_ptr(),
-                 dst.data_ptr() if bf16_out else None, c16.data_ptr(),
+                 dst.data_ptr() if bf16_out else None, c_op.data_ptr(),
                  wg16[i].data_ptr(), wso16[i].data_ptr(), bso[i].data_ptr(),
                  skip.data_ptr(),
                  None if saved is None else saved[i].data_ptr(),
-                 b, t, cr, ca, kp, int(d), int(i == 0),
+                 b, t, cr, ca, cw, kp, int(d), int(i == 0),
                  int((i + 1) % per == 0), stream)
         check_launch(f"pwg_stack_layer (layer {i})", err)
         counter.launches += 1

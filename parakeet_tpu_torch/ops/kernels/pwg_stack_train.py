@@ -29,13 +29,14 @@ from typing import Dict, Sequence
 import torch
 
 from ..geometry import time_shift
-from .pwg_stack import (_aux_width, _bf, _check_stack_args, aux_operand,
-                        check_launch, check_tensor, fused_group_forward_save,
-                        group_operand, kernel_call, pack_stack_weights)
+from .pwg_stack import (SMEM_LIMIT, _aux_width, _bf, _check_stack_args,
+                        aux_operand, aux_rows, check_launch, check_tensor,
+                        fused_group_forward_save, group_operand, kernel_call,
+                        pack_stack_weights)
 
 __all__ = ["fused_residual_stack_train", "fused_group_backward",
            "group_backward_reference", "k2b_launches", "k2b_chunks",
-           "k2b_smem_bytes", "k2b_pass_bytes", "aux_rows",
+           "k2b_smem_bytes", "k2b_pass_bytes", "aux_rows", "SMEM_LIMIT",
            "time_group_backward_passes"]
 
 _SQRT_HALF = math.sqrt(0.5)
@@ -101,8 +102,6 @@ _PASS = {"pwg_stack_bwd_prep": "prep", "pwg_stack_bwd_gate": "gate",
 # stages of each pass's cp.async ring
 K2B_TILE_ROWS, K2B_THREADS = 64, 256
 _STAGES = {"gate": 2, "dw": 3, "dx": 2}
-# the most dynamic shared memory a block may have on the H100 (227 KB)
-SMEM_LIMIT = 232_448
 
 
 def k2b_launches(layers: int, need_weights: bool = True) -> int:
@@ -159,17 +158,6 @@ def k2b_pass_bytes(b: int, t: int, cr: int, ca: int, layers: int,
                               + chunks * kp * g * 4)
         out["reduce"] = chunks * part + part
     return out
-
-
-def aux_rows(c16: torch.Tensor, kp: int, cr: int):
-    """c as the K2b kernels read the gate operand's aux columns, and its
-    width: c16 itself where its rows are 16-byte vectors (ca % 8 == 0; the
-    kernels add the 1 and the zeros), else the bf16 [c | 1 | 0] of
-    ``aux_operand`` (kp - 3cr columns), built once per group."""
-    ca = c16.shape[-1]
-    if ca % 8 == 0:
-        return c16, ca
-    return aux_operand(c16, kp, cr).to(_BF16).contiguous(), kp - 3 * cr
 
 
 def _group_backward_cuda(saved, c16, wg16, wso16, dx_out, dskip, dilations,

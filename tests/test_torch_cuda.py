@@ -154,6 +154,66 @@ def test_k2_matches_plain_versions(cuda, cr, ca, b, t, layers, stacks):
     assert torch.equal(dx_only[1], grads[1])
 
 
+# K1 and K2a at the edges of their tiles and widths: T below a warp's
+# 16-row tile, below a block's 8 tiles and below the largest dilation (512
+# in a group of ten), items whose ends fall inside a tile, aux widths that
+# are not multiples of 8 (the kernel reads aux_rows' [c | 1 | 0]), seven
+# warps a block (cr 64, ca >= 96), and the recipe's widths.  Each kernel
+# must give the same bits on a second run.
+@pytest.mark.parametrize("cr,ca,b,t,layers,stacks", [
+    (64, 80, 3, 7, 10, 1), (64, 80, 2, 37, 10, 1), (64, 80, 1, 300, 10, 1),
+    (64, 80, 3, 1001, 6, 2), (32, 13, 2, 999, 6, 2),
+    (64, 13, 3, 777, 10, 1), (64, 100, 2, 1500, 6, 2),
+    (64, 127, 3, 65, 10, 1), (64, 80, 4, 20000, 30, 3)])
+def test_k1_k2a_edges_match_plain_versions(cuda, cr, ca, b, t, layers,
+                                           stacks):
+    stack, gen = _stack(cr, ca, layers, stacks, seed=cr + ca + t)
+    stack = stack.to(cuda)
+    x = torch.randn((b, t, cr), generator=gen).to(cuda)
+    c = torch.randn((b, t, ca), generator=gen).to(cuda)
+    kw = dict(dilations=stack.dilations(), stacks=stacks)
+    w = stack.fused_weights()
+    n0 = pwg_stack.fused_residual_stack.launches
+    got = pwg_stack.fused_residual_stack(x, c, w, **kw)
+    assert pwg_stack.fused_residual_stack.launches - n0 == layers
+    again = pwg_stack.fused_residual_stack(x, c, w, **kw)
+    want = pwg_stack.fused_residual_stack_reference(x, c, w, **kw)
+    for name, g, a, r in zip(("x", "skip"), got, again, want):
+        _hold(g, r, f"K1 {name}")
+        assert torch.equal(g, a), f"K1 {name} differs between two runs"
+
+    x, c16, wg, wso, bso, dil, _, _ = _k2_inputs(
+        cuda, cr, ca, b, t, cr + ca + t + 1, layers, stacks)
+    n0 = pwg_stack.fused_group_forward_save.launches
+    got = pwg_stack.fused_group_forward_save(x, c16, wg, wso, bso,
+                                             dilations=dil)
+    assert pwg_stack.fused_group_forward_save.launches - n0 == len(dil)
+    again = pwg_stack.fused_group_forward_save(x, c16, wg, wso, bso,
+                                               dilations=dil)
+    want = pwg_stack.group_forward_reference(x, c16, wg, wso, bso,
+                                             dilations=dil)
+    for name, g, a, r in zip(("x_next", "skip", "saved"), got, again, want):
+        _hold(g, r, f"K2a {name}")
+        assert torch.equal(g, a), f"K2a {name} differs between two runs"
+
+
+@pytest.mark.parametrize("cr", [32, 64])
+def test_k1_shared_memory_matches_the_kernel(cuda, cr):
+    """The launcher's ``k1_smem_bytes`` is the kernel's own count
+    (``pwg_stack_smem``), within the card's 227 KB, at aux widths from the
+    narrowest to the widest, across the switch to seven warps a block."""
+    import ctypes
+
+    from parakeet_tpu_torch.ops.kernels._build import load_library
+    fn = load_library().cdll.pwg_stack_smem
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    for ca in (1, 13, 20, 80, 95, 96, 127):
+        kp = 3 * cr + -(-(ca + 1) // 16) * 16
+        want = pwg_stack.k1_smem_bytes(cr, ca)
+        assert fn(cr, kp) == want <= pwg_stack.SMEM_LIMIT, ca
+
+
 @pytest.mark.parametrize("cr", [32, 64])
 def test_k2b_shared_memory_matches_the_kernels(cuda, cr):
     """The launcher's ``k2b_smem_bytes`` is the kernels' own count
