@@ -33,7 +33,9 @@ Phases, one line each (the checks raise; nothing is caught):
    run (K2a's bytes, rate and share as K1's), K3c's dh
    bitwise K3b's and its dW and db within a stated tolerance of K3b's,
    median times (also of K3a without saving + K3c against K3a saving +
-   K3b);
+   K3b), K3b's passes (its nine layer passes and the reduction) with the
+   bytes of ``k3b_bytes``, GB/s and the share of 3.35 TB/s, and K3c's
+   with those of ``k3c_bytes``;
 5. the training slice: a port ``Trainer`` over ``StandardUpdater`` runs
    the PWGAN GAN step of recipes/pwgan/conf/default.yaml for four steps at
    its full widths on seeded synthetic (wav, mel) batches, with
@@ -96,9 +98,9 @@ and dv); the last line is the run's
 result.  Without a CUDA device it raises and prints no result.
 ``--profile DIR`` also writes ``torch.profiler`` tables of one GAN step
 with the kernels and of one FastSpeech2 step with flash attention to DIR.
-``--parent DIR`` also times K1 and K2a of another checkout (the parent
-commit, unpacked with ``git archive`` into DIR) on the same inputs, in
-turns: parent, change, change, parent.
+``--parent DIR`` also times K1, K2a, K3b and K3c of another checkout (the
+parent commit, unpacked with ``git archive`` into DIR) on the same
+inputs, in turns: parent, change, change, parent.
 """
 import argparse
 import json
@@ -332,7 +334,7 @@ def phase_card():
           f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path}; spills: "
           + (" | ".join(spills) or "none"))
     for tag, prefix in (("K1/K2a", "pwg_layer_"), ("K2b", "k2b_"),
-                        ("K4", "flash_")):
+                        ("K3b/K3c", "disc_"), ("K4", "flash_")):
         print(f"ptxas, {tag}: " + ", ".join(
             f"{name} {regs} ({st + ld})" for name, regs, st, ld in entries
             if name.startswith(prefix)) + " (registers a thread, spill "
@@ -409,6 +411,13 @@ def load_parent(root):
     sys.modules["parent_ptt"] = mod
     spec.loader.exec_module(mod)
     return importlib.import_module("parent_ptt.ops.kernels.pwg_stack")
+
+
+def parent_module(name):
+    """The parent checkout's ``parakeet_tpu_torch.ops.kernels.<name>``,
+    after ``load_parent``."""
+    import importlib
+    return importlib.import_module(f"parent_ptt.ops.kernels.{name}")
 
 
 def in_turns(ours, theirs, reps):
@@ -729,9 +738,44 @@ def phase_k2(parent=None):
                     ms_b, plain_b, limit_b))
 
 
-def phase_k3():
+def traffic(moved, ms):
+    """``moved`` bytes in ``ms``: GB, GB/s and the share of 3.35 TB/s."""
+    floor_ms = 1e3 * moved / PEAK_BYTES_PER_S
+    return (f"{moved / 1e9:.4f} GB, {moved / ms / 1e6:.0f} GB/s, "
+            f"{100 * floor_ms / ms:.1f}% of 3.35 TB/s (floor "
+            f"{floor_ms:.4f} ms)")
+
+
+def k3_passes(k3, saved, dlog, wk, slope, ms_c):
+    """K3b's passes (median ms of the nine layer passes summed and of the
+    reduction, CUDA events around each launch) with the bytes of
+    ``k3b_bytes``, and K3c's call of ``ms_c`` with those of ``k3c_bytes``
+    (scratch and partials counted as SM-to-L2 traffic)."""
+    b, t = dlog.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = k3.time_disc_backward_passes(saved, dlog, wk, slope=slope)
+    moved = k3.k3b_bytes(b, t, sms=sms)
+    print(f"K3b passes B={b} T={t} (median ms, bytes of k3b_bytes): "
+          + ", ".join(f"{k} {ms[k]:.4f} ms, {traffic(moved[k], ms[k])}"
+                      for k in ms)
+          + f"; sum {sum(ms.values()):.4f} ms, "
+          + traffic(sum(moved.values()), sum(ms.values())))
+    moved_c = k3.k3c_bytes(b, t, sms=sms)
+    held = k3.k3c_buffer_bytes(b, t, sms=sms)
+    total = sum(moved_c.values())
+    print(f"K3c B={b} T={t} (bytes of k3c_bytes: kernel "
+          f"{moved_c['kernel'] / 1e9:.4f} GB, reduce "
+          f"{moved_c['reduce'] / 1e9:.4f} GB): {ms_c:.4f} ms, "
+          + traffic(total, ms_c) + f"; partials "
+          f"{held['partials'] / 1e6:.1f} MB + scratch "
+          f"{held['scratch'] / 1e6:.1f} MB")
+
+
+def phase_k3(parent=None):
     """K3a, K3b and K3c against their plain versions, and K3c against K3b;
-    returns their records."""
+    returns their records.  With ``parent`` (the parent checkout's
+    pwg_disc module), also times the parent's K3b and K3c on the same
+    inputs, in turns."""
     from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
     gen = torch.Generator().manual_seed(SEED + 4)
     nl = len(k3.DISC_TAIL_DILS)
@@ -804,6 +848,20 @@ def phase_k3():
               f"bit-identical on a second run; kernel {ms_c:.4f} ms, plain "
               f"{plain_c:.4f} ms; K3a without saving + K3c {ms_rc_path:.4f} "
               f"ms, K3a saving + K3b {ms_save_path:.4f} ms (median)")
+        if b == TRAIN_B:
+            k3_passes(k3, got[1], dlog, wk, slope, ms_c)
+        if parent is not None and b == TRAIN_B:
+            for tag, ours, theirs in (
+                    ("K3b", bwd, lambda: parent.fused_disc_backward(
+                        got[1], dlog, wk, slope=slope, need_dx=True,
+                        need_weights=True)),
+                    ("K3c", rc, lambda: parent.fused_disc_backward_recompute(
+                        h16, dlog, wk, bk, slope=slope, need_dx=True,
+                        need_weights=True))):
+                p_ms, c_ms = in_turns(ours, theirs, 10)
+                print(f"{tag} B={b} T={t}, parent, change, change, parent: "
+                      f"{p_ms[0]:.4f}, {c_ms[0]:.4f}, {c_ms[1]:.4f}, "
+                      f"{p_ms[1]:.4f} ms")
     rows = b * t
     limit_a = bound(nbytes(h, wk, bk, *got), rows * DISC_FWD_FLOPS,
                     torch.bfloat16)
@@ -843,12 +901,14 @@ def expected_launches(disc_on, vjp_mode="save"):
     discriminator's weights are constants there), the regeneration of the
     fake without a gradient (K1, once per layer), and the discriminator
     update: K3a on real and fake, each with the gradients of h and the
-    weights.  With ``vjp_mode='save'`` K3a saves and K3b runs its reverse
-    pass for the input gradient, and its reverse pass, dW pass and two
-    reductions for each update; with 'recompute' K3a saves nothing and K3c
-    runs once for the input gradient, and once with two reductions for
-    each update.
+    weights.  With ``vjp_mode='save'`` K3a saves and K3b runs for the
+    input gradient and for each update (``k3b_launches``: a pass per
+    layer, and one reduction with the weights); with 'recompute' K3a saves
+    nothing and K3c runs instead (``k3c_launches``: the kernel, and one
+    reduction with the weights).
     """
+    from parakeet_tpu_torch.ops.kernels.pwg_disc import (k3b_launches,
+                                                        k3c_launches)
     from parakeet_tpu_torch.ops.kernels.pwg_stack_train import k2b_launches
     layers, stacks = PWG_CONFIG["layers"], PWG_CONFIG["stacks"]
     n = {"K1": 0, "K2a": layers,
@@ -856,10 +916,9 @@ def expected_launches(disc_on, vjp_mode="save"):
          "K3b": 0, "K3c": 0}
     if disc_on:
         n.update(K1=layers, K3a=1 + 2)
-        if vjp_mode == "save":
-            n["K3b"] = 1 + 2 * 4
-        else:
-            n["K3c"] = 1 + 2 * 3
+        fn = k3b_launches if vjp_mode == "save" else k3c_launches
+        n["K3b" if vjp_mode == "save" else "K3c"] = (
+            fn(True, False) + 2 * fn(True, True))
     return n
 
 
@@ -1496,7 +1555,8 @@ def main():
                         help="also profile one GAN step and one "
                              "FastSpeech2 step into DIR")
     parser.add_argument("--parent", metavar="DIR", default=None,
-                        help="also time K1 and K2a of the checkout in DIR "
+                        help="also time K1, K2a, K3b and K3c of the "
+                             "checkout in DIR "
                              "(another commit, unpacked with git archive) "
                              "on the same inputs, in turns")
     args = parser.parse_args()
@@ -1509,7 +1569,8 @@ def main():
     parent = None if args.parent is None else load_parent(args.parent)
     k1 = phase_slice(phase_k1(parent))
     k2a, k2b = phase_k2(parent)
-    k3a, k3b, k3c = phase_k3()
+    k3a, k3b, k3c = phase_k3(None if parent is None else parent_module(
+        "pwg_disc"))
     phase_train({"K2a": k2a, "K2b": k2b, "K3a": k3a, "K3b": k3b},
                 args.profile)
     k4 = phase_k4()

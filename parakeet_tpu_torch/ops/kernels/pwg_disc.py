@@ -17,15 +17,17 @@ in bf16.  Two backwards, as the JAX ``vjp_mode``:
 On CUDA tensors they launch the kernels of
 ``parakeet_tpu_torch/csrc/pwg_disc.cu`` (``fused_disc_forward.launches``:
 one per forward, ``.saves`` of them with saving;
-``fused_disc_backward.launches``: the reverse pass, and
-with weight gradients their pass and two reductions;
-``fused_disc_backward_recompute.launches``: K3c, and with weight
-gradients two reductions) or raise; on CPU tensors they run
+``fused_disc_backward.launches``: ``k3b_launches``, a pass per layer and
+with weight gradients one reduction;
+``fused_disc_backward_recompute.launches``: ``k3c_launches``, K3c and with
+weight gradients one reduction) or raise; on CPU tensors they run
 ``disc_forward_reference`` / ``disc_backward_reference`` /
 ``disc_backward_recompute_reference``, the plain statements of the same
 arithmetic: bf16 products with float32 accumulation, float32 biases,
 logits and gradients, bf16(dpre) as the operand of the backward products
-and float32 dpre for db.
+and float32 dpre for db.  The geometry of the kernels (``k3b_chunks``,
+``k3b_smem_bytes``, ``k3c_smem_bytes``) and the bytes they move
+(``k3b_bytes``, ``k3c_bytes``, ``k3c_buffer_bytes``) are plain functions.
 
 One difference from the TPU kernels: the gradient is zeroed outside
 [0, T) before every layer, which makes it the exact transpose of the
@@ -35,6 +37,8 @@ signal's ends into the last ~37 rows of each end (ROADMAP queue 3).
 from __future__ import annotations
 
 import ctypes
+import functools
+import statistics
 from typing import Sequence
 
 import torch
@@ -46,19 +50,10 @@ __all__ = ["fused_disc_tail", "fused_disc_supported", "DISC_TAIL_DILS",
            "VJP_MODES", "pack_disc_weights", "fused_disc_forward",
            "fused_disc_backward", "fused_disc_backward_recompute",
            "disc_forward_reference", "disc_backward_reference",
-           "disc_backward_recompute_reference"]
-
-_TK = 64            # rows per step of the dW kernel (pwg_disc.cu TK)
-
-
-def dw_chunks(rows: int, device: torch.device):
-    """(chunks, rows per chunk) of a weight-gradient pass: one chunk per
-    SM, each a multiple of the kernel's 64-row step."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per = -(-rows // sms)
-    per = -(-per // _TK) * _TK
-    return -(-rows // per), per
-
+           "disc_backward_recompute_reference", "k3b_launches",
+           "k3c_launches", "k3b_chunks", "k3b_smem_bytes", "k3c_smem_bytes",
+           "k3b_bytes", "k3c_bytes", "k3c_blocks", "k3c_buffer_bytes",
+           "time_disc_backward_passes", "K3B_TILE_ROWS", "K3C_TILE_ROWS"]
 
 # layers 1..8 (dilation = layer index) + the k=3 d=1 output conv
 DISC_TAIL_DILS = (1, 2, 3, 4, 5, 6, 7, 8, 1)
@@ -141,12 +136,137 @@ def disc_backward_recompute_reference(h, dlog, wk, bk, *, slope: float):
 
 _P, _I, _FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = (_P,) * 5 + (_I, _I, _FL, _P)
-_BWD_ARGS = (_P,) * 6 + (_I, _I, _FL, _P)
-_DW_ARGS = (_P,) * 3 + (_I,) * 4 + (_P,)
-_BLOCKS_ARGS = (_I, _I)
+_LAYER_ARGS = (_P,) * 7 + (_I,) * 5 + (_FL, _P)
 _REDUCE_ARGS = (_P, _P, _I, ctypes.c_longlong, _P)
-_RC_ARGS = (_P,) * 9 + (_I, _I, _I, _FL, _P)
+_RC_ARGS = (_P,) * 8 + (_I, _I, _I, _FL, _P)
 _RC_BLOCKS_ARGS = (_I, _I, _I)
+# which pass of K3b each launch belongs to (``time_disc_backward_passes``)
+_K3B_PASS = {"pwg_disc_bwd_layer": "layers", "pwg_reduce_partials": "reduce"}
+
+# pwg_disc.cu's geometry.  K3b: rows a tile (tiles never cross an item),
+# cp.async stages, halo rows on each side of a stage (the largest
+# dilation); K3c: centre rows a tile, the reverse window's halo and the
+# recompute window's.  A layer's partial holds dW's 192 rows, then db.
+K3B_TILE_ROWS, K3B_STAGES, _M = 64, 4, 8
+K3C_TILE_ROWS, _H, _HR = 272, 40, 80
+_PR = 3 * _C + 1
+_LD = _C + 8             # bf16 pitch of weight and ldmatrix-only rows
+_LDX = 80                # bf16 pitch of K3a's and K3c's windows
+_WARPS = 8
+
+
+def k3b_launches(need_dx: bool = True, need_weights: bool = True) -> int:
+    """Kernel launches of one K3b call: a pass per layer, and with the
+    weight gradients one reduction of the chunks' partials (none when
+    nothing is asked for)."""
+    if not (need_dx or need_weights):
+        return 0
+    return _NL + int(need_weights)
+
+
+def k3c_launches(need_dx: bool = True, need_weights: bool = True) -> int:
+    """Kernel launches of one K3c call: the kernel, and with the weight
+    gradients one reduction of the blocks' partials."""
+    if not (need_dx or need_weights):
+        return 0
+    return 1 + int(need_weights)
+
+
+def k3b_chunks(b: int, t: int, sms: int):
+    """(chunks, tiles per chunk): each K3b pass cuts the B * ceil(T / 64)
+    tiles of K3B_TILE_ROWS rows of one item, in (item, time) order, into
+    at most ``sms`` contiguous chunks, one a block; each chunk's partials
+    are added in chunk order."""
+    tiles = b * -(-t // K3B_TILE_ROWS)
+    per = -(-tiles // sms)
+    return -(-tiles // per), per
+
+
+def k3b_smem_bytes() -> int:
+    """Dynamic shared memory of a K3b pass's block, as pwg_disc.cu's
+    kLayerSmem: the layer's (192, 64) weights, K3B_STAGES stages of the
+    tile's dpre and saved rows with their halo (pitch 72 bf16) and
+    dlogits (float32), and the db sums."""
+    xs = K3B_TILE_ROWS + 2 * _M
+    stage = 2 * 2 * xs * _LD + 4 * xs
+    return 2 * 3 * _C * _LD + K3B_STAGES * stage + 4 * (4 * _C
+                                                         + K3B_TILE_ROWS)
+
+
+def k3c_smem_bytes() -> int:
+    """Dynamic shared memory of a K3c block, as pwg_disc.cu's kRcSmem: the
+    larger of the recompute half's (two windows of TCR + 2 * 80 rows and
+    their margins, one layer's weights, the wmma staging, the bias) and
+    the reverse half's (two windows of TCR + 2 * 40 rows, two layers'
+    weights, the dW operand's TCR + 16 rows), then the db sums."""
+    tcr, w = K3C_TILE_ROWS, 2 * 3 * _C * _LD
+    fwd = (2 * 2 * (tcr + 2 * _HR + 2 * _M) * _LDX + w
+           + 4 * _WARPS * 16 * (_C + 4) + 4 * _C)
+    rev = (2 * 2 * (tcr + 2 * _H + 2 * _M) * _LDX + 2 * w
+           + 2 * (tcr + 2 * _M) * _LD)
+    return max(fwd, rev) + 4 * (_WARPS + _NL) * _C
+
+
+def k3b_bytes(b: int, t: int, need_weights: bool = True,
+              need_dx: bool = True, sms: int = 132):
+    """Device-memory bytes of one K3b call, counted from the shapes, each
+    operand read once and each result written once: {"layers": the nine
+    passes, "reduce": the reduction, with the weight gradients}.  Pass 8
+    reads dlogits and x_8 and writes dpre_7; passes 7..1 read dpre_j and
+    x_j and write dpre_j-1 (384 bytes a row); pass 0 reads dpre_0 (and
+    x_0 for dW) and writes dh; each chunk writes its partials."""
+    rows = b * t
+    stream = 2 * _C * rows
+    layers = 4 * rows + 2 * stream + (_NL - 2) * 3 * stream + stream
+    layers += stream * int(need_weights) + 4 * _C * rows * int(need_dx)
+    layers += _NL * 2 * 3 * _C * _C              # the weights, once
+    if not need_weights:
+        return {"layers": layers}
+    part = _NL * _PR * _C * 4
+    chunks = k3b_chunks(b, t, sms)[0]
+    return {"layers": layers + chunks * part,
+            "reduce": chunks * part + part}
+
+
+def k3c_blocks(b: int, t: int, sms: int) -> int:
+    """K3c's persistent blocks: one an SM, no more than there are tiles
+    (pwg_disc.cu's pwg_disc_rc_blocks)."""
+    return min(b * -(-t // K3C_TILE_ROWS), sms)
+
+
+def k3c_buffer_bytes(b: int, t: int, sms: int = 132):
+    """Device memory K3c keeps per call beside its inputs and outputs:
+    {"partials": each block's (9, 193, 64) float32 dW and db, "scratch":
+    each block's nine rebuilt streams on the reverse window (TCR + 80
+    rows, bf16)}."""
+    blocks = k3c_blocks(b, t, sms)
+    return {"partials": blocks * _NL * _PR * _C * 4,
+            "scratch": blocks * _NL * (K3C_TILE_ROWS + 2 * _H) * _C * 2}
+
+
+def k3c_bytes(b: int, t: int, need_weights: bool = True, sms: int = 132):
+    """Bytes one K3c call moves between the SMs and L2, counted from the
+    shapes and the tiles: {"kernel": h and dlogits in, dh out, per tile
+    the nine streams' reverse-window rows written to the scratch and read
+    back (the dW operand's TCR + 16 rows of each stream, the masks'
+    TCR + 80 rows of streams 1..8) and the partials' read-modify-write,
+    "reduce": the reduction}.  Whether the scratch and partials stay in
+    L2 decides how much of it reaches HBM."""
+    rows, tcr = b * t, K3C_TILE_ROWS
+    tiles = b * -(-t // tcr)
+    blocks = k3c_blocks(b, t, sms)
+    row = 2 * _C                                 # a bf16 stream row
+    wr = tcr + 2 * _H
+    per_tile = _NL * wr * row + (_NL - 1) * wr * row
+    kernel = rows * (2 * _C + 4 + 4 * _C) + tiles * per_tile
+    kernel += 2 * _NL * 2 * 3 * _C * _C * blocks   # weights, per block
+    if not need_weights:
+        return {"kernel": kernel}
+    dw = _NL * 3 * _C * _C * 4
+    kernel += tiles * (_NL * (tcr + 2 * _M) * row + 2 * dw) - blocks * dw
+    kernel += blocks * _NL * _C * 4                # db rows
+    part = _NL * _PR * _C * 4
+    return {"kernel": kernel, "reduce": blocks * part + part}
 
 
 def _check_shape(b: int, t: int) -> None:
@@ -190,10 +310,74 @@ fused_disc_forward.launches = 0
 fused_disc_forward.saves = 0        # the launches that saved the inputs
 
 
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
+def _split_partials(out):
+    """The reduced (9, 193, 64) partials -> dW (9, 3, 64, 64), db (9, 64)."""
+    return out[:, :3 * _C].reshape(_NL, 3, _C, _C), out[:, 3 * _C]
+
+
+def _disc_backward_cuda(saved, dlog, wk, slope, need_dx, need_weights, sms,
+                        timer=None):
+    """K3b's launches on the current stream: the nine layer passes, last
+    to first, dpre ping-ponging between two bf16 streams, then the
+    reduction of the chunks' partials.  ``timer(pass, call)``, if given,
+    wraps each launch (``time_disc_backward_passes``)."""
+    _, b, t, _ = saved.shape
+    dev = saved.device
+    check_tensor("saved", saved, (_NL, b, t, _C), _BF16, dev)
+    dl = dlog.to(_F32).reshape(b, t).contiguous()
+    wkt = wk.to(_BF16).transpose(2, 3).reshape(_NL, 3 * _C, _C).contiguous()
+    nchunk, per = k3b_chunks(b, t, sms)
+    dx = (torch.empty((b, t, _C), dtype=_F32, device=dev)
+          if need_dx else None)
+    bufs = [torch.empty((b, t, _C), dtype=_BF16, device=dev)
+            for _ in range(2)]
+    part = (torch.empty((nchunk, _NL, _PR, _C), dtype=_F32, device=dev)
+            if need_weights else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    layer = kernel_call("pwg_disc_bwd_layer", _LAYER_ARGS)
+    reduce = kernel_call("pwg_reduce_partials", _REDUCE_ARGS)
+
+    def run(name, fn, *args):
+        call = (lambda: fn(*args))
+        check_launch(name, call() if timer is None
+                     else timer(_K3B_PASS[name], call))
+        fused_disc_backward.launches += 1
+
+    # layer j's operands by address: no tensor views on the launch path
+    x0, w0 = saved.data_ptr(), wkt.data_ptr()
+    dp = [a.data_ptr() for a in bufs]
+    x_bytes, w_bytes = 2 * b * t * _C, 2 * 3 * _C * _C
+    for j in range(_NL - 1, -1, -1):
+        top = j == _NL - 1
+        run("pwg_disc_bwd_layer", layer,
+            x0 + j * x_bytes if j > 0 or need_weights else None,
+            None if top else dp[(_NL - j) % 2],
+            dl.data_ptr() if top else None, w0 + j * w_bytes,
+            dp[(_NL - 1 - j) % 2] if j > 0 else None,
+            _ptr(dx) if j == 0 else None, _ptr(part), j, b, t, nchunk, per,
+            float(slope), stream)
+    if not need_weights:
+        return dx, None, None
+    out = torch.empty((_NL, _PR, _C), dtype=_F32, device=dev)
+    run("pwg_reduce_partials", reduce, part.data_ptr(), out.data_ptr(),
+        nchunk, out.numel(), stream)
+    return (dx, *_split_partials(out))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def fused_disc_backward(saved, dlog, wk, *, slope: float, need_dx: bool,
                         need_weights: bool):
     """K3b: (dh or None, dwk or None, dbk or None), float32.  The kernels
-    on CUDA tensors, ``disc_backward_reference`` on CPU tensors."""
+    on CUDA tensors (``k3b_launches``), ``disc_backward_reference`` on CPU
+    tensors."""
     if saved.device.type == "cpu":
         dh, dwk, dbk = disc_backward_reference(saved, dlog, wk, slope=slope)
         return (dh if need_dx else None,
@@ -202,58 +386,52 @@ def fused_disc_backward(saved, dlog, wk, *, slope: float, need_dx: bool,
     if not (saved.is_cuda and dlog.is_cuda):
         raise ValueError("fused_disc_backward: saved on "
                          f"{saved.device}, dlog on {dlog.device}")
-    _, b, t, _ = saved.shape
-    dev = saved.device
-    counter = fused_disc_backward
-    with torch.cuda.device(dev):
-        check_tensor("saved", saved, (_NL, b, t, _C), _BF16, dev)
-        dl = dlog.to(_F32).reshape(b, t).contiguous()
-        wkt = wk.to(_BF16).transpose(2, 3).reshape(_NL, 3 * _C, _C)
-        wkt = wkt.contiguous()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        dx = (torch.empty((b, t, _C), dtype=_F32, device=dev)
-              if need_dx else None)
-        dpre = dbp = None
-        if need_weights:
-            nblk = kernel_call("pwg_disc_blocks", _BLOCKS_ARGS)(b, t)
-            dpre = torch.empty((_NL, b, t, _C), dtype=_BF16, device=dev)
-            dbp = torch.empty((nblk, _NL, _C), dtype=_F32, device=dev)
-        fn = kernel_call("pwg_disc_bwd", _BWD_ARGS)
-        check_launch("pwg_disc_bwd", fn(
-            saved.data_ptr(), dl.data_ptr(), wkt.data_ptr(),
-            None if dx is None else dx.data_ptr(),
-            None if dpre is None else dpre.data_ptr(),
-            None if dbp is None else dbp.data_ptr(), b, t, float(slope),
-            stream))
-        counter.launches += 1
-        if not need_weights:
-            return dx, None, None
-        nchunk, chunk_rows = dw_chunks(b * t, dev)
-        part = torch.empty((nchunk, _NL, 3 * _C, _C), dtype=_F32,
-                           device=dev)
-        check_launch("pwg_disc_dw", kernel_call("pwg_disc_dw", _DW_ARGS)(
-            saved.data_ptr(), dpre.data_ptr(), part.data_ptr(), b, t,
-            nchunk, chunk_rows, stream))
-        counter.launches += 1
-        reduce = kernel_call("pwg_reduce_partials", _REDUCE_ARGS)
-        dwk = torch.empty((_NL, 3, _C, _C), dtype=_F32, device=dev)
-        dbk = torch.empty((_NL, _C), dtype=_F32, device=dev)
-        check_launch("pwg_reduce_partials", reduce(
-            part.data_ptr(), dwk.data_ptr(), nchunk, dwk.numel(), stream))
-        check_launch("pwg_reduce_partials", reduce(
-            dbp.data_ptr(), dbk.data_ptr(), nblk, dbk.numel(), stream))
-        counter.launches += 2
-    return dx, dwk, dbk
+    if not (need_dx or need_weights):
+        return None, None, None
+    with torch.cuda.device(saved.device):
+        return _disc_backward_cuda(saved, dlog, wk, slope, need_dx,
+                                   need_weights, _sm_count(saved.device))
 
 
 fused_disc_backward.launches = 0
 
 
+def time_disc_backward_passes(saved, dlog, wk, *, slope: float,
+                              reps: int = 10, warmup: int = 2):
+    """Median milliseconds of K3b's passes in a call with dh and the
+    weight gradients, from CUDA events around each launch: {"layers": the
+    nine layer passes summed, "reduce": the reduction}."""
+    totals = []
+    with torch.cuda.device(saved.device):
+        for rep in range(warmup + reps):
+            events = []
+
+            def timer(kind, call):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                err = call()
+                stop.record()
+                events.append((kind, start, stop))
+                return err
+
+            _disc_backward_cuda(saved, dlog, wk, slope, True, True,
+                                _sm_count(saved.device), timer=timer)
+            torch.cuda.synchronize()
+            if rep >= warmup:
+                ms = dict.fromkeys(_K3B_PASS.values(), 0.0)
+                for kind, start, stop in events:
+                    ms[kind] += start.elapsed_time(stop)
+                totals.append(ms)
+    return {k: statistics.median(m[k] for m in totals) for k in totals[0]}
+
+
 def fused_disc_backward_recompute(h, dlog, wk, bk, *, slope: float,
                                   need_dx: bool, need_weights: bool):
     """K3c: (dh or None, dwk or None, dbk or None), float32, from the
-    layer-0 output h and dlogits alone.  The kernel on CUDA tensors,
-    ``disc_backward_recompute_reference`` on CPU tensors."""
+    layer-0 output h and dlogits alone.  The kernel on CUDA tensors
+    (``k3c_launches``), ``disc_backward_recompute_reference`` on CPU
+    tensors."""
     if not (need_dx or need_weights):
         raise ValueError("fused_disc_backward_recompute: nothing to compute")
     if h.device.type == "cpu":
@@ -271,6 +449,7 @@ def fused_disc_backward_recompute(h, dlog, wk, bk, *, slope: float,
                          "channels, not 64")
     _check_shape(b, t)
     dev = h.device
+    counter = fused_disc_backward_recompute
     with torch.cuda.device(dev):
         h16 = h.to(_BF16).contiguous()
         dl = dlog.to(_F32).reshape(b, t).contiguous()
@@ -279,38 +458,29 @@ def fused_disc_backward_recompute(h, dlog, wk, bk, *, slope: float,
         bk32 = bk.to(_F32).contiguous()
         check_tensor("wk", wk16, (_NL, 3, _C, _C), _BF16, dev)
         check_tensor("bk", bk32, (_NL, _C), _F32, dev)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        nblk = kernel_call("pwg_disc_rc_blocks", _RC_BLOCKS_ARGS)(b, t, sms)
+        nblk = kernel_call("pwg_disc_rc_blocks", _RC_BLOCKS_ARGS)(
+            b, t, _sm_count(dev))
         per_block = kernel_call("pwg_disc_rc_scratch_elems", ())()
         scratch = torch.empty((nblk, per_block), dtype=_BF16, device=dev)
         dx = (torch.empty((b, t, _C), dtype=_F32, device=dev)
               if need_dx else None)
-        part = dbp = None
-        if need_weights:
-            part = torch.empty((nblk, _NL, 3 * _C, _C), dtype=_F32,
-                               device=dev)
-            dbp = torch.empty((nblk, _NL, _C), dtype=_F32, device=dev)
+        part = (torch.empty((nblk, _NL, _PR, _C), dtype=_F32, device=dev)
+                if need_weights else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = kernel_call("pwg_disc_bwd_rc", _RC_ARGS)
         check_launch("pwg_disc_bwd_rc", fn(
             h16.data_ptr(), dl.data_ptr(), wk16.data_ptr(), wkt.data_ptr(),
-            bk32.data_ptr(), None if dx is None else dx.data_ptr(),
-            scratch.data_ptr(), None if part is None else part.data_ptr(),
-            None if dbp is None else dbp.data_ptr(), b, t, nblk,
-            float(slope), stream))
-        counter = fused_disc_backward_recompute
+            bk32.data_ptr(), _ptr(dx), scratch.data_ptr(), _ptr(part), b, t,
+            nblk, float(slope), stream))
         counter.launches += 1
         if not need_weights:
             return dx, None, None
-        reduce = kernel_call("pwg_reduce_partials", _REDUCE_ARGS)
-        dwk = torch.empty((_NL, 3, _C, _C), dtype=_F32, device=dev)
-        dbk = torch.empty((_NL, _C), dtype=_F32, device=dev)
-        check_launch("pwg_reduce_partials", reduce(
-            part.data_ptr(), dwk.data_ptr(), nblk, dwk.numel(), stream))
-        check_launch("pwg_reduce_partials", reduce(
-            dbp.data_ptr(), dbk.data_ptr(), nblk, dbk.numel(), stream))
-        counter.launches += 2
-    return dx, dwk, dbk
+        out = torch.empty((_NL, _PR, _C), dtype=_F32, device=dev)
+        check_launch("pwg_reduce_partials", kernel_call(
+            "pwg_reduce_partials", _REDUCE_ARGS)(
+            part.data_ptr(), out.data_ptr(), nblk, out.numel(), stream))
+        counter.launches += 1
+    return (dx, *_split_partials(out))
 
 
 fused_disc_backward_recompute.launches = 0

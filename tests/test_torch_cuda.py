@@ -253,7 +253,7 @@ def test_k3_matches_plain_versions(cuda, b, t):
     n0 = k3.fused_disc_backward.launches
     grads = k3.fused_disc_backward(saved, dlog, wk, slope=0.2, need_dx=True,
                                    need_weights=True)
-    assert k3.fused_disc_backward.launches - n0 == 4
+    assert k3.fused_disc_backward.launches - n0 == k3.k3b_launches(True, True)
     again = k3.fused_disc_backward(saved, dlog, wk, slope=0.2, need_dx=True,
                                    need_weights=True)
     want = k3.disc_backward_reference(saved, dlog, wk, slope=0.2)
@@ -291,7 +291,8 @@ def test_k3c_matches_plain_version_and_k3b(cuda, b, t):
     n0 = k3.fused_disc_backward_recompute.launches
     grads = k3.fused_disc_backward_recompute(h, dlog, wk, bk, slope=0.2,
                                              need_dx=True, need_weights=True)
-    assert k3.fused_disc_backward_recompute.launches - n0 == 3
+    assert (k3.fused_disc_backward_recompute.launches - n0
+            == k3.k3c_launches(True, True))
     again = k3.fused_disc_backward_recompute(h, dlog, wk, bk, slope=0.2,
                                              need_dx=True, need_weights=True)
     want = k3.disc_backward_recompute_reference(h, dlog, wk, bk, slope=0.2)
@@ -312,9 +313,91 @@ def test_k3c_matches_plain_version_and_k3b(cuda, b, t):
         h, dlog, wk, bk, slope=0.2, need_dx=True, need_weights=False)
     w_only = k3.fused_disc_backward_recompute(
         h, dlog, wk, bk, slope=0.2, need_dx=False, need_weights=True)
-    assert k3.fused_disc_backward_recompute.launches - n0 == 1 + 3
+    assert (k3.fused_disc_backward_recompute.launches - n0
+            == k3.k3c_launches(True, False) + k3.k3c_launches(False, True))
     assert dx_only[1] is None and torch.equal(dx_only[0], grads[0])
     assert w_only[0] is None and torch.equal(w_only[1], grads[1])
+
+
+def _k3_inputs(cuda, b, t, seed):
+    from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
+    gen = torch.Generator().manual_seed(seed)
+    kernels = [torch.randn((3, 64, 1 if j == 8 else 64), generator=gen)
+               / 14 for j in range(9)]
+    biases = [0.05 * torch.randn(k.shape[-1], generator=gen)
+              for k in kernels]
+    wk, bk = (a.to(cuda) for a in k3.pack_disc_weights(kernels, biases))
+    h = torch.randn((b, t, 64), generator=gen).to(cuda).to(torch.bfloat16)
+    dlog = torch.randn((b, t), generator=gen).to(cuda)
+    return wk, bk, h, dlog
+
+
+# K3b's and K3c's edges: T below the receptive field (37) and below a
+# tile, B = 3 with T a multiple of no tile (64, 208) or chunk, chunk
+# boundaries inside an item (every case from B * T = 4133 on), more tiles
+# and chunks than the card has SMs, and the recipe's shape at B = 4.
+@pytest.mark.parametrize("b,t", [(3, 7), (2, 37), (3, 1001), (1, 4133),
+                                 (5, 3000), (4, 20000)])
+def test_k3b_k3c_edges_match_plain_versions(cuda, b, t):
+    """Each of K3b and K3c within its tolerance of its plain version and
+    bit-identical on a second run, dh-only and weights-only calls giving
+    the full call's bits with their own launch counts, K3c's dh bitwise
+    K3b's and its dW and db within K3C_VS_K3B_TOL of K3b's."""
+    from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
+    wk, bk, h, dlog = _k3_inputs(cuda, b, t, 7 * b + t)
+    _, saved = k3.fused_disc_forward(h, wk, bk, slope=0.2, save=True)
+    kw = dict(slope=0.2)
+    for fn, args, count, full_n, dx_n, w_n in (
+            (k3.fused_disc_backward, (saved, dlog, wk), k3.fused_disc_backward,
+             k3.k3b_launches(True, True), k3.k3b_launches(True, False),
+             k3.k3b_launches(False, True)),
+            (k3.fused_disc_backward_recompute, (h, dlog, wk, bk),
+             k3.fused_disc_backward_recompute, k3.k3c_launches(True, True),
+             k3.k3c_launches(True, False), k3.k3c_launches(False, True))):
+        n0 = count.launches
+        grads = fn(*args, need_dx=True, need_weights=True, **kw)
+        assert count.launches - n0 == full_n
+        again = fn(*args, need_dx=True, need_weights=True, **kw)
+        for name, g, a in zip(("dh", "dW", "db"), grads, again):
+            assert torch.equal(g, a), f"{fn.__name__} {name} differs"
+        n0 = count.launches
+        dx_only = fn(*args, need_dx=True, need_weights=False, **kw)
+        assert count.launches - n0 == dx_n
+        n0 = count.launches
+        w_only = fn(*args, need_dx=False, need_weights=True, **kw)
+        assert count.launches - n0 == w_n
+        assert dx_only[1:] == (None, None) and w_only[0] is None
+        assert torch.equal(dx_only[0], grads[0])
+        assert torch.equal(w_only[1], grads[1])
+        assert torch.equal(w_only[2], grads[2])
+        if fn is k3.fused_disc_backward:
+            save_path = grads
+            want = k3.disc_backward_reference(saved, dlog, wk, slope=0.2)
+            for name, g, w in zip(("dh", "dW", "db"), grads, want):
+                _hold(g, w, f"K3b {name}")
+    want = k3.disc_backward_recompute_reference(h, dlog, wk, bk, slope=0.2)
+    for name, g, w in zip(("dh", "dW", "db"), grads, want):
+        assert torch.isfinite(g).all(), name
+        rel = ((g - w).norm() / w.norm()).item()
+        assert rel <= K3C_REL_L2, (name, rel)
+    assert torch.equal(grads[0], save_path[0])
+    for name, g, w in zip(("dW", "db"), grads[1:], save_path[1:]):
+        err = (g - w).abs().max().item()
+        assert err <= K3C_VS_K3B_TOL * w.abs().max().item(), (name, err)
+
+
+def test_k3_shared_memory_matches_the_kernels(cuda):
+    """The launcher's ``k3b_smem_bytes`` and ``k3c_smem_bytes`` are the
+    kernels' own counts (``pwg_disc_smem``), within the card's 227 KB."""
+    import ctypes
+
+    from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
+    from parakeet_tpu_torch.ops.kernels._build import load_library
+    fn = load_library().cdll.pwg_disc_smem
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    assert fn(0) == k3.k3b_smem_bytes() <= pwg_stack.SMEM_LIMIT
+    assert fn(1) == k3.k3c_smem_bytes() <= pwg_stack.SMEM_LIMIT
 
 
 def test_disc_recompute_grads_on_the_card_match_save(cuda):
@@ -351,7 +434,9 @@ def test_disc_recompute_grads_on_the_card_match_save(cuda):
                  k3.fused_disc_backward_recompute.launches)
         launched = [a - b for a, b in zip(after, before)]
         if impl == "fused":
-            assert launched == ([1, 4, 0] if mode == "save" else [0, 0, 3])
+            assert launched == ([1, k3.k3b_launches(True, True), 0]
+                                if mode == "save"
+                                else [0, 0, k3.k3c_launches(True, True)])
         grads[impl, mode] = [x.grad] + [p.grad for p in d.parameters()]
     for got, want, full in zip(grads["fused", "recompute"],
                                grads["fused", "save"],
