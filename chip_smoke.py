@@ -30,10 +30,14 @@ Phases, one line each (the checks raise; nothing is caught):
    a small shape and at the training shape (B=8, T=25,500: the PWGAN
    recipe's batch_size and batch_max_steps): max abs errors against
    stated tolerances, outputs and gradients bit-identical from run to
-   run (K2a's bytes, rate and share as K1's), K3c's dh
+   run (K2a's bytes, rate and share as K1's), K3a without saving
+   bitwise K3a with saving on the logits, K3c's dh
    bitwise K3b's and its dW and db within a stated tolerance of K3b's,
-   median times (also of K3a without saving + K3c against K3a saving +
-   K3b), K3b's passes (its nine layer passes and the reduction) with the
+   median times (K3a with and without saving apart, and K3a without
+   saving + K3c against K3a saving + K3b), K3a's grid, waves and blocks
+   an SM, both K3a calls with the bytes of ``k3a_bytes``, GB/s and the
+   share of their bounds (the one without saving bound by FLOP), K3b's
+   passes (its nine layer passes and the reduction) with the
    bytes of ``k3b_bytes``, GB/s and the share of 3.35 TB/s, and K3c's
    with those of ``k3c_bytes``;
 5. the training slice: a port ``Trainer`` over ``StandardUpdater`` runs
@@ -98,9 +102,9 @@ and dv); the last line is the run's
 result.  Without a CUDA device it raises and prints no result.
 ``--profile DIR`` also writes ``torch.profiler`` tables of one GAN step
 with the kernels and of one FastSpeech2 step with flash attention to DIR.
-``--parent DIR`` also times K1, K2a, K3b and K3c of another checkout (the
-parent commit, unpacked with ``git archive`` into DIR) on the same
-inputs, in turns: parent, change, change, parent.
+``--parent DIR`` also times K1, K2a, K3a (both), K3b and K3c of another
+checkout (the parent commit, unpacked with ``git archive`` into DIR) on
+the same inputs, in turns: parent, change, change, parent.
 """
 import argparse
 import json
@@ -318,6 +322,17 @@ def cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
+def cuda_ms_per_call(fn, reps, calls=10):
+    """Median milliseconds a call of ``fn()`` over ``reps`` runs of
+    ``calls`` calls back to back (CUDA events): the host enqueues ahead of
+    the card, so the time is the card's, not a short call's host
+    overhead."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return cuda_ms(run, reps) / calls
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -334,7 +349,7 @@ def phase_card():
           f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path}; spills: "
           + (" | ".join(spills) or "none"))
     for tag, prefix in (("K1/K2a", "pwg_layer_"), ("K2b", "k2b_"),
-                        ("K3b/K3c", "disc_"), ("K4", "flash_")):
+                        ("K3", "disc_"), ("K4", "flash_")):
         print(f"ptxas, {tag}: " + ", ".join(
             f"{name} {regs} ({st + ld})" for name, regs, st, ld in entries
             if name.startswith(prefix)) + " (registers a thread, spill "
@@ -420,10 +435,11 @@ def parent_module(name):
     return importlib.import_module(f"parent_ptt.ops.kernels.{name}")
 
 
-def in_turns(ours, theirs, reps):
-    """Median ms of ``theirs`` (the parent's kernel) and ``ours``, timed
-    parent, change, change, parent: ([parent, parent], [change, change])."""
-    a, b, c, d = (cuda_ms(f, reps) for f in (theirs, ours, ours, theirs))
+def in_turns(ours, theirs, reps, timer=cuda_ms):
+    """Median ms of ``theirs`` (the parent's kernel) and ``ours`` by
+    ``timer``, timed parent, change, change, parent: ([parent, parent],
+    [change, change])."""
+    a, b, c, d = (timer(f, reps) for f in (theirs, ours, ours, theirs))
     return [a, d], [b, c]
 
 
@@ -771,11 +787,33 @@ def k3_passes(k3, saved, dlog, wk, slope, ms_c):
           f"{held['scratch'] / 1e6:.1f} MB")
 
 
+def k3a_calls(k3, h, wk, bk, got, ms_a, ms_an):
+    """K3a's grid, waves and blocks an SM, and its two calls' bytes
+    (``k3a_bytes``), GB/s and share of their bounds (the one without
+    saving bound by FLOP)."""
+    b, t, _ = h.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = k3.k3a_blocks_per_sm()
+    grid = k3.k3a_grid(b, t)
+    parts = []
+    for save, ms, outs in ((True, ms_a, got), (False, ms_an, got[:1])):
+        limit = bound(nbytes(h, wk, bk, *outs), b * t * DISC_FWD_FLOPS,
+                      torch.bfloat16)
+        parts.append(
+            f"{'with' if save else 'without'} saving {ms:.4f} ms, "
+            f"{traffic(k3.k3a_bytes(b, t, save), ms)} (k3a_bytes); bound "
+            f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}), "
+            f"{100 * limit['bound_ms'] / ms:.1f}% of it")
+    print(f"K3a B={b} T={t}: grid {grid} blocks, {per_sm} an SM, "
+          f"{grid / (per_sm * sms):.2f} waves on {sms} SMs; "
+          + "; ".join(parts))
+
+
 def phase_k3(parent=None):
     """K3a, K3b and K3c against their plain versions, and K3c against K3b;
     returns their records.  With ``parent`` (the parent checkout's
-    pwg_disc module), also times the parent's K3b and K3c on the same
-    inputs, in turns."""
+    pwg_disc module), also times the parent's K3a (with and without
+    saving), K3b and K3c on the same inputs, in turns."""
     from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
     gen = torch.Generator().manual_seed(SEED + 4)
     nl = len(k3.DISC_TAIL_DILS)
@@ -806,13 +844,32 @@ def phase_k3(parent=None):
                   for n, g, r in zip(("dh", "dW", "db"), got_b, ref_b)]
         if not all(torch.equal(u, v) for u, v in zip(got_b, again)):
             raise AssertionError("K3b: two runs gave different gradients")
-        ms_a, plain_a = cuda_ms(fwd, 10), cuda_ms(
+        nosave = (lambda: k3.fused_disc_forward(h, wk, bk, slope=slope,
+                                                save=False))
+        got_n = nosave()
+        ref_n = k3.disc_forward_reference(h, wk, bk, slope=slope,
+                                          save=False)
+        torch.cuda.synchronize()
+        held_n = [("logits", _hold(f"K3a without saving B={b} T={t}",
+                                   got_n[0], ref_n[0], K3_REL_TOL))]
+        if got_n[1] is not None or not torch.equal(got_n[0], got[0]):
+            raise AssertionError(f"K3a B={b} T={t}: the logits without "
+                                 "saving are not those with saving")
+        # K3a's calls back to back: a single call's ~0.2 ms is close to
+        # the host's time to issue it
+        ms_a, plain_a = cuda_ms_per_call(fwd, 5), cuda_ms(
             lambda: k3.disc_forward_reference(h, wk, bk, slope=slope), 3)
+        ms_an, plain_an = cuda_ms_per_call(nosave, 5), cuda_ms(
+            lambda: k3.disc_forward_reference(h, wk, bk, slope=slope,
+                                              save=False), 3)
         ms_b, plain_b = cuda_ms(bwd, 10), cuda_ms(
             lambda: k3.disc_backward_reference(got[1], dlog, wk,
                                                slope=slope), 3)
         print(f"K3a B={b} T={t} (with save): {_report('K3a', held_a)}; "
-              f"kernel {ms_a:.4f} ms, plain {plain_a:.4f} ms (median)")
+              f"kernel {ms_a:.4f} ms a call (10 back to back), plain "
+              f"{plain_a:.4f} ms (median); without save: "
+              f"{_report('K3a', held_n)}, bitwise the logits with save; "
+              f"kernel {ms_an:.4f} ms a call, plain {plain_an:.4f} ms")
         print(f"K3b B={b} T={t} (dh, dW, db): {_report('K3b', held_b)}; "
               f"bit-identical on a second run; kernel {ms_b:.4f} ms, plain "
               f"{plain_b:.4f} ms (median)")
@@ -834,8 +891,6 @@ def phase_k3(parent=None):
         vs_b = [(n, _hold(f"K3c {n} against K3b B={b} T={t}", g, r,
                           K3C_VS_K3B_REL_TOL))
                 for n, g, r in zip(("dW", "db"), got_c[1:], got_b[1:])]
-        nosave = (lambda: k3.fused_disc_forward(h, wk, bk, slope=slope,
-                                                save=False))
         ms_c = cuda_ms(rc, 10)
         plain_c = cuda_ms(lambda: k3.disc_backward_recompute_reference(
             h16, dlog, wk, bk, slope=slope), 3)
@@ -849,16 +904,27 @@ def phase_k3(parent=None):
               f"{plain_c:.4f} ms; K3a without saving + K3c {ms_rc_path:.4f} "
               f"ms, K3a saving + K3b {ms_save_path:.4f} ms (median)")
         if b == TRAIN_B:
+            k3a_calls(k3, h, wk, bk, got, ms_a, ms_an)
             k3_passes(k3, got[1], dlog, wk, slope, ms_c)
         if parent is not None and b == TRAIN_B:
-            for tag, ours, theirs in (
+            for tag, ours, theirs, timer in (
+                    ("K3a with saving (10 back to back, a call)", fwd,
+                     lambda: parent.fused_disc_forward(h, wk, bk,
+                                                       slope=slope,
+                                                       save=True),
+                     cuda_ms_per_call),
+                    ("K3a without saving (the same)", nosave,
+                     lambda: parent.fused_disc_forward(h, wk, bk,
+                                                       slope=slope,
+                                                       save=False),
+                     cuda_ms_per_call),
                     ("K3b", bwd, lambda: parent.fused_disc_backward(
                         got[1], dlog, wk, slope=slope, need_dx=True,
-                        need_weights=True)),
+                        need_weights=True), cuda_ms),
                     ("K3c", rc, lambda: parent.fused_disc_backward_recompute(
                         h16, dlog, wk, bk, slope=slope, need_dx=True,
-                        need_weights=True))):
-                p_ms, c_ms = in_turns(ours, theirs, 10)
+                        need_weights=True), cuda_ms)):
+                p_ms, c_ms = in_turns(ours, theirs, 10, timer)
                 print(f"{tag} B={b} T={t}, parent, change, change, parent: "
                       f"{p_ms[0]:.4f}, {c_ms[0]:.4f}, {c_ms[1]:.4f}, "
                       f"{p_ms[1]:.4f} ms")
@@ -870,8 +936,8 @@ def phase_k3(parent=None):
     limit_c = bound(nbytes(h16, dlog, wk, bk, *got_c),
                     rows * DISC_RC_FLOPS, torch.bfloat16)
     return (_record("pwg_disc_fwd", "pwg_disc.cu",
-                    "parakeet_tpu/ops/pallas/pwg_disc.py:143", held_a, ms_a,
-                    plain_a, limit_a),
+                    "parakeet_tpu/ops/pallas/pwg_disc.py:143",
+                    held_a + held_n, ms_a, plain_a, limit_a),
             _record("pwg_disc_bwd", "pwg_disc.cu",
                     "parakeet_tpu/ops/pallas/pwg_disc.py:195", held_b, ms_b,
                     plain_b, limit_b),
@@ -1555,7 +1621,7 @@ def main():
                         help="also profile one GAN step and one "
                              "FastSpeech2 step into DIR")
     parser.add_argument("--parent", metavar="DIR", default=None,
-                        help="also time K1, K2a, K3b and K3c of the "
+                        help="also time K1, K2a, K3a, K3b and K3c of the "
                              "checkout in DIR "
                              "(another commit, unpacked with git archive) "
                              "on the same inputs, in turns")

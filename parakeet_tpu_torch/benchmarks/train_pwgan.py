@@ -38,17 +38,16 @@ from ..training import (Config, build_optimizer, resolve_model_kwargs,
                         seed_everything)
 from ..utils.device import add_device_arg, set_device
 
-__all__ = ["main", "bench_batch_size"]
+__all__ = ["main", "bench_batch_size", "build_train_step"]
 
 _CONFIG = (Path(__file__).resolve().parents[2] / "recipes" / "pwgan"
            / "conf" / "default.yaml")
 
 
-def bench_batch_size(cfg, batch_size: int, iters: int, *, stack_impl: str,
-                     disc_impl: str, disc_vjp: str, device: torch.device,
-                     profile=None) -> float:
-    """Average sequences per second of ``iters`` chained train steps after
-    one warm-up step."""
+def build_train_step(cfg, batch_size: int, *, stack_impl: str,
+                     disc_impl: str, disc_vjp: str, device: torch.device):
+    """The recipe's GAN train step at ``batch_size`` with seeded weights:
+    (step, state, batch), the discriminator on from the first step."""
     gen_kwargs = resolve_model_kwargs({**cfg.generator_params,
                                        "stack_impl": stack_impl})
     disc_kwargs = resolve_model_kwargs({**cfg.discriminator_params,
@@ -78,6 +77,17 @@ def bench_batch_size(cfg, batch_size: int, iters: int, *, stack_impl: str,
     step = make_pwg_train_step(
         gen, disc, lambda_adv=4.0, discriminator_train_start_steps=0,
         **{k: tuple(v) for k, v in stft.items()})
+    return step, state, batch
+
+
+def bench_batch_size(cfg, batch_size: int, iters: int, *, stack_impl: str,
+                     disc_impl: str, disc_vjp: str, device: torch.device,
+                     profile=None) -> float:
+    """Average sequences per second of ``iters`` chained train steps after
+    one warm-up step."""
+    step, state, batch = build_train_step(
+        cfg, batch_size, stack_impl=stack_impl, disc_impl=disc_impl,
+        disc_vjp=disc_vjp, device=device)
 
     def sync():
         if device.type == "cuda":

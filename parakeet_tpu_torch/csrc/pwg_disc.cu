@@ -21,15 +21,38 @@
 // through rows past the signal's ends into the last ~37 rows of each end
 // (measured against autograd of the bf16 forward; ROADMAP queue 3).
 //
+// The forward-layer routine (forward_layer), which K3a and K3c's rebuild
+// share: a warp keeps one column half of the layer's [Wl; Wc; Wr] as
+// mma.sync B fragments in registers for the whole layer and, per 16-row
+// strip of the bf16 window in shared memory, forms pre in m16n8k16
+// registers from ldmatrix fragments of the rows t - d, t and t + d
+// (forward_product: taps in the order -d, 0, d, k ascending).  Its
+// epilogue runs on the accumulators' lanes: the bias, LeakyReLU, zero
+// outside [0, T), bf16 pairs into the next window, and, where the caller
+// asks, a 16-byte copy of the strip's rows to a stream in global memory.
+// Layer j computes only the rows its output is needed on, in whole strips:
+// the rows wanted of x_8 plus, on each side, the dilations of layers j +
+// 1 .. 7 still to come (forward_strips).  One routine and one order of
+// products in both kernels, so K3c rebuilds K3a's streams bit for bit.
+//
 // K3a.  The TPU kernel walks time blocks in order and carries each layer's
 // left tail; CUDA blocks run in no order.  Here a block owns TC = 400
-// centre rows of one item and computes all nine layers on a window of TC +
-// 2 * 40 rows in shared memory: the 40-row halo on each side covers the
-// receptive field (the sum of dilations, 37), so the centre rows are exact
-// and no block waits for another.  The halo costs 20% more products.  Each
-// layer's taps are read straight from the bf16 window at row offsets t +- d
-// (a pitch of 80 bf16 keeps every row 32-byte aligned, as wmma's loads
-// need); the weights of one layer (24 KB) are staged per layer.
+// centre rows of one item and runs the nine layers on a window of those
+// rows and RF = 37 (the sum of the dilations) on each side, so the centre
+// rows are exact and no block waits for another.  Layers 0..7 shrink from
+// 480 rows to 416 (the centre and 36, 34, 31, 27, 22, 16, 9, 1 rows on each
+// side, rounded up to strips); the output layer computes its first n8
+// column tile only (column 0's sums do not depend on the others): 1.14x
+// the useful products.  The window arrives in float32 by cp.async (rows
+// outside the item zero-filled), staged over the second window, and is
+// rounded to bf16 in shared memory (h.to(bfloat16) bit for bit, so no
+// separate cast of h runs); with saving, that pass writes stream 0's
+// centre rows and the epilogues streams 1..8.  Each next layer's weights
+// arrive by cp.async into a second buffer while this layer computes.
+// Window and weight pitch 72 bf16 (144 bytes, an odd multiple of 16):
+// ldmatrix and the epilogue's 4-byte stores are free of bank conflicts.
+// What bounds it on the H100: products, ~0.2 MFLOP a row against ~1.4 KB
+// a row with saving and 0.26 KB without.
 //
 // The reverse-layer routine (reverse_product), which K3b and K3c share: a
 // warp forms dy of a 16-row strip on 32 columns in mma.sync m16n8k16
@@ -61,12 +84,13 @@
 // full-size streams never reach HBM.  The TPU kernel keeps all nine
 // rebuilt streams of a ~4,200-row window in VMEM (4.9 MB); an SM has 227
 // KB.  Persistent blocks, one per SM, each walk tiles of TCR centre rows in
-// a fixed order.  Per tile a block re-runs K3a's layers 1..8 (K3a's own
-// device code) on a window of TCR + 2 * 80 rows (the 80-row halo covers the
-// reverse window's 40 plus the 36 rows the rebuilt streams lose at the
-// edges) and writes the nine streams' reverse-window rows to a per-block
+// a fixed order.  Per tile a block re-runs layers 1..8 with K3a's
+// forward-layer routine on a window of TCR + 2 * 80 rows (the 80-row halo
+// covers the reverse window's 40 plus the 36 rows the rebuilt streams lose
+// at the edges), its epilogue writing the eight rebuilt streams'
+// reverse-window rows (and the loaded window stream 0's) to a per-block
 // scratch in global memory.  Its reverse half then runs the routine on TCR
-// + 2 * 40 rows in the same shared memory (the forward's staging is free
+// + 2 * 40 rows in the same shared memory (the forward's windows are free
 // by then), with the masks read from the scratch and the next layer's
 // weights and saved rows arriving by cp.async while this layer computes;
 // each tile's dW_j, formed in mma.sync registers, is added into the
@@ -80,14 +104,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstddef>
 #include <cstdint>
 
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -95,106 +116,307 @@ using bf16 = __nv_bfloat16;
 
 constexpr int C = 64;               // channels
 constexpr int NL = 9;               // layers 1..9 of the discriminator
-constexpr int H = 40;               // halo rows on each side (>= 37)
-constexpr int TC = 400;             // K3a: centre rows per block
-constexpr int WIN = TC + 2 * H;     // K3a: window rows, 30 strips of 16
+constexpr int H = 40;               // K3c: reverse halo rows on each side
 constexpr int M = 8;                // margin rows (>= the largest dilation)
-constexpr int XR = WIN + 2 * M;     // K3a: buffer rows
-constexpr int LDX = 80;             // window pitch (bf16): 160-byte rows
+constexpr int LDX = 80;             // K3c's reverse windows' pitch (bf16)
 constexpr int LDW = C + 8;          // weight pitch (bf16)
-constexpr int LDS = C + 4;          // f32 staging pitch
 // pitch of rows read by ldmatrix only: 144 bytes, an odd multiple of 16,
 // so the eight rows of one ldmatrix read hit distinct banks
 constexpr int LDB = C + 8;
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int STRIPS = WIN / 16;
 constexpr int PR = 3 * C + 1;       // rows of a layer's partial: dW, db
-static_assert(WIN % 16 == 0, "the window is whole strips");
 
 __constant__ int kDils[NL] = {1, 2, 3, 4, 5, 6, 7, 8, 1};
+// the dilations of layers j + 1 .. 7, for j = 0 .. 7: how far x_j+1 must
+// be exact beyond the rows wanted of x_8
+__constant__ int kAhead[NL - 1] = {35, 33, 30, 26, 21, 15, 8, 0};
 
-using ptk::FragA;
-using ptk::FragB;
-using ptk::FragC;
 using ptk::set_smem;
 
-constexpr size_t kBufBytes = sizeof(__nv_bfloat16) * XR * LDX;
-constexpr size_t kWBytes = sizeof(__nv_bfloat16) * 3 * C * LDW;
-constexpr size_t kStBytes = sizeof(float) * WARPS * 16 * LDS;
-constexpr size_t kFwdSmem = 2 * kBufBytes + kWBytes + kStBytes +
-                            sizeof(float) * C;
-// One strip of 16 window rows of one layer: acc = sum over the three taps
-// of buf rows (wr0 + off_tap) @ w rows [tap * 64, tap * 64 + 64).
-__device__ __forceinline__ void strip_product(const __nv_bfloat16* buf,
-                                              const __nv_bfloat16* w_s,
-                                              int wr0, const int offs[3],
-                                              FragC acc[4]) {
-  FragA af;
-  FragB bf;
+// The same geometry, for constant expressions: a layer's dilation, the
+// dilations after it up to layer 7, and the strips layer j computes so
+// that `rows` rows of x_8 are exact.
+constexpr int dil_of(int j) { return j == NL - 1 ? 1 : j + 1; }
+constexpr int ahead_of(int j) {
+  return j >= NL - 2 ? 0 : dil_of(j + 1) + ahead_of(j + 1);
+}
+constexpr int strips_of(int rows, int j) {
+  return (rows + 2 * ahead_of(j) + 15) / 16;
+}
+// window rows: one past the last row the layers read (a layer's last strip
+// may overrun the rows it must keep exact), the rows wanted of x_8
+// starting at window row `first`
+constexpr int window_rows(int rows, int first) {
+  int top = 0;
+  for (int j = 0; j < NL - 1; ++j) {
+    const int end = first - ahead_of(j) + 16 * strips_of(rows, j) + dil_of(j);
+    top = end > top ? end : top;
+  }
+  return top;
+}
+
+constexpr size_t kWBytes = sizeof(bf16) * 3 * C * LDW;
+
+// cp.async of one layer's (192, 64) weights into rows of pitch LDW
+__device__ __forceinline__ void cp_weights(bf16* w_s, const bf16* w) {
+  for (int i = threadIdx.x; i < 3 * C * (C / 8); i += THREADS)
+    ptk::cp_async16(w_s + (i >> 3) * LDW + (i & 7) * 8, w + i * 8, true);
+}
+
+// cp.async of window rows [0, ROWS) of one item (src: its (T, 64) bf16
+// rows) into rows of pitch LDB; window row r is time tw0 + r, zero-filled
+// outside [0, T)
+template <int ROWS>
+__device__ __forceinline__ void cp_window(bf16* win, const bf16* src,
+                                          int tw0, int T) {
+  for (int i = threadIdx.x; i < ROWS * (C / 8); i += THREADS) {
+    const int r = i >> 3, v = i & 7;
+    const int t = tw0 + r;
+    const bool ok = t >= 0 && t < T;
+    ptk::cp_async16(win + r * LDB + v * 8,
+                    src + static_cast<size_t>(ok ? t : 0) * C + v * 8, ok);
+  }
+}
+
+template <int ROWS>
+__device__ __forceinline__ void zero_rows(bf16* win) {
+  for (int i = threadIdx.x; i < ROWS * LDB / 8; i += THREADS)
+    reinterpret_cast<uint4*>(win)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// ------------------------------------------- the forward-layer routine --
+
+// B fragments of a layer's [Wl; Wc; Wr] (w_s: 192 rows of pitch LDW) for
+// the NT n8 column tiles from n0: bw[tap][k / 16][n] = {b0, b1}.
+template <int NT>
+__device__ __forceinline__ void weight_frags(uint32_t (&bw)[3][4][NT][2],
+                                             const bf16* w_s, int n0,
+                                             int lane) {
 #pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int p = 0; p < (NT + 1) / 2; ++p) {
+        uint32_t v[4];
+        ptk::ldsm_x4_trans(v, w_s + (tap * C + 16 * ks + (lane & 15)) * LDW +
+                                  n0 + 16 * p + (lane >> 4) * 8);
+        bw[tap][ks][2 * p][0] = v[0];
+        bw[tap][ks][2 * p][1] = v[1];
+        if (2 * p + 1 < NT) {
+          bw[tap][ks][2 * p + 1][0] = v[2];
+          bw[tap][ks][2 * p + 1][1] = v[3];
+        }
+      }
+}
+
+// pre of one warp's 16-row strip, without the bias, on the column tiles of
+// bw: acc = x(t - d) Wl + x(t) Wc + x(t + d) Wr.  a: the strip's first row
+// of the bf16 layer input (row r at a + r * LDB; rows r +- d readable).
+// Taps in the order -d, 0, d, k ascending.  acc[n][0..1] are columns 8n +
+// 2 (lane % 4) + {0, 1} of bw's first column, of row lane / 4;
+// acc[n][2..3] those of row lane / 4 + 8.
+template <int NT>
+__device__ __forceinline__ void forward_product(
+    float (&acc)[NT][4], const bf16* a, int d,
+    const uint32_t (&bw)[3][4][NT][2], int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
   for (int tap = 0; tap < 3; ++tap) {
-    const __nv_bfloat16* a = buf + (M + wr0 + offs[tap]) * LDX;
+    const bf16* ap = a + ((tap - 1) * d + (lane & 15)) * LDB + (lane >> 4) * 8;
 #pragma unroll
-    for (int k = 0; k < C; k += 16) {
-      wmma::load_matrix_sync(af, a + k, LDX);
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t af[4];
+      ptk::ldsm_x4(af, ap + 16 * ks);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        ptk::mma_bf16(acc[n], af, bw[tap][ks][n][0], bw[tap][ks][n][1]);
+    }
+  }
+}
+
+// Layer j < 8 of the forward on a window in shared memory (window row r is
+// time tw0 + r): x_j+1 = bf16(leaky(pre + b)), zero outside [0, T), from
+// cur into nxt (both of pitch LDB), on the strips that keep rows [first,
+// first + rows) of x_8 exact.  w_s: the layer's weights; b_s: its 64
+// biases.  Warp w keeps column half w % 2 and takes strips w / 2, w / 2 +
+// 4, ...  dst: null, or where rows [c_lo, c_hi) of x_j+1 go (row r to dst
+// + (r - c_lo) * 64), each warp copying its strips' rows of its half.
+__device__ __forceinline__ void forward_layer(const bf16* cur, bf16* nxt,
+                                              const bf16* w_s,
+                                              const float* b_s, int j,
+                                              int first, int rows, int tw0,
+                                              int T, float slope, bf16* dst,
+                                              int c_lo, int c_hi) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, tl = lane & 3;
+  const int n0 = 32 * (warp & 1);
+  const int d = kDils[j];
+  const int lo = first - kAhead[j];
+  const int nstrips = (rows + 2 * kAhead[j] + 15) / 16;
+  uint32_t bw[3][4][4][2];
+  weight_frags<4>(bw, w_s, n0, lane);
+  float bias[4][2];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    bias[n][0] = b_s[n0 + 8 * n + 2 * tl];
+    bias[n][1] = b_s[n0 + 8 * n + 2 * tl + 1];
+  }
+  for (int s = warp >> 1; s < nstrips; s += WARPS / 2) {
+    const int r0 = lo + 16 * s;
+    float acc[4][4];
+    forward_product<4>(acc, cur + r0 * LDB, d, bw, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      const int t = tw0 + r;
+      const bool valid = t >= 0 && t < T;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        wmma::load_matrix_sync(bf, w_s + (tap * C + k) * LDW + n * 16, LDW);
-        wmma::mma_sync(acc[n], af, bf, acc[n]);
+        float v0 = acc[n][2 * h] + bias[n][0];
+        float v1 = acc[n][2 * h + 1] + bias[n][1];
+        v0 = v0 > 0.f ? v0 : slope * v0;
+        v1 = v1 > 0.f ? v1 : slope * v1;
+        if (!valid) v0 = v1 = 0.f;
+        *reinterpret_cast<uint32_t*>(nxt + r * LDB + n0 + 8 * n + 2 * tl) =
+            ptk::pack_bf16(v0, v1);
+      }
+    }
+    if (dst != nullptr) {
+      __syncwarp();    // the strip's rows of this half are in nxt
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {   // 16 rows x 4 vectors of 16 bytes
+        const int i = lane + 32 * k;
+        const int r = r0 + (i >> 2);
+        const int c = n0 + (i & 3) * 8;
+        if (r >= c_lo && r < c_hi)
+          *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r - c_lo) * C +
+                                    c) =
+              *reinterpret_cast<const uint4*>(nxt + r * LDB + c);
       }
     }
   }
 }
 
-// Load buffer rows [0, ROWS) of item b from a (B, T, 64) bf16 tensor, zero
-// outside [0, T); row br is time t0 - HALO - M + br.
-template <int ROWS, int HALO>
-__device__ void load_window(__nv_bfloat16* buf,
-                            const __nv_bfloat16* __restrict__ src, int b,
-                            int T, int t0) {
-  constexpr int V = C / 8;
-  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
-    const int br = i / V;
-    const int t = t0 - HALO - M + br;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t >= 0 && t < T)
-      v = reinterpret_cast<const uint4*>(
-          src + (static_cast<size_t>(b) * T + t) * C)[i % V];
-    *reinterpret_cast<uint4*>(buf + br * LDX + (i % V) * 8) = v;
-  }
-}
+// ----------------------------------------------------------------- K3a --
 
-// Zero the M margin rows on each side of a window of WROWS rows.
-template <int WROWS>
-__device__ void zero_margins(__nv_bfloat16* buf) {
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int i = threadIdx.x; i < 2 * M * LDX; i += THREADS) {
-    const int r = i / LDX;
-    buf[(r < M ? r : WROWS + r) * LDX + i % LDX] = zero;
-  }
-}
+constexpr int TC = 400;             // K3a: centre rows a block
+constexpr int RF = 37;              // the receptive field: sum of dilations
+// window row r is time t0 - RF + r; rows RF - 1 .. RF + TC of x_8 are
+// wanted (the centre and the output conv's taps)
+constexpr int XA = window_rows(TC + 2, RF - 1);
+static_assert(RF == dil_of(0) + ahead_of(0) + dil_of(NL - 1),
+              "the halo is the receptive field");
+static_assert(XA >= TC + 2 * RF, "the window holds the receptive field");
+// Shared memory: win0, the first weight buffer, then win1 and the second
+// weight buffer, over which the float32 window is staged before the first
+// layer (and the rows it needs past them); then the biases.
+constexpr size_t kWinBytes = sizeof(bf16) * XA * LDB;
+constexpr size_t kF32WinBytes = sizeof(float) * XA * C;
+constexpr size_t kFwdTail = kF32WinBytes > kWinBytes + kWBytes
+                                ? kF32WinBytes
+                                : kWinBytes + kWBytes;
+constexpr size_t kFwdSmem = kWinBytes + kWBytes + kFwdTail +
+                            sizeof(float) * NL * C;
+static_assert(kFwdSmem <= 232448, "K3a fits a block's shared memory");
+static_assert(kWinBytes % 16 == 0 && kWBytes % 16 == 0, "16-byte regions");
 
-// The forward's epilogue for one strip of 16 window rows: the next layer's
-// input bf16(leaky(acc + b)), zero outside [0, T).  t_row0 is the time of
-// the strip's first row.  K3a and K3c's recompute both run it.
-__device__ __forceinline__ void fwd_strip_out(const float* st,
-                                              const float* b_s,
-                                              __nv_bfloat16* nxt, int wr0,
-                                              int t_row0, int T, float slope,
-                                              int lane) {
-  for (int i = lane; i < 16 * C; i += 32) {
-    const int r = i / C;
-    const int n = i - r * C;
-    const int t = t_row0 + r;
-    float v = st[r * LDS + n] + b_s[n];
-    v = v > 0.f ? v : slope * v;
-    if (t < 0 || t >= T) v = 0.f;
-    nxt[(M + wr0 + r) * LDX + n] = __float2bfloat16_rn(v);
+// K3a: block g owns centre rows t0 .. t0 + TC - 1 of item b (g = b *
+// tiles + t0 / TC).  h: (B, T, 64) float32, the layer-0 output, which the
+// block stages by cp.async and rounds to bf16 (as h.to(torch.bfloat16))
+// into its first window; with SAVE it writes the nine streams of saved
+// (9, B, T, 64): stream 0 from that window, 1..8 from the epilogues.
+template <bool SAVE>
+__global__ void __launch_bounds__(THREADS, 1)
+disc_fwd_kernel(const float* __restrict__ h, const bf16* __restrict__ wk,
+                const float* __restrict__ bk, float* __restrict__ logits,
+                bf16* __restrict__ saved, int B, int T, float slope) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* win0 = reinterpret_cast<bf16*>(smem);
+  bf16* w_s0 = win0 + XA * LDB;
+  bf16* win1 = w_s0 + 3 * C * LDW;
+  bf16* w_s1 = win1 + XA * LDB;
+  float* stage = reinterpret_cast<float*>(win1);   // (XA, 64) float32
+  float* b_s = reinterpret_cast<float*>(smem + kWinBytes + kWBytes +
+                                        kFwdTail);
+  auto w_s = [&](int j) { return (j & 1) ? w_s1 : w_s0; };
+
+  const int tiles = (T + TC - 1) / TC;
+  const int b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - b * tiles) * TC;
+  const int tw0 = t0 - RF;
+  const int n_c = min(TC, T - t0);             // centre rows in the item
+  const size_t item = static_cast<size_t>(b) * T;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // the float32 window (zero outside [0, T)) and w_0 by cp.async
+  for (int i = threadIdx.x; i < XA * (C / 4); i += THREADS) {
+    const int r = i >> 4, v = i & 15;
+    const int t = tw0 + r;
+    const bool ok = t >= 0 && t < T;
+    ptk::cp_async16(stage + r * C + v * 4,
+                    h + (item + (ok ? t : 0)) * C + v * 4, ok);
+  }
+  cp_weights(w_s0, wk);
+  ptk::cp_async_commit();
+  for (int i = threadIdx.x; i < NL * C; i += THREADS) b_s[i] = bk[i];
+  ptk::cp_async_wait<0>();
+  __syncthreads();     // the float32 window is in
+  for (int i = threadIdx.x; i < XA * (C / 8); i += THREADS) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const float4 lo = *reinterpret_cast<const float4*>(stage + r * C + c);
+    const float4 hi = *reinterpret_cast<const float4*>(stage + r * C + c + 4);
+    const uint4 v = make_uint4(ptk::pack_bf16(lo.x, lo.y),
+                               ptk::pack_bf16(lo.z, lo.w),
+                               ptk::pack_bf16(hi.x, hi.y),
+                               ptk::pack_bf16(hi.z, hi.w));
+    *reinterpret_cast<uint4*>(win0 + r * LDB + c) = v;
+    if constexpr (SAVE)
+      if (r >= RF && r < RF + n_c)
+        *reinterpret_cast<uint4*>(saved + (item + t0 + r - RF) * C + c) = v;
+  }
+  __syncthreads();     // the stage is read: win1 and w_s1 are free
+  zero_rows<XA>(win1);   // rows no layer writes are read as zeros
+  bf16* cur = win0;
+  bf16* nxt = win1;
+  for (int j = 0; j < NL - 1; ++j) {
+    ptk::cp_async_wait<0>();
+    __syncthreads();   // x_j and w_j are in; layer j - 1 is done
+    cp_weights(w_s(j + 1), wk + static_cast<size_t>(j + 1) * 3 * C * C);
+    ptk::cp_async_commit();
+    bf16* dst = nullptr;
+    if constexpr (SAVE)
+      dst = saved + (static_cast<size_t>(j + 1) * B * T + item + t0) * C;
+    forward_layer(cur, nxt, w_s(j), b_s + j * C, j, RF - 1, TC + 2, tw0, T,
+                  slope, dst, RF, RF + n_c);
+    bf16* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  ptk::cp_async_wait<0>();
+  __syncthreads();     // x_8 and w_8 are in
+  // the output conv: column 0 of pre over the centre's strips
+  uint32_t bw[3][4][1][2];
+  weight_frags<1>(bw, w_s(NL - 1), 0, lane);
+  const float b8 = b_s[(NL - 1) * C];
+  for (int s = warp; s < TC / 16; s += WARPS) {
+    float acc[1][4];
+    forward_product<1>(acc, cur + (RF + 16 * s) * LDB, kDils[NL - 1], bw,
+                       lane);
+    if ((lane & 3) == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = t0 + 16 * s + lane / 4 + 8 * r;
+        if (t < T) logits[item + t] = acc[0][2 * r] + b8;
+      }
   }
 }
+static_assert(TC % 16 == 0, "the output conv runs on whole strips");
 
 // dpre of columns (n0, n0 + 1) of one row: dy times LeakyReLU's slope at
 // the layer's output y (from its sign).  K3b and K3c both run it.
@@ -205,85 +427,6 @@ __device__ __forceinline__ float2 leaky_grad(float dy0, float dy1,
   const float s0 = y0 > 0.f ? 1.f : (y0 < 0.f ? -1.f : 0.f);
   const float s1 = y1 > 0.f ? 1.f : (y1 < 0.f ? -1.f : 0.f);
   return make_float2(dy0 * (m_mid + m_half * s0), dy1 * (m_mid + m_half * s1));
-}
-
-// centre rows of the window to a (B, T, 64) bf16 stream
-__device__ void store_centre(__nv_bfloat16* __restrict__ dst,
-                             const __nv_bfloat16* buf, int b, int T,
-                             int t0) {
-  constexpr int V = C / 8;
-  for (int i = threadIdx.x; i < TC * V; i += THREADS) {
-    const int r = i / V;
-    const int t = t0 + r;
-    if (t < T)
-      reinterpret_cast<uint4*>(dst + (static_cast<size_t>(b) * T + t) *
-                                         C)[i % V] =
-          *reinterpret_cast<const uint4*>(buf + (M + H + r) * LDX +
-                                          (i % V) * 8);
-  }
-}
-
-// ----------------------------------------------------------------- K3a --
-
-template <bool SAVE>
-__global__ void __launch_bounds__(THREADS, 1)
-disc_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ wk,
-                const float* __restrict__ bk, float* __restrict__ logits,
-                __nv_bfloat16* __restrict__ saved, int B, int T,
-                float slope) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* buf0 = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* buf1 = buf0 + XR * LDX;
-  __nv_bfloat16* w_s = buf1 + XR * LDX;
-  float* st_all = reinterpret_cast<float*>(w_s + 3 * C * LDW);
-  float* b_s = st_all + WARPS * 16 * LDS;
-
-  const int tiles = (T + TC - 1) / TC;
-  const int b = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x - b * tiles) * TC;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* st = st_all + warp * 16 * LDS;
-
-  load_window<XR, H>(buf0, x, b, T, t0);
-  zero_margins<WIN>(buf1);
-  __nv_bfloat16* cur = buf0;
-  __nv_bfloat16* nxt = buf1;
-  FragC acc[4];
-
-  for (int j = 0; j < NL; ++j) {
-    const int d = kDils[j];
-    __syncthreads();   // the previous layer is done with w_s and nxt
-    ptk::stage_rows<THREADS>(w_s, wk + static_cast<size_t>(j) * 3 * C * C,
-                             3 * C, C, LDW);
-    for (int i = threadIdx.x; i < C; i += THREADS) b_s[i] = bk[j * C + i];
-    if constexpr (SAVE)
-      store_centre(saved + static_cast<size_t>(j) * B * T * C, cur, b, T, t0);
-    __syncthreads();
-    const int offs[3] = {-d, 0, d};
-    for (int s = warp; s < STRIPS; s += WARPS) {
-      const int wr0 = s * 16;
-      strip_product(cur, w_s, wr0, offs, acc);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        wmma::store_matrix_sync(st + n * 16, acc[n], LDS,
-                                wmma::mem_row_major);
-      __syncwarp();
-      if (j < NL - 1) {
-        fwd_strip_out(st, b_s, nxt, wr0, t0 - H + wr0, T, slope, lane);
-      } else if (lane < 16) {
-        const int wr = wr0 + lane;
-        const int t = t0 - H + wr;
-        if (wr >= H && wr < H + TC && t < T)
-          logits[static_cast<size_t>(b) * T + t] = st[lane * LDS] + b_s[0];
-      }
-      __syncwarp();    // before the next strip overwrites the staging
-    }
-    __nv_bfloat16* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
 }
 
 // ------------------------------------------- the reverse-layer routine --
@@ -597,26 +740,29 @@ disc_bwd_layer_kernel(const bf16* __restrict__ xj,
 
 constexpr int TCR = 272;            // centre rows per tile
 constexpr int HR = 80;              // recompute halo: H + the 36 rows lost
-constexpr int RW = TCR + 2 * HR;    // recompute window
 constexpr int WR = TCR + 2 * H;     // reverse window and scratch rows
-constexpr int XRR = RW + 2 * M;     // buffer rows of the recompute half
+// the recompute window: window row r is time t0 - HR + r; rows HR - H ..
+// HR - H + WR - 1 of the rebuilt streams are wanted (the reverse window)
+constexpr int XRR = window_rows(WR, HR - H);
 constexpr int XRW = WR + 2 * M;     // buffer rows of the reverse half
 constexpr int XD = TCR + 2 * M;     // rows of the dW operand's stage
 constexpr int RC_STREAM = WR * C;   // scratch elements of one stream
 constexpr int RC_UNITS = 2 * (WR / 16);   // reverse: strips x column halves
-static_assert(RW % 16 == 0 && WR % 16 == 0 && TCR % 16 == 0,
-              "the windows are whole strips");
-static_assert(HR - H >= 36, "the rebuilt streams are exact on the reverse "
-                            "window (they lose the sum of dilations 1..8)");
+static_assert(WR % 16 == 0 && TCR % 16 == 0, "the windows are whole strips");
+static_assert(HR - H >= dil_of(0) + ahead_of(0),
+              "the rebuilt streams are exact on the reverse window (they "
+              "lose the sum of dilations 1..8)");
+static_assert(XRR >= TCR + 2 * HR, "the recompute window holds the halo");
 static_assert(WARPS % 2 == 0, "a warp keeps one column half");
 
 // The two halves share one region of shared memory, in turn:
-//   recompute: buf0, buf1 (XRR x LDX bf16), w_s, the f32 staging, b_s;
+//   recompute: win0, win1 (XRR x LDB bf16), two layers' weights, the
+//              biases of layers 0..7;
 //   reverse:   rb0, rb1 (XRW x LDX bf16), two weight buffers, the dW
 //              operand's stage (XD x LDB bf16);
 // then, for the whole kernel, db partials (WARPS x 64) and db (9 x 64).
-constexpr size_t kRcFwdBytes = 2 * sizeof(bf16) * XRR * LDX + kWBytes +
-                               kStBytes + sizeof(float) * C;
+constexpr size_t kRcFwdBytes = 2 * sizeof(bf16) * XRR * LDB + 2 * kWBytes +
+                               sizeof(float) * (NL - 1) * C;
 constexpr size_t kRcRevBytes = 2 * sizeof(bf16) * XRW * LDX + 2 * kWBytes +
                                sizeof(bf16) * XD * LDB;
 constexpr size_t kRcRegion = kRcFwdBytes > kRcRevBytes ? kRcFwdBytes
@@ -624,10 +770,14 @@ constexpr size_t kRcRegion = kRcFwdBytes > kRcRevBytes ? kRcFwdBytes
 constexpr size_t kRcSmem = kRcRegion + sizeof(float) * (WARPS + NL) * C;
 static_assert(kRcSmem <= 232448, "K3c fits a block's shared memory");
 
-// cp.async of one layer's (192, 64) weights into rows of pitch LDW
-__device__ __forceinline__ void cp_weights(bf16* w_s, const bf16* w) {
-  for (int i = threadIdx.x; i < 3 * C * (C / 8); i += THREADS)
-    ptk::cp_async16(w_s + (i >> 3) * LDW + (i & 7) * 8, w + i * 8, true);
+// Zero the M margin rows on each side of a reverse window of WROWS rows.
+template <int WROWS>
+__device__ void zero_margins(bf16* buf) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int i = threadIdx.x; i < 2 * M * LDX; i += THREADS) {
+    const int r = i / LDX;
+    buf[(r < M ? r : WROWS + r) * LDX + i % LDX] = zero;
+  }
 }
 
 // cp.async of a scratch stream's rows H - M .. H + TCR + M - 1 (the dW
@@ -640,57 +790,45 @@ __device__ __forceinline__ void cp_dw_rows(bf16* xd, const bf16* stream) {
 
 // K3c's two halves for one tile (b, t0), each computing its own pointers
 // into the shared region, so that little stays live from one to the other.
-// The first: rebuild the streams with K3a's layers 1..8 on RW rows and
-// write stream j's reverse-window rows to the block's scratch sc.
+// The first: rebuild the streams with K3a's forward-layer routine (layers
+// 0..7, the next layer's weights arriving by cp.async while one computes)
+// and write stream j's reverse-window rows to the block's scratch sc:
+// stream 0 from the loaded window, the others from the epilogue.
 __device__ __forceinline__ void rc_rebuild(unsigned char* smem,
                                            const bf16* __restrict__ x,
                                            const bf16* __restrict__ wk,
                                            const float* __restrict__ bk,
                                            bf16* sc, int b, int t0, int T,
                                            float slope) {
-  __nv_bfloat16* buf0 = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* buf1 = buf0 + XRR * LDX;
-  __nv_bfloat16* w_s = buf1 + XRR * LDX;
-  float* st_all = reinterpret_cast<float*>(w_s + 3 * C * LDW);
-  float* b_s = st_all + WARPS * 16 * LDS;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* st = st_all + warp * 16 * LDS;
-  FragC acc[4];
+  constexpr int c_lo = HR - H;       // the reverse window's first row
+  bf16* win0 = reinterpret_cast<bf16*>(smem);
+  bf16* win1 = win0 + XRR * LDB;
+  bf16* w_s = win1 + XRR * LDB;                // two layers' weights
+  float* b_s = reinterpret_cast<float*>(w_s + 2 * 3 * C * LDW);
+  const int tw0 = t0 - HR;
 
-  load_window<XRR, HR>(buf0, x, b, T, t0);
-  zero_margins<RW>(buf1);
-  __nv_bfloat16* cur = buf0;
-  __nv_bfloat16* nxt = buf1;
-  for (int j = 0; j < NL; ++j) {
-    const int d = kDils[j];
-    __syncthreads();   // the previous layer is done with w_s and nxt
-    ptk::stage_rows<THREADS>(w_s, wk + static_cast<size_t>(j) * 3 * C * C,
-                             3 * C, C, LDW);
-    for (int i = threadIdx.x; i < C; i += THREADS) b_s[i] = bk[j * C + i];
-    // stream j's rows of the reverse window to the scratch
-    constexpr int V = C / 8;
-    for (int i = threadIdx.x; i < WR * V; i += THREADS) {
-      const int r = i / V;
-      reinterpret_cast<uint4*>(sc + j * RC_STREAM + r * C)[i % V] =
-          *reinterpret_cast<const uint4*>(cur + (M + HR - H + r) * LDX +
-                                          (i % V) * 8);
-    }
-    __syncthreads();
-    if (j == NL - 1) break;        // the logits are not needed
-    const int offs[3] = {-d, 0, d};
-    for (int s = warp; s < RW / 16; s += WARPS) {
-      const int wr0 = s * 16;
-      strip_product(cur, w_s, wr0, offs, acc);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        wmma::store_matrix_sync(st + n * 16, acc[n], LDS,
-                                wmma::mem_row_major);
-      __syncwarp();
-      fwd_strip_out(st, b_s, nxt, wr0, t0 - HR + wr0, T, slope, lane);
-      __syncwarp();    // before the next strip overwrites the staging
-    }
-    __nv_bfloat16* tmp = cur;
+  cp_window<XRR>(win0, x + static_cast<size_t>(b) * T * C, tw0, T);
+  cp_weights(w_s, wk);
+  ptk::cp_async_commit();
+  for (int i = threadIdx.x; i < (NL - 1) * C; i += THREADS) b_s[i] = bk[i];
+  zero_rows<XRR>(win1);
+  bf16* cur = win0;
+  bf16* nxt = win1;
+  for (int j = 0; j < NL - 1; ++j) {
+    ptk::cp_async_wait<0>();
+    __syncthreads();   // x_j and w_j are in; layer j - 1 is done
+    if (j + 1 < NL - 1)
+      cp_weights(w_s + ((j + 1) & 1) * 3 * C * LDW,
+                 wk + static_cast<size_t>(j + 1) * 3 * C * C);
+    ptk::cp_async_commit();
+    if (j == 0)
+      for (int i = threadIdx.x; i < WR * (C / 8); i += THREADS)
+        reinterpret_cast<uint4*>(sc)[i] = *reinterpret_cast<const uint4*>(
+            cur + (c_lo + (i >> 3)) * LDB + (i & 7) * 8);
+    forward_layer(cur, nxt, w_s + (j & 1) * 3 * C * LDW, b_s + j * C, j,
+                  c_lo, WR, tw0, T, slope, sc + (j + 1) * RC_STREAM, c_lo,
+                  c_lo + WR);
+    bf16* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
@@ -891,11 +1029,11 @@ bool bad_shape(int B, int T) {
 
 }  // namespace
 
-// K3a.  x: (B, T, 64) bf16, the layer-0 output; wk: (9, 3, 64, 64) bf16
+// K3a.  h: (B, T, 64) f32, the layer-0 output; wk: (9, 3, 64, 64) bf16
 // per-tap kernels [t-d, t, t+d] (the last layer's columns 1..63 zero); bk:
 // (9, 64) f32; logits: (B, T) f32; saved: null, or (9, B, T, 64) bf16, each
-// layer's input.
-extern "C" int pwg_disc_fwd(const void* x, const void* wk, const void* bk,
+// layer's input (stream 0 is bf16(h)).
+extern "C" int pwg_disc_fwd(const void* h, const void* wk, const void* bk,
                             void* logits, void* saved, int B, int T,
                             float slope, void* stream) {
   if (bad_shape(B, T)) return -1;
@@ -906,19 +1044,29 @@ extern "C" int pwg_disc_fwd(const void* x, const void* wk, const void* bk,
     err = set_smem(disc_fwd_kernel<true>, kFwdSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     disc_fwd_kernel<true><<<grid, THREADS, kFwdSmem, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
-        static_cast<float*>(logits), static_cast<__nv_bfloat16*>(saved), B,
-        T, slope);
+        static_cast<const float*>(h), static_cast<const bf16*>(wk),
+        static_cast<const float*>(bk), static_cast<float*>(logits),
+        static_cast<bf16*>(saved), B, T, slope);
   } else {
     err = set_smem(disc_fwd_kernel<false>, kFwdSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     disc_fwd_kernel<false><<<grid, THREADS, kFwdSmem, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(wk), static_cast<const float*>(bk),
-        static_cast<float*>(logits), nullptr, B, T, slope);
+        static_cast<const float*>(h), static_cast<const bf16*>(wk),
+        static_cast<const float*>(bk), static_cast<float*>(logits), nullptr,
+        B, T, slope);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3a's resident blocks an SM, from the occupancy calculator after the
+// shared-memory opt-in; -1 on an error.
+extern "C" int pwg_disc_fwd_blocks_per_sm() {
+  int n = 0;
+  if (set_smem(disc_fwd_kernel<true>, kFwdSmem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, disc_fwd_kernel<true>, THREADS, kFwdSmem) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 // K3b, pass j (8 down to 0) over nchunk chunks of per_chunk tiles of TM
@@ -963,11 +1111,13 @@ extern "C" int pwg_disc_rc_blocks(int B, int T, int sms) {
 // bf16 elements of one block's scratch: nine streams of WR rows.
 extern "C" int pwg_disc_rc_scratch_elems() { return NL * RC_STREAM; }
 
-// Dynamic shared memory bytes of K3b's layer pass (which 0) and of K3c
-// (which 1); the launcher's Python mirror is held against it.
+// Dynamic shared memory bytes of K3b's layer pass (which 0), of K3c
+// (which 1) and of K3a (which 2); the launcher's Python mirror is held
+// against it.
 extern "C" long long pwg_disc_smem(int which) {
   if (which == 0) return static_cast<long long>(kLayerSmem);
   if (which == 1) return static_cast<long long>(kRcSmem);
+  if (which == 2) return static_cast<long long>(kFwdSmem);
   return -1;
 }
 

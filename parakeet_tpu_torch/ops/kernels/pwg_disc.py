@@ -25,9 +25,11 @@ weight gradients one reduction) or raise; on CPU tensors they run
 ``disc_backward_recompute_reference``, the plain statements of the same
 arithmetic: bf16 products with float32 accumulation, float32 biases,
 logits and gradients, bf16(dpre) as the operand of the backward products
-and float32 dpre for db.  The geometry of the kernels (``k3b_chunks``,
+and float32 dpre for db.  The geometry of the kernels (``forward_strips``,
+``forward_window_rows``, ``k3a_grid``, ``k3a_smem_bytes``, ``k3b_chunks``,
 ``k3b_smem_bytes``, ``k3c_smem_bytes``) and the bytes they move
-(``k3b_bytes``, ``k3c_bytes``, ``k3c_buffer_bytes``) are plain functions.
+(``k3a_bytes``, ``k3b_bytes``, ``k3c_bytes``, ``k3c_buffer_bytes``) are
+plain functions.
 
 One difference from the TPU kernels: the gradient is zeroed outside
 [0, T) before every layer, which makes it the exact transpose of the
@@ -51,9 +53,13 @@ __all__ = ["fused_disc_tail", "fused_disc_supported", "DISC_TAIL_DILS",
            "fused_disc_backward", "fused_disc_backward_recompute",
            "disc_forward_reference", "disc_backward_reference",
            "disc_backward_recompute_reference", "k3b_launches",
-           "k3c_launches", "k3b_chunks", "k3b_smem_bytes", "k3c_smem_bytes",
-           "k3b_bytes", "k3c_bytes", "k3c_blocks", "k3c_buffer_bytes",
-           "time_disc_backward_passes", "K3B_TILE_ROWS", "K3C_TILE_ROWS"]
+           "k3c_launches", "forward_strips", "forward_window_rows",
+           "k3a_grid", "k3a_blocks_per_sm", "k3a_smem_bytes", "k3a_bytes",
+           "k3b_chunks", "k3b_smem_bytes", "k3c_smem_bytes", "k3b_bytes",
+           "k3c_bytes", "k3c_blocks", "k3c_buffer_bytes",
+           "time_disc_backward_passes",
+           "K3A_TILE_ROWS", "K3A_HALO", "K3B_TILE_ROWS", "K3C_TILE_ROWS",
+           "K3C_REBUILD_FIRST"]
 
 # layers 1..8 (dilation = layer index) + the k=3 d=1 output conv
 DISC_TAIL_DILS = (1, 2, 3, 4, 5, 6, 7, 8, 1)
@@ -143,16 +149,64 @@ _RC_BLOCKS_ARGS = (_I, _I, _I)
 # which pass of K3b each launch belongs to (``time_disc_backward_passes``)
 _K3B_PASS = {"pwg_disc_bwd_layer": "layers", "pwg_reduce_partials": "reduce"}
 
-# pwg_disc.cu's geometry.  K3b: rows a tile (tiles never cross an item),
-# cp.async stages, halo rows on each side of a stage (the largest
-# dilation); K3c: centre rows a tile, the reverse window's halo and the
-# recompute window's.  A layer's partial holds dW's 192 rows, then db.
+# pwg_disc.cu's geometry.  K3a: centre rows a block, halo rows on each
+# side (the receptive field, the sum of the dilations); K3b: rows a tile
+# (tiles never cross an item), cp.async stages, halo rows on each side of
+# a stage (the largest dilation); K3c: centre rows a tile, the reverse
+# window's halo and the recompute window's.  A layer's partial holds dW's
+# 192 rows, then db.
+K3A_TILE_ROWS, K3A_HALO = 400, sum(DISC_TAIL_DILS)
 K3B_TILE_ROWS, K3B_STAGES, _M = 64, 4, 8
 K3C_TILE_ROWS, _H, _HR = 272, 40, 80
+# K3c's recompute window: row r is time t0 - 80 + r, and the rebuilt
+# streams are wanted on the reverse window, rows 40 .. 40 + TCR + 79
+K3C_REBUILD_FIRST = _HR - _H
 _PR = 3 * _C + 1
-_LD = _C + 8             # bf16 pitch of weight and ldmatrix-only rows
-_LDX = 80                # bf16 pitch of K3a's and K3c's windows
+_LD = _C + 8             # bf16 pitch of weights and forward windows
+_LDX = 80                # bf16 pitch of K3c's reverse windows
 _WARPS = 8
+
+
+def forward_strips(rows: int, first: int):
+    """The strips the forward-layer routine computes (pwg_disc.cu's
+    ``forward_layer``), so that window rows [first, first + rows) of x_8,
+    the output of layer 7, are exact: for layers j = 0..7, (first window
+    row, number of 16-row strips).  Layer j's output must be exact on
+    those rows plus, on each side, the dilations of layers j + 1..7."""
+    out = []
+    for j in range(_NL - 1):
+        ahead = sum(DISC_TAIL_DILS[j + 1:_NL - 1])
+        out.append((first - ahead, -(-(rows + 2 * ahead) // 16)))
+    return out
+
+
+def forward_window_rows(rows: int, first: int) -> int:
+    """Rows of a forward window (pwg_disc.cu's ``window_rows``): one past
+    the last row the layers of ``forward_strips`` read (a layer's last
+    strip may overrun the rows it must keep exact)."""
+    return max(lo + 16 * n + DISC_TAIL_DILS[j]
+               for j, (lo, n) in enumerate(forward_strips(rows, first)))
+
+
+def _k3a_window():
+    """K3a's window: rows RF - 1 .. RF + TC of x_8 are wanted (the centre
+    and the output conv's taps); row r is time t0 - RF + r."""
+    return K3A_TILE_ROWS + 2, K3A_HALO - 1
+
+
+def k3a_grid(b: int, t: int) -> int:
+    """K3a's blocks: one for each TC = 400 centre rows of an item (an
+    item's last may be short)."""
+    return b * -(-t // K3A_TILE_ROWS)
+
+
+def k3a_blocks_per_sm() -> int:
+    """K3a's resident blocks an SM, from the card's occupancy calculator
+    (builds the kernels; raises without them)."""
+    n = kernel_call("pwg_disc_fwd_blocks_per_sm", ())()
+    if n < 1:
+        raise RuntimeError(f"pwg_disc_fwd_blocks_per_sm returned {n}")
+    return n
 
 
 def k3b_launches(need_dx: bool = True, need_weights: bool = True) -> int:
@@ -193,18 +247,42 @@ def k3b_smem_bytes() -> int:
                                                          + K3B_TILE_ROWS)
 
 
+def k3a_smem_bytes() -> int:
+    """Dynamic shared memory of a K3a block, as pwg_disc.cu's kFwdSmem:
+    two windows of ``forward_window_rows`` rows (pitch 72 bf16) and two
+    layers' weights (the next arrives while one computes), the second
+    window and weights giving way before the first layer to the float32
+    window (64 float32 a row) where it is larger, then the nine layers'
+    biases in float32."""
+    rows, w = forward_window_rows(*_k3a_window()), 2 * 3 * _C * _LD
+    return 2 * rows * _LD + w + max(4 * rows * _C, 2 * rows * _LD + w) + (
+        4 * _NL * _C)
+
+
 def k3c_smem_bytes() -> int:
     """Dynamic shared memory of a K3c block, as pwg_disc.cu's kRcSmem: the
-    larger of the recompute half's (two windows of TCR + 2 * 80 rows and
-    their margins, one layer's weights, the wmma staging, the bias) and
-    the reverse half's (two windows of TCR + 2 * 40 rows, two layers'
-    weights, the dW operand's TCR + 16 rows), then the db sums."""
+    larger of the recompute half's (two windows of ``forward_window_rows``
+    rows of pitch 72, two layers' weights, the biases of layers 0..7) and
+    the reverse half's (two windows of TCR + 2 * 40 rows and their
+    margins, two layers' weights, the dW operand's TCR + 16 rows), then
+    the db sums."""
     tcr, w = K3C_TILE_ROWS, 2 * 3 * _C * _LD
-    fwd = (2 * 2 * (tcr + 2 * _HR + 2 * _M) * _LDX + w
-           + 4 * _WARPS * 16 * (_C + 4) + 4 * _C)
+    rows = forward_window_rows(tcr + 2 * _H, K3C_REBUILD_FIRST)
+    fwd = 2 * 2 * rows * _LD + 2 * w + 4 * (_NL - 1) * _C
     rev = (2 * 2 * (tcr + 2 * _H + 2 * _M) * _LDX + 2 * w
            + 2 * (tcr + 2 * _M) * _LD)
     return max(fwd, rev) + 4 * (_WARPS + _NL) * _C
+
+
+def k3a_bytes(b: int, t: int, save: bool = True) -> int:
+    """Device-memory bytes of one K3a call on float32 h, counted from the
+    shapes, each operand read once and each result written once: h in
+    float32, the logits and, with ``save``, the nine bf16 streams; the
+    weights and biases once.  (Each block also reads its halo rows, which
+    its neighbours read too: about 1.2x h's rows at B=8, T=25,500.)"""
+    rows = b * t
+    return (rows * (4 * _C + 4 + _NL * 2 * _C * int(save))
+            + _NL * (2 * 3 * _C * _C + 4 * _C))
 
 
 def k3b_bytes(b: int, t: int, need_weights: bool = True,
@@ -288,7 +366,6 @@ def fused_disc_forward(h, wk, bk, *, slope: float, save: bool):
     _check_shape(b, t)
     dev = h.device
     with torch.cuda.device(dev):
-        h16 = h.to(_BF16).contiguous()
         wk16 = wk.to(_BF16).contiguous()
         bk32 = bk.to(_F32).contiguous()
         check_tensor("wk", wk16, (_NL, 3, _C, _C), _BF16, dev)
@@ -296,9 +373,10 @@ def fused_disc_forward(h, wk, bk, *, slope: float, save: bool):
         logits = torch.empty((b, t), dtype=_F32, device=dev)
         saved = (torch.empty((_NL, b, t, _C), dtype=_BF16, device=dev)
                  if save else None)
+        h32 = h.to(_F32).contiguous()   # the kernel rounds it to bf16
         fn = kernel_call("pwg_disc_fwd", _FWD_ARGS)
         check_launch("pwg_disc_fwd", fn(
-            h16.data_ptr(), wk16.data_ptr(), bk32.data_ptr(),
+            h32.data_ptr(), wk16.data_ptr(), bk32.data_ptr(),
             logits.data_ptr(), None if saved is None else saved.data_ptr(),
             b, t, float(slope), torch.cuda.current_stream(dev).cuda_stream))
         fused_disc_forward.launches += 1

@@ -233,8 +233,18 @@ def test_k2b_shared_memory_matches_the_kernels(cuda, cr):
             assert fn(i, cr, kp, cap) == want[kind] <= k2.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("b,t", [(2, 1000), (1, 37), (3, 801)])
+# K3a's edges (tiles of 400 centre rows, a 37-row halo): T = 1 and T below
+# the halo and below a tile, T a multiple of no tile and of a tile, B = 1
+# and B = 3, and (2, 30000) with more tiles (150) than the card has SMs
+K3_EDGES = [(1, 1), (3, 7), (1, 37), (3, 399), (1, 800), (3, 1001),
+            (2, 30000)]
+
+
+@pytest.mark.parametrize("b,t", [(2, 1000), (3, 801)] + K3_EDGES)
 def test_k3_matches_plain_versions(cuda, b, t):
+    """K3a with and without saving against its plain version (the logits
+    without saving bitwise those with saving), K3b on K3a's streams
+    against its plain version, bit-identical on a second run."""
     from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
     gen = torch.Generator().manual_seed(b * t)
     kernels = [torch.randn((3, 64, 1 if j == 8 else 64), generator=gen)
@@ -275,9 +285,11 @@ K3C_REL_L2 = 2 ** -4
 K3C_VS_K3B_TOL = 2 ** -14
 
 
-@pytest.mark.parametrize("b,t", [(2, 1000), (1, 37), (3, 801), (2, 30000)])
+@pytest.mark.parametrize("b,t", [(2, 1000), (3, 801)] + K3_EDGES)
 def test_k3c_matches_plain_version_and_k3b(cuda, b, t):
-    """(2, 30000) has more tiles than the card has SMs, so a block walks
+    """K3c against its plain version, and its dh bitwise K3b's on K3a's
+    saved streams: K3c's rebuild and K3a run one forward routine.  (2,
+    30000) has more tiles than the card has SMs, so a block walks
     several."""
     from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
     gen = torch.Generator().manual_seed(b * t + 1)
@@ -387,8 +399,9 @@ def test_k3b_k3c_edges_match_plain_versions(cuda, b, t):
 
 
 def test_k3_shared_memory_matches_the_kernels(cuda):
-    """The launcher's ``k3b_smem_bytes`` and ``k3c_smem_bytes`` are the
-    kernels' own counts (``pwg_disc_smem``), within the card's 227 KB."""
+    """The launcher's ``k3b_smem_bytes``, ``k3c_smem_bytes`` and
+    ``k3a_smem_bytes`` are the kernels' own counts (``pwg_disc_smem``),
+    within the card's 227 KB, and a K3a block fits an SM."""
     import ctypes
 
     from parakeet_tpu_torch.ops.kernels import pwg_disc as k3
@@ -398,6 +411,8 @@ def test_k3_shared_memory_matches_the_kernels(cuda):
     fn.restype = ctypes.c_longlong
     assert fn(0) == k3.k3b_smem_bytes() <= pwg_stack.SMEM_LIMIT
     assert fn(1) == k3.k3c_smem_bytes() <= pwg_stack.SMEM_LIMIT
+    assert fn(2) == k3.k3a_smem_bytes() <= pwg_stack.SMEM_LIMIT
+    assert k3.k3a_blocks_per_sm() == 1
 
 
 def test_disc_recompute_grads_on_the_card_match_save(cuda):
