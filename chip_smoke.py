@@ -23,7 +23,24 @@ Phases, one line each (the checks raise; nothing is caught):
    every chunk, and one request must give the same wav alone and inside a
    batch, and agree with the wav of the eager residual stack (no kernel)
    within a stated tolerance;
-4. kernels K2a/K2b (the residual stack's training forward and backward,
+4. the serving path as captured programs: a graph engine (one CUDA graph a
+   grid point of the engine's default grid, text 32/64/128 x batch
+   1/2/4/8, captured by its warmup; its normalizers' CPU statistics moved
+   to the card once) answers the six requests with the eager engine's
+   wavs bit for bit; K1 launches 30 times a chunk by the replays' count
+   (its own counter, which advances at capture, stays at 0); a replay's
+   kernels by ``torch.profiler`` hold ``pwg_layer_kernel<64, false>`` 30
+   times; it prints the capture time, the memory the graphs hold and each
+   chunk's wall time, graphs against eager in turns.  Then
+   ``benchmarks/e2e_rtf.py`` (``bench.py``'s program at full width, one
+   CUDA graph) in bf16 and float32, 'dense' against 'flash' in turns
+   (dense, flash, flash, dense): each graph's wav bitwise its eager
+   program's, K1 x 30 and, with 'flash', K4a x 8 in a replay; RTF, graph
+   and eager ms and MFU (against the bf16 peak).  Then the streaming
+   vocoder (one window graph, replayed per window) against one-shot
+   vocoding within a stated tolerance, and ``benchmarks/longform_rtf.py``
+   (6,144 frames, 'dense' and 'auto', one timed replay each);
+5. kernels K2a/K2b (the residual stack's training forward and backward,
    one group of ten layers) and K3a/K3b/K3c (discriminator layers 1..9:
    forward, backward from the saved layer inputs, backward that rebuilds
    them from the layer-0 output) against their plain PyTorch versions, at
@@ -40,7 +57,7 @@ Phases, one line each (the checks raise; nothing is caught):
    passes (its nine layer passes and the reduction) with the
    bytes of ``k3b_bytes``, GB/s and the share of 3.35 TB/s, and K3c's
    with those of ``k3c_bytes``;
-5. the training slice: a port ``Trainer`` over ``StandardUpdater`` runs
+6. the training slice: a port ``Trainer`` over ``StandardUpdater`` runs
    the PWGAN GAN step of recipes/pwgan/conf/default.yaml for four steps at
    its full widths on seeded synthetic (wav, mel) batches, with
    discriminator_train_start_steps=2, so steps 0-1 run the discriminator-
@@ -50,7 +67,7 @@ Phases, one line each (the checks raise; nothing is caught):
    must get non-zero gradients, and step 0 must agree with the same step
    on the eager impls (no kernel) within stated tolerances.  It prints ms
    per step with the kernels and with the eager impls;
-6. kernel K4 (flash attention: forward K4a, dK/dV pass K4b, dQ pass K4c)
+7. kernel K4 (flash attention: forward K4a, dK/dV pass K4b, dQ pass K4c)
    against its plain PyTorch versions in float32 and bf16, at a small
    shape (B=2, T=200, H=2, dk=32, key lengths 200 and 131, with query
    rows masked as well, jax's segment rule) and at both shapes of the
@@ -62,7 +79,7 @@ Phases, one line each (the checks raise; nothing is caught):
    median times of each kernel, of its plain version, of forward +
    backward, and of PyTorch's scaled_dot_product_attention forward,
    backward and both, in float32 and bf16;
-7. the FastSpeech2 training slice: two port ``Trainer``s run four steps
+8. the FastSpeech2 training slice: two port ``Trainer``s run four steps
    each of the FastSpeech2 model of benchmarks/flash_sweep.py (adim 384,
    4 heads, 4 + 4 layers, float32, Adam 1e-4) at its 1024-frame point
    (B=16, 64 tokens) on seeded synthetic batches of varied lengths, one
@@ -74,7 +91,7 @@ Phases, one line each (the checks raise; nothing is caught):
    between the two within stated tolerances.  It prints ms per step for
    both; then ``inference(max_frames=1024)`` of the trained flash model
    (K4a under no_grad) must agree with a dense copy of it;
-8. the PWGAN recipe through its CLI (``parakeet_tpu_torch.recipes.pwgan.
+9. the PWGAN recipe through its CLI (``parakeet_tpu_torch.recipes.pwgan.
    train.main``, on the card by default) with recipes/pwgan/conf/
    default.yaml at full widths and ``discriminator_params.vjp_mode
    recompute``, on a seeded synthetic dump in the recipe's format under
@@ -86,7 +103,7 @@ Phases, one line each (the checks raise; nothing is caught):
    launch the expected kernels (K3c, never K3b; K3a never saving), every
    train and eval metric must be finite, and each run must leave its 2
    newest snapshots and their ledger;
-9. the training bench (``parakeet_tpu_torch.benchmarks.train_pwgan``) at
+10. the training bench (``parakeet_tpu_torch.benchmarks.train_pwgan``) at
    batch 6 with ``--disc-vjp save`` and ``recompute`` in turns: its
    ``pwgan_train_avg_ips`` for both.
 
@@ -115,7 +132,10 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
+
+from parakeet_tpu_torch.benchmarks.common import seeded_init_
 
 SEED = 0
 SAMPLE_RATE = 24000                 # recipes/*/conf/default.yaml fs
@@ -138,6 +158,23 @@ FRAMES_PER_TOKEN = 7                # 128 tokens -> 896 frames, as bench.py
 REQUEST_LENGTHS = (20, 45, 77, 100, 128, 150)
 MAIN_T = 268800                     # 896 frames * hop 300
 SMALL = (2, 3000)                   # (B, T) of the small K1 check
+LONG_T = 1843200                    # longform_rtf.py: 6,144 frames * 300
+# the serving-graphs phase: the engine's default grid (text 32/64/128 x
+# batch 1/2/4/8) at its default 8 frames a token, so that the memory the
+# graphs hold is the default grid's
+GRAPH_BATCH_BUCKETS, GRAPH_FRAMES_PER_TOKEN = (1, 2, 4, 8), 8
+# the kernels as the profiler names them in a replay
+K1_KERNEL, K4A_KERNEL = "pwg_layer_kernel<64, false>", "flash_fwd_kernel"
+# bench.py's FastSpeech2: 4 + 4 attention layers, all on K4a with 'flash'
+E2E_ATTN_LAYERS = 8
+# streaming against one-shot: bench.py's 896 frames in windows of 256.  A
+# window's upsampler products run at another row count than the whole
+# utterance's, so cuBLAS may sum them in another float32 order; that now
+# and then flips a bf16 rounding of c or x inside K1, carried through the
+# 30 layers as in K1_REL_TOL's case: 2^-5 of the wav's range (measured
+# 0.0020 at a range of 0.39, about 2^-7.6)
+STREAM_FRAMES, STREAM_CHUNK = 896, 256
+STREAM_REL_TOL = 2 ** -5
 # recipes/pwgan/conf/default.yaml: discriminator_params without impl,
 # batch_size, batch_max_steps, the optimizers, updater and STFT losses
 DISC_CONFIG = dict(layers=10, conv_channels=64)
@@ -236,6 +273,28 @@ K4_SHAPES = ((2, 200, 2, 32, (200, 131), True),
 # rounding of p or ds: 2^-7, two ulps of the largest value (measured at
 # most 1.0e-3 of the range).
 K4_REL_TOL = {"float32": 2 ** -14, "bfloat16": 2 ** -7}
+# K4a's shapes inside the synthesis graphs, (T, valid keys) at batch 1 and
+# FastSpeech2's 4 heads of 96: e2e_rtf's encoder over 128 tokens and
+# decoder over 896 frames (357 of them valid, as its seeded durations
+# give), longform_rtf's encoder over 512 tokens and decoder over 6,144
+# frames.  Only the forward runs there.
+K4A_GRAPH_SHAPES = ((128, 128), (896, 357), (512, 512), (6144, 6144))
+
+
+def k4a_graph_tol(dtype, n_keys):
+    """K4a's tolerance at a graph shape, relative to o's range.  float32:
+    the kernel sums over the keys in order, tile after tile, in float32
+    (its running l and o), the plain version pairwise, and recursive
+    summation of n terms is off by up to n * 2^-24 relative.  At the
+    training step's 1,024 keys that is K4_REL_TOL's 2^-14, at 6,144 keys
+    six times it (tools/k4_accuracy_by_length.py measures the kernel's
+    distance from float64 growing with n while the plain version's stays
+    near 5e-7: of o's range 5.7e-6 at 128 keys, 1.4e-5 at 1,024, 6.4e-5
+    at 6,144).  bf16: K4_REL_TOL, as the output's one-ulp rounding
+    dominates at every length."""
+    if dtype == torch.float32:
+        return max(K4_REL_TOL["float32"], n_keys * 2 ** -24)
+    return K4_REL_TOL["bfloat16"]
 # step 0 with flash attention against step 0 with the dense core: both run
 # float32 (TF32 off), and every query row attends to the same keys (a
 # key-padding mask), so they differ by float32 rounding only (the
@@ -288,22 +347,6 @@ STACK_BWD_FLOPS = (2 * (3 * _C * _G + _A * _G)
 DISC_FWD_FLOPS = 8 * 2 * 3 * _C * _C + 2 * 3 * _C
 DISC_BWD_FLOPS = 2 * DISC_FWD_FLOPS
 DISC_RC_FLOPS = 8 * 2 * 3 * _C * _C + DISC_BWD_FLOPS
-
-
-def seeded_init_(module, gen):
-    """Stand-in for trained weights, drawn from ``gen``: biases N(0, 0.02),
-    scales (LayerNorm, BatchNorm, weight norm) and alphas 1, every other
-    tensor N(0, 1 / fan_in) with fan_in the size of one output row."""
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf.endswith("bias"):
-                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
-            elif leaf.endswith("scale") or leaf == "alpha" or p.ndim == 1:
-                p.fill_(1.0)
-            else:
-                p.copy_(torch.randn(p.shape, generator=gen)
-                        / math.sqrt(p[0].numel()))
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -443,6 +486,7 @@ def in_turns(ours, theirs, reps, timer=cuda_ms):
     return [a, d], [b, c]
 
 
+@torch.no_grad()     # the plain version at LONG_T would save 30 layers
 def phase_k1(parent=None):
     """K1 against its plain version; returns the kernel record.  With
     ``parent`` (the parent checkout's pwg_stack module), also times the
@@ -459,7 +503,8 @@ def phase_k1(parent=None):
     kw = dict(dilations=stack.dilations(), stacks=stack.stacks)
     layers = len(kw["dilations"])
     record = None
-    for b, t in (SMALL, (1, MAIN_T)):
+    # the last shape gives the kernel record
+    for b, t in (SMALL, (1, LONG_T), (1, MAIN_T)):
         x = torch.randn((b, t, 64), generator=gen).cuda()
         c = torch.randn((b, t, ODIM), generator=gen).cuda()
         got_x, got_s = k1.fused_residual_stack(x, c, weights, **kw)
@@ -485,7 +530,7 @@ def phase_k1(parent=None):
             + f"; bit-identical on a second run; kernel {ms:.4f} ms "
             f"({ms / layers:.4f} a layer), plain {plain_ms:.4f} ms (median); "
             + layer_traffic(k1, b, t, ms, layers, stack.stacks, False))
-        if parent is not None and b == 1:
+        if parent is not None and t == MAIN_T:
             theirs, ours = in_turns(run, lambda: parent.fused_residual_stack(
                 x, c, weights, **kw), 20)
             print(f"K1 B={b} T={t}, parent, change, change, parent: "
@@ -504,7 +549,12 @@ def phase_k1(parent=None):
     return record
 
 
-def build_engine():
+def build_engine(graphs, text_buckets=TEXT_BUCKETS,
+                 batch_buckets=BATCH_BUCKETS,
+                 frames_per_token=FRAMES_PER_TOKEN):
+    """The serving slice's engine (one CUDA graph a grid point with
+    ``graphs``) on bf16 models at the recipes' widths, from SEED; CPU
+    statistics in its normalizers, which the engine moves to the card."""
     from parakeet_tpu_torch.models import FastSpeech2, PWGGenerator
     from parakeet_tpu_torch.ops.normalizer import ZScore
     from parakeet_tpu_torch.serving import TTSEngine
@@ -522,15 +572,15 @@ def build_engine():
                      torch.rand(ODIM, generator=gen) + 0.5)
     voc_norm = ZScore(am_norm.mu + 0.1, am_norm.sigma * 1.1)
     return TTSEngine(am, voc=voc, am_norm=am_norm, voc_norm=voc_norm,
-                     text_buckets=TEXT_BUCKETS, batch_buckets=BATCH_BUCKETS,
-                     frames_per_token=FRAMES_PER_TOKEN)
+                     text_buckets=text_buckets, batch_buckets=batch_buckets,
+                     frames_per_token=frames_per_token, graphs=graphs)
 
 
 def phase_slice(record):
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
     from parakeet_tpu_torch.serving import Request
 
-    engine = build_engine()
+    engine = build_engine(graphs=False)
     chunks = []
 
     def run_chunk(chunk, tb, out, _inner=engine._run_chunk):
@@ -600,6 +650,196 @@ def phase_slice(record):
           f"diff {ref_diff:.6g} (tol {ref_tol:.6g})")
     record["launches"] = launches
     return record
+
+
+def _named(kernels, part):
+    """Launches of the kernels whose profiler name contains ``part``."""
+    return sum(n for name, n in kernels.items() if part in name)
+
+
+def _timed_chunks(engine):
+    """Log (text bucket, requests, wall s) of each chunk ``engine`` runs;
+    the wall time ends with the host copy of the audio."""
+    log = []
+
+    def run_chunk(chunk, tb, out, _inner=engine._run_chunk):
+        t0 = time.perf_counter()
+        _inner(chunk, tb, out)
+        log.append((tb, len(chunk), time.perf_counter() - t0))
+
+    engine._run_chunk = run_chunk
+    return log
+
+
+def phase_serving_graphs():
+    """The serving slice as captured programs: a graph engine over the
+    default grid, built like the eager one (CPU statistics in its
+    normalizers), captures one CUDA graph a grid point; the six requests
+    through it give the eager engine's wavs bit for bit; K1's wrapper
+    launches nothing while they run (no capture on the main path), and
+    the profiler finds ``pwg_layer_kernel<64, false>`` 30 times a chunk
+    in their replays and no K4a.  Prints each chunk's wall time, graphs
+    against eager in turns, and the graphs' memory."""
+    from parakeet_tpu_torch.benchmarks.common import profiled_kernels
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    from parakeet_tpu_torch.serving import Request
+    grid = dict(batch_buckets=GRAPH_BATCH_BUCKETS,
+                frames_per_token=GRAPH_FRAMES_PER_TOKEN)
+    eager = build_engine(graphs=False, **grid)
+    graphs = build_engine(graphs=True, **grid)
+    if graphs.am_norm.mu.device.type != "cuda":
+        raise AssertionError("the graph engine left its statistics on "
+                             f"{graphs.am_norm.mu.device}")
+    eager.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    n_programs = graphs.warmup()
+    capture_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - before
+    if n_programs != len(TEXT_BUCKETS) * len(GRAPH_BATCH_BUCKETS):
+        raise AssertionError(f"warmup captured {n_programs} programs")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    reqs = [Request(ids=torch.randint(1, IDIM, (n,), generator=gen).tolist(),
+                    utt_id=f"u{i}", seed=100 + i)
+            for i, n in enumerate(REQUEST_LENGTHS)]
+    logs = {"eager": _timed_chunks(eager), "graphs": _timed_chunks(graphs)}
+    walls = {"eager": [], "graphs": []}
+    results = {}
+    for name in ("eager", "graphs", "graphs", "eager"):
+        engine = eager if name == "eager" else graphs
+        logs[name].clear()
+        k1.fused_residual_stack.launches = 0
+        results[name] = engine.synthesize(reqs)
+        walls[name].append([w for _, _, w in logs[name]])
+        if name == "graphs" and k1.fused_residual_stack.launches != 0:
+            raise AssertionError(
+                f"graphs: K1's wrapper launched "
+                f"{k1.fused_residual_stack.launches} times on replays")
+    for want, got in zip(results["eager"], results["graphs"]):
+        if not (want.n_frames == got.n_frames
+                and np.array_equal(want.wav, got.wav)):
+            diff = (float(abs(want.wav - got.wav).max())
+                    if want.wav.shape == got.wav.shape else None)
+            raise AssertionError(f"{want.utt_id}: graph wav differs from "
+                                 f"the eager one ({want.n_frames} and "
+                                 f"{got.n_frames} frames, max abs diff "
+                                 f"{diff})")
+    chunks = [(tb, n) for tb, n, _ in logs["graphs"]]
+    replays = sum(p.replays for p in graphs._programs.values())
+    kernels, _, _ = profiled_kernels(lambda: graphs.synthesize(reqs))
+    replays = sum(p.replays for p in graphs._programs.values()) - replays
+    n_k1 = _named(kernels, K1_KERNEL)
+    if (replays != len(chunks) or _named(kernels, K4A_KERNEL)
+            or n_k1 != PWG_CONFIG["layers"] * len(chunks)):
+        raise AssertionError(f"graphs: {len(chunks)} chunks in "
+                             f"{replays} replays ran {kernels}")
+    tb, n = chunks[-1]                  # the main path's last chunk
+    key = (tb, graphs._batch_bucket(n))
+    kernels, n_kernels, busy_ms = profiled_kernels(graphs._programs[key])
+    if _named(kernels, K1_KERNEL) != PWG_CONFIG["layers"]:
+        raise AssertionError(f"a replay of {key} ran {kernels}")
+    print(f"serving graphs: {n_programs} programs captured in "
+          f"{capture_s:.2f} s (text {TEXT_BUCKETS} x batch "
+          f"{GRAPH_BATCH_BUCKETS}, {GRAPH_FRAMES_PER_TOKEN} frames a token, "
+          f"one shared pool), reserved {held / 2 ** 30:.3f} GiB more after "
+          f"warmup, {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB in all; "
+          f"{len(reqs)} requests bitwise the eager engine's; their "
+          f"{len(chunks)} replays ran {n_k1} x {K1_KERNEL} (profiler), "
+          f"its wrapper 0; a replay of {key}: {n_kernels} kernels and "
+          f"copies in all, the card busy {busy_ms:.3f} ms")
+    print("serving chunks (text bucket, requests) " + str(chunks)
+          + ", wall s, eager, graphs, graphs, eager: " + "; ".join(
+              f"{walls['eager'][0][i]:.4f}, {walls['graphs'][0][i]:.4f}, "
+              f"{walls['graphs'][1][i]:.4f}, {walls['eager'][1][i]:.4f}"
+              for i in range(len(chunks))))
+
+
+def phase_e2e():
+    """``bench.py``'s program through ``benchmarks/e2e_rtf.py`` in bf16
+    and float32, 'dense' against 'flash' in turns (dense, flash, flash,
+    dense): each run's graph gives the eager program's wav bit for bit,
+    and a replay holds K1 30 times and, with 'flash', K4a 8 times."""
+    from parakeet_tpu_torch.benchmarks import e2e_rtf
+    for dtype in ("bfloat16", "float32"):
+        runs = {"dense": [], "flash": []}
+        for impl in ("dense", "flash", "flash", "dense"):
+            rec = e2e_rtf.main(["--dtype", dtype, "--attn-impl", impl])
+            n_k1 = _named(rec["replay_kernels"], K1_KERNEL)
+            n_k4 = _named(rec["replay_kernels"], K4A_KERNEL)
+            want_k4 = E2E_ATTN_LAYERS if impl == "flash" else 0
+            if not (rec["value"] > 0 and rec["graph_matches_eager"]
+                    and n_k1 == PWG_CONFIG["layers"] and n_k4 == want_k4
+                    and rec["launches"] == {"K1": n_k1, "K4a": n_k4}):
+                raise AssertionError(f"e2e {dtype} {impl}: {rec}")
+            runs[impl].append(rec)
+        print(f"e2e {dtype} (graph ms | eager ms | RTF | MFU % | busy ms "
+              "in a replay), dense, flash, flash, dense: " + "; ".join(
+                  f"{r['graph_ms']:.3f} | {r['eager_ms']:.3f} | "
+                  f"{r['value']:.6f} | {r['mfu_pct']:.2f} | "
+                  f"{r['replay_busy_ms']:.3f}"
+                  for r in (runs["dense"][0], *runs["flash"],
+                            runs["dense"][1]))
+              + f"; {runs['dense'][0]['flops'] / 1e12:.4f} TFLOP a call; "
+              "each graph bitwise its eager program, K1 x 30 (and K4a x "
+              f"{E2E_ATTN_LAYERS} with flash) in a replay")
+
+
+def phase_stream():
+    """``pwg_streaming_inference`` on the card (one captured graph for the
+    window, ``pwg_window_program``, replayed per window) bitwise the
+    eager windows, and against one-shot ``pwg_inference``, at
+    ``bench.py``'s vocoder widths in bf16."""
+    from parakeet_tpu_torch.benchmarks.common import build_models
+    from parakeet_tpu_torch.models.parallel_wavegan import (
+        pwg_inference, pwg_streaming_inference, pwg_window_program)
+    _, pwg = build_models(torch.bfloat16, "dense", torch.device("cuda"))
+    gen = torch.Generator().manual_seed(SEED + 11)
+    mel = torch.randn((1, STREAM_FRAMES, ODIM), generator=gen).cuda()
+    noise = torch.randn((1, STREAM_FRAMES * pwg.upsample_factor, 1),
+                        generator=gen).cuda()
+    program = pwg_window_program(pwg, mel, noise, chunk_frames=STREAM_CHUNK)
+    with torch.no_grad():
+        full = pwg_inference(pwg, mel, noise=noise)
+        eager = pwg_streaming_inference(pwg, mel, noise,
+                                        chunk_frames=STREAM_CHUNK)
+        got, again = (pwg_streaming_inference(
+            pwg, mel, noise, chunk_frames=STREAM_CHUNK, program=program)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    windows = -(-STREAM_FRAMES // STREAM_CHUNK)
+    if not (program.replays == 2 * windows and torch.equal(got, again)
+            and torch.equal(got, eager)):
+        raise AssertionError(f"streaming: {program.replays} replays of "
+                             f"{windows} windows twice, or the two runs "
+                             "differ from each other or the eager windows")
+    err, tol = _hold("streaming against one-shot", got, full,
+                     STREAM_REL_TOL)
+    print(f"streaming: {STREAM_FRAMES} frames in {windows} windows of "
+          f"{STREAM_CHUNK} (one graph, {program.replays} replays over two "
+          f"runs, bitwise the eager windows), against one-shot max abs "
+          f"err {err:.4g} "
+          f"(tol {tol:.4g})")
+
+
+def phase_longform():
+    """``benchmarks/longform_rtf.py``, one timed iteration: 'dense' and
+    'auto' (K4a at dk 96, from 512 frames on: encoder and decoder) in one
+    graph each."""
+    from parakeet_tpu_torch.benchmarks import longform_rtf
+    recs = longform_rtf.main(["--iters", "1"])
+    for rec in recs:
+        n_k4 = _named(rec["replay_kernels"], K4A_KERNEL)
+        want = E2E_ATTN_LAYERS if rec["attn_impl"] == "auto" else 0
+        if not (rec["value"] > 0 and rec["graph_matches_eager"]
+                and n_k4 == want):
+            raise AssertionError(f"longform: {rec}")
+    print("longform (graph ms | eager ms | RTF | busy ms in a replay): "
+          + "; ".join(f"{r['attn_impl']} {r['graph_ms']:.3f} | "
+                      f"{r['eager_ms']:.3f} | {r['value']:.6f} | "
+                      f"{r['replay_busy_ms']:.3f}" for r in recs))
 
 
 def _hold(what, got, ref, rel_tol):
@@ -1178,6 +1418,53 @@ def _spread_lengths(gen, b, lo, hi):
     return lengths
 
 
+def phase_k4a_graphs():
+    """K4a against its plain version, unblocked and blocked at its key
+    tile, in float32 and bf16, at each shape it runs inside the synthesis
+    graphs (``K4A_GRAPH_SHAPES``, tolerance ``k4a_graph_tol``); prints
+    its time beside the plain version's and SDPA's forward."""
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    gen = torch.Generator().manual_seed(SEED + 12)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = 1.0 / math.sqrt(FS2_DK)
+    for t, n_valid in K4A_GRAPH_SHAPES:
+        kv_valid = (torch.arange(t)[None] < n_valid).to(torch.int32).cuda()
+        mask = kv_valid[:, None, None, :].bool()
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((1, FS2_HEADS, t, FS2_DK), generator=gen)
+                       .cuda().to(dtype) for _ in range(3))
+            args = (q, k, v, torch.ones_like(kv_valid), kv_valid)
+            o, lse = k4.flash_attention_forward(*args, sm_scale=scale)
+            o2, lse2 = k4.flash_attention_forward(*args, sm_scale=scale)
+            ref_o, ref_lse = k4.flash_attention_reference(*args,
+                                                          sm_scale=scale)
+            block_k = k4.K4A_BLOCK_K[dtype]
+            blk_o, blk_lse = k4.flash_attention_reference(
+                *args, sm_scale=scale, block_k=block_k)
+            torch.cuda.synchronize()
+            tol = k4a_graph_tol(dtype, n_valid)
+            tag = (f"B=1 T={t} ({n_valid} keys valid) H={FS2_HEADS} "
+                   f"dk={FS2_DK} {dtype}")
+            held = [(n, _hold(f"K4a {n} {tag}", got, ref, tol))
+                    for n, got, ref in (
+                        ("o", o, ref_o), ("lse", lse, ref_lse),
+                        (f"o (block_k {block_k})", o, blk_o),
+                        (f"lse (block_k {block_k})", lse, blk_lse))]
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"K4a {tag}: two runs gave different "
+                                     "outputs")
+            ms = cuda_ms(lambda: k4.flash_attention_forward(
+                *args, sm_scale=scale), 10)
+            plain = cuda_ms(lambda: k4.flash_attention_reference(
+                *args, sm_scale=scale), 5)
+            lib = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                       scale=scale), 10)
+            print(f"K4a in the graphs, {tag}: {_report('K4a', held)}; "
+                  f"bit-identical on a second run; kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, scaled_dot_product_attention "
+                  f"forward {lib:.4f} ms (median)")
+
+
 def phase_k4():
     """K4a, K4b and K4c against their plain versions in float32 and bf16
     (K4a also against its blocked plain version at its own key tile);
@@ -1634,6 +1921,11 @@ def main():
     phase_card()
     parent = None if args.parent is None else load_parent(args.parent)
     k1 = phase_slice(phase_k1(parent))
+    phase_serving_graphs()
+    phase_e2e()
+    phase_stream()
+    phase_longform()
+    phase_k4a_graphs()
     k2a, k2b = phase_k2(parent)
     k3a, k3b, k3c = phase_k3(None if parent is None else parent_module(
         "pwg_disc"))

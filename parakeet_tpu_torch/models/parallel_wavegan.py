@@ -18,7 +18,7 @@ variant and ``ResidualPWGDiscriminator``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +31,10 @@ from ..ops.kernels.pwg_disc import (VJP_MODES, fused_disc_supported,
 from ..ops.kernels.pwg_stack import (fused_residual_stack,
                                      fused_stack_supported)
 from ..ops.kernels.pwg_stack_train import fused_residual_stack_train
+from ..utils.graphs import CapturedProgram
 
 __all__ = ["PWGGenerator", "PWGDiscriminator", "pwg_inference",
+           "pwg_streaming_inference", "pwg_window_program",
            "conv1d_taps", "WNConv1d", "UpsampleNet", "ConvInUpsampleNet",
            "ResidualStack", "edge_pad", "stack_route", "init_pwg_params_"]
 
@@ -142,7 +144,9 @@ class UpsampleNet(nn.Module):
     """Nearest-stretch + (2s+1)-tap FIR per scale, computed polyphase at
     frame rate; mel (B, N, F) -> (B, N * prod(scales), F).  Only the
     released configuration is ported: ``freq_axis_kernel_size=1``, no
-    nonlinearity, centered FIR."""
+    nonlinearity, centered FIR.  The phase masks are buffers, made once
+    (not from numpy in every forward: a host copy that a CUDA graph
+    capture refuses), and stay out of the state dict."""
 
     def __init__(self, upsample_scales: Sequence[int],
                  use_weight_norm: bool = True):
@@ -155,6 +159,9 @@ class UpsampleNet(nn.Module):
             if use_weight_norm:
                 self.register_parameter(f"conv_{i}_scale",
                                         nn.Parameter(torch.ones(1)))
+            self.register_buffer(f"conv_{i}_masks",
+                                 torch.from_numpy(_phase_masks(s)),
+                                 persistent=False)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         dt = getattr(self, "conv_0_kernel").dtype
@@ -167,8 +174,7 @@ class UpsampleNet(nn.Module):
             else:
                 w = kernel
             w = w.to(dt)
-            masks = torch.as_tensor(_phase_masks(s), dtype=dt,
-                                    device=x.device)
+            masks = getattr(self, f"conv_{i}_masks").to(dt)
             b, n, f = x.shape
             # per-phase 3-tap comb as one (n, 3f) @ (3f, s*f) product
             km_all = torch.einsum("mjr,j->mr", masks, w[:, 0])    # (3, s)
@@ -420,6 +426,116 @@ def pwg_inference(generator: PWGGenerator, mel: torch.Tensor,
                             device=mel.device)
     wav = generator(noise, edge_pad(mel, w))
     return wav[0, :, 0] if squeeze else wav[..., 0]
+
+
+def _pwg_receptive_frames(generator: PWGGenerator) -> int:
+    """Mel-frame context that fully covers the generator's one-sided
+    receptive field: the dilated residual stack (sum of dilations x
+    (k-1)/2 samples a side) plus the polyphase upsampler's few frames of
+    time taps."""
+    stack = generator.stack
+    per = stack.layers // stack.stacks
+    kernel_size = stack.conv_kernel.shape[1]
+    rf_samples = (stack.stacks * sum(2 ** i for i in range(per))
+                  * ((kernel_size - 1) // 2))
+    return -(-rf_samples // generator.upsample_factor) + 4
+
+
+def _window_shape(generator: PWGGenerator, chunk_frames: int,
+                  context_frames: Optional[int]) -> Tuple[int, int]:
+    """(context frames c, window frames chunk_frames + 2c) of
+    :func:`pwg_streaming_inference`."""
+    c = (_pwg_receptive_frames(generator) if context_frames is None
+         else context_frames)
+    return c, chunk_frames + 2 * c
+
+
+def pwg_window_program(generator: PWGGenerator, mel: torch.Tensor,
+                       noise: Optional[torch.Tensor] = None, *,
+                       chunk_frames: int = 256,
+                       context_frames: Optional[int] = None
+                       ) -> CapturedProgram:
+    """One CUDA graph of ``generator`` (no autograd) at the window shape
+    that :func:`pwg_streaming_inference` vocodes with these
+    ``chunk_frames`` and ``context_frames``, for utterances of ``mel``'s
+    batch, channels, type and device (and ``noise``'s type: float32
+    without one).  Capture runs the window twice eagerly first, so it
+    costs about three windows' time: make it once, before the first
+    utterance, and pass it to every call as ``program``.  The graph holds
+    the generator's parameters by address: moving or replacing them
+    needs a new program."""
+    squeeze = mel.ndim == 2
+    b, _, f = (1, *mel.shape) if squeeze else mel.shape
+    _, win_inner = _window_shape(generator, chunk_frames, context_frames)
+    w, hop = generator.aux_context_window, generator.upsample_factor
+    return CapturedProgram(
+        lambda mel, noise: generator(noise, mel)[..., 0],
+        {"mel": mel.new_empty((b, win_inner + 2 * w, f)),
+         "noise": torch.empty((b, win_inner * hop, 1), device=mel.device,
+                              dtype=torch.float32 if noise is None
+                              else noise.dtype)})
+
+
+def pwg_streaming_inference(generator: PWGGenerator, mel: torch.Tensor,
+                            noise: Optional[torch.Tensor] = None,
+                            rng: Optional[torch.Generator] = None, *,
+                            chunk_frames: int = 256,
+                            context_frames: Optional[int] = None,
+                            program: Optional[CapturedProgram] = None
+                            ) -> torch.Tensor:
+    """Chunked mel -> waveform, equal to :func:`pwg_inference` on the whole
+    utterance (the JAX package's ``pwg_streaming_inference``).
+
+    The mel is edge-padded once, then vocoded in clamped windows of
+    ``chunk_frames + 2 * context_frames`` frames that all lie inside the
+    signal: an edge window's boundary is the signal's, so the convs' SAME
+    zero padding there matches the whole-utterance run, and an interior
+    window keeps only its centre, ``context_frames`` (by default
+    ``_pwg_receptive_frames``) from either edge.  An utterance no longer
+    than one window is vocoded in one shot.  Every window has one shape:
+    with ``program`` (from :func:`pwg_window_program` at the same
+    arguments, owned by the caller) each window is copied into its inputs
+    and replayed, the counterpart of JAX's one program per window shape;
+    without one each window runs eagerly.
+    """
+    squeeze = mel.ndim == 2
+    if squeeze:
+        mel = mel[None]
+    b, t_mel, _ = mel.shape
+    w = generator.aux_context_window
+    hop = generator.upsample_factor
+    c, win_inner = _window_shape(generator, chunk_frames, context_frames)
+    mel_pad = edge_pad(mel, w)
+    if noise is None:
+        noise = torch.randn((b, t_mel * hop, 1), generator=rng,
+                            device=mel.device)
+    if t_mel <= win_inner:
+        wav = generator(noise, mel_pad)[..., 0]
+        return wav[0] if squeeze else wav
+    if program is not None:
+        shapes = {k: tuple(v.shape) for k, v in program.inputs.items()}
+        want = {"mel": (b, win_inner + 2 * w, mel.shape[2]),
+                "noise": (b, win_inner * hop, 1)}
+        if shapes != want:
+            raise ValueError(f"program's window inputs {shapes}, these "
+                             f"arguments' windows {want}")
+    wav = None
+    for s in range(0, t_mel, chunk_frames):
+        keep = min(chunk_frames, t_mel - s)
+        w0 = min(max(s - c, 0), t_mel - win_inner)
+        mel_win = mel_pad[:, w0:w0 + win_inner + 2 * w]
+        noise_win = noise[:, w0 * hop:(w0 + win_inner) * hop]
+        if program is not None:
+            program.inputs["mel"].copy_(mel_win)
+            program.inputs["noise"].copy_(noise_win)
+            wav_win = program()
+        else:
+            wav_win = generator(noise_win, mel_win)[..., 0]
+        if wav is None:
+            wav = wav_win.new_empty((b, t_mel * hop))
+        off = (s - w0) * hop
+        wav[:, s * hop:(s + keep) * hop] = wav_win[:, off:off + keep * hop]
+    return wav[0] if squeeze else wav
 
 
 class PWGDiscriminator(nn.Module):

@@ -29,7 +29,11 @@ __all__ = ["make_flash_attn_core", "make_auto_attn_core", "AUTO_FLASH_MIN_T"]
 # over the dense one is 0.958 and 0.967 at 512 frames, 0.934-0.940 at
 # 1024, 0.902-0.904 at 2048, 0.822-0.838 at 4096 and 0.752-0.760 at 8192;
 # no-grad inference 0.60-0.94.  512 is the shortest length measured, so
-# 'auto' switches there (PERF.md, section 6).
+# 'auto' switches there (PERF.md, section 6).  It holds in bf16 serving as
+# well, on the same card with benchmarks/e2e_rtf.py (bench.py's program
+# at 896 frames, one CUDA graph, in turns): flash 6.671 and 6.473 ms a
+# call against dense 7.000 and 6.998; at 6,144 frames (longform_rtf.py)
+# 35.8 against 49.1.  In float32 at 896 frames the two are within 0.7%.
 AUTO_FLASH_MIN_T = 512
 
 

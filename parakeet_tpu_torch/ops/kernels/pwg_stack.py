@@ -240,12 +240,22 @@ def kernel_call(name: str, argtypes: Tuple):
     return fn
 
 
+# cudaErrorStreamCaptureUnsupported (900) .. cudaErrorStreamCaptureWrongThread
+# (908): the stream capture, not the launch, failed
+_CAPTURE_ERRORS = range(900, 909)
+
+
 def check_launch(name: str, err: int) -> None:
-    """Raise if a launch returned an error code."""
-    if err != 0:
-        raise RuntimeError(f"{name} failed: "
-                           f"{_lib().pwg_stack_error_string(err).decode()} "
-                           f"({err})")
+    """Raise if a launch returned an error code; an error of the CUDA graph
+    capture the launch was recorded into is reported as the capture's."""
+    if err == 0:
+        return
+    what = f"{_lib().pwg_stack_error_string(err).decode()} ({err})"
+    if err in _CAPTURE_ERRORS:
+        raise RuntimeError(f"CUDA graph capture failed when {name} was "
+                           f"recorded into it: {what}; the kernel did not "
+                           "fail, the capture did")
+    raise RuntimeError(f"{name} failed: {what}")
 
 
 def check_tensor(name: str, a: torch.Tensor, shape, dtype, device) -> None:

@@ -20,12 +20,15 @@ def sinusoid_position_encoding(num_positions: int, feature_size: int,
     odd channels.
 
     The table is computed in float32 and cast to ``dtype`` (the JAX
-    version computes in ``dtype``; the two agree for float32).
+    version computes in ``dtype``; the two agree for float32).  Every
+    operand is made on ``device`` (``torch.full``, not ``torch.tensor``),
+    so the call copies nothing from the host and may be captured in a
+    CUDA graph.
     """
     f32 = torch.float32
     channel = torch.arange(0, feature_size, 2, dtype=f32, device=device)
     index = torch.arange(num_positions, dtype=f32, device=device) + start_pos
-    denom = torch.pow(torch.tensor(1e4, dtype=f32, device=device),
+    denom = torch.pow(torch.full((), 1e4, dtype=f32, device=device),
                       channel / feature_size)
     angle = index[:, None] / denom[None, :]
     pe = torch.zeros((num_positions, feature_size), dtype=f32, device=device)

@@ -14,22 +14,33 @@ engine:
 
 Each chunk runs FastSpeech2 inference -> edge clamp of the frames past
 each row's length -> denorm -> vocoder z-norm -> edge pad -> Parallel
-WaveGAN, eagerly on the models' device (no ``torch.compile``, no CUDA
-graphs yet).  A request's noise comes from a ``torch.Generator`` seeded
-by its seed alone, never its batch slot, so batching cannot change its
-noise.  The generator differs from JAX's, so the port's wavs are not the
-JAX engine's numbers.
+WaveGAN.  With ``graphs`` (the default for models on a CUDA device) each
+(text bucket, batch bucket) grid point is one CUDA graph, captured at its
+first use (``utils/graphs.py``), the counterpart of the JAX engine's one
+jitted program per grid point: a chunk fills the graph's static inputs,
+replays it and copies wav and frame lengths to the host once.  The
+graphs share one memory pool for their intermediates and never run
+concurrently; each copies its results into buffers of its own, outside
+the pool, so another grid point's replay cannot overwrite them.
+Without graphs the same program runs eagerly, launch by launch; it is
+the graphs' reference.
+
+A request's noise comes from a ``torch.Generator`` seeded by its seed
+alone, never its batch slot, so batching cannot change its noise.  The
+generator differs from JAX's, so the port's wavs are not the JAX
+engine's numbers.
 """
 from __future__ import annotations
 
 import dataclasses
 from bisect import bisect_left
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .models.parallel_wavegan import edge_pad
+from .utils.graphs import CapturedProgram
 
 __all__ = ["Request", "Result", "TTSEngine"]
 
@@ -70,6 +81,12 @@ class TTSEngine:
             longer than the largest text bucket.
         split_ids: phone ids that mark pause points, preferred segment
             ends when splitting.
+        graphs: one captured CUDA graph per grid point (default: when the
+            models are on a CUDA device); True with models elsewhere
+            raises.  False runs each chunk eagerly.
+
+    The normalizers' statistics are moved to the models' device once,
+    here, never per call.
     """
 
     def __init__(self, am, *, voc=None, am_norm=None, voc_norm=None,
@@ -77,7 +94,8 @@ class TTSEngine:
                  batch_buckets: Sequence[int] = (1, 2, 4, 8),
                  frames_per_token: int = 8, min_duration: int = 1,
                  multi_speaker: bool = False, overflow: str = "split",
-                 split_ids: Sequence[int] = ()):
+                 split_ids: Sequence[int] = (),
+                 graphs: Optional[bool] = None):
         if list(text_buckets) != sorted(set(text_buckets)):
             raise ValueError(f"text_buckets must be ascending/unique: "
                              f"{text_buckets}")
@@ -87,8 +105,17 @@ class TTSEngine:
         if overflow not in ("split", "truncate", "error"):
             raise ValueError(f"overflow must be split|truncate|error, "
                              f"got {overflow!r}")
+        self.device = next(am.parameters()).device
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs the models on a CUDA "
+                             f"device; they are on {self.device}")
+        self.graphs = graphs
         self.am, self.voc = am, voc
-        self.am_norm, self.voc_norm = am_norm, voc_norm
+        self.am_norm = None if am_norm is None else am_norm.to(self.device)
+        self.voc_norm = (None if voc_norm is None
+                         else voc_norm.to(self.device))
         self.text_buckets = tuple(text_buckets)
         self.batch_buckets = tuple(batch_buckets)
         self.frames_per_token = frames_per_token
@@ -97,7 +124,10 @@ class TTSEngine:
         self.overflow = overflow
         self.split_ids = frozenset(split_ids)
         self.hop = voc.upsample_factor if voc is not None else None
-        self.device = next(am.parameters()).device
+        # (text bucket, batch bucket) -> its CapturedProgram, or None for
+        # a grid point run eagerly
+        self._programs: Dict[Tuple[int, int], Optional[CapturedProgram]] = {}
+        self._pool = None
 
     # ---- bucket arithmetic ------------------------------------------
 
@@ -111,6 +141,12 @@ class TTSEngine:
     def _batch_bucket(self, n: int) -> int:
         i = bisect_left(self.batch_buckets, n)
         return self.batch_buckets[i]  # chunks never exceed the largest
+
+    @property
+    def compiled_programs(self) -> int:
+        """Distinct (text bucket, batch bucket) programs built so far
+        (captured graphs, or grid points run eagerly)."""
+        return len(self._programs)
 
     # ---- one padded chunk -------------------------------------------
 
@@ -134,6 +170,38 @@ class TTSEngine:
             mel = self.voc_norm.transform(mel)
         mel = edge_pad(mel, self.voc.aux_context_window)
         return self.voc(noise, mel)[..., 0], frames
+
+    def _program(self, tb: int, bb: int) -> Optional[CapturedProgram]:
+        key = (tb, bb)
+        if key not in self._programs:
+            self._programs[key] = (self._capture(tb, bb) if self.graphs
+                                   else None)
+        return self._programs[key]
+
+    def _capture(self, tb: int, bb: int) -> CapturedProgram:
+        """The graph of grid point (tb, bb), on every graph's shared pool;
+        its inputs hold a batch of 1-token rows until a chunk fills
+        them."""
+        dev, long = self.device, torch.int64
+        text = torch.zeros((bb, tb), dtype=long, device=dev)
+        text[:, 0] = 1
+        inputs = {"text": text,
+                  "text_lengths": torch.ones(bb, dtype=long, device=dev)}
+        if self.multi_speaker:
+            inputs["spk_id"] = torch.zeros(bb, dtype=long, device=dev)
+        if self.voc is not None:
+            inputs["noise"] = torch.zeros(
+                (bb, self.max_frames(tb) * self.hop, 1), device=dev)
+        max_frames = self.max_frames(tb)
+
+        def fn(text, text_lengths, spk_id=None, noise=None):
+            audio, frames = self._forward(text, text_lengths, spk_id, noise,
+                                          max_frames)
+            return audio.float(), frames
+
+        prog = CapturedProgram(fn, inputs, pool=self._pool)
+        self._pool = prog.pool()
+        return prog
 
     def _noise_row(self, seed: int, tb: int) -> torch.Tensor:
         """Noise for one request, a function of its seed and text bucket
@@ -163,17 +231,25 @@ class TTSEngine:
             rows = [self._noise_row(req.seed, tb) for _, req in chunk]
             rows += [torch.zeros_like(rows[0])] * (bb - len(chunk))
             noise = torch.stack(rows)
+        prog = self._program(tb, bb)
+        if prog is None:
+            def dev(a):
+                return torch.from_numpy(a).to(self.device)
 
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-
-        with torch.inference_mode():
-            audio, frames = self._forward(
-                dev(text), dev(lengths),
-                dev(spk) if self.multi_speaker else None, noise,
-                self.max_frames(tb))
-            audio = audio.float().cpu().numpy()
-            frames = frames.cpu().numpy()
+            with torch.inference_mode():
+                audio, frames = self._forward(
+                    dev(text), dev(lengths),
+                    dev(spk) if self.multi_speaker else None, noise,
+                    self.max_frames(tb))
+                audio = audio.float().cpu().numpy()
+                frames = frames.cpu().numpy()
+        else:
+            given = {"text": text, "text_lengths": lengths, "spk_id": spk}
+            for name, buf in prog.inputs.items():
+                buf.copy_(noise if name == "noise"
+                          else torch.from_numpy(given[name]))
+            audio, frames = prog()
+            audio, frames = audio.cpu().numpy(), frames.cpu().numpy()
         for j, (i, req) in enumerate(chunk):
             n = int(frames[j])
             if self.voc is not None:
@@ -255,11 +331,14 @@ class TTSEngine:
         return out  # type: ignore[return-value]
 
     def warmup(self, batch_buckets: Optional[Sequence[int]] = None,
-               text_buckets: Optional[Sequence[int]] = None) -> None:
+               text_buckets: Optional[Sequence[int]] = None) -> int:
         """Run every (text, batch) grid point once before serving traffic,
         so first-use costs (kernel build, library handles, allocator
-        growth) do not land on a request."""
+        growth, the graphs' capture) do not land on a request; tail
+        chunks route to smaller batch buckets, so the full grid is the
+        default.  Returns how many programs exist afterwards."""
         for tb in (text_buckets or self.text_buckets):
             for bb in (batch_buckets or self.batch_buckets):
                 self.synthesize([Request(ids=[1] * tb, seed=k)
                                  for k in range(bb)])
+        return self.compiled_programs

@@ -8,6 +8,7 @@ and the CUDA toolkit; without them they skip.  On a machine with the card:
 """
 import copy
 
+import numpy as np
 import pytest
 import torch
 
@@ -622,3 +623,148 @@ def test_k4_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="every tensor"):
         k4.flash_attention_forward(q32, q32, q32, qv.cpu(), kv,
                                    sm_scale=1.0)
+
+
+# ---- captured programs: K1 and K4a inside a CUDA graph, the engine's grid
+# of graphs and the streaming vocoder's window graph ----
+
+def test_k1_and_k4a_inside_a_graph_give_the_eager_bits(cuda):
+    """A graph of K1's 6 layers and one K4a launch replays the eager
+    launches bit for bit; the wrappers count their launches while the
+    program runs eagerly and is recorded, never at a replay."""
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    from parakeet_tpu_torch.utils.graphs import WARMUP_RUNS, CapturedProgram
+    stack, gen = _stack(64, 80, layers=6, stacks=2, seed=3)
+    stack = stack.to(cuda)
+    kw = dict(dilations=stack.dilations(), stacks=2)
+    x = torch.randn((2, 1000, 64), generator=gen).to(cuda)
+    c = torch.randn((2, 1000, 80), generator=gen).to(cuda)
+    q = torch.randn((2, 4, 300, 96), generator=gen).to(cuda, torch.bfloat16)
+    valid = torch.ones((2, 300), dtype=torch.int32, device=cuda)
+
+    def fn(x, c, q):
+        out = pwg_stack.fused_residual_stack(x, c, stack.fused_weights(),
+                                             **kw)
+        o, _ = k4.flash_attention_forward(q, q, q, valid, valid,
+                                          sm_scale=96 ** -0.5)
+        return out + (o,)
+
+    def counts():
+        return (pwg_stack.fused_residual_stack.launches,
+                k4.flash_attention_forward.launches)
+
+    with torch.no_grad():
+        want = fn(x, c, q)
+        n0 = counts()
+        prog = CapturedProgram(fn, {"x": x.clone(), "c": c.clone(),
+                                    "q": q.clone()})
+        n1 = counts()
+        got = prog()
+        got = prog()
+    torch.cuda.synchronize()
+    runs = WARMUP_RUNS + 1
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (6 * runs, runs)
+    assert counts() == n1 and prog.replays == 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_outputs_survive_other_graphs_of_the_pool(cuda):
+    """Graphs on one pool reuse each other's scratch; each program's
+    outputs are its own buffers, so replaying the others leaves them as
+    its last replay wrote them."""
+    from parakeet_tpu_torch.utils.graphs import CapturedProgram
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((4096, 256), generator=gen).to(cuda)
+
+    def f(x):
+        return (x * 2 + 1) @ x.T, x.sum(1)
+
+    def g(x):
+        return ((x - 3) * 5).exp().sum(0)
+
+    first = CapturedProgram(f, {"x": x.clone()})
+    others = [CapturedProgram(g, {"x": x.clone()}, pool=first.pool())
+              for _ in range(3)]
+    got = [t.clone() for t in first()]
+    for p in others:
+        p.inputs["x"].normal_()
+        p()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first.outputs, got))
+    with torch.no_grad():
+        assert all(torch.equal(a, b) for a, b in zip(got, f(x)))
+
+
+def _serving_models(cuda):
+    from parakeet_tpu_torch.benchmarks.common import seeded_init_
+    from parakeet_tpu_torch.models import FastSpeech2, PWGGenerator
+    gen = torch.Generator().manual_seed(5)
+    am = FastSpeech2(idim=40, odim=80, adim=64, aheads=2, elayers=2,
+                     eunits=128, dlayers=2, dunits=128, postnet_chans=32,
+                     duration_predictor_chans=32, pitch_predictor_chans=32,
+                     energy_predictor_chans=32)
+    voc = PWGGenerator(layers=6, stacks=2, upsample_scales=(4, 5))
+    seeded_init_(am, gen)
+    seeded_init_(voc, gen)
+    with torch.no_grad():
+        am.duration_predictor.stack.linear.weight.mul_(0.25)
+        am.duration_predictor.stack.linear.bias.fill_(1.1)
+    return (am.to(cuda, torch.bfloat16).eval(),
+            voc.to(cuda, torch.bfloat16).eval())
+
+
+def test_graph_engine_matches_the_eager_engine_bitwise(cuda):
+    """One graph a grid point (the same kernels in the same order as the
+    eager engine): every wav bit for bit, K1 once a layer a chunk in the
+    replays (by the profiler); warm-up captures the full grid."""
+    from parakeet_tpu_torch.ops.normalizer import ZScore
+    from parakeet_tpu_torch.serving import Request, TTSEngine
+    am, voc = _serving_models(cuda)
+    norm = ZScore(torch.full((80,), -2.0), torch.full((80,), 1.5))
+    grid = dict(text_buckets=(8, 16), batch_buckets=(1, 2, 4),
+                frames_per_token=4, min_duration=1, am_norm=norm,
+                voc_norm=norm)
+    eager = TTSEngine(am, voc=voc, graphs=False, **grid)
+    graphs = TTSEngine(am, voc=voc, **grid)
+    assert graphs.graphs and graphs.am_norm.mu.is_cuda
+    assert graphs.warmup() == 6
+    gen = torch.Generator().manual_seed(9)
+    reqs = [Request(ids=torch.randint(1, 40, (n,), generator=gen).tolist(),
+                    utt_id=f"u{i}", seed=i)
+            for i, n in enumerate((3, 8, 11, 16, 20, 5))]
+    from parakeet_tpu_torch.benchmarks.common import profiled_kernels
+    out = []
+    kernels, _, _ = profiled_kernels(
+        lambda: out.append(graphs.synthesize(reqs)))
+    got, want = out[0], eager.synthesize(reqs)
+    # two chunks: bucket 8 takes 3, 8, 5 and the 20-phone request's last
+    # 4 phones, bucket 16 takes 11, 16 and its first 16
+    assert sum(p.replays for p in graphs._programs.values()) == 6 + 2
+    assert kernels == {"pwg_layer_kernel<64, false>": 6 * 2}
+    for g, w in zip(got, want):
+        assert g.n_frames == w.n_frames > 0
+        assert np.array_equal(g.wav, w.wav), g.utt_id
+    assert graphs.compiled_programs == 6
+
+
+def test_streaming_on_the_card_replays_one_window_graph(cuda):
+    """pwg_streaming_inference with the caller's window graph: a replay a
+    window, bitwise the eager windows, and against one-shot pwg_inference
+    within the tolerance chip_smoke states for it (K1's bf16 rounding,
+    2^-5)."""
+    from parakeet_tpu_torch.models.parallel_wavegan import (
+        pwg_inference, pwg_streaming_inference, pwg_window_program)
+    _, voc = _serving_models(cuda)
+    gen = torch.Generator().manual_seed(4)
+    mel = torch.randn((2, 150, 80), generator=gen).to(cuda)
+    noise = torch.randn((2, 150 * 20, 1), generator=gen).to(cuda)
+    prog = pwg_window_program(voc, mel, noise, chunk_frames=32)
+    with torch.no_grad():
+        full = pwg_inference(voc, mel, noise=noise)
+        eager = pwg_streaming_inference(voc, mel, noise, chunk_frames=32)
+        got = pwg_streaming_inference(voc, mel, noise, chunk_frames=32,
+                                      program=prog)
+    assert prog.replays == 5 and torch.equal(got, eager)
+    tol = 2 ** -5 * full.float().abs().max().item()
+    assert (got.float() - full.float()).abs().max().item() <= tol
