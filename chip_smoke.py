@@ -70,9 +70,11 @@ Phases, one line each (the checks raise; nothing is caught):
 7. kernel K4 (flash attention: forward K4a, dK/dV pass K4b, dQ pass K4c)
    against its plain PyTorch versions in float32 and bf16, at a small
    shape (B=2, T=200, H=2, dk=32, key lengths 200 and 131, with query
-   rows masked as well, jax's segment rule) and at both shapes of the
+   rows masked as well, jax's segment rule), at both shapes of the
    FastSpeech2 training step (B=16, H=4, dk=96: the encoder's T=64, key
-   lengths 48-64, and the decoder's T=1024, key lengths 700-1024): max
+   lengths 48-64, and the decoder's T=1024, key lengths 700-1024) and at
+   both of the FastSpeech2 recipe's (B=16, H=2, dk=192: the encoder's
+   T=128, key lengths 96-128, and the decoder's T=1024, 700-1024): max
    abs errors against stated tolerances (K4a against its plain version
    both as one softmax and blocked at the kernel's own key tile,
    ``K4A_BLOCK_K``), outputs and gradients bit-identical from run to run,
@@ -105,18 +107,38 @@ Phases, one line each (the checks raise; nothing is caught):
    newest snapshots and their ledger;
 10. the training bench (``parakeet_tpu_torch.benchmarks.train_pwgan``) at
    batch 6 with ``--disc-vjp save`` and ``recompute`` in turns: its
-   ``pwgan_train_avg_ips`` for both.
+   ``pwgan_train_avg_ips`` for both;
+11. the FastSpeech2 recipe through its CLI (``parakeet_tpu_torch.recipes.
+   fastspeech2.train.main``, on the card) with recipes/fastspeech2/conf/
+   default.yaml at full widths (adim 384 over 2 heads, dk 192; batch 64)
+   with ``model.attn_impl flash`` and the attention dropout at 0, on a
+   seeded synthetic dump under build/ (128 train utterances, two steps an
+   epoch; 40 dev, one eval batch; 500-1000 frames, 40-120 phones): 2
+   epochs with an evaluation and a snapshot each, a second run to 3 that
+   must resume at iteration 4 and run steps 4-5 only, and a straight
+   3-epoch run whose last train and eval metrics must equal the resumed
+   run's bitwise.  Every step must launch K4a, K4b and K4c 8 times each,
+   every eval batch K4a 8 times and nothing else, every metric must be
+   finite; step 0 of a 'dense' run from the same weights must agree with
+   flash's within the FastSpeech2 phase's tolerances; aishell3.yaml with
+   ``--speaker-dict`` (the concat integration) trains an epoch of 2
+   steps;
+12. the FastSpeech2 training bench (``parakeet_tpu_torch.benchmarks.
+   train_fastspeech2``) at its defaults, 'dense' and 'flash' in turns: its
+   ``fastspeech2_train_avg_ips`` for both.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
-K4a-K4c: FastSpeech2 training), error, times, bound (the larger of its
-bytes over the H100's memory rate and its operations over its peak for
-the operands' type, from this run's shapes; K4's float32 products at the
-3xTF32 rate, a third of the TF32 peak) and, where one PyTorch call
-computes the same function, that call's time (for K4b and K4c both,
-scaled_dot_product_attention's backward, one call that computes dq, dk
-and dv); the last line is the run's
-result.  Without a CUDA device it raises and prints no result.
+K4a-K4c: FastSpeech2 training at dk 96, and as ``*_dk192`` the
+FastSpeech2 recipe's three flash runs, train steps and eval batches at
+dk 192; K4b is one launch a call at both widths), error, times, bound
+(the larger of its bytes over the H100's memory rate and its operations
+over its peak for the operands' type, from this run's shapes; K4's
+float32 products at the 3xTF32 rate, a third of the TF32 peak) and, where
+one PyTorch call computes the same function, that call's time (for K4b
+and K4c both, scaled_dot_product_attention's backward, one call that
+computes dq, dk and dv); the last line is the run's result.  Without a
+CUDA device it raises and prints no result.
 ``--profile DIR`` also writes ``torch.profiler`` tables of one GAN step
 with the kernels and of one FastSpeech2 step with flash attention to DIR.
 ``--parent DIR`` also times K1, K2a, K3a (both), K3b and K3c of another
@@ -255,14 +277,25 @@ FS2_B, FS2_FRAMES, FS2_TOKENS = 16, 1024, 64
 FS2_MIN_FRAMES, FS2_MIN_TOKENS = 700, 48
 FS2_STEPS = 4
 # K4's shapes: (B, T, H, dk, key lengths as a tuple or, as an int, the
-# least of a seeded spread up to T, whether query rows are masked too): a
-# small one, then both of the FastSpeech2 step's, the encoder's over text
-# tokens and the decoder's over frames (the last gives the kernel records)
+# least of a seeded spread up to T, whether query rows are masked too, the
+# suffix of the kernel records the shape gives or None): a small one, then
+# both of the FastSpeech2 step's, the encoder's over text tokens and the
+# decoder's over frames, at flash_sweep.py's dk 96 and at the recipes' dk
+# 192 (adim 384 over 2 heads): B=16, the encoder at 128 tokens (96-128
+# valid) and the decoder at 1024 frames (700-1024 valid), the recipe
+# phase's buckets
 FS2_HEADS = FS2_TRAIN_CONFIG["aheads"]
 FS2_DK = FS2_TRAIN_CONFIG["adim"] // FS2_HEADS
-K4_SHAPES = ((2, 200, 2, 32, (200, 131), True),
-             (FS2_B, FS2_TOKENS, FS2_HEADS, FS2_DK, FS2_MIN_TOKENS, False),
-             (FS2_B, FS2_FRAMES, FS2_HEADS, FS2_DK, FS2_MIN_FRAMES, False))
+RECIPE_HEADS = FS2_CONFIG["aheads"]
+RECIPE_DK = FS2_CONFIG["adim"] // RECIPE_HEADS
+K4_SHAPES = ((2, 200, 2, 32, (200, 131), True, None),
+             (FS2_B, FS2_TOKENS, FS2_HEADS, FS2_DK, FS2_MIN_TOKENS, False,
+              None),
+             (FS2_B, FS2_FRAMES, FS2_HEADS, FS2_DK, FS2_MIN_FRAMES, False,
+              ""),
+             (16, 128, RECIPE_HEADS, RECIPE_DK, 96, False, None),
+             (16, 1024, RECIPE_HEADS, RECIPE_DK, 700, False,
+              f"_dk{RECIPE_DK}"))
 # K4 against its plain versions, relative to each output's range.  float32:
 # the kernels' 3xTF32 products keep ~22 bits and every sum runs in
 # another order than cuBLAS's; the gradients sum T = 1024 terms whose
@@ -326,6 +359,25 @@ RECIPE_OPTS = ["discriminator_params.vjp_mode", "recompute",
 RECIPE_STEPS, RECIPE_RESUME_STEPS = 4, 6
 # the training bench: save against recompute, in turns, at batch 6
 BENCH_BATCH, BENCH_ITERS = 6, 10
+# the FastSpeech2 recipe through its CLI: recipes/fastspeech2/conf/
+# default.yaml at full widths (adim 384 over 2 heads: dk 192; batch_size
+# 64) with flash attention and the attention dropout at 0, as the YAML's
+# comment prescribes for flash, on a seeded synthetic dump: 128 train
+# utterances (two steps an epoch), 40 dev (one eval batch, the partial
+# one the loader keeps), 500-1000 frames (the decoder's T bucketed to
+# 512-1024) and 40-120 phones each, 8 speakers for aishell3.yaml
+FS2_RECIPE_CONF = "recipes/fastspeech2/conf/default.yaml"
+FS2_RECIPE_SPK_CONF = "recipes/fastspeech2/conf/aishell3.yaml"
+FS2_RECIPE_SPLITS = {"train": 128, "dev": 40}
+FS2_RECIPE_FRAMES, FS2_RECIPE_PHONES = (500, 1000), (40, 120)
+FS2_RECIPE_SPEAKERS = 8
+FS2_RECIPE_ATTN_OPTS = ["model.transformer_enc_attn_dropout_rate", "0.0",
+                        "model.transformer_dec_attn_dropout_rate", "0.0"]
+FS2_RECIPE_EPOCHS, FS2_RECIPE_RESUME_EPOCHS = 2, 3
+FS2_RECIPE_STEPS_PER_EPOCH = 2
+# the FastSpeech2 training bench at its defaults (B 32, 96 tokens, 640
+# frames, 4 heads), dense against flash in turns
+FS2_BENCH_ITERS = 20
 # NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
 # FLOP/s by operand type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -551,15 +603,16 @@ def phase_k1(parent=None):
 
 def build_engine(graphs, text_buckets=TEXT_BUCKETS,
                  batch_buckets=BATCH_BUCKETS,
-                 frames_per_token=FRAMES_PER_TOKEN):
+                 frames_per_token=FRAMES_PER_TOKEN, attn_impl="auto"):
     """The serving slice's engine (one CUDA graph a grid point with
-    ``graphs``) on bf16 models at the recipes' widths, from SEED; CPU
-    statistics in its normalizers, which the engine moves to the card."""
+    ``graphs``) on bf16 models at the recipes' widths with ``attn_impl``,
+    from SEED; CPU statistics in its normalizers, which the engine moves
+    to the card."""
     from parakeet_tpu_torch.models import FastSpeech2, PWGGenerator
     from parakeet_tpu_torch.ops.normalizer import ZScore
     from parakeet_tpu_torch.serving import TTSEngine
     gen = torch.Generator().manual_seed(SEED)
-    am = FastSpeech2(IDIM, ODIM, **FS2_CONFIG)
+    am = FastSpeech2(IDIM, ODIM, attn_impl=attn_impl, **FS2_CONFIG)
     voc = PWGGenerator(**PWG_CONFIG)
     seeded_init_(am, gen)
     seeded_init_(voc, gen)
@@ -680,7 +733,8 @@ def phase_serving_graphs():
     the profiler finds ``pwg_layer_kernel<64, false>`` 30 times a chunk
     in their replays and no K4a.  Prints each chunk's wall time, graphs
     against eager in turns, and the graphs' memory."""
-    from parakeet_tpu_torch.benchmarks.common import profiled_kernels
+    from parakeet_tpu_torch.benchmarks.common import (PROFILE_TRIES,
+                                                      profiled_kernels)
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
     from parakeet_tpu_torch.serving import Request
     grid = dict(batch_buckets=GRAPH_BATCH_BUCKETS,
@@ -732,7 +786,8 @@ def phase_serving_graphs():
     kernels, _, _ = profiled_kernels(lambda: graphs.synthesize(reqs))
     replays = sum(p.replays for p in graphs._programs.values()) - replays
     n_k1 = _named(kernels, K1_KERNEL)
-    if (replays != len(chunks) or _named(kernels, K4A_KERNEL)
+    if (replays != PROFILE_TRIES * len(chunks)
+            or _named(kernels, K4A_KERNEL)
             or n_k1 != PWG_CONFIG["layers"] * len(chunks)):
         raise AssertionError(f"graphs: {len(chunks)} chunks in "
                              f"{replays} replays ran {kernels}")
@@ -1468,12 +1523,13 @@ def phase_k4a_graphs():
 def phase_k4():
     """K4a, K4b and K4c against their plain versions in float32 and bf16
     (K4a also against its blocked plain version at its own key tile);
-    returns their records (the times of the last shape, float32)."""
+    returns their records, keyed 'K4a' ... plus the shape's suffix (the
+    times of the shapes that give records, float32)."""
     from parakeet_tpu_torch.ops.kernels import flash_attn as k4
     gen = torch.Generator().manual_seed(SEED + 7)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     records = {}
-    for b, t, h, dk, lengths, mask_rows in K4_SHAPES:
+    for b, t, h, dk, lengths, mask_rows, suffix in K4_SHAPES:
         if isinstance(lengths, int):
             lengths = _spread_lengths(gen, b, lengths, t)
         kv_valid = (torch.arange(t)[None] < torch.as_tensor(
@@ -1589,21 +1645,22 @@ def phase_k4():
                   f"{lib_fb:.4f} ms (median); K4b + K4c "
                   f"{times[0] + times[2]:.4f} ms against SDPA's backward "
                   f"{lib_b:.4f} ms")
-            if dtype == torch.float32:
+            if dtype == torch.float32 and suffix is not None:
                 # K4b's and K4c's library call: SDPA's backward, one call
                 # that computes dq, dk and dv
-                records = {
-                    "K4a": _record("flash_attention_fwd", "flash_attn.cu",
-                                   "parakeet_tpu/nn/flash.py:88",
-                                   held_a, ms_f, plain_f, limit_a, lib_f),
-                    "K4b": _record("flash_attention_bwd_dkv",
-                                   "flash_attn.cu",
-                                   "parakeet_tpu/nn/flash.py:88",
-                                   held_b, *times[:2], limit_b, lib_b),
-                    "K4c": _record("flash_attention_bwd_dq",
-                                   "flash_attn.cu",
-                                   "parakeet_tpu/nn/flash.py:88",
-                                   held_c, *times[2:], limit_c, lib_b)}
+                records.update({
+                    "K4a" + suffix: _record(
+                        "flash_attention_fwd" + suffix, "flash_attn.cu",
+                        "parakeet_tpu/nn/flash.py:88", held_a, ms_f,
+                        plain_f, limit_a, lib_f),
+                    "K4b" + suffix: _record(
+                        "flash_attention_bwd_dkv" + suffix, "flash_attn.cu",
+                        "parakeet_tpu/nn/flash.py:88", held_b, *times[:2],
+                        limit_b, lib_b),
+                    "K4c" + suffix: _record(
+                        "flash_attention_bwd_dq" + suffix, "flash_attn.cu",
+                        "parakeet_tpu/nn/flash.py:88", held_c, *times[2:],
+                        limit_c, lib_b)})
     return records
 
 
@@ -1743,8 +1800,8 @@ def phase_fs2_train(records, profile_dir=None):
           f"(|diff| {loss_err:.3g}, tol {FS2_LOSS_REL_TOL * abs(loss_d):.3g})"
           f", decoder q-weight gradient relative L2 {rel_l2:.4g} (tol "
           f"{FS2_GRAD_REL_L2:.4g}); K4 launches over the run {totals}")
-    for name, rec in records.items():
-        rec["launches"] = totals[name]
+    for name, n in totals.items():
+        records[name]["launches"] = n
     # serving side: the trained flash model against a dense copy of it
     copy_d = FastSpeech2(IDIM, ODIM, attn_impl="dense",
                          **FS2_TRAIN_CONFIG).cuda()
@@ -1884,6 +1941,173 @@ def phase_recipe(record):
     record["launches"] = totals["K3c"]
 
 
+def phase_fs2_recipe(records):
+    """The FastSpeech2 recipe through its CLI, ``--device cuda`` by
+    default, at default.yaml's full widths with 'flash': FS2_RECIPE_EPOCHS
+    epochs from an empty directory, a second run to
+    FS2_RECIPE_RESUME_EPOCHS that resumes from the newest snapshot, a
+    straight run to compare it with, one epoch with 'dense' from the same
+    weights (its step 0 against flash's), and aishell3.yaml with
+    ``--speaker-dict`` (the concat integration) for one epoch.  Sets the
+    dk 192 K4 records' launches from the three flash runs of
+    default.yaml."""
+    import shutil
+    from parakeet_tpu_torch.recipes.fastspeech2 import train
+    from parakeet_tpu_torch.recipes.fastspeech2.dump import \
+        write_synthetic_dump
+    out = pathlib.Path("build") / "chip_smoke_fs2_recipe"
+    shutil.rmtree(out, ignore_errors=True)
+    md = write_synthetic_dump(out / "dump", seed=SEED + 13,
+                              splits=FS2_RECIPE_SPLITS,
+                              frames=FS2_RECIPE_FRAMES,
+                              phones=FS2_RECIPE_PHONES, n_mels=ODIM,
+                              speakers=FS2_RECIPE_SPEAKERS)
+    counters = _k4_counters()
+    layers = FS2_CONFIG["elayers"] + FS2_CONFIG["dlayers"]
+    per_step = dict.fromkeys(counters, layers)
+    per_eval = {"K4a": layers, "K4b": 0, "K4c": 0}
+    log = []
+    make_train, make_eval = train.make_fs2_train_step, train.make_fs2_eval_step
+
+    def counted(make, kind):
+        def factory(model, *args, **kwargs):
+            fn = make(model, *args, **kwargs)
+
+            def wrapped(state, batch):
+                before = {k: f.launches for k, f in counters.items()}
+                i = state.step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = fn(state, batch)
+                torch.cuda.synchronize()
+                entry = {"kind": kind, "step": i,
+                         "ms": 1e3 * (time.perf_counter() - t0),
+                         "T": tuple(batch["speech"].shape[:2]),
+                         "launches": {k: f.launches - before[k]
+                                      for k, f in counters.items()}}
+                if kind == "train":
+                    entry["loss"] = float(result[1]["loss"])
+                    entry["q_grad"] = torch.cat([
+                        getattr(model.decoder, f"layer_{j}").self_attn.q
+                        .weight.grad.flatten()
+                        for j in range(FS2_CONFIG["dlayers"])]).clone()
+                log.append(entry)
+                return result
+            return wrapped
+        return factory
+
+    def run(name, directory, epochs, want, conf=FS2_RECIPE_CONF,
+            impl="flash", speakers=False):
+        """Train to ``epochs`` in ``directory``; check the steps it took,
+        each step's and eval batch's K4 launches and finite metrics."""
+        log.clear()
+        argv = ["--config", conf, "--train-metadata", str(md["train"]),
+                "--dev-metadata", str(md["dev"]), "--output-dir",
+                str(out / directory), "--phones-dict", str(md["phones"])]
+        if speakers:
+            argv += ["--speaker-dict", str(md["speakers"])]
+        trainer = train.main(argv + [
+            "--opts", "model.attn_impl", impl, *FS2_RECIPE_ATTN_OPTS,
+            "max_epoch", str(epochs)])
+        steps = [e["step"] for e in log if e["kind"] == "train"]
+        if steps != list(want):
+            raise AssertionError(f"fs2 recipe {name} run took steps {steps},"
+                                 f" not {list(want)}")
+        for e in log:
+            expect = ((per_step if e["kind"] == "train" else per_eval)
+                      if impl == "flash" else dict.fromkeys(counters, 0))
+            if e["launches"] != expect:
+                raise AssertionError(f"fs2 recipe {name} {e['kind']} at "
+                                     f"step {e['step']}: launches "
+                                     f"{e['launches']}, expected {expect}")
+        obs = {k: float(v) for k, v in trainer.observation.items()}
+        bad = {k: v for k, v in obs.items() if not math.isfinite(v)}
+        if (bad or "eval/loss" not in obs
+                or not all(math.isfinite(e["loss"]) for e in log
+                           if e["kind"] == "train")):
+            raise AssertionError(f"fs2 recipe {name}: metrics {obs}")
+        model = trainer.updater.train_state.modules["model"]
+        print(f"fs2 recipe {name} run ({conf}, {impl}): steps {steps}, "
+              "batch x frames " + ", ".join(
+                  f"{e['T'][0]}x{e['T'][1]} {e['kind']} {e['ms']:.1f} ms"
+                  for e in log)
+              + f"; K4 launches a step {per_step if impl == 'flash' else 0}"
+              f", an eval batch {per_eval if impl == 'flash' else 0}; "
+              + ", ".join(f"{k} {v:.6g}" for k, v in obs.items()))
+        return obs, [dict(e) for e in log], model
+
+    train.make_fs2_train_step = counted(make_train, "train")
+    train.make_fs2_eval_step = counted(make_eval, "eval")
+    spe = FS2_RECIPE_STEPS_PER_EPOCH
+    first_steps = FS2_RECIPE_EPOCHS * spe
+    last_steps = FS2_RECIPE_RESUME_EPOCHS * spe
+    try:
+        for f in counters.values():
+            f.launches = 0
+        _, flash_log, _ = run("first", "resumed", FS2_RECIPE_EPOCHS,
+                              range(first_steps))
+        got, _, _ = run("resumed", "resumed", FS2_RECIPE_RESUME_EPOCHS,
+                        range(first_steps, last_steps))
+        want, _, _ = run("straight", "straight", FS2_RECIPE_RESUME_EPOCHS,
+                         range(last_steps))
+        totals = {k: f.launches for k, f in counters.items()}
+        _, dense_log, _ = run("dense", "dense", 1, range(spe), impl="dense")
+        _, _, spk_model = run("aishell3", "aishell3", 1, range(spe),
+                              conf=FS2_RECIPE_SPK_CONF, speakers=True)
+    finally:
+        train.make_fs2_train_step = make_train
+        train.make_fs2_eval_step = make_eval
+    # the resumed run against the straight one: the same batches, dropout
+    # masks and weights at step 4, and every kernel's sums in a fixed
+    # order, so the last step's and the evaluation's metrics agree bitwise
+    if got != want:
+        raise AssertionError(f"fs2 recipe: resumed run {got} against "
+                             f"straight {want}")
+    if spk_model.spk_embed_integration_type != "concat":
+        raise AssertionError("aishell3.yaml did not build the concat "
+                             "integration")
+    # step 0, flash against dense, from the same weights, batch and masks
+    flash0, dense0 = flash_log[0], dense_log[0]
+    loss_err = abs(flash0["loss"] - dense0["loss"])
+    if not loss_err <= FS2_LOSS_REL_TOL * abs(dense0["loss"]):
+        raise AssertionError(f"fs2 recipe step 0 loss {flash0['loss']} "
+                             f"(flash) against {dense0['loss']} (dense)")
+    gq, gq_d = flash0["q_grad"], dense0["q_grad"]
+    rel_l2 = ((gq - gq_d).norm() / gq_d.norm()).item()
+    if not rel_l2 <= FS2_GRAD_REL_L2:
+        raise AssertionError(f"fs2 recipe step 0 decoder q-weight gradient:"
+                             f" relative L2 {rel_l2} > {FS2_GRAD_REL_L2}")
+    print(f"fs2 recipe: resumed at iteration {first_steps} and ran steps "
+          f"{first_steps}-{last_steps - 1} only; its last train and eval "
+          f"metrics equal the straight run's bitwise; step 0 flash against "
+          f"dense: loss {flash0['loss']:.7g} vs {dense0['loss']:.7g} "
+          f"(|diff| {loss_err:.3g}, tol "
+          f"{FS2_LOSS_REL_TOL * abs(dense0['loss']):.3g}), decoder q-weight "
+          f"gradient relative L2 {rel_l2:.4g} (tol {FS2_GRAD_REL_L2:.4g}); "
+          f"K4 launches over the three flash runs {totals}")
+    suffix = f"_dk{RECIPE_DK}"
+    for name in counters:
+        records[name + suffix]["launches"] = totals[name]
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_fs2_bench():
+    """The FastSpeech2 training bench at its defaults, 'dense' and 'flash'
+    in turns (dense, flash, flash, dense)."""
+    from parakeet_tpu_torch.benchmarks import train_fastspeech2
+    ips = {"dense": [], "flash": []}
+    for impl in ("dense", "flash", "flash", "dense"):
+        rec = train_fastspeech2.main(["--attn-impl", impl, "--iters",
+                                      str(FS2_BENCH_ITERS)])
+        if not rec["value"] > 0:
+            raise AssertionError(f"fs2 bench {impl}: {rec}")
+        ips[impl].append(rec["value"])
+    print(f"fs2 bench: fastspeech2_train_avg_ips at its defaults (batch 32, "
+          f"96 tokens, 640 frames, 4 heads), {FS2_BENCH_ITERS} iterations, "
+          f"sequences/s: dense {ips['dense']}, flash {ips['flash']}; flash / "
+          f"dense {sum(ips['flash']) / sum(ips['dense']):.4f}")
+
+
 def phase_bench():
     """The training bench with the discriminator's backward saving and
     recomputing, in turns (save, recompute, recompute, save)."""
@@ -1935,8 +2159,10 @@ def main():
     phase_fs2_train(k4, args.profile)
     phase_recipe(k3c)
     phase_bench()
-    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c, k4["K4a"],
-                                  k4["K4b"], k4["K4c"]]}))
+    phase_fs2_recipe(k4)
+    phase_fs2_bench()
+    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
+                                  *k4.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,13 +16,23 @@ the same way: two warm-up calls, then ``--steps`` calls each in turns.
 
 Run from the root of the repository on a machine with a CUDA device:
 
-    python3 fs2_sweep.py [--frames 512 1024 2048 4096 8192] [--steps 6]
+    python3 fs2_sweep.py [--frames 512 1024 2048 4096 8192] [--steps 6] \
+        [--aheads 4] [--engine]
+
+``--aheads 2`` runs the model at the FastSpeech2 recipes' head width
+(adim 384 over 2 heads, dk 192) instead of flash_sweep.py's 4 (dk 96).
 
 It prints the card and the kernel build (chip_smoke.py's first phase),
 then one JSON line per point: median ms per step and frame tokens per
 second for each core, the peak device memory of a step above what was
 allocated before it (activations and gradients; weights and Adam state
 are resident), and median ms per inference call for each core.
+
+``--engine`` also times chip_smoke.py's serving engine (bf16, the
+recipes' widths, dk 192, one CUDA graph a grid point) with attn_impl
+'dense' against 'flash': one chunk of 128 tokens (1,024 frames) at
+batch 1 and at batch 4, ``--steps`` rounds of dense, flash, flash, dense,
+and prints one JSON line per batch with the median wall ms a chunk.
 """
 import argparse
 import json
@@ -36,16 +46,15 @@ import chip_smoke as smoke
 WARMUP = 2
 
 
-def build(impl, b, n_frames, n_tokens):
-    """A FastSpeech2 train step with attn_impl ``impl``, its state, two
-    batches and the model; the same weights and batches for every
-    impl."""
+def build(impl, b, n_frames, n_tokens, config):
+    """A FastSpeech2 train step with attn_impl ``impl`` and ``config``, its
+    state, two batches and the model; the same weights and batches for
+    every impl."""
     from parakeet_tpu_torch.models import (FastSpeech2, init_fs2_train_state,
                                            make_fs2_train_step)
     from parakeet_tpu_torch.training import build_optimizer, seed_everything
     gen = torch.Generator().manual_seed(smoke.SEED + 8)
-    model = FastSpeech2(smoke.IDIM, smoke.ODIM, attn_impl=impl,
-                        **smoke.FS2_TRAIN_CONFIG)
+    model = FastSpeech2(smoke.IDIM, smoke.ODIM, attn_impl=impl, **config)
     smoke.seeded_init_(model, gen)
     model = model.cuda()
     batches = smoke.fs2_batches(gen, b, n_frames, n_tokens, steps=2)
@@ -67,11 +76,12 @@ def timed_step(step, state, batch):
             torch.cuda.max_memory_allocated() - base)
 
 
-def sweep_point(n_frames, tokens, steps):
+def sweep_point(n_frames, tokens, steps, config):
     b = max(1, tokens // n_frames)
     n_tokens = 96 if n_frames % 96 == 0 else 64
     impls = ("dense", "flash")
-    runs = {impl: build(impl, b, n_frames, n_tokens) for impl in impls}
+    runs = {impl: build(impl, b, n_frames, n_tokens, config)
+            for impl in impls}
     ms = {impl: [] for impl in impls}
     peak = dict.fromkeys(impls, 0)
     for i in range(WARMUP + steps):
@@ -82,7 +92,7 @@ def sweep_point(n_frames, tokens, steps):
             if i >= WARMUP:
                 ms[impl].append(t)
     row = {"frames": n_frames, "batch_size": b, "text_tokens": n_tokens,
-           "steps": steps}
+           "aheads": config["aheads"], "steps": steps}
     for impl in impls:
         med = statistics.median(ms[impl])
         row[f"{impl}_ms"] = med
@@ -111,6 +121,45 @@ def sweep_point(n_frames, tokens, steps):
     return row
 
 
+ENGINE_TOKENS, ENGINE_BATCHES = 128, (1, 4)
+
+
+def engine_points(steps):
+    """The graph engine's 128-token chunk, 'dense' against 'flash', in
+    turns; one row a batch size."""
+    from parakeet_tpu_torch.serving import Request
+    grid = dict(batch_buckets=smoke.GRAPH_BATCH_BUCKETS,
+                frames_per_token=smoke.GRAPH_FRAMES_PER_TOKEN)
+    impls = ("dense", "flash")
+    engines = {impl: smoke.build_engine(graphs=True, attn_impl=impl, **grid)
+               for impl in impls}
+    for engine in engines.values():
+        engine.warmup()
+    gen = torch.Generator().manual_seed(smoke.SEED + 2)
+    rows = []
+    for batch in ENGINE_BATCHES:
+        reqs = [Request(ids=torch.randint(1, smoke.IDIM, (ENGINE_TOKENS,),
+                                          generator=gen).tolist(),
+                        utt_id=f"u{i}", seed=100 + i) for i in range(batch)]
+        ms = {impl: [] for impl in impls}
+        for i in range(WARMUP + steps):
+            for impl in (impls if i % 2 == 0 else impls[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engines[impl].synthesize(reqs)
+                if i >= WARMUP:
+                    ms[impl].append(1e3 * (time.perf_counter() - t0))
+        row = {"engine_chunk_tokens": ENGINE_TOKENS, "batch_size": batch,
+               "frames": ENGINE_TOKENS * smoke.GRAPH_FRAMES_PER_TOKEN,
+               "dtype": "bfloat16", "steps": steps}
+        for impl in impls:
+            row[f"{impl}_ms"] = statistics.median(ms[impl])
+            row[f"{impl}_ms_range"] = [min(ms[impl]), max(ms[impl])]
+        row["flash_over_dense"] = row["flash_ms"] / row["dense_ms"]
+        rows.append(row)
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--frames", type=int, nargs="+",
@@ -119,6 +168,12 @@ def main():
                         help="frame tokens a step (batch = tokens / frames)")
     parser.add_argument("--steps", type=int, default=6,
                         help="timed steps per core and point")
+    parser.add_argument("--aheads", type=int, default=4,
+                        help="attention heads of adim 384 (2: the "
+                             "recipes' dk 192)")
+    parser.add_argument("--engine", action="store_true", default=False,
+                        help="also time the serving engine's 128-token "
+                             "chunk, dense against flash")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("fs2_sweep.py needs a CUDA device; "
@@ -126,9 +181,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke.phase_card()
+    config = dict(smoke.FS2_TRAIN_CONFIG, aheads=args.aheads)
     for n_frames in args.frames:
-        print(json.dumps(sweep_point(n_frames, args.tokens, args.steps)),
-              flush=True)
+        print(json.dumps(sweep_point(n_frames, args.tokens, args.steps,
+                                     config)), flush=True)
+    if args.engine:
+        for row in engine_points(args.steps):
+            print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@
 // Every kernel has four warps and owns 64 rows: 64 query rows (K4a, K4c)
 // or 64 key rows (K4b); each warp owns 16 of them and walks the other
 // sequence in tiles of BN rows, 32 in float32 and 64 in bf16 (32 in K4b
-// and K4c at DP = 128).  All three are written for the H100 with mma.sync
+// and K4c at DP = 128 and 192).  All three are written for the H100 with mma.sync
 // fragments, whose register layouts the PTX ISA documents, and float32
 // accumulators.  float32 operands use the 3xTF32 split: x = hi + lo with
 // hi and lo TF32 values, a.b = hi.hi + hi.lo + lo.hi, which keeps ~22 of
@@ -47,14 +47,16 @@
 //     (4-byte) cp.async into a ring of two stages, so the next tile loads
 //     while this one computes; rows past T are zero-filled by the
 //     src-size form and their pairs masked to p = 0 exactly; D is padded
-//     to DP (32, 64, 96 or 128) with zero columns.
+//     to DP (32, 64, 96, 128 or 192) with zero columns.
 //
 // K4a (forward): one pass over the keys with the online softmax, as jax's
 // multi-step kernel: per row a running max m and sum l (two quad
 // shuffles each); at every key tile the O accumulator is rescaled by
 // alpha = exp(m_old - m_new) in registers and gains T(exp(s - m_new)) . v;
-// it is divided by l once at the end.  Q is loaded once into registers
-// (bf16 through ldmatrix); K and V stream.  With Q, S, P and O in
+// it is divided by l once at the end.  Up to DP = 128 Q is loaded once
+// into registers (bf16 through ldmatrix); at DP = 192 it stays resident in
+// shared memory and is re-read at every tile (FwdGeo::QRES); K and V
+// stream.  With Q, S, P and O in
 // registers, ptxas gives the D = 96 instances 238 registers a thread in
 // float32 (two blocks an SM) and 168 in bf16 (three), with 51-54 KB of
 // shared memory a block; capping float32 at three blocks an SM spills and
@@ -75,7 +77,10 @@
 // once; Q, dO and the tile's q_valid, lse and di stream.  Per query tile,
 // S^T = K Q^T, p^T in place (each column's lse and q_valid from the
 // stage), dV += T(p^T) dO, then dP^T = V dO^T, ds^T in place and dK +=
-// T(ds^T) Q.  dK and dV stay in registers for the whole loop.
+// T(ds^T) Q.  dK and dV stay in registers for the whole loop.  At DP = 192
+// the two accumulators would not fit beside the score tiles: the launch's
+// grid has two blocks for each 64 keys (z = 0 forms dV, z = 1 dK), both
+// of which form S^T (kDkvSplit).
 //
 // In both backward kernels the resident strips (Q/dO, K/V) are re-read
 // from shared memory at every tile, not held in registers: with both
@@ -90,9 +95,14 @@
 // per head for K4a, K4b and K4c) dominate and only the tiles and the
 // outputs touch device memory; in float32 the three TF32 products per
 // step (165 TFLOP/s of float32 products at the TF32 peak) bound them, in
-// bf16 the products and the exp per score.  Left for later: wgmma with
-// TMA and warp specialisation, skipping tiles that lie wholly outside a
-// sequence, D > 128.
+// bf16 the products and the exp per score; at D = 192 (K4b 10 T^2 D)
+// likewise.  At D = 192 the shared memory a block (K4a 150.8 KB in
+// float32 and 128.5 KB in bf16, K4b 201.5 and 103.2, K4c 201.0 and
+// 102.7) leaves one block of four warps an SM, two for the bf16 backward
+// instances, so little hides the latency of the shared-memory operands.
+// Left for later:
+// wgmma with TMA and warp specialisation, skipping tiles that lie wholly
+// outside a sequence, D = 256.
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -273,18 +283,25 @@ __device__ __forceinline__ void store_acc(T* __restrict__ out,
 // K4a's geometry: BN keys a tile (K4A_BLOCK_K in ops/kernels/
 // flash_attn.py), a pitch of DP + 16 bytes (conflict-free ldmatrix rows in
 // bf16, 32-bit fragment loads in float32), and a ring of STAGES stages of
-// K tile | V tile | kv_valid.  Q is staged once through stage 1's K and V
-// tiles, which hold 2 * BN >= BM rows of the same pitch.
+// K tile | V tile | kv_valid.  Up to DP = 128, Q is staged once through
+// stage 1's K and V tiles, which hold 2 * BN >= BM rows of the same pitch,
+// and held in registers.  Above it (QRES, DP = 192) Q's fragments and O's
+// 96 accumulators a thread would not fit in 255 registers, so Q stays
+// resident in shared memory ahead of the ring, kQ bytes, and each tile
+// re-reads it as the backward kernels re-read their resident strips.
 template <typename T, int DP>
 struct FwdGeo {
   static constexpr int BN = std::is_same<T, float>::value ? 32 : 64;
   static constexpr int STAGES = 2;
   static constexpr int LD = DP + 16 / sizeof(T);
+  static constexpr bool QRES = DP > 128;
+  static constexpr size_t kQ = QRES ? size_t(BM) * LD * sizeof(T) : 0;
   static constexpr size_t kTile = size_t(BN) * LD * sizeof(T);
   static constexpr size_t kStage = 2 * kTile + BN * sizeof(int);
-  static constexpr size_t kSmem = STAGES * kStage;
+  static constexpr size_t kSmem = kQ + STAGES * kStage;
   static_assert(2 * BN >= BM, "Q is staged in one stage's K and V tiles");
-  static_assert(kTile % 16 == 0, "tiles stay 16-byte aligned");
+  static_assert(kTile % 16 == 0 && kQ % 16 == 0,
+                "tiles stay 16-byte aligned");
 };
 
 // cp.async rows [row0, row0 + nrows) of a (tlen, D) row-major matrix into
@@ -316,13 +333,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   auto ktile = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * G::kStage);
+    return reinterpret_cast<T*>(smem + G::kQ + s * G::kStage);
   };
   auto vtile = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * G::kStage + G::kTile);
+    return reinterpret_cast<T*>(smem + G::kQ + s * G::kStage + G::kTile);
   };
   auto kvtile = [&](int s) {
-    return reinterpret_cast<int*>(smem + s * G::kStage + 2 * G::kTile);
+    return reinterpret_cast<int*>(smem + G::kQ + s * G::kStage +
+                                  2 * G::kTile);
   };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -343,36 +361,44 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 k0 + i < Tk);
   };
 
-  // Q through stage 1, tile 0 into stage 0; Q's fragments to registers;
-  // then tile 1 into stage 1.  One commit group per tile (possibly
-  // empty), so that wait_group<1> at the top of step i means tile i has
-  // landed.
-  load_rows_async<T, DP, LD>(ktile(1), q + qoff, q0, BM, Tq, D);
-  cp_async_commit();
-  issue_tile(0, 0);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  const T* qw = ktile(1) + warp * 16 * LD;
+  // One commit group per tile (possibly empty), so that wait_group<1> at
+  // the top of step i means tile i has landed.  QRES: Q to its resident
+  // rows with tile 0, then tile 1.  Otherwise Q through stage 1, tile 0
+  // into stage 0; Q's fragments to registers; then tile 1 into stage 1.
+  const T* qw = reinterpret_cast<const T*>(smem) + warp * 16 * LD;
   // bf16: ldmatrix A fragments, two per 32 columns; float32: the raw
   // values of the m16n8k8 A fragments (rows g, g + 8; columns t, t + 4)
-  uint32_t qf[kBf16 ? DP / 16 : ND][4];
-  if constexpr (kBf16) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      ldsm_x4(qf[kk], qw + (lane & 15) * LD + kk * 16 +
-                          (lane >> 4) * 8);
+  uint32_t qf[G::QRES ? 1 : (kBf16 ? DP / 16 : ND)][4];
+  if constexpr (G::QRES) {
+    load_rows_async<T, DP, LD>(reinterpret_cast<T*>(smem), q + qoff, q0,
+                               BM, Tq, D);
+    issue_tile(0, 0);
+    cp_async_commit();
   } else {
+    load_rows_async<T, DP, LD>(ktile(1), q + qoff, q0, BM, Tq, D);
+    cp_async_commit();
+    issue_tile(0, 0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* qs = ktile(1) + warp * 16 * LD;
+    if constexpr (kBf16) {
 #pragma unroll
-    for (int kk = 0; kk < ND; ++kk) {
-      const float* p = reinterpret_cast<const float*>(qw) + kk * 8 + t;
-      qf[kk][0] = __float_as_uint(p[g * LD]);
-      qf[kk][1] = __float_as_uint(p[(g + 8) * LD]);
-      qf[kk][2] = __float_as_uint(p[g * LD + 4]);
-      qf[kk][3] = __float_as_uint(p[(g + 8) * LD + 4]);
+      for (int kk = 0; kk < DP / 16; ++kk)
+        ldsm_x4(qf[kk], qs + (lane & 15) * LD + kk * 16 +
+                            (lane >> 4) * 8);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        const float* p = reinterpret_cast<const float*>(qs) + kk * 8 + t;
+        qf[kk][0] = __float_as_uint(p[g * LD]);
+        qf[kk][1] = __float_as_uint(p[(g + 8) * LD]);
+        qf[kk][2] = __float_as_uint(p[g * LD + 4]);
+        qf[kk][3] = __float_as_uint(p[(g + 8) * LD + 4]);
+      }
     }
+    __syncthreads();                     // every warp holds its Q
   }
-  __syncthreads();                       // every warp holds its Q
   if (ntiles > 1) issue_tile(1, 1);
   cp_async_commit();
 
@@ -397,36 +423,40 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // S = Q K^T: sacc[j] holds keys 8j + 2t, 8j + 2t + 1 of rows g, g + 8
     float sacc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
-    if constexpr (kBf16) {
-#pragma unroll
-      for (int c2 = 0; c2 < DP / 32; ++c2) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t kb[4];
-          ldsm_x4(kb, ks + (j * 8 + (lane & 7)) * LD + c2 * 32 +
-                          (lane >> 3) * 8);
-          mma_bf16(sacc[j], qf[2 * c2], kb[0], kb[1]);
-          mma_bf16(sacc[j], qf[2 * c2 + 1], kb[2], kb[3]);
-        }
-      }
+    if constexpr (G::QRES) {
+      tile_abt<T, DP, BN, LD>(sacc, qw, ks);
     } else {
-      const float* kf = reinterpret_cast<const float*>(ks);
 #pragma unroll
-      for (int kk = 0; kk < ND; ++kk) {
-        uint32_t ahi[4], alo[4];
+      for (int j = 0; j < NT; ++j)
+        sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
+      if constexpr (kBf16) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split_tf32(__uint_as_float(qf[kk][e]), ahi[e], alo[e]);
+        for (int c2 = 0; c2 < DP / 32; ++c2) {
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float* p = kf + (j * 8 + g) * LD + kk * 8 + t;
-          uint32_t bhi0, blo0, bhi1, blo1;
-          split_tf32(p[0], bhi0, blo0);
-          split_tf32(p[4], bhi1, blo1);
-          mma_3xtf32(sacc[j], ahi, alo, bhi0, bhi1, blo0, blo1);
+          for (int j = 0; j < NT; ++j) {
+            uint32_t kb[4];
+            ldsm_x4(kb, ks + (j * 8 + (lane & 7)) * LD + c2 * 32 +
+                            (lane >> 3) * 8);
+            mma_bf16(sacc[j], qf[2 * c2], kb[0], kb[1]);
+            mma_bf16(sacc[j], qf[2 * c2 + 1], kb[2], kb[3]);
+          }
+        }
+      } else {
+        const float* kf = reinterpret_cast<const float*>(ks);
+#pragma unroll
+        for (int kk = 0; kk < ND; ++kk) {
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(__uint_as_float(qf[kk][e]), ahi[e], alo[e]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float* p = kf + (j * 8 + g) * LD + kk * 8 + t;
+            uint32_t bhi0, blo0, bhi1, blo1;
+            split_tf32(p[0], bhi0, blo0);
+            split_tf32(p[4], bhi1, blo1);
+            mma_3xtf32(sacc[j], ahi, alo, bhi0, bhi1, blo0, blo1);
+          }
         }
       }
     }
@@ -519,7 +549,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // instances ran slower on the H100.
 template <typename T, int DP, int NVEC>
 struct BwdGeo {
-  // K4a's tiles, but 32 rows in bf16 at DP = 128, where 64 spill in K4b
+  // K4a's tiles, but 32 rows in bf16 above DP = 96, where 64 spill in K4b
   static constexpr int BN = DP > 96 ? 32 : FwdGeo<T, DP>::BN;
   static constexpr int LD = FwdGeo<T, DP>::LD;
   static constexpr int STAGES = 2;
@@ -637,6 +667,33 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ K4b
+// ds^T = ((dp^T - di) * p^T) * scale in place of p^T (x), with dP^T =
+// V dO^T from the warp's resident V rows and the tile's dO; di of the
+// tile's queries from the stage
+template <typename T, int DP, int BN, int LD>
+__device__ __forceinline__ void ds_in_place(float (&x)[BN / 8][4],
+                                            const T* vw, const T* dos,
+                                            const float* dis, float scale) {
+  const int t = threadIdx.x & 3;
+  float dpacc[BN / 8][4];
+  tile_abt<T, DP, BN, LD>(dpacc, vw, dos);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(dis + j * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[j][e] = ((dpacc[j][e] - ((e & 1) ? d2.y : d2.x)) * x[j][e]) * scale;
+  }
+}
+
+// SPLIT (DP = 192): dK's and dV's accumulators together, 192 floats a
+// thread beside two score tiles, would spill, so the grid's z splits the
+// work over two blocks of the same 64 keys: z = 0 forms dV, z = 1 dK, each
+// in one accumulator.  Both compute S^T (10 T^2 D products a head instead
+// of 8), in one launch.
+template <int DP>
+constexpr bool kDkvSplit = DP > 128;
+
 template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -701,11 +758,17 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     in[r] = row < Tk;
     kv[r] = in[r] ? kvalid[static_cast<size_t>(b) * Tk + row] : 0;
   }
-  float dkacc[ND][4], dvacc[ND][4];
+  // dK, or dV in a SPLIT block with z = 0; dV beside it otherwise
+  constexpr bool SPLIT = kDkvSplit<DP>;
+  const bool dv_block = SPLIT && blockIdx.z == 0;
+  float acc[ND][4], dvacc[SPLIT ? 1 : ND][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    dkacc[n][0] = dkacc[n][1] = dkacc[n][2] = dkacc[n][3] = 0.f;
-    dvacc[n][0] = dvacc[n][1] = dvacc[n][2] = dvacc[n][3] = 0.f;
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  if constexpr (!SPLIT) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      dvacc[n][0] = dvacc[n][1] = dvacc[n][2] = dvacc[n][3] = 0.f;
   }
   const T* kw = ks + warp * 16 * LD;
   const T* vw = vs + warp * 16 * LD;
@@ -735,32 +798,31 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          : 0.f;
       }
     }
-    tile_xb<T, DP, BN, LD>(dvacc, sacc, dotile(s));  // dV += T(P^T) dO
-    // ds^T = ((dp^T - di) * p^T) * scale in place of p^T
-    float dpacc[NT][4];
-    tile_abt<T, DP, BN, LD>(dpacc, vw, dotile(s));
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float2 d2 =
-          *reinterpret_cast<const float2*>(dis + j * 8 + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sacc[j][e] =
-            ((dpacc[j][e] - ((e & 1) ? d2.y : d2.x)) * sacc[j][e]) * scale;
+    if constexpr (SPLIT) {
+      if (dv_block) {
+        tile_xb<T, DP, BN, LD>(acc, sacc, dotile(s));   // dV += T(P^T) dO
+      } else {
+        ds_in_place<T, DP, BN, LD>(sacc, vw, dotile(s), dis, scale);
+        tile_xb<T, DP, BN, LD>(acc, sacc, qtile(s));    // dK += T(dS^T) Q
+      }
+    } else {
+      tile_xb<T, DP, BN, LD>(dvacc, sacc, dotile(s));   // dV += T(P^T) dO
+      ds_in_place<T, DP, BN, LD>(sacc, vw, dotile(s), dis, scale);
+      tile_xb<T, DP, BN, LD>(acc, sacc, qtile(s));      // dK += T(dS^T) Q
     }
-    tile_xb<T, DP, BN, LD>(dkacc, sacc, qtile(s));   // dK += T(dS^T) Q
     __syncthreads();                     // every warp is done with stage s
     if (it + G::STAGES < ntiles) issue_tile(it + G::STAGES, s);
     cp_async_commit();
   }
   cp_async_wait<0>();
-  store_acc<T>(dk + koff, dkacc, krow0, Tk, D);
-  store_acc<T>(dv + koff, dvacc, krow0, Tk, D);
+  store_acc<T>((dv_block ? dv : dk) + koff, acc, krow0, Tk, D);
+  if constexpr (!SPLIT) store_acc<T>(dv + koff, dvacc, krow0, Tk, D);
 }
 
 bool bad_args(int B, int H, int Tq, int Tk, int D) {
-  return B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D < 16 || D > 128 ||
-         D % 16 != 0 || static_cast<long long>(B) * H > 65535;
+  return B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D < 16 ||
+         D % 16 != 0 || (D > 128 && D != 192) ||
+         static_cast<long long>(B) * H > 65535;
 }
 
 // Launch one kernel instance for T and DP; `launch` gets the grid, the
@@ -810,7 +872,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* qv,
                 const void* kv, const void* dout, const void* lse,
                 const void* di, void* dk, void* dv, int B, int H, int Tq,
                 int Tk, int D, float scale, cudaStream_t s) {
-  const dim3 grid((Tk + BM - 1) / BM, B * H);
+  const dim3 grid((Tk + BM - 1) / BM, B * H, kDkvSplit<DP> ? 2 : 1);
   auto kernel = flash_dkv_kernel<T, DP>;
   return run(kernel, BwdGeo<T, DP, 3>::kSmem, [&](size_t smem) {
     kernel<<<grid, THREADS, smem, s>>>(
@@ -823,7 +885,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* qv,
 }
 
 // Call F<T, DP>(...) for the element type (bf16 or float32) and D rounded
-// up to 32, 64, 96 or 128.
+// up to 32, 64, 96, 128 or 192 (bad_args refuses 129-191).
 #define PTK_FLASH_DISPATCH(F, is_bf16, D, ...)                        \
   do {                                                                \
     const int dp_ = ((D) + 31) / 32 * 32;                             \
@@ -833,6 +895,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* qv,
         case 64: return static_cast<int>(F<bf16, 64>(__VA_ARGS__));   \
         case 96: return static_cast<int>(F<bf16, 96>(__VA_ARGS__));   \
         case 128: return static_cast<int>(F<bf16, 128>(__VA_ARGS__)); \
+        case 192: return static_cast<int>(F<bf16, 192>(__VA_ARGS__)); \
       }                                                               \
     } else {                                                          \
       switch (dp_) {                                                  \
@@ -840,6 +903,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* qv,
         case 64: return static_cast<int>(F<float, 64>(__VA_ARGS__));  \
         case 96: return static_cast<int>(F<float, 96>(__VA_ARGS__));  \
         case 128: return static_cast<int>(F<float, 128>(__VA_ARGS__));\
+        case 192: return static_cast<int>(F<float, 192>(__VA_ARGS__));\
       }                                                               \
     }                                                                 \
     return -1;                                                        \
@@ -851,8 +915,9 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* qv,
 // Tensors are contiguous: q, o, do (B, H, Tq, D); k, v (B, H, Tk, D);
 // q_valid (B, Tq) and kv_valid (B, Tk) int32; lse and di (B, H, Tq)
 // float32; all of q's type (bf16 when is_bf16, else float32) but lse, di
-// and the validities.  D is a multiple of 16 in [16, 128].  Returns 0,
-// -1 for arguments the kernels do not take, or a CUDA error code.
+// and the validities.  D is a multiple of 16 in [16, 128], or 192.
+// Returns 0, -1 for arguments the kernels do not take, or a CUDA error
+// code.
 
 // K4a: o and lse.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,

@@ -1,14 +1,60 @@
 """Collate functions (counterpart of ``parakeet_tpu/data/collate.py``).
 
-Ported so far: ``VocoderClip``, the random aligned (wav, mel) window of
-GAN-vocoder training.  It returns numpy arrays; the step moves them to
+Ported so far: ``fastspeech2_batch_fn``, the acoustic model's padded
+batch, and ``VocoderClip``, the random aligned (wav, mel) window of
+GAN-vocoder training.  They return numpy arrays; the step moves them to
 the card.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["VocoderClip"]
+from .batch import batch_sequences, bucket_length
+
+__all__ = ["fastspeech2_batch_fn", "VocoderClip"]
+
+
+def _lens(items, key) -> np.ndarray:
+    return np.array([np.asarray(x[key]).shape[0] for x in items],
+                    dtype=np.int64)
+
+
+def fastspeech2_batch_fn(examples, spk: bool = False,
+                         text_bucket: int = 16, frame_bucket: int = 64):
+    """FastSpeech2 training batch (single or multi speaker).
+
+    fields: text, speech (T, odim), durations, pitch (L, 1), energy (L, 1)
+    [, spk_id] [, spk_emb]; adds text_lengths / speech_lengths.  The text
+    axis pads to a multiple of ``text_bucket``, the frame axis to one of
+    ``frame_bucket``, with zeros.
+    """
+    if not examples:
+        raise ValueError("collate called with an empty example list")
+    text_len = bucket_length(
+        max(len(np.asarray(x["text"])) for x in examples), text_bucket)
+    frame_len = bucket_length(
+        max(np.asarray(x["speech"]).shape[0] for x in examples), frame_bucket)
+
+    def padded(key, dtype, length):
+        return batch_sequences([np.asarray(x[key], dtype=dtype)
+                                for x in examples], length=length)
+
+    batch = {
+        "text": padded("text", np.int64, text_len),
+        "text_lengths": _lens(examples, "text"),
+        "speech": padded("speech", np.float32, frame_len),
+        "speech_lengths": _lens(examples, "speech"),
+        "durations": padded("durations", np.int64, text_len),
+        "pitch": padded("pitch", np.float32, text_len),
+        "energy": padded("energy", np.float32, text_len),
+    }
+    if spk:
+        batch["spk_id"] = np.array(
+            [int(x["spk_id"]) for x in examples], dtype=np.int64)
+    if "spk_emb" in examples[0]:
+        batch["spk_emb"] = np.stack(
+            [np.asarray(x["spk_emb"], dtype=np.float32) for x in examples])
+    return batch
 
 
 class VocoderClip:

@@ -3,7 +3,8 @@
 
 ``BatchSampler`` shuffles with a generator seeded from (seed + epoch), so
 an epoch's order depends on its number only, and drops a last partial
-batch, as the recipes ask; ``set_epoch`` is the reference's
+batch unless ``drop_last=False`` (the FastSpeech2 recipe's dev set keeps
+it); ``set_epoch`` is the reference's
 DistributedBatchSampler.set_epoch (standard_updater.py:162-168), called by
 the updater when an epoch starts.  ``DataLoader`` maps a collate function
 over the sampled batches on a background thread, PREFETCH batches ahead,
@@ -26,14 +27,17 @@ PREFETCH = 2
 
 
 class BatchSampler:
-    """Yields lists of ``batch_size`` indices, shuffled or in order."""
+    """Yields lists of ``batch_size`` indices, shuffled or in order, and
+    with ``drop_last=False`` a last, shorter list of the rest."""
 
     def __init__(self, dataset_size: int, batch_size: int,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0,
+                 drop_last: bool = True):
         self.dataset_size = dataset_size
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -52,7 +56,9 @@ class BatchSampler:
             yield idx[s:s + self.batch_size].tolist()
 
     def __len__(self) -> int:
-        return self.dataset_size // self.batch_size
+        if self.drop_last:
+            return self.dataset_size // self.batch_size
+        return -(-self.dataset_size // self.batch_size)
 
 
 class DataLoader:

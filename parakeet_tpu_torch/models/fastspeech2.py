@@ -3,15 +3,16 @@ the teacher-forced training forward, inference and the loss.
 
 Constructor arguments keep the JAX module's hyperparameter names, so a
 recipe's ``model`` section maps onto both.  Speakers are supported with
-the "add" integration; tone embeddings and the "concat" integration are
-not ported yet.  The compute dtype is the parameters' dtype.
+the "add" and "concat" integrations; tone embeddings are not ported
+yet.  The compute dtype is the parameters' dtype.
 
 ``attn_impl`` selects the attention core of both transformer stacks, as
 in the JAX package: 'dense' (scores in device memory; attention-weight
 dropout), 'flash' (kernel K4 on CUDA tensors; training needs both
 attention dropout rates at 0) or 'auto' (K4 once both lengths reach
-``AUTO_FLASH_MIN_T``, dense below it and when training with attention
-dropout).
+``AUTO_FLASH_MIN_T`` at the head widths of ``auto_flash_head_dim``,
+dense below it, at other widths (the recipes' dk 192) and when training
+with attention dropout).
 
 As in flax, ``forward`` takes ``deterministic`` (default False: dropout
 on, BatchNorm on batch statistics, whose running averages it updates) and
@@ -98,13 +99,14 @@ class FastSpeech2(nn.Module):
                  postnet_dropout_rate: float = 0.5,
                  attn_impl: str = "auto"):
         super().__init__()
-        if spk_embed_dim is not None and spk_embed_integration_type != "add":
-            raise NotImplementedError(
-                "only spk_embed_integration_type='add' is ported")
+        if spk_embed_integration_type not in ("add", "concat"):
+            raise ValueError(f"unknown spk_embed_integration_type "
+                             f"{spk_embed_integration_type!r}")
         self.odim = odim
         self.reduction_factor = reduction_factor
         self.postnet_layers = postnet_layers
         self.spk_embed_dim = spk_embed_dim
+        self.spk_embed_integration_type = spk_embed_integration_type
         self.stop_gradient_from_pitch_predictor = (
             stop_gradient_from_pitch_predictor)
         self.stop_gradient_from_energy_predictor = (
@@ -151,7 +153,10 @@ class FastSpeech2(nn.Module):
             if num_speakers is not None:
                 self.spk_embedding_table = nn.Embedding(num_speakers,
                                                         spk_embed_dim)
-            self.spk_projection = nn.Linear(spk_embed_dim, adim)
+            # "concat" projects [hs, speaker] (adim + spk_embed_dim) to adim
+            self.spk_projection = nn.Linear(
+                spk_embed_dim + (adim if spk_embed_integration_type
+                                 == "concat" else 0), adim)
 
     def _encode(self, text, text_lengths, spk_id, spk_emb, **kw):
         x_mask = sequence_mask(text_lengths, text.shape[1])[:, None, :]
@@ -160,8 +165,11 @@ class FastSpeech2(nn.Module):
             if spk_emb is None and spk_id is not None:
                 spk_emb = self.spk_embedding_table(spk_id)
             if spk_emb is not None:
-                hs = hs + self.spk_projection(
-                    _l2_normalize(spk_emb.to(hs.dtype)))[:, None, :]
+                spk = _l2_normalize(spk_emb.to(hs.dtype))
+                if self.spk_embed_integration_type == "add":
+                    return hs + self.spk_projection(spk)[:, None, :]
+                tiled = spk[:, None, :].expand(-1, hs.shape[1], -1)
+                return self.spk_projection(torch.cat([hs, tiled], dim=-1))
         return hs
 
     def _decode(self, hs, frame_lengths, **kw):

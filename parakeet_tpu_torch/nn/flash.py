@@ -20,7 +20,8 @@ import torch
 
 from ..ops.kernels.flash_attn import flash_attention, flash_head_dim_supported
 
-__all__ = ["make_flash_attn_core", "make_auto_attn_core", "AUTO_FLASH_MIN_T"]
+__all__ = ["make_flash_attn_core", "make_auto_attn_core", "AUTO_FLASH_MIN_T",
+           "auto_flash_head_dim"]
 
 # 'auto' takes flash attention once both lengths reach this, at the head
 # widths K4 takes (dense at every other).  Measured on an NVIDIA H100 80GB
@@ -35,6 +36,20 @@ __all__ = ["make_flash_attn_core", "make_auto_attn_core", "AUTO_FLASH_MIN_T"]
 # call against dense 7.000 and 6.998; at 6,144 frames (longform_rtf.py)
 # 35.8 against 49.1.  In float32 at 896 frames the two are within 0.7%.
 AUTO_FLASH_MIN_T = 512
+
+
+def auto_flash_head_dim(dk: int) -> bool:
+    """Head widths at which 'auto' takes K4: those it takes up to 128.
+
+    At 192 (adim 384 over 2 heads, every FastSpeech2 recipe YAML) 'flash'
+    runs K4 but 'auto' stays dense: measured on an NVIDIA H100 80GB HBM3
+    at 700 W with ``fs2_sweep.py --aheads 2 --engine``, the float32 train
+    step with flash over the dense one is 1.013 at 512 frames, 1.002 at
+    1024, 1.028 at 2048, 1.069 at 4096 and 1.085 at 8192, so flash wins
+    the train step at no length, though it wins no-grad inference
+    (0.910-0.987) and the serving engine's 128-token chunk in bf16 as a
+    graph (0.990 at batch 1, 0.962 at batch 4) (PERF.md, section 6)."""
+    return flash_head_dim_supported(dk) and dk <= 128
 
 
 def _validity(mask, b, tq, tk, device=None):
@@ -69,8 +84,8 @@ def make_flash_attn_core(*, seq_block=None):
         if not flash_head_dim_supported(dk):
             raise NotImplementedError(
                 f"flash attention (kernel K4) takes head widths that are "
-                f"multiples of 16 in [16, 128]; got dk={dk} (d_model / "
-                "n_heads); use the dense core")
+                f"multiples of 16 in [16, 128], and 192; got dk={dk} "
+                "(d_model / n_heads); use the dense core")
         q_valid, kv_valid = _validity(mask, b, tq, tk, q.device)
 
         def heads(x):
@@ -86,19 +101,20 @@ def make_flash_attn_core(*, seq_block=None):
 def make_auto_attn_core(*, threshold: int = AUTO_FLASH_MIN_T,
                         seq_block=None):
     """Crossover-aware ``attn_core``: flash attention when both sequence
-    lengths reach ``threshold`` and K4 takes the head width
-    (``flash_head_dim_supported``), else None, which
-    ``MultiHeadAttention`` reads as "use the dense path" (the JAX core takes
-    every width, so 'auto' runs wherever the JAX 'auto' runs; 'flash'
-    raises at a width K4 does not take).  ``dense_fallback = True`` makes
-    ``MultiHeadAttention`` fall back to dense, instead of raising, when
-    training with attention-weight dropout.  The default threshold is the
-    H100's (``AUTO_FLASH_MIN_T``)."""
+    lengths reach ``threshold`` and the head width is one where flash
+    wins (``auto_flash_head_dim``), else None, which ``MultiHeadAttention``
+    reads as "use the dense path" ('flash' raises at a width K4 does not
+    take).  So 'auto' runs at every width, also at dk 192 from 1024
+    frames, where the JAX 'auto' raises (jax's multi-step Pallas kernel
+    takes no head width above 128 but multiples of 128).
+    ``dense_fallback = True`` makes ``MultiHeadAttention`` fall back to
+    dense, instead of raising, when training with attention-weight
+    dropout.  The default threshold is the H100's (``AUTO_FLASH_MIN_T``)."""
     flash = make_flash_attn_core(seq_block=seq_block)
 
     def dispatch(q, k, v, mask=None):
         if (q.shape[1] < threshold or k.shape[1] < threshold
-                or not flash_head_dim_supported(q.shape[-1])):
+                or not auto_flash_head_dim(q.shape[-1])):
             return None
         return flash(q, k, v, mask)
 

@@ -7,7 +7,8 @@ Counterpart of the Pallas TPU flash-attention kernel that
 (B, H, T, D), contiguous, all float32 or all bfloat16; the masks are
 per-row validities ``q_valid`` (B, Tq) and ``kv_valid`` (B, Tk), and the
 pair (i, j) is allowed iff ``q_valid[i] == kv_valid[j]`` (jax's segment
-ids).  D is a multiple of 16 in [16, 128].
+ids).  D is a multiple of 16 in [16, 128], or 192 (the FastSpeech2
+recipes' adim 384 over 2 heads).
 
 On CUDA tensors the wrappers launch the kernels of
 ``parakeet_tpu_torch/csrc/flash_attn.cu`` (``flash_attention_forward``,
@@ -41,9 +42,11 @@ The three kernels are written for the H100 with ``mma.sync`` fragments
 walks the other sequence in tiles double-buffered by ``cp.async`` (32
 rows in float32; 64 in bf16, but 32 in the backward passes at D above
 96), and the scores, p, dp and ds never leave registers.  K4a owns
-query rows and makes one pass over the keys with the online softmax; K4c
-owns query rows and streams key tiles; K4b owns key rows and streams
-query tiles.  The backward passes use the
+query rows and makes one pass over the keys with the online softmax (at
+D = 192 with Q resident in shared memory); K4c owns query rows and
+streams key tiles; K4b owns key rows and streams query tiles (at D = 192
+two blocks of one launch share each 64 keys, one forming dV and one dK,
+so that each holds one accumulator).  The backward passes use the
 final lse, so they round where the plain versions do, and they have no
 atomics: two runs give bit-identical gradients.  The kernels sum in
 another order (and float32 products run as 3xTF32 splits), so they agree
@@ -77,8 +80,8 @@ K4A_BLOCK_K = {_F32: 32, _BF16: 64}
 
 
 def flash_head_dim_supported(dk: int) -> bool:
-    """Head widths K4 takes: multiples of 16 in [16, 128]."""
-    return dk % 16 == 0 and 16 <= dk <= 128
+    """Head widths K4 takes: multiples of 16 in [16, 128], and 192."""
+    return dk == 192 or (dk % 16 == 0 and 16 <= dk <= 128)
 
 
 def _scores(q, k, q_valid, kv_valid, sm_scale):
@@ -173,7 +176,7 @@ def _check(what, q, k, v, q_valid, kv_valid, extra=(), rows=()):
     if not flash_head_dim_supported(d):
         raise NotImplementedError(
             f"{what} (kernel K4) takes head widths that are multiples of "
-            f"16 in [16, 128], got {d}")
+            f"16 in [16, 128], and 192, got {d}")
     shapes = {"k": (k, (b, h, tk, d)), "v": (v, (b, h, tk, d))}
     shapes.update({name: (t, (b, h, tq, d)) for name, t in extra})
     for name, (t, shape) in shapes.items():

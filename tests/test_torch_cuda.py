@@ -532,7 +532,12 @@ def _k4_inputs(cuda, b, h, tq, tk, d, dtype, key_lengths, mask_rows, seed):
     # frames) at a small batch, ragged key lengths
     (2, 4, 1024, 1024, 96, (1024, 731), False),
     # D = 80, padded to DP = 96 with zero columns; masked query rows
-    (2, 2, 333, 333, 80, (333, 250), True)])
+    (2, 2, 333, 333, 80, (333, 250), True),
+    # the FastSpeech2 recipes' head width (adim 384 over 2 heads): K4a
+    # with Q resident in shared memory, K4b split over two blocks a key
+    # tile; masked query rows, then Tq != Tk
+    (2, 2, 300, 300, 192, (300, 17), True),
+    (2, 2, 130, 211, 192, (211, 100), False)])
 def test_k4_matches_plain_versions(cuda, dtype, b, h, tq, tk, d,
                                    key_lengths, mask_rows):
     """K4a against the plain version unblocked and blocked at its own key
@@ -609,11 +614,11 @@ def test_k4_autograd_matches_autograd_of_the_plain_version(cuda):
 def test_k4_rejects_what_it_does_not_take(cuda):
     from parakeet_tpu_torch.nn.flash import make_flash_attn_core
     from parakeet_tpu_torch.ops.kernels import flash_attn as k4
-    q, k, v, qv, kv, _ = _k4_inputs(cuda, 1, 1, 64, 64, 192, torch.float32,
+    q, k, v, qv, kv, _ = _k4_inputs(cuda, 1, 1, 64, 64, 256, torch.float32,
                                     (64,), False, 0)
     with pytest.raises(NotImplementedError, match="K4"):
         k4.flash_attention_forward(q, k, v, qv, kv, sm_scale=1.0)
-    x = torch.zeros((1, 64, 1, 192), device=cuda)
+    x = torch.zeros((1, 64, 1, 256), device=cuda)
     with pytest.raises(NotImplementedError, match="K4"):
         make_flash_attn_core()(x, x, x)
     half = torch.zeros((1, 1, 64, 32), device=cuda, dtype=torch.float16)
@@ -733,14 +738,17 @@ def test_graph_engine_matches_the_eager_engine_bitwise(cuda):
     reqs = [Request(ids=torch.randint(1, 40, (n,), generator=gen).tolist(),
                     utt_id=f"u{i}", seed=i)
             for i, n in enumerate((3, 8, 11, 16, 20, 5))]
-    from parakeet_tpu_torch.benchmarks.common import profiled_kernels
+    from parakeet_tpu_torch.benchmarks.common import (PROFILE_TRIES,
+                                                      profiled_kernels)
     out = []
     kernels, _, _ = profiled_kernels(
         lambda: out.append(graphs.synthesize(reqs)))
     got, want = out[0], eager.synthesize(reqs)
     # two chunks: bucket 8 takes 3, 8, 5 and the 20-phone request's last
-    # 4 phones, bucket 16 takes 11, 16 and its first 16
-    assert sum(p.replays for p in graphs._programs.values()) == 6 + 2
+    # 4 phones, bucket 16 takes 11, 16 and its first 16; profiled_kernels
+    # runs the batch PROFILE_TRIES times
+    assert sum(p.replays for p in graphs._programs.values()) == (
+        6 + 2 * PROFILE_TRIES)
     assert kernels == {"pwg_layer_kernel<64, false>": 6 * 2}
     for g, w in zip(got, want):
         assert g.n_frames == w.n_frames > 0
