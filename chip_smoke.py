@@ -125,13 +125,37 @@ Phases, one line each (the checks raise; nothing is caught):
    steps;
 12. the FastSpeech2 training bench (``parakeet_tpu_torch.benchmarks.
    train_fastspeech2``) at its defaults, 'dense' and 'flash' in turns: its
-   ``fastspeech2_train_avg_ips`` for both.
+   ``fastspeech2_train_avg_ips`` for both;
+13. SpeedySpeech: its recipe through its CLI (``parakeet_tpu_torch.
+   recipes.speedyspeech.train.main``, on the card) with recipes/
+   speedyspeech/conf/default.yaml at full widths and batch 32 on a seeded
+   synthetic dump under build/ (64 train utterances, two steps an epoch;
+   300-600 frames): 2 epochs, a second run to 3 that must resume at
+   iteration 4 and run steps 4-5 only, and a straight 3-epoch run whose
+   last train and eval metrics must equal the resumed run's bitwise, every
+   metric finite, ms a step printed; then ``benchmarks/e2e_family_rtf.py``'s
+   SpeedySpeech leg (96 phones -> 1,000 frames -> PWG x300, bf16) as one
+   CUDA graph: its wav bitwise the eager program's, K1 x 30 in a replay,
+   its RTF and ms a call; and K1 against its plain version at the
+   program's shape (B=1, T=300,000);
+14. Tacotron2: the same through its recipe's CLI with recipes/tacotron2/
+   conf/default.yaml (full widths, batch 32, 120-200 frames: 1 epoch of 2
+   steps, resumed to 2, against 2 straight); its leg of
+   ``e2e_family_rtf`` (1,000 decoder steps -> PWG x256) as one CUDA graph,
+   bitwise eager, K1 x 30 in a replay, and K1 at T=256,000; then the
+   per-family training bench (``benchmarks/train_am.py``) at the JAX
+   bench's shapes for both families, with PyTorch's defaults and under
+   the recipes' deterministic setting: each ``<family>_train_avg_ips``
+   and ms a step.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
 K4a-K4c: FastSpeech2 training at dk 96, and as ``*_dk192`` the
 FastSpeech2 recipe's three flash runs, train steps and eval batches at
-dk 192; K4b is one launch a call at both widths), error, times, bound
+dk 192; K4b is one launch a call at both widths; K1 again as
+``pwg_residual_stack_speedyspeech`` and ``_tacotron2``: the family
+programs' runs, eager calls and capture, with its error and times at
+their shapes), error, times, bound
 (the larger of its bytes over the H100's memory rate and its operations
 over its peak for the operands' type, from this run's shapes; K4's
 float32 products at the 3xTF32 rate, a third of the TF32 peak) and, where
@@ -378,6 +402,31 @@ FS2_RECIPE_STEPS_PER_EPOCH = 2
 # the FastSpeech2 training bench at its defaults (B 32, 96 tokens, 640
 # frames, 4 heads), dense against flash in turns
 FS2_BENCH_ITERS = 20
+# phases 13 and 14: the SpeedySpeech and Tacotron2 recipes through their
+# CLIs at their YAMLs' full widths and batch 32 on seeded synthetic dumps
+# (64 train utterances: two steps an epoch; 20 and 16 dev: one eval batch
+# each, the partial one the loader keeps); SpeedySpeech at Baker-like
+# 300-600 frames and 40-90 phones, Tacotron2 at 120-200 frames (as many
+# decoder steps a step) and 30-60 tokens, few steps, so that the phase
+# fits beside the earlier ones
+SS_RECIPE_CONF = "recipes/speedyspeech/conf/default.yaml"
+SS_RECIPE_SPLITS = {"train": 64, "dev": 20}
+SS_RECIPE_FRAMES, SS_RECIPE_PHONES = (300, 600), (40, 90)
+SS_RECIPE_EPOCHS, SS_RECIPE_RESUME_EPOCHS = 2, 3
+T2_RECIPE_CONF = "recipes/tacotron2/conf/default.yaml"
+T2_RECIPE_SPLITS = {"train": 64, "dev": 16}
+T2_RECIPE_FRAMES, T2_RECIPE_PHONES = (120, 200), (30, 60)
+T2_RECIPE_EPOCHS, T2_RECIPE_RESUME_EPOCHS = 1, 2
+FAMILY_STEPS_PER_EPOCH = 2
+# the family programs of benchmarks/e2e_family_rtf.py, timed over a few
+# chained calls (Tacotron2's runs 1,000 decoder steps a call), with K1's
+# shape in each (B = 1, T = 1,000 frames x the hop)
+FAMILY_ITERS = 3
+FAMILY_K1_T = {"speedyspeech": 300000, "tacotron2": 256000}
+# the per-family training bench at the JAX bench's shapes (B 32, 96
+# tokens, 640 frames): PyTorch's defaults, then the recipes'
+# deterministic setting (Tacotron2's step takes seconds: 2 iterations)
+AM_BENCH_ITERS = 2
 # NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
 # FLOP/s by operand type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -538,67 +587,79 @@ def in_turns(ours, theirs, reps, timer=cuda_ms):
     return [a, d], [b, c]
 
 
-@torch.no_grad()     # the plain version at LONG_T would save 30 layers
-def phase_k1(parent=None):
-    """K1 against its plain version; returns the kernel record.  With
-    ``parent`` (the parent checkout's pwg_stack module), also times the
-    parent's kernel on the same inputs, in turns."""
+def k1_stack(gen):
+    """The recipe's residual stack on the card with seeded weights: (stack,
+    its fused weights, the stack arguments, layers)."""
     from parakeet_tpu_torch.models.parallel_wavegan import ResidualStack
-    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
-    gen = torch.Generator().manual_seed(SEED + 1)
     stack = ResidualStack(**{k: PWG_CONFIG[k] for k in (
         "layers", "stacks", "residual_channels", "gate_channels",
         "skip_channels")}, aux_channels=ODIM)
     seeded_init_(stack, gen)
     stack = stack.cuda()
-    weights = stack.fused_weights()
     kw = dict(dilations=stack.dilations(), stacks=stack.stacks)
-    layers = len(kw["dilations"])
-    record = None
-    # the last shape gives the kernel record
-    for b, t in (SMALL, (1, LONG_T), (1, MAIN_T)):
-        x = torch.randn((b, t, 64), generator=gen).cuda()
-        c = torch.randn((b, t, ODIM), generator=gen).cuda()
-        got_x, got_s = k1.fused_residual_stack(x, c, weights, **kw)
-        ref_x, ref_s = k1.fused_residual_stack_reference(x, c, weights, **kw)
-        again = k1.fused_residual_stack(x, c, weights, **kw)
-        torch.cuda.synchronize()
-        errs = []
-        for name, got, ref in (("x", got_x, ref_x), ("skip", got_s, ref_s)):
-            err = (got.float() - ref.float()).abs().max().item()
-            tol = K1_REL_TOL * max(1.0, ref.float().abs().max().item())
-            if not err <= tol:
-                raise AssertionError(f"K1 {name} at B={b} T={t}: max abs err "
-                                     f"{err} > tol {tol}")
-            errs.append((name, err, tol))
-        if not (torch.equal(again[0], got_x) and torch.equal(again[1], got_s)):
-            raise AssertionError("K1: two runs gave different results")
-        run = (lambda: k1.fused_residual_stack(x, c, weights, **kw))
-        ms = cuda_ms(run, 20)
-        plain_ms = cuda_ms(
-            lambda: k1.fused_residual_stack_reference(x, c, weights, **kw), 5)
-        print(f"K1 B={b} T={t} ({layers} layers): " + ", ".join(
-            f"{n} max_abs_err {e:.6g} (tol {tl:.6g})" for n, e, tl in errs)
-            + f"; bit-identical on a second run; kernel {ms:.4f} ms "
-            f"({ms / layers:.4f} a layer), plain {plain_ms:.4f} ms (median); "
-            + layer_traffic(k1, b, t, ms, layers, stack.stacks, False))
-        if parent is not None and t == MAIN_T:
-            theirs, ours = in_turns(run, lambda: parent.fused_residual_stack(
-                x, c, weights, **kw), 20)
-            print(f"K1 B={b} T={t}, parent, change, change, parent: "
-                  f"{theirs[0]:.4f}, {ours[0]:.4f}, {ours[1]:.4f}, "
-                  f"{theirs[1]:.4f} ms; parent "
-                  + layer_traffic(k1, b, t, statistics.mean(theirs), layers,
-                                  stack.stacks, False))
-        limit = bound(nbytes(x, c, *weights.values(), got_x, got_s),
-                      b * t * layers * STACK_FWD_FLOPS, torch.bfloat16)
-        record = {"name": "pwg_residual_stack", "route": "cuda",
-                  "source": "parakeet_tpu_torch/csrc/pwg_stack.cu",
-                  "replaces": "parakeet_tpu/ops/pallas/pwg_stack.py:84",
-                  "max_abs_err": max(e for _, e, _ in errs),
-                  "ms": ms, "plain_ms": plain_ms, **limit,
-                  "library_ms": None}
-    return record
+    return stack, stack.fused_weights(), kw, len(kw["dilations"])
+
+
+@torch.no_grad()     # the plain version at LONG_T would save 30 layers
+def k1_check(gen, b, t, parent=None, name="pwg_residual_stack"):
+    """K1 against its plain version at (B, T) on seeded inputs: max abs
+    error against the tolerance, bit-identity on a second run, median
+    times; with ``parent`` (the parent checkout's pwg_stack module), also
+    the parent's kernel, in turns.  Returns the kernel record."""
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    stack, weights, kw, layers = k1_stack(gen)
+    x = torch.randn((b, t, 64), generator=gen).cuda()
+    c = torch.randn((b, t, ODIM), generator=gen).cuda()
+    got_x, got_s = k1.fused_residual_stack(x, c, weights, **kw)
+    ref_x, ref_s = k1.fused_residual_stack_reference(x, c, weights, **kw)
+    again = k1.fused_residual_stack(x, c, weights, **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for part, got, ref in (("x", got_x, ref_x), ("skip", got_s, ref_s)):
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = K1_REL_TOL * max(1.0, ref.float().abs().max().item())
+        if not err <= tol:
+            raise AssertionError(f"K1 {part} at B={b} T={t}: max abs err "
+                                 f"{err} > tol {tol}")
+        errs.append((part, err, tol))
+    if not (torch.equal(again[0], got_x) and torch.equal(again[1], got_s)):
+        raise AssertionError("K1: two runs gave different results")
+    del ref_x, ref_s, again
+    run = (lambda: k1.fused_residual_stack(x, c, weights, **kw))
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(
+        lambda: k1.fused_residual_stack_reference(x, c, weights, **kw), 5)
+    print(f"K1 B={b} T={t} ({layers} layers): " + ", ".join(
+        f"{n} max_abs_err {e:.6g} (tol {tl:.6g})" for n, e, tl in errs)
+        + f"; bit-identical on a second run; kernel {ms:.4f} ms "
+        f"({ms / layers:.4f} a layer), plain {plain_ms:.4f} ms (median); "
+        + layer_traffic(k1, b, t, ms, layers, stack.stacks, False))
+    if parent is not None:
+        theirs, ours = in_turns(run, lambda: parent.fused_residual_stack(
+            x, c, weights, **kw), 20)
+        print(f"K1 B={b} T={t}, parent, change, change, parent: "
+              f"{theirs[0]:.4f}, {ours[0]:.4f}, {ours[1]:.4f}, "
+              f"{theirs[1]:.4f} ms; parent "
+              + layer_traffic(k1, b, t, statistics.mean(theirs), layers,
+                              stack.stacks, False))
+    limit = bound(nbytes(x, c, *weights.values(), got_x, got_s),
+                  b * t * layers * STACK_FWD_FLOPS, torch.bfloat16)
+    return {"name": name, "route": "cuda",
+            "source": "parakeet_tpu_torch/csrc/pwg_stack.cu",
+            "replaces": "parakeet_tpu/ops/pallas/pwg_stack.py:84",
+            "launches": 0, "max_abs_err": max(e for _, e, _ in errs),
+            "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None}
+
+
+def phase_k1(parent=None):
+    """K1 against its plain version at a small shape, at longform's and at
+    the main shape; returns the main shape's kernel record.  With
+    ``parent`` (the parent checkout's pwg_stack module), also times the
+    parent's kernel at the main shape, in turns."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for b, t in (SMALL, (1, LONG_T)):
+        k1_check(gen, b, t)
+    return k1_check(gen, 1, MAIN_T, parent)
 
 
 def build_engine(graphs, text_buckets=TEXT_BUCKETS,
@@ -2126,6 +2187,176 @@ def phase_bench():
           f"{sum(ips['recompute']) / sum(ips['save']):.4f}")
 
 
+def family_recipe(tag, train, factory, argv, out, epochs, resume_epochs,
+                  mel_key):
+    """A family's recipe through its CLI (``train.main``, on the card):
+    ``epochs`` epochs from an empty directory, a second run to
+    ``resume_epochs`` that must resume from the newest snapshot and run
+    only the steps after it, and a straight ``resume_epochs`` run whose
+    last train and eval metrics must equal the resumed run's bitwise;
+    every loss and metric finite.  ``factory`` names the train-step
+    factory the module calls, wrapped here to time each step; ``mel_key``
+    is the batch's mel, whose (B, frames) each step prints."""
+    log = []
+    make = getattr(train, factory)
+
+    def timed(model, *args, **kwargs):
+        fn = make(model, *args, **kwargs)
+
+        def step(state, batch):
+            i = state.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(state, batch)
+            loss = float(result[1]["loss"])
+            log.append((i, 1e3 * (time.perf_counter() - t0), loss,
+                        tuple(batch[mel_key].shape)))
+            return result
+        return step
+
+    spe = FAMILY_STEPS_PER_EPOCH
+    runs = {}
+    setattr(train, factory, timed)
+    try:
+        for name, directory, n, want in (
+                ("first", "resumed", epochs, range(epochs * spe)),
+                ("resumed", "resumed", resume_epochs,
+                 range(epochs * spe, resume_epochs * spe)),
+                ("straight", "straight", resume_epochs,
+                 range(resume_epochs * spe))):
+            log.clear()
+            trainer = train.main(argv + ["--output-dir",
+                                         str(out / directory),
+                                         "--opts", "max_epoch", str(n)])
+            steps = [i for i, *_ in log]
+            obs = {k: float(v) for k, v in trainer.observation.items()}
+            if steps != list(want):
+                raise AssertionError(f"{tag} recipe {name} run took steps "
+                                     f"{steps}, not {list(want)}")
+            if ("eval/loss" not in obs or not all(
+                    math.isfinite(v) for v in obs.values())
+                    or not all(math.isfinite(e[2]) for e in log)):
+                raise AssertionError(f"{tag} recipe {name}: metrics {obs}")
+            print(f"{tag} recipe {name} run: steps {steps}, batch x length "
+                  "and ms a step (host clock, synchronised) " + ", ".join(
+                      f"{'x'.join(map(str, e[3][:2]))} {e[1]:.1f}"
+                      for e in log)
+                  + "; " + ", ".join(f"{k} {v:.6g}" for k, v in obs.items()))
+            runs[name] = obs
+    finally:
+        setattr(train, factory, make)
+    if runs["resumed"] != runs["straight"]:
+        raise AssertionError(f"{tag} recipe: resumed run {runs['resumed']} "
+                             f"against straight {runs['straight']}")
+    print(f"{tag} recipe: resumed at iteration {epochs * spe} and ran steps "
+          f"{epochs * spe}-{resume_epochs * spe - 1} only; its last train "
+          "and eval metrics equal the straight run's bitwise")
+
+
+def family_program(family):
+    """``benchmarks/e2e_family_rtf.py``'s leg of ``family`` (bf16): one
+    CUDA graph whose wav equals the eager program's bitwise and whose
+    replay holds K1 30 times; then K1 against its plain version at the
+    program's shape.  Returns K1's record with its launches over the
+    bench's run (the eager calls and the capture)."""
+    from parakeet_tpu_torch.benchmarks import e2e_family_rtf
+    from parakeet_tpu_torch.ops.kernels.pwg_stack import \
+        fused_residual_stack
+    fused_residual_stack.launches = 0
+    (rec,) = e2e_family_rtf.main(["--families", family, "--iters",
+                                  str(FAMILY_ITERS)])
+    launches = fused_residual_stack.launches
+    layers = PWG_CONFIG["layers"]
+    n_k1 = _named(rec["replay_kernels"], K1_KERNEL)
+    if not (rec["value"] > 0 and rec["graph_matches_eager"]
+            and n_k1 == layers and rec["launches"] == {"K1": layers}
+            and launches > 0 and launches % layers == 0
+            and rec["samples"] == FAMILY_K1_T[family]):
+        raise AssertionError(f"{family} program: {rec}")
+    print(f"{family} program ({rec['dtype']}, {rec['samples']} samples, "
+          f"{rec['audio_seconds']:.4f} s of audio; "
+          f"{rec['device']}, {rec['power_limit']}): "
+          f"{family}_pwgan_e2e_rtf {rec['value']:.6f}, graph "
+          f"{rec['graph_ms']:.3f} ms a call, eager {rec['eager_ms']:.3f} "
+          f"ms, busy {rec['replay_busy_ms']:.3f} ms in a replay of "
+          f"{rec['replay_kernels_total']} kernels; the graph's wav bitwise "
+          f"the eager program's, K1 x {n_k1} in a replay; frames "
+          f"{rec['frame_lengths']}; K1 launches over the bench {launches}")
+    record = k1_check(torch.Generator().manual_seed(SEED + 1), 1,
+                      FAMILY_K1_T[family],
+                      name=f"pwg_residual_stack_{family}")
+    record["launches"] = launches
+    return record
+
+
+def phase_speedyspeech():
+    """Phase 13: the SpeedySpeech recipe (its CLI, resume against
+    straight), then its synthesis program as one CUDA graph."""
+    import shutil
+    from parakeet_tpu_torch.recipes.speedyspeech import train
+    from parakeet_tpu_torch.recipes.speedyspeech.dump import \
+        write_synthetic_dump
+    out = pathlib.Path("build") / "chip_smoke_speedyspeech"
+    shutil.rmtree(out, ignore_errors=True)
+    md = write_synthetic_dump(out / "dump", seed=SEED + 14,
+                              splits=SS_RECIPE_SPLITS,
+                              frames=SS_RECIPE_FRAMES,
+                              phones=SS_RECIPE_PHONES, n_mels=ODIM)
+    family_recipe("speedyspeech", train, "make_speedyspeech_train_step",
+                  ["--config", SS_RECIPE_CONF, "--train-metadata",
+                   str(md["train"]), "--dev-metadata", str(md["dev"]),
+                   "--phones-dict", str(md["phones"]), "--tones-dict",
+                   str(md["tones"])], out, SS_RECIPE_EPOCHS,
+                  SS_RECIPE_RESUME_EPOCHS, "feats")
+    shutil.rmtree(out, ignore_errors=True)
+    return family_program("speedyspeech")
+
+
+def phase_tacotron2():
+    """Phase 14: the Tacotron2 recipe (its CLI, resume against straight),
+    its synthesis program (1,000 decoder steps) as one CUDA graph, then
+    the per-family training bench."""
+    import shutil
+    from parakeet_tpu_torch.recipes.tacotron2 import train
+    from parakeet_tpu_torch.recipes.tacotron2.dump import \
+        write_synthetic_dump
+    out = pathlib.Path("build") / "chip_smoke_tacotron2"
+    shutil.rmtree(out, ignore_errors=True)
+    md = write_synthetic_dump(out / "dump", seed=SEED + 15,
+                              splits=T2_RECIPE_SPLITS,
+                              frames=T2_RECIPE_FRAMES,
+                              phones=T2_RECIPE_PHONES, n_mels=ODIM)
+    family_recipe("tacotron2", train, "make_tacotron2_train_step",
+                  ["--config", T2_RECIPE_CONF, "--train-metadata",
+                   str(md["train"]), "--dev-metadata", str(md["dev"]),
+                   "--phones-dict", str(md["phones"])], out,
+                  T2_RECIPE_EPOCHS, T2_RECIPE_RESUME_EPOCHS, "speech")
+    shutil.rmtree(out, ignore_errors=True)
+    record = family_program("tacotron2")
+    phase_am_bench()
+    return record
+
+
+def phase_am_bench():
+    """The per-family training bench at the JAX bench's shapes, each
+    family with PyTorch's defaults, then under the recipes' deterministic
+    setting."""
+    from parakeet_tpu_torch.benchmarks import train_am
+    recs = []
+    for det in (False, True):
+        recs += train_am.main(["--iters", str(AM_BENCH_ITERS)]
+                              + (["--deterministic"] if det else []))
+    if not all(r["value"] > 0 for r in recs):
+        raise AssertionError(f"train_am: {recs}")
+    print(f"train_am ({recs[0]['device']}, {recs[0]['power_limit']}; B "
+          f"32, 96 tokens, 640 frames, {AM_BENCH_ITERS} iterations): "
+          + "; ".join(
+              f"{r['metric']} "
+              f"{'deterministic' if r['deterministic'] else 'default'} "
+              f"{r['value']:.4f} ({r['ms_per_step']:.1f} ms a step)"
+              for r in recs))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2161,8 +2392,10 @@ def main():
     phase_bench()
     phase_fs2_recipe(k4)
     phase_fs2_bench()
+    k1_ss = phase_speedyspeech()
+    k1_t2 = phase_tacotron2()
     print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
-                                  *k4.values()]}))
+                                  *k4.values(), k1_ss, k1_t2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

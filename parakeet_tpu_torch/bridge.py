@@ -13,6 +13,12 @@ its last part the flax leaf, converted by the torch module's type:
 - ``nn.LayerNorm`` / ``nn.BatchNorm1d``: scale -> weight, bias -> bias;
   ``batch_stats`` mean / var -> running_mean / running_var.
 - ``nn.Embedding``: embedding -> weight.
+- ``nn.LSTMCell`` (flax's ``OptimizedLSTMCell``): flax keeps eight dense
+  layers under the cell, ``ii/if/ig/io`` (in, H) kernels without bias and
+  ``hi/hf/hg/ho`` (H, H) kernels with bias; they stack by gate, in
+  torch's order i, f, g, o, into ``weight_ih`` and ``weight_hh`` (4H, .)
+  and ``bias_hh``.  The cell must have no ``bias_ih`` parameter (the
+  port's ``nn.rnn.LSTMCell`` keeps a zero buffer there).
 - any other module: the leaf is a parameter of that name, copied as it is
   (the PWG modules keep the flax layouts).
 
@@ -27,11 +33,14 @@ writes (``train_state_arrays`` / ``load_train_state``):
 
 - ``step``;
 - ``params::<module>::...`` (and ``batch_stats::<module>::...``) for each
-  module of ``TrainState.modules``;
+  module of ``TrainState.modules`` (the GAN's generator and
+  discriminator); a state of one module named ``ROOT_MODULE`` keeps its
+  tree at the root, ``params::...``, as the JAX TrainState of one model
+  does;
 - the Adam moments and count of ``build_optimizer``'s optax chain,
-  ``opt_state::<module>::<chain index>::{count, mu::..., nu::...}``, onto
-  ``torch.optim.Adam``'s ``step``, ``exp_avg`` and ``exp_avg_sq`` (and the
-  learning-rate schedule's position).
+  ``opt_state::[<module>::]<chain index>::{count, mu::..., nu::...}``,
+  onto ``torch.optim.Adam``'s ``step``, ``exp_avg`` and ``exp_avg_sq``
+  (and the learning-rate schedule's position).
 
 The JAX ``rng`` leaf cannot cross: a JAX key is not a ``torch.Generator``
 state.  The port stores its generator's state under ``torch_rng`` instead;
@@ -41,6 +50,7 @@ generator from its initial seed, the config's seed that
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
@@ -48,10 +58,13 @@ import torch
 from torch import nn
 
 __all__ = ["load_flax_params", "flax_arrays", "train_state_arrays",
-           "load_train_state", "RNG_KEY"]
+           "load_train_state", "RNG_KEY", "ROOT_MODULE"]
 
 _SEP = "::"
 RNG_KEY = "torch_rng"
+# the module name of a one-model state (FastSpeech2, SpeedySpeech,
+# Tacotron2): its tree sits at the root of the JAX TrainState's keys
+ROOT_MODULE = "model"
 
 
 def _linear_kernel(mod: nn.Linear, a: np.ndarray) -> np.ndarray:
@@ -86,6 +99,38 @@ _RULES: Dict[type, Dict[Tuple[str, str], Tuple[str, Callable]]] = {
 }
 
 
+# flax's OptimizedLSTMCell gates in torch's LSTMCell row order
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def _lstm_pieces(mod: nn.LSTMCell):
+    """(flax dense layer, flax leaf, torch tensor name, rows, transposed)
+    of each flax leaf of an LSTM cell."""
+    h = mod.hidden_size
+    for k, gate in enumerate(_LSTM_GATES):
+        rows = slice(k * h, (k + 1) * h)
+        yield f"i{gate}", "kernel", "weight_ih", rows, True
+        yield f"h{gate}", "kernel", "weight_hh", rows, True
+        yield f"h{gate}", "bias", "bias_hh", rows, False
+
+
+def _lstm_target(module: nn.Module, collection: str, path, leaf: str):
+    """(torch tensor name, rows, transposed) of a flax leaf that lies in an
+    LSTM cell's dense layer ``path[-1]``, or None."""
+    if collection != "params" or not path:
+        return None
+    try:
+        cell = module.get_submodule(".".join(path[:-1]))
+    except AttributeError:
+        return None
+    if not isinstance(cell, nn.LSTMCell):
+        return None
+    for dense, fleaf, tname, rows, transposed in _lstm_pieces(cell):
+        if (dense, fleaf) == (path[-1], leaf):
+            return ".".join(list(path[:-1]) + [tname]), rows, transposed
+    return None
+
+
 def _rule(mod: nn.Module, collection: str, leaf: str):
     """(torch tensor name, convert) for one flax leaf, or None."""
     for typ, rules in _RULES.items():
@@ -115,13 +160,27 @@ def _inverse_rule(mod: nn.Module, name: str) -> Tuple[str, str, Callable]:
 def _flax_leaves(module: nn.Module) -> Iterator[Tuple[str, str, torch.Tensor,
                                                       Callable]]:
     """(flax key, torch name, tensor, torch -> flax converter) of every
-    parameter and BatchNorm statistic of ``module``."""
+    flax leaf of ``module``'s parameters and BatchNorm statistics (an LSTM
+    cell's tensors give four leaves each)."""
     for name, tensor in _targets(module).items():
         path, _, leaf = name.rpartition(".")
         mod = module.get_submodule(path)
+        prefix = path.split(".") if path else []
+        if isinstance(mod, nn.LSTMCell):
+            for dense, fleaf, tname, rows, transposed in _lstm_pieces(mod):
+                if tname == leaf:
+                    yield (_SEP.join(["params"] + prefix + [dense, fleaf]),
+                           name, tensor, functools.partial(
+                               _lstm_to_flax, rows=rows,
+                               transposed=transposed))
+            continue
         collection, fleaf, conv = _inverse_rule(mod, leaf)
-        parts = [collection] + (path.split(".") if path else []) + [fleaf]
-        yield _SEP.join(parts), name, tensor, conv
+        yield _SEP.join([collection] + prefix + [fleaf]), name, tensor, conv
+
+
+def _lstm_to_flax(a: np.ndarray, *, rows: slice,
+                  transposed: bool) -> np.ndarray:
+    return a[rows].T if transposed else a[rows]
 
 
 @torch.no_grad()
@@ -143,16 +202,36 @@ def _targets(module: nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
-@torch.no_grad()
-def load_flax_params(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
-    """Copy ``flat`` (``flatten_tree`` form) into ``module`` in place,
-    casting to each tensor's dtype and device."""
-    targets = _targets(module)
-    written = set()
+def _assemble(module: nn.Module, flat: Dict[str, np.ndarray],
+              targets: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """{torch name: CPU tensor in the torch layout} of ``flat``'s leaves
+    (``flatten_tree`` form) for ``targets`` (a subset of ``_targets``).
+    Anything of ``flat`` that lands nowhere, and any target it leaves
+    unwritten, raises ``KeyError``; a leaf of the wrong shape raises
+    ``ValueError``."""
+    out: Dict[str, torch.Tensor] = {}
+    pieces: Dict[str, int] = {}
     unused = []
     for key, value in flat.items():
         parts = key.split(_SEP)
         collection, path, leaf = parts[0], parts[1:-1], parts[-1]
+        a = np.asarray(value)
+        lstm = _lstm_target(module, collection, path, leaf)
+        if lstm is not None:
+            name, rows, transposed = lstm
+            if name not in targets:
+                unused.append(key)
+                continue
+            dst = out.setdefault(name, torch.empty(
+                targets[name].shape, dtype=torch.float32))
+            src = torch.from_numpy(np.ascontiguousarray(
+                a.T if transposed else a)).float()
+            if tuple(src.shape) != tuple(dst[rows].shape):
+                raise ValueError(f"{key}: flax shape {a.shape} does not fit "
+                                 f"rows {rows} of {name} {tuple(dst.shape)}")
+            dst[rows] = src
+            pieces[name] = pieces.get(name, 0) + 1
+            continue
         try:
             mod = module.get_submodule(".".join(path))
         except AttributeError:
@@ -163,19 +242,27 @@ def load_flax_params(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
         if name not in targets:
             unused.append(key)
             continue
-        src = torch.from_numpy(np.ascontiguousarray(
-            rule[1](mod, np.asarray(value))))
-        dst = targets[name]
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{key}: flax shape {np.shape(value)} gives "
+        src = torch.from_numpy(np.ascontiguousarray(rule[1](mod, a)))
+        if tuple(src.shape) != tuple(targets[name].shape):
+            raise ValueError(f"{key}: flax shape {a.shape} gives "
                              f"{tuple(src.shape)}, but {name} is "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(src)
-        written.add(name)
-    missing = sorted(set(targets) - written)
+                             f"{tuple(targets[name].shape)}")
+        out[name] = src
+    partial = sorted(n for n, k in pieces.items() if k != len(_LSTM_GATES))
+    missing = sorted(set(targets) - set(out)) + partial
     if unused or missing:
         raise KeyError(f"flax keys with no counterpart: {sorted(unused)}; "
                        f"module tensors not in the checkpoint: {missing}")
+    return out
+
+
+@torch.no_grad()
+def load_flax_params(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Copy ``flat`` (``flatten_tree`` form) into ``module`` in place,
+    casting to each tensor's dtype and device."""
+    targets = _targets(module)
+    for name, src in _assemble(module, flat, targets).items():
+        targets[name].copy_(src)
 
 
 def _adam(opt) -> torch.optim.Optimizer:
@@ -203,14 +290,12 @@ def _adam_prefix(opt) -> str:
 
 
 def _param_keys(module: nn.Module):
-    """{parameter: (flax key without the 'params' collection, converter)}
-    of ``module``'s parameters."""
-    params = {id(p): p for p in module.parameters()}
-    out = {}
-    for key, _, t, conv in _flax_leaves(module):
-        if id(t) in params and key.startswith("params" + _SEP):
-            out[t] = (key[len("params" + _SEP):], conv)
-    return out
+    """(parameter, its flax key without the 'params' collection,
+    converter) of each flax leaf of ``module``'s parameters."""
+    params = {id(p) for p in module.parameters()}
+    return [(t, key[len("params" + _SEP):], conv)
+            for key, _, t, conv in _flax_leaves(module)
+            if id(t) in params and key.startswith("params" + _SEP)]
 
 
 @torch.no_grad()
@@ -219,16 +304,17 @@ def train_state_arrays(state) -> Dict[str, np.ndarray]:
     module docstring), plus the generator's state under ``RNG_KEY``."""
     flat = {"step": np.asarray(state.step, np.int32)}
     for name, module in state.modules.items():
+        scope = _scope(state, name)
         for key, a in flax_arrays(module).items():
             collection, rest = key.split(_SEP, 1)
-            flat[_SEP.join((collection, name, rest))] = a
+            flat[_SEP.join((collection, *scope, rest))] = a
         opt = state.optimizers.get(name)
         if opt is None:
             continue
         inner = _adam(opt)
-        prefix = _SEP.join(("opt_state", name, _adam_prefix(opt)))
+        prefix = _SEP.join(("opt_state", *scope, _adam_prefix(opt)))
         count = 0
-        for p, (key, conv) in _param_keys(module).items():
+        for p, key, conv in _param_keys(module):
             st = inner.state.get(p, {})
             if st:
                 count = int(st["step"])
@@ -244,8 +330,15 @@ def train_state_arrays(state) -> Dict[str, np.ndarray]:
     return flat
 
 
-def _find_adam_prefix(flat, name: str) -> str:
-    head = _SEP.join(("opt_state", name)) + _SEP
+def _scope(state, name: str) -> Tuple[str, ...]:
+    """The key parts that place module ``name`` in the JAX TrainState: its
+    name, or none for a state whose one module is ``ROOT_MODULE`` (the
+    JAX TrainState of one model keeps its tree at the root)."""
+    return () if list(state.modules) == [ROOT_MODULE] else (name,)
+
+
+def _find_adam_prefix(flat, scope: Tuple[str, ...]) -> str:
+    head = _SEP.join(("opt_state", *scope)) + _SEP
     found = [k[:-len(_SEP + "count")] for k in flat
              if k.startswith(head) and k.endswith(_SEP + "count")]
     if len(found) != 1:
@@ -262,32 +355,33 @@ def load_train_state(state, flat: Dict[str, np.ndarray]) -> None:
     generator's state (reseeded from its initial seed when ``flat`` has
     none).  Every module's and optimizer's tensors must be present."""
     for name, module in state.modules.items():
+        scope = _scope(state, name)
+        head = "".join(part + _SEP for part in scope)
         own = {}
         for key, value in flat.items():
             collection, _, rest = key.partition(_SEP)
             if collection in ("params", "batch_stats") and rest.startswith(
-                    name + _SEP):
-                own[_SEP.join((collection, rest[len(name + _SEP):]))] = value
+                    head):
+                own[_SEP.join((collection, rest[len(head):]))] = value
         load_flax_params(module, own)
         opt = state.optimizers.get(name)
         if opt is None:
             continue
         inner = _adam(opt)
-        prefix = _find_adam_prefix(flat, name)
+        prefix = _find_adam_prefix(flat, scope)
         count = int(flat[_SEP.join((prefix, "count"))])
-        for p, (key, _) in _param_keys(module).items():
-            mod_path, _, leaf = key.rpartition(_SEP)
-            mod = module.get_submodule(mod_path.replace(_SEP, "."))
-            _, from_flax = _rule(mod, "params", leaf)
-            moments = []
-            for moment in ("mu", "nu"):
-                a = np.asarray(flat[_SEP.join((prefix, moment, key))])
-                moments.append(torch.from_numpy(np.ascontiguousarray(
-                    from_flax(mod, a))).to(p.device, p.dtype).reshape(
-                        p.shape))
+        params = dict(module.named_parameters())
+        keys = [key for _, key, _ in _param_keys(module)]
+        moments = [_assemble(module, {
+            _SEP.join(("params", key)): flat[_SEP.join((prefix, moment,
+                                                        key))]
+            for key in keys}, params) for moment in ("mu", "nu")]
+        for name, p in params.items():
             inner.state[p] = {"step": torch.tensor(float(count)),
-                              "exp_avg": moments[0],
-                              "exp_avg_sq": moments[1]}
+                              "exp_avg": moments[0][name].to(p.device,
+                                                             p.dtype),
+                              "exp_avg_sq": moments[1][name].to(p.device,
+                                                                p.dtype)}
         sched = opt.scheduler
         sched.last_epoch = count
         for group, base, fn in zip(inner.param_groups, sched.base_lrs,

@@ -1,7 +1,7 @@
 """Collate functions (counterpart of ``parakeet_tpu/data/collate.py``).
 
-Ported so far: ``fastspeech2_batch_fn``, the acoustic model's padded
-batch, and ``VocoderClip``, the random aligned (wav, mel) window of
+Ported so far: ``fastspeech2_batch_fn`` and ``speedyspeech_batch_fn``,
+the acoustic models' padded batches, and ``VocoderClip``, the random aligned (wav, mel) window of
 GAN-vocoder training.  They return numpy arrays; the step moves them to
 the card.
 """
@@ -11,12 +11,17 @@ import numpy as np
 
 from .batch import batch_sequences, bucket_length
 
-__all__ = ["fastspeech2_batch_fn", "VocoderClip"]
+__all__ = ["fastspeech2_batch_fn", "speedyspeech_batch_fn", "VocoderClip"]
 
 
 def _lens(items, key) -> np.ndarray:
     return np.array([np.asarray(x[key]).shape[0] for x in items],
                     dtype=np.int64)
+
+
+def _padded(examples, key, dtype, length) -> np.ndarray:
+    return batch_sequences([np.asarray(x[key], dtype=dtype)
+                            for x in examples], length=length)
 
 
 def fastspeech2_batch_fn(examples, spk: bool = False,
@@ -35,18 +40,14 @@ def fastspeech2_batch_fn(examples, spk: bool = False,
     frame_len = bucket_length(
         max(np.asarray(x["speech"]).shape[0] for x in examples), frame_bucket)
 
-    def padded(key, dtype, length):
-        return batch_sequences([np.asarray(x[key], dtype=dtype)
-                                for x in examples], length=length)
-
     batch = {
-        "text": padded("text", np.int64, text_len),
+        "text": _padded(examples, "text", np.int64, text_len),
         "text_lengths": _lens(examples, "text"),
-        "speech": padded("speech", np.float32, frame_len),
+        "speech": _padded(examples, "speech", np.float32, frame_len),
         "speech_lengths": _lens(examples, "speech"),
-        "durations": padded("durations", np.int64, text_len),
-        "pitch": padded("pitch", np.float32, text_len),
-        "energy": padded("energy", np.float32, text_len),
+        "durations": _padded(examples, "durations", np.int64, text_len),
+        "pitch": _padded(examples, "pitch", np.float32, text_len),
+        "energy": _padded(examples, "energy", np.float32, text_len),
     }
     if spk:
         batch["spk_id"] = np.array(
@@ -55,6 +56,27 @@ def fastspeech2_batch_fn(examples, spk: bool = False,
         batch["spk_emb"] = np.stack(
             [np.asarray(x["spk_emb"], dtype=np.float32) for x in examples])
     return batch
+
+
+def speedyspeech_batch_fn(examples, text_bucket: int = 16,
+                          frame_bucket: int = 64):
+    """SpeedySpeech training batch: phones, tones and durations padded to
+    a multiple of ``text_bucket``, feats (T, n_mels) to one of
+    ``frame_bucket``, with zeros; num_phones and num_frames."""
+    if not examples:
+        raise ValueError("collate called with an empty example list")
+    text_len = bucket_length(
+        max(len(np.asarray(x["phones"])) for x in examples), text_bucket)
+    frame_len = bucket_length(
+        max(np.asarray(x["feats"]).shape[0] for x in examples), frame_bucket)
+    return {
+        "phones": _padded(examples, "phones", np.int64, text_len),
+        "tones": _padded(examples, "tones", np.int64, text_len),
+        "num_phones": _lens(examples, "phones"),
+        "num_frames": _lens(examples, "feats"),
+        "feats": _padded(examples, "feats", np.float32, frame_len),
+        "durations": _padded(examples, "durations", np.int64, text_len),
+    }
 
 
 class VocoderClip:

@@ -2,9 +2,10 @@
 the teacher-forced training forward, inference and the loss.
 
 Constructor arguments keep the JAX module's hyperparameter names, so a
-recipe's ``model`` section maps onto both.  Speakers are supported with
-the "add" and "concat" integrations; tone embeddings are not ported
-yet.  The compute dtype is the parameters' dtype.
+recipe's ``model`` section maps onto both.  Speakers and tones
+(``num_tones``, ``tone_embed_dim``: a per-token tone embedding, L2
+normalised, then projected) are supported with the "add" and "concat"
+integrations.  The compute dtype is the parameters' dtype.
 
 ``attn_impl`` selects the attention core of both transformer stacks, as
 in the JAX package: 'dense' (scores in device memory; attention-weight
@@ -90,6 +91,9 @@ class FastSpeech2(nn.Module):
                  num_speakers: Optional[int] = None,
                  spk_embed_dim: Optional[int] = None,
                  spk_embed_integration_type: str = "add",
+                 num_tones: Optional[int] = None,
+                 tone_embed_dim: Optional[int] = None,
+                 tone_embed_integration_type: str = "add",
                  transformer_enc_dropout_rate: float = 0.1,
                  transformer_enc_positional_dropout_rate: float = 0.1,
                  transformer_enc_attn_dropout_rate: float = 0.1,
@@ -99,14 +103,18 @@ class FastSpeech2(nn.Module):
                  postnet_dropout_rate: float = 0.5,
                  attn_impl: str = "auto"):
         super().__init__()
-        if spk_embed_integration_type not in ("add", "concat"):
-            raise ValueError(f"unknown spk_embed_integration_type "
-                             f"{spk_embed_integration_type!r}")
+        for kind, value in (("spk", spk_embed_integration_type),
+                            ("tone", tone_embed_integration_type)):
+            if value not in ("add", "concat"):
+                raise ValueError(f"unknown {kind}_embed_integration_type "
+                                 f"{value!r}")
         self.odim = odim
         self.reduction_factor = reduction_factor
         self.postnet_layers = postnet_layers
         self.spk_embed_dim = spk_embed_dim
         self.spk_embed_integration_type = spk_embed_integration_type
+        self.tone_embed_dim = tone_embed_dim
+        self.tone_embed_integration_type = tone_embed_integration_type
         self.stop_gradient_from_pitch_predictor = (
             stop_gradient_from_pitch_predictor)
         self.stop_gradient_from_energy_predictor = (
@@ -157,8 +165,15 @@ class FastSpeech2(nn.Module):
             self.spk_projection = nn.Linear(
                 spk_embed_dim + (adim if spk_embed_integration_type
                                  == "concat" else 0), adim)
+        if tone_embed_dim is not None:
+            self.tone_embedding_table = nn.Embedding(num_tones,
+                                                     tone_embed_dim)
+            self.tone_projection = nn.Linear(
+                tone_embed_dim + (adim if tone_embed_integration_type
+                                  == "concat" else 0), adim)
 
-    def _encode(self, text, text_lengths, spk_id, spk_emb, **kw):
+    def _encode(self, text, text_lengths, spk_id, spk_emb, tone_id=None,
+                **kw):
         x_mask = sequence_mask(text_lengths, text.shape[1])[:, None, :]
         hs = self.encoder(text, x_mask, **kw)
         if self.spk_embed_dim is not None:
@@ -167,9 +182,16 @@ class FastSpeech2(nn.Module):
             if spk_emb is not None:
                 spk = _l2_normalize(spk_emb.to(hs.dtype))
                 if self.spk_embed_integration_type == "add":
-                    return hs + self.spk_projection(spk)[:, None, :]
-                tiled = spk[:, None, :].expand(-1, hs.shape[1], -1)
-                return self.spk_projection(torch.cat([hs, tiled], dim=-1))
+                    hs = hs + self.spk_projection(spk)[:, None, :]
+                else:
+                    tiled = spk[:, None, :].expand(-1, hs.shape[1], -1)
+                    hs = self.spk_projection(torch.cat([hs, tiled], dim=-1))
+        if self.tone_embed_dim is not None and tone_id is not None:
+            tone = _l2_normalize(self.tone_embedding_table(tone_id))
+            if self.tone_embed_integration_type == "add":
+                hs = hs + self.tone_projection(tone)
+            else:
+                hs = self.tone_projection(torch.cat([hs, tone], dim=-1))
         return hs
 
     def _decode(self, hs, frame_lengths, **kw):
@@ -184,8 +206,8 @@ class FastSpeech2(nn.Module):
     def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
                 speech: torch.Tensor, speech_lengths: torch.Tensor,
                 durations: torch.Tensor, pitch: torch.Tensor,
-                energy: torch.Tensor, spk_id=None, spk_emb=None, *,
-                deterministic: bool = False,
+                energy: torch.Tensor, spk_id=None, spk_emb=None,
+                tone_id=None, *, deterministic: bool = False,
                 rng: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """Teacher-forced training forward (the JAX ``__call__``).
@@ -196,7 +218,7 @@ class FastSpeech2(nn.Module):
         """
         kw = dict(deterministic=deterministic, rng=rng)
         r = self.reduction_factor
-        hs = self._encode(text, text_lengths, spk_id, spk_emb, **kw)
+        hs = self._encode(text, text_lengths, spk_id, spk_emb, tone_id, **kw)
         pad_mask = ~sequence_mask(text_lengths, text.shape[1])
         p_in = hs.detach() if self.stop_gradient_from_pitch_predictor else hs
         e_in = (hs.detach() if self.stop_gradient_from_energy_predictor
@@ -216,7 +238,7 @@ class FastSpeech2(nn.Module):
     def inference(self, text: torch.Tensor, text_lengths: torch.Tensor, *,
                   max_frames: int, durations=None, pitch=None, energy=None,
                   alpha: float = 1.0, spk_id=None, spk_emb=None,
-                  min_duration: int = 0) -> Dict[str, torch.Tensor]:
+                  tone_id=None, min_duration: int = 0) -> Dict[str, torch.Tensor]:
         """Free-running synthesis to a static ``max_frames`` capacity,
         deterministic (no dropout, BatchNorm's running statistics).
 
@@ -225,7 +247,7 @@ class FastSpeech2(nn.Module):
         (B,), d_outs (B, Tmax) integer durations (as floats).
         """
         r = self.reduction_factor
-        hs = self._encode(text, text_lengths, spk_id, spk_emb)
+        hs = self._encode(text, text_lengths, spk_id, spk_emb, tone_id)
         pad_mask = ~sequence_mask(text_lengths, text.shape[1])
         p_outs = pitch if pitch is not None else self.pitch_predictor(
             hs, pad_mask[..., None])

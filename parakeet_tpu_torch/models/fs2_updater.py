@@ -34,7 +34,8 @@ def init_fs2_train_state(model, optimizer, rng: torch.Generator
 def _forward(model, batch, *, deterministic, rng):
     return model(*[batch[k] for k in _BATCH_KEYS],
                  spk_id=batch.get("spk_id"), spk_emb=batch.get("spk_emb"),
-                 deterministic=deterministic, rng=rng)
+                 tone_id=batch.get("tone_id"), deterministic=deterministic,
+                 rng=rng)
 
 
 def make_fs2_train_step(model, optimizer, *, use_masking: bool = True,

@@ -6,7 +6,9 @@ number from the state's generator instead, so the keep-mask here comes
 from ``torch.rand(..., generator=rng)``.  As ``flax.linen.Dropout``: keep
 each element with probability 1 - rate and scale it by 1 / (1 - rate);
 nothing happens (and nothing is drawn) when deterministic or at rate 0;
-rate 1 drops everything.
+rate 1 drops everything.  ``keep_mask`` and ``apply_keep`` split a
+draw from its use, so that a caller can draw a loop's masks before the
+loop (a captured decode loop draws nothing).
 """
 from __future__ import annotations
 
@@ -34,9 +36,20 @@ class Dropout(nn.Module):
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
+        return self.apply_keep(x, self.keep_mask(x.shape, rng, x.device))
+
+    def keep_mask(self, shape, rng: Optional[torch.Generator],
+                  device) -> torch.Tensor:
+        """A boolean keep-mask of ``shape``, each element kept with
+        probability 1 - rate, drawn from ``rng``."""
         if rng is None:
             raise ValueError(f"dropout at rate {self.rate} needs a "
                              "torch.Generator (rng=) when not deterministic")
+        return torch.rand(shape, generator=rng, device=device) < (
+            1.0 - self.rate)
+
+    def apply_keep(self, x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+        """``x`` dropped by a mask of ``keep_mask``: what ``forward`` gives
+        when it draws that mask."""
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))

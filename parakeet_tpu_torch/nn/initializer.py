@@ -11,13 +11,16 @@ the one before it in, the rest a receptive field), which the bridge's
 layouts give: a torch ``Linear`` (out, in) is flax (in, out), or (d, H,
 dk) for an attention's q/k/v and (H, dk, d) for its out; a ``Conv1d``
 (out, in, k) is (k, in, out); an ``Embedding`` (num, dim) is ``Embed``
-(num, dim).  The draws differ from JAX's, whose generator differs; the
-set of redrawn parameters and each one's distribution do not.
+(num, dim); an LSTM cell's ``weight_ih`` and ``weight_hh`` (4H, in) are
+four flax kernels (in, H) of the same fans, one a gate.  The draws
+differ from JAX's, whose generator differs; the set of redrawn
+parameters and each one's distribution do not.
 
 ``init_flax_defaults_`` gives a freshly built module the values flax's
-defaults would: kernels lecun-normal over their fan-in, embeddings
-N(0, 1 / dim), biases zero, normalization scales one (a positional
-encoding's alpha keeps its initial value).
+defaults would: kernels lecun-normal over their fan-in, an LSTM cell's
+recurrent kernels orthogonal, embeddings N(0, 1 / dim), biases zero,
+normalization scales one (a positional encoding's alpha keeps its
+initial value).
 """
 from __future__ import annotations
 
@@ -68,6 +71,9 @@ def flax_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
                     shape = (mod.in_features, mod.out_features)
             elif isinstance(mod, nn.Conv1d) and name == "weight":
                 shape = (shape[2], shape[1], shape[0])
+            elif isinstance(mod, nn.LSTMCell) and name != "bias_hh":
+                # one gate's flax kernel (in, H); the four share its fans
+                shape = (shape[1], mod.hidden_size)
             shapes[f"{path}.{name}" if path else name] = shape
     return shapes
 
@@ -124,9 +130,22 @@ def init_flax_defaults_(module: nn.Module, gen: torch.Generator) -> None:
     """flax's default initializers, drawn from ``gen`` (a CPU generator):
     Dense, DenseGeneral and Conv kernels lecun-normal over their fan-in
     (DenseGeneral's over the flattened input axes, as flax does), Embed
-    N(0, 1 / dim), biases zero, LayerNorm and BatchNorm scales one."""
+    N(0, 1 / dim), biases zero, LayerNorm and BatchNorm scales one; an
+    LSTM cell (flax's ``OptimizedLSTMCell``) takes, gate by gate, a
+    lecun-normal input kernel, an orthogonal recurrent kernel and a zero
+    bias."""
     for _, mod in module.named_modules():
-        if isinstance(mod, (nn.Linear, nn.Conv1d)):
+        if isinstance(mod, nn.LSTMCell):
+            h, std = mod.hidden_size, math.sqrt(1.0 / mod.input_size)
+            for k in range(4):
+                rows = slice(k * h, (k + 1) * h)
+                mod.weight_ih[rows] = _draw((h, mod.input_size),
+                                            "truncated_normal",
+                                            std / _TRUNC_STD, gen)
+                mod.weight_hh[rows] = nn.init.orthogonal_(
+                    torch.empty(h, h), generator=gen)
+            mod.bias_hh.zero_()
+        elif isinstance(mod, (nn.Linear, nn.Conv1d)):
             fan_in = mod.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             mod.weight.copy_(_draw(mod.weight.shape, "truncated_normal",

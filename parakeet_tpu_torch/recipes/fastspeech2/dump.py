@@ -20,7 +20,7 @@ import numpy as np
 
 from ...data import write_jsonl
 
-__all__ = ["write_synthetic_dump"]
+__all__ = ["write_synthetic_dump", "split_durations"]
 
 _SPECIALS = ["<pad>", "<unk>"]
 _TAIL = [",", ".", "?", "!", "<eos>"]
@@ -28,6 +28,14 @@ _TAIL = [",", ".", "?", "!", "<eos>"]
 
 def _write_map(path: Path, names) -> None:
     path.write_text("".join(f"{n} {i}\n" for i, n in enumerate(names)))
+
+
+def split_durations(rng: np.random.Generator, n_frames: int,
+                    n: int) -> np.ndarray:
+    """``n`` positive durations that sum to ``n_frames``: ``n - 1``
+    distinct cuts of the frames, drawn from ``rng``."""
+    cuts = np.sort(rng.choice(np.arange(1, n_frames), n - 1, replace=False))
+    return np.diff(np.concatenate([[0], cuts, [n_frames]]))
 
 
 def write_synthetic_dump(out_dir, *, seed: int, splits: Dict[str, int],
@@ -58,9 +66,7 @@ def write_synthetic_dump(out_dir, *, seed: int, splits: Dict[str, int],
             utt = f"{split}_{i:04d}"
             n_frames = int(rng.integers(frames[0], frames[1] + 1))
             n = int(rng.integers(phones[0], phones[1] + 1))
-            cuts = np.sort(rng.choice(np.arange(1, n_frames), n - 1,
-                                      replace=False))
-            durations = np.diff(np.concatenate([[0], cuts, [n_frames]]))
+            durations = split_durations(rng, n_frames, n)
             row = {"utt_id": utt,
                    "text": rng.integers(len(_SPECIALS),
                                         len(_SPECIALS) + n_phones,

@@ -42,11 +42,10 @@ from ...data import (BatchSampler, DataLoader, DataTable,
 from ...models import (FastSpeech2, init_fs2_train_state, make_fs2_eval_step,
                        make_fs2_train_step)
 from ...nn.initializer import init_flax_defaults_, initialize_
-from ...training import (Config, StandardUpdater, Trainer, build_optimizer,
-                         resolve_model_kwargs, seed_everything,
-                         to_device_batch)
-from ...training.extensions import Snapshot, StandardEvaluator
+from ...training import (Config, Trainer, build_optimizer,
+                         resolve_model_kwargs, seed_everything)
 from ...utils.device import add_device_arg, set_device
+from ..common import count_lines, run_trainer
 
 __all__ = ["main", "build_dataloader", "build_model"]
 
@@ -82,11 +81,6 @@ def build_model(cfg, idim: int, odim: int, spk_num=None) -> FastSpeech2:
     return model
 
 
-def _count_lines(path) -> int:
-    with open(path) as f:
-        return sum(1 for _ in f)
-
-
 def main(argv=None) -> Trainer:
     """Run the recipe with ``argv`` (default: the command line); returns
     the finished ``Trainer``."""
@@ -115,9 +109,9 @@ def main(argv=None) -> Trainer:
 
     sample = next(iter(train_dl))
     odim = sample["speech"].shape[-1]
-    idim = (_count_lines(args.phones_dict) if args.phones_dict
+    idim = (count_lines(args.phones_dict) if args.phones_dict
             else int(max(sample["text"].max() + 1, 2)))
-    spk_num = _count_lines(args.speaker_dict) if spk else None
+    spk_num = count_lines(args.speaker_dict) if spk else None
     model = build_model(cfg, idim, odim, spk_num).to(device)
 
     opt_cfg = cfg.get("optimizer", {})
@@ -129,39 +123,8 @@ def main(argv=None) -> Trainer:
                                      **cfg.get("updater", {}))
     eval_step = make_fs2_eval_step(model, **cfg.get("updater", {}))
 
-    def step(st, batch):
-        return train_step(st, to_device_batch(batch, device))
-
-    def evaluate(st, batch):
-        return eval_step(st, to_device_batch(batch, device))
-
-    updater = StandardUpdater(step, state, train_dl)
-    trainer = Trainer(updater, (cfg.max_epoch, "epoch"),
-                      out=args.output_dir, config=cfg)
-    trainer.extend(StandardEvaluator(evaluate, dev_dl), trigger=(1, "epoch"))
-    trainer.extend(Snapshot(max_size=cfg.get("num_snapshots", 5)),
-                   trigger=(1, "epoch"), priority=-100)
-    # A resumed run equals a straight one only if a step's sums do not
-    # change from run to run.  On the card two things change them
-    # (tools/fs2_step_determinism.py): the default backwards of the length
-    # regulator's gather, the embedding and cuDNN's convolutions add in a
-    # run-dependent order, and cuDNN's heuristics pick a convolution's plan
-    # by the largest block the caching allocator holds free, so a step
-    # depends on the allocator's history.  The run takes PyTorch's
-    # deterministic algorithms with cuDNN off (its native convolutions and
-    # batch norm) and gives both settings back after.
-    previous = (torch.are_deterministic_algorithms_enabled(),
-                torch.is_deterministic_algorithms_warn_only_enabled(),
-                torch.backends.cudnn.enabled)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.enabled = False
-    try:
-        trainer.run()
-    finally:
-        torch.use_deterministic_algorithms(previous[0],
-                                           warn_only=previous[1])
-        torch.backends.cudnn.enabled = previous[2]
-    return trainer
+    return run_trainer(cfg, train_step, eval_step, state, train_dl, dev_dl,
+                       device, args.output_dir)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ from .extension import (PRIORITY_EDITOR, PRIORITY_READER, PRIORITY_WRITER,
 from .optimizer import (Optimizer, build_optimizer, constant_schedule,
                         piecewise_schedule, step_decay_schedule)
 from .reporter import DictSummary, Summary, report, scope
-from .seeding import seed_everything
+from .seeding import deterministic_training, seed_everything
 from .state import TrainState
 from .trainer import Trainer
 from .triggers import (IntervalTrigger, LimitTrigger, TimeTrigger,
@@ -26,7 +26,7 @@ __all__ = [
     "report", "scope", "Summary", "DictSummary",
     "Optimizer", "build_optimizer", "step_decay_schedule",
     "piecewise_schedule", "constant_schedule",
-    "seed_everything", "to_device_batch",
+    "seed_everything", "deterministic_training", "to_device_batch",
     "Config", "resolve_model_kwargs", "inference_model_kwargs",
     "save_pytree", "load_pytree", "SnapshotRing",
 ]
