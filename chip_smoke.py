@@ -146,14 +146,29 @@ Phases, one line each (the checks raise; nothing is caught):
    per-family training bench (``benchmarks/train_am.py``) at the JAX
    bench's shapes for both families, with PyTorch's defaults and under
    the recipes' deterministic setting: each ``<family>_train_avg_ips``
-   and ms a step.
+   and ms a step;
+15. TransformerTTS: its recipe's CLI with recipes/transformer_tts/conf/
+   default.yaml (full widths, batch 16: 1 epoch of 2 steps, resumed to 2,
+   against 2 straight); its ``transformer_tts_r1`` and ``_r2`` legs of
+   ``e2e_family_rtf`` (1,000 and 500 decoder steps -> PWG x256) as one
+   CUDA graph each, bitwise eager, K1 x 30 in a replay, and K1 at
+   T=256,000; then ``benchmarks/ar_decode.py`` (Tacotron2, TransformerTTS
+   r=1 and r=2; 500 steps, each graph bitwise eager);
+16. WaveFlow: its recipe's CLI with recipes/waveflow/conf/default.yaml
+   (iteration-based: 2 iterations resumed to 4 against 4 straight);
+   ``benchmarks/waveflow_rtf.py`` (344 frames) in float32 and bf16, each
+   one CUDA graph bitwise eager, bf16 against float32 in relative L2;
+   the bf16 sampler's products against float64 products at their shapes
+   (float32 sums); then the training bench's TransformerTTS and WaveFlow
+   legs, with PyTorch's defaults and deterministic.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
 K4a-K4c: FastSpeech2 training at dk 96, and as ``*_dk192`` the
 FastSpeech2 recipe's three flash runs, train steps and eval batches at
 dk 192; K4b is one launch a call at both widths; K1 again as
-``pwg_residual_stack_speedyspeech`` and ``_tacotron2``: the family
+``pwg_residual_stack_speedyspeech``, ``_tacotron2``,
+``_transformer_tts_r1`` and ``_transformer_tts_r2``: the family
 programs' runs, eager calls and capture, with its error and times at
 their shapes), error, times, bound
 (the larger of its bytes over the H100's memory rate and its operations
@@ -422,11 +437,41 @@ FAMILY_STEPS_PER_EPOCH = 2
 # chained calls (Tacotron2's runs 1,000 decoder steps a call), with K1's
 # shape in each (B = 1, T = 1,000 frames x the hop)
 FAMILY_ITERS = 3
-FAMILY_K1_T = {"speedyspeech": 300000, "tacotron2": 256000}
+FAMILY_K1_T = {"speedyspeech": 300000, "tacotron2": 256000,
+               "transformer_tts_r1": 256000, "transformer_tts_r2": 256000}
 # the per-family training bench at the JAX bench's shapes (B 32, 96
 # tokens, 640 frames): PyTorch's defaults, then the recipes'
 # deterministic setting (Tacotron2's step takes seconds: 2 iterations)
 AM_BENCH_ITERS = 2
+# phase 15: the TransformerTTS recipe at its YAML's widths and batch 16 on
+# a seeded dump (32 train utterances: two steps an epoch; 8 dev: one eval
+# batch) of 200-400 frames (a parallel teacher-forced decoder: as many
+# steps as frames) and 40-90 tokens; ar_decode's loops at its default 500
+# steps, timed over 2 calls
+TT_RECIPE_CONF = "recipes/transformer_tts/conf/default.yaml"
+TT_RECIPE_SPLITS = {"train": 32, "dev": 8}
+TT_RECIPE_FRAMES, TT_RECIPE_PHONES = (200, 400), (40, 90)
+TT_RECIPE_EPOCHS, TT_RECIPE_RESUME_EPOCHS = 1, 2
+TT_FAMILY_ITERS = 2
+AR_DECODE_ITERS = 1
+# phase 16: the WaveFlow recipe at its YAML's widths and batch on a seeded
+# dump of 16 train utterances (two iterations an epoch) and 8 dev (one
+# eval batch) of 80-160 frames (longer than the 65-frame clips), with an
+# evaluation and a snapshot every 2 iterations; waveflow_rtf over 3
+# chained calls; the bf16 sampler's wav against the float32 one's within
+# a relative L2 of 2^-5 (the activations' bf16 rounding, 2^-9 a value,
+# through 8 x 15 rows of small steps, with the recipe's random weights)
+WF_RECIPE_CONF = "recipes/waveflow/conf/default.yaml"
+WF_RECIPE_SPLITS = {"train": 16, "dev": 8}
+WF_RECIPE_FRAMES = (80, 160)
+WF_RECIPE_ITERS, WF_RECIPE_RESUME_ITERS = 2, 4
+WF_RECIPE_OPTS = ["valid_interval", "2", "save_interval", "2"]
+WAVEFLOW_ITERS = 3
+WAVEFLOW_BF16_REL_L2 = 2 ** -5
+# the bf16 sampler's products (``mm_f32``) at its shapes against float64
+# products of the same bf16 values: float32 sums are ~1e-6 of the range
+# off, a bf16 result up to 2^-9
+WAVEFLOW_ACCUM_REL = 1e-4
 # NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
 # FLOP/s by operand type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2188,7 +2233,8 @@ def phase_bench():
 
 
 def family_recipe(tag, train, factory, argv, out, epochs, resume_epochs,
-                  mel_key):
+                  mel_key, opts=(), limit_key="max_epoch",
+                  steps_per_unit=FAMILY_STEPS_PER_EPOCH):
     """A family's recipe through its CLI (``train.main``, on the card):
     ``epochs`` epochs from an empty directory, a second run to
     ``resume_epochs`` that must resume from the newest snapshot and run
@@ -2196,7 +2242,9 @@ def family_recipe(tag, train, factory, argv, out, epochs, resume_epochs,
     last train and eval metrics must equal the resumed run's bitwise;
     every loss and metric finite.  ``factory`` names the train-step
     factory the module calls, wrapped here to time each step; ``mel_key``
-    is the batch's mel, whose (B, frames) each step prints."""
+    is the batch's mel, whose (B, frames) each step prints.  ``opts`` go
+    to ``--opts`` before ``limit_key`` (``max_iteration`` counts
+    ``epochs`` in iterations, ``steps_per_unit`` 1)."""
     log = []
     make = getattr(train, factory)
 
@@ -2214,7 +2262,7 @@ def family_recipe(tag, train, factory, argv, out, epochs, resume_epochs,
             return result
         return step
 
-    spe = FAMILY_STEPS_PER_EPOCH
+    spe = steps_per_unit
     runs = {}
     setattr(train, factory, timed)
     try:
@@ -2226,8 +2274,8 @@ def family_recipe(tag, train, factory, argv, out, epochs, resume_epochs,
                  range(resume_epochs * spe))):
             log.clear()
             trainer = train.main(argv + ["--output-dir",
-                                         str(out / directory),
-                                         "--opts", "max_epoch", str(n)])
+                                         str(out / directory), "--opts",
+                                         *opts, limit_key, str(n)])
             steps = [i for i, *_ in log]
             obs = {k: float(v) for k, v in trainer.observation.items()}
             if steps != list(want):
@@ -2253,7 +2301,7 @@ def family_recipe(tag, train, factory, argv, out, epochs, resume_epochs,
           "and eval metrics equal the straight run's bitwise")
 
 
-def family_program(family):
+def family_program(family, iters=FAMILY_ITERS, warmup=FAMILY_ITERS):
     """``benchmarks/e2e_family_rtf.py``'s leg of ``family`` (bf16): one
     CUDA graph whose wav equals the eager program's bitwise and whose
     replay holds K1 30 times; then K1 against its plain version at the
@@ -2264,7 +2312,7 @@ def family_program(family):
         fused_residual_stack
     fused_residual_stack.launches = 0
     (rec,) = e2e_family_rtf.main(["--families", family, "--iters",
-                                  str(FAMILY_ITERS)])
+                                  str(iters), "--warmup", str(warmup)])
     launches = fused_residual_stack.launches
     layers = PWG_CONFIG["layers"]
     n_k1 = _named(rec["replay_kernels"], K1_KERNEL)
@@ -2281,12 +2329,144 @@ def family_program(family):
           f"ms, busy {rec['replay_busy_ms']:.3f} ms in a replay of "
           f"{rec['replay_kernels_total']} kernels; the graph's wav bitwise "
           f"the eager program's, K1 x {n_k1} in a replay; frames "
-          f"{rec['frame_lengths']}; K1 launches over the bench {launches}")
+          f"{rec['frame_lengths']}; K1 launches over the bench {launches}; "
+          f"capture {rec['capture_s']:.2f} s, {rec['graph_pool_mib']:.1f} "
+          "MiB reserved")
     record = k1_check(torch.Generator().manual_seed(SEED + 1), 1,
                       FAMILY_K1_T[family],
                       name=f"pwg_residual_stack_{family}")
     record["launches"] = launches
     return record
+
+
+def phase_transformer_tts():
+    """Phase 15: the TransformerTTS recipe (its CLI, resume against
+    straight), its r=1 and r=2 synthesis programs as one CUDA graph each,
+    then the decode loops of ``ar_decode``.  Returns K1's records of the
+    two programs."""
+    import shutil
+    from parakeet_tpu_torch.recipes.transformer_tts import train
+    from parakeet_tpu_torch.recipes.transformer_tts.dump import \
+        write_synthetic_dump
+    out = pathlib.Path("build") / "chip_smoke_transformer_tts"
+    shutil.rmtree(out, ignore_errors=True)
+    md = write_synthetic_dump(out / "dump", seed=SEED + 16,
+                              splits=TT_RECIPE_SPLITS,
+                              frames=TT_RECIPE_FRAMES,
+                              phones=TT_RECIPE_PHONES, n_mels=ODIM)
+    family_recipe("transformer_tts", train,
+                  "make_transformer_tts_train_step",
+                  ["--config", TT_RECIPE_CONF, "--train-metadata",
+                   str(md["train"]), "--dev-metadata", str(md["dev"]),
+                   "--phones-dict", str(md["phones"])], out,
+                  TT_RECIPE_EPOCHS, TT_RECIPE_RESUME_EPOCHS, "speech")
+    shutil.rmtree(out, ignore_errors=True)
+    records = [family_program(f"transformer_tts_r{r}", TT_FAMILY_ITERS, 1)
+               for r in (1, 2)]
+    phase_ar_decode()
+    return records
+
+
+def phase_ar_decode():
+    """``benchmarks/ar_decode.py`` at its defaults (float32, 500 steps)
+    after one warm call: Tacotron2 and TransformerTTS r=1, then r=2; each
+    graph bitwise its eager program."""
+    from parakeet_tpu_torch.benchmarks import ar_decode
+    iters = ["--iters", str(AR_DECODE_ITERS), "--warmup", "1"]
+    recs = ar_decode.main(iters)
+    recs += ar_decode.main(iters + ["--models", "transformer_tts",
+                                    "--reduction-factor", "2"])
+    if not all(r["value"] > 0 and r["graph_matches_eager"] for r in recs):
+        raise AssertionError(f"ar_decode: {recs}")
+    print(f"ar_decode ({recs[0]['device']}, {recs[0]['power_limit']}; "
+          f"{recs[0]['dtype']}, {recs[0]['steps']} steps, graphs bitwise "
+          "eager): " + "; ".join(
+              f"{r['metric']} r={r['reduction_factor']}"
+              + f" {r['value']:.5f} ms (eager {r['eager_ms'] / r['steps']:.5f};"
+              f" {r['achieved_tflops']:.4f} TFLOP/s, MFU {r['mfu_pct']:.4f}%,"
+              f" capture {r['capture_s']:.2f} s,"
+              f" {r['graph_pool_mib']:.1f} MiB)" for r in recs))
+
+
+def phase_waveflow():
+    """Phase 16: the WaveFlow recipe (its CLI, resume against straight,
+    iteration-based), the sampler of ``waveflow_rtf`` in float32 and bf16
+    as one CUDA graph each, the bf16 sampler's float32 sums, then
+    ``train_am``'s TransformerTTS and WaveFlow legs."""
+    import shutil
+    from parakeet_tpu_torch.benchmarks import waveflow_rtf
+    from parakeet_tpu_torch.recipes.waveflow import train
+    from parakeet_tpu_torch.recipes.waveflow.dump import write_synthetic_dump
+    out = pathlib.Path("build") / "chip_smoke_waveflow"
+    shutil.rmtree(out, ignore_errors=True)
+    md = write_synthetic_dump(out / "dump", seed=SEED + 17,
+                              splits=WF_RECIPE_SPLITS,
+                              frames=WF_RECIPE_FRAMES, n_mels=ODIM)
+    family_recipe("waveflow", train, "make_waveflow_train_step",
+                  ["--config", WF_RECIPE_CONF, "--train-metadata",
+                   str(md["train"]), "--dev-metadata", str(md["dev"])],
+                  out, WF_RECIPE_ITERS, WF_RECIPE_RESUME_ITERS, "mel",
+                  opts=WF_RECIPE_OPTS, limit_key="max_iteration",
+                  steps_per_unit=1)
+    shutil.rmtree(out, ignore_errors=True)
+    device = torch.device("cuda")
+    recs, wavs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        recs[dtype], wavs[dtype] = waveflow_rtf.run(dtype, device,
+                                                    WAVEFLOW_ITERS)
+        if not (recs[dtype]["value"] > 0
+                and recs[dtype]["graph_matches_eager"]):
+            raise AssertionError(f"waveflow_rtf {dtype}: {recs[dtype]}")
+    err, rel = _hold_l2("waveflow bf16 sampler", wavs["bfloat16"],
+                        wavs["float32"], WAVEFLOW_BF16_REL_L2)
+    rec = recs["float32"]
+    print(f"waveflow_rtf ({rec['device']}, {rec['power_limit']}; "
+          f"{rec['frames']} frames, {rec['samples']} samples, "
+          f"{rec['flops'] / 1e12:.4f} TFLOP a call; graphs bitwise eager): "
+          + "; ".join(
+              f"{d} waveflow_synthesis_rtf {r['value']:.6f}, graph "
+              f"{r['graph_ms']:.3f} ms, eager {r['eager_ms']:.3f} ms, "
+              f"{r['achieved_tflops']:.3f} TFLOP/s, MFU {r['mfu_pct']:.3f}%, "
+              f"capture {r['capture_s']:.2f} s" for d, r in recs.items())
+          + f"; bf16 against float32: max abs err {err:.4g}, relative L2 "
+          f"{rel:.4g} (tol {WAVEFLOW_BF16_REL_L2:.4g})")
+    waveflow_accumulation()
+    phase_am_bench(["transformer_tts", "waveflow"])
+
+
+def waveflow_accumulation():
+    """The bf16 sampler's products (``models/waveflow.py::mm_f32``)
+    accumulate and return float32 on the card: a width tap (waveflow_rtf's
+    1 x 5,504 grid columns of 3 x 128 inputs against 256 outputs) and an
+    output projection (128 inputs) against float64 products of the same
+    bf16 values, within WAVEFLOW_ACCUM_REL of the range; beside it, what
+    a bf16 result would give (not held).  The sampler's wav cannot show
+    this at full width: a change of the float32 sums' order alone moves
+    it as much as rounding each product to bf16 does."""
+    from parakeet_tpu_torch.benchmarks import waveflow_rtf
+    from parakeet_tpu_torch.models.waveflow import mm_f32
+    cfg = waveflow_rtf.MODEL_CONFIG
+    c = cfg["channels"]
+    w = waveflow_rtf.FRAMES * math.prod(cfg["upsample_factors"]) \
+        // cfg["n_group"]
+    gen = torch.Generator().manual_seed(SEED + 18)
+    held = []
+    for name, k in (("tap", cfg["kernel_size"][0] * c),
+                    ("output projection", c)):
+        a = torch.randn((1, w, k), generator=gen).bfloat16().cuda()
+        b = (torch.randn((k, 2 * c), generator=gen)
+             / math.sqrt(k)).bfloat16().cuda()
+        got = mm_f32(a, b)
+        if got.dtype != torch.float32:
+            raise AssertionError(f"mm_f32 {name}: {got.dtype}")
+        ref = a.double() @ b.double()
+        err, tol = _hold(f"mm_f32 {name}", got.double(), ref.float(),
+                         WAVEFLOW_ACCUM_REL)
+        rounded = (got.bfloat16().double() - ref).abs().max().item()
+        held.append(f"{name} ({w} x {k} x {2 * c}) max abs err {err:.4g} "
+                    f"(tol {tol:.4g}; a bf16 result {rounded:.4g})")
+    print("waveflow bf16 sampler's products on the card against float64: "
+          + "; ".join(held))
 
 
 def phase_speedyspeech():
@@ -2333,23 +2513,25 @@ def phase_tacotron2():
                   T2_RECIPE_EPOCHS, T2_RECIPE_RESUME_EPOCHS, "speech")
     shutil.rmtree(out, ignore_errors=True)
     record = family_program("tacotron2")
-    phase_am_bench()
+    phase_am_bench(["tacotron2", "speedyspeech"])
     return record
 
 
-def phase_am_bench():
-    """The per-family training bench at the JAX bench's shapes, each
-    family with PyTorch's defaults, then under the recipes' deterministic
-    setting."""
+def phase_am_bench(models):
+    """The per-family training bench at the JAX bench's shapes, each of
+    ``models`` with PyTorch's defaults, then under the recipes'
+    deterministic setting."""
     from parakeet_tpu_torch.benchmarks import train_am
     recs = []
     for det in (False, True):
-        recs += train_am.main(["--iters", str(AM_BENCH_ITERS)]
+        recs += train_am.main(["--models", *models, "--iters",
+                               str(AM_BENCH_ITERS)]
                               + (["--deterministic"] if det else []))
     if not all(r["value"] > 0 for r in recs):
         raise AssertionError(f"train_am: {recs}")
     print(f"train_am ({recs[0]['device']}, {recs[0]['power_limit']}; B "
-          f"32, 96 tokens, 640 frames, {AM_BENCH_ITERS} iterations): "
+          f"32, 96 tokens, 640 frames; WaveFlow B 8 x 65 frames; "
+          f"{AM_BENCH_ITERS} iterations): "
           + "; ".join(
               f"{r['metric']} "
               f"{'deterministic' if r['deterministic'] else 'default'} "
@@ -2394,8 +2576,10 @@ def main():
     phase_fs2_bench()
     k1_ss = phase_speedyspeech()
     k1_t2 = phase_tacotron2()
+    k1_tt = phase_transformer_tts()
+    phase_waveflow()
     print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
-                                  *k4.values(), k1_ss, k1_t2]}))
+                                  *k4.values(), k1_ss, k1_t2, *k1_tt]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

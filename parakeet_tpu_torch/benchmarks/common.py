@@ -3,7 +3,9 @@
 ``longform_rtf``): the models of ``bench.py`` with seeded weights, the
 program FastSpeech2 -> edge pad -> Parallel WaveGAN at a static shape, its
 timing eagerly and as one CUDA graph, and the card's name and power
-limit."""
+limit; and the TransformerTTS and WaveFlow widths of their recipes'
+YAMLs, which the per-family benches build, and WaveFlow's seeded
+weights."""
 from __future__ import annotations
 
 import collections
@@ -16,14 +18,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import FastSpeech2, PWGGenerator
+from ..models import (ConditionalWaveFlow, FastSpeech2, PWGGenerator,
+                      init_waveflow_)
 from ..models.parallel_wavegan import edge_pad
 from ..utils.flops import fs2_pwg_synthesis_flops
 from ..utils.graphs import CapturedProgram
 
 __all__ = ["FS2_CONFIG", "PWG_CONFIG", "SAMPLE_RATE", "seeded_init_",
            "build_models", "card", "SynthesisProgram", "wall_seconds",
-           "profiled_kernels", "PROFILE_TRIES", "DTYPES"]
+           "profiled_kernels", "PROFILE_TRIES", "DTYPES", "timed_capture",
+           "TRANSFORMER_TTS_CONFIG", "WAVEFLOW_CONFIG", "seeded_waveflow"]
 
 SAMPLE_RATE = 24000
 # bench.py's models: FastSpeech2 (idim = odim = 80) and the 300x PWGGenerator
@@ -33,6 +37,23 @@ PWG_CONFIG = dict(layers=30, stacks=3, residual_channels=64,
                   gate_channels=128, skip_channels=64,
                   upsample_scales=(5, 6, 10), aux_context_window=2)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the model sections of recipes/transformer_tts/conf/default.yaml (without
+# init_type and the reduction factor, which each leg sets) and of
+# recipes/waveflow/conf/default.yaml: the widths users train.  The JAX
+# benches build the modules' defaults instead (TransformerTTS: 4 heads and
+# a 3-convolution encoder prenet; WaveFlow: 64 channels)
+TRANSFORMER_TTS_CONFIG = dict(
+    embed_dim=0, eprenet_conv_layers=0, eprenet_conv_chans=0,
+    eprenet_conv_filts=0, dprenet_layers=2, dprenet_units=256, adim=512,
+    aheads=8, elayers=6, eunits=1024, dlayers=6, dunits=1024,
+    positionwise_layer_type="conv1d", positionwise_conv_kernel_size=1,
+    postnet_layers=5, postnet_filts=5, postnet_chans=256,
+    use_scaled_pos_enc=True)
+WAVEFLOW_CONFIG = dict(upsample_factors=(16, 16), n_flows=8, n_layers=8,
+                       n_group=16, channels=128, n_mels=80,
+                       kernel_size=(3, 3), sigma=1.0)
+# the spread of WaveFlow's output projections in the benches
+WAVEFLOW_OUTPUT_STD = 0.01
 # the random AM's log-durations are centred on log(5) with a spread of
 # about 0.25: ~4 frames (~50 ms at hop 300 / 24 kHz) a phone
 DURATION_BIAS, DURATION_SPREAD = math.log(5.0), 0.25
@@ -52,6 +73,22 @@ def seeded_init_(module, gen: torch.Generator) -> None:
             else:
                 p.copy_(torch.randn(p.shape, generator=gen)
                         / math.sqrt(p[0].numel()))
+
+
+def seeded_waveflow(config: dict, gen: torch.Generator,
+                    sample_act_dtype: Optional[torch.dtype] = None
+                    ) -> ConditionalWaveFlow:
+    """WaveFlow of ``config`` with flax's initializers drawn from ``gen``
+    (``init_waveflow_``), then every flow's output projection kernel
+    N(0, ``WAVEFLOW_OUTPUT_STD``^2) from ``gen``: at its initial zero each
+    flow is the identity, which would time and check nothing."""
+    model = ConditionalWaveFlow(**config, sample_act_dtype=sample_act_dtype)
+    init_waveflow_(model, gen)
+    with torch.no_grad():
+        for flow in model.decoder.flows():
+            flow.output_proj.weight.normal_(0.0, WAVEFLOW_OUTPUT_STD,
+                                            generator=gen)
+    return model
 
 
 def build_models(dtype: torch.dtype, attn_impl: str, device: torch.device,
@@ -100,6 +137,22 @@ def wall_seconds(fn, device: torch.device, iters: int, warmup: int) -> float:
         fn()
     sync(device)
     return (time.perf_counter() - tic) / iters
+
+
+def timed_capture(program, device: torch.device):
+    """(``program.capture()``, its wall seconds with its warm-up runs, the
+    MiB of card memory its graph's pool keeps): reserved memory after the
+    capture less before it, the allocator's cache emptied on both sides
+    so that only the pool and the output buffers stay reserved."""
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    tic = time.perf_counter()
+    graph = program.capture()
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - tic
+    torch.cuda.empty_cache()
+    return graph, seconds, (torch.cuda.memory_reserved(device)
+                            - reserved) / 2 ** 20
 
 
 class SynthesisProgram:

@@ -10,14 +10,21 @@ mel frames, then the 30-layer PWGGenerator (residual 64, gate 128, skip
   1,000 decoder steps (its prenet's always-on dropout masks drawn once,
   from a fixed seed, as the JAX bench's fixed key), then PWG x256
   (upsampling 4 x 4 x 4 x 4): 256,000 samples at 22.05 kHz;
+- ``transformer_tts_r1`` and ``transformer_tts_r2``: TransformerTTS at
+  the widths of recipes/transformer_tts/conf/default.yaml (adim 512 over 8
+  heads, 6 + 6 layers; ``TRANSFORMER_TTS_CONFIG``, where the JAX bench
+  builds the module's defaults) with reduction factor 1 or 2,
+  ``inference`` over all 1,000 // r decoder steps (its decoder prenet's
+  masks drawn once, from a fixed seed), then PWG x256: 256,000 samples;
 - ``speedyspeech``: SpeedySpeech at its default widths (8 tones),
   ``inference(max_frames=1000)``, then PWG x300 (5 x 6 x 10, the JAX
   bench's scales): 300,000 samples at 24 kHz.
 
 Weights are random, from a seed: the acoustic models take flax's
-initializers (``init_tacotron2_``, ``init_flax_defaults_``), the vocoder
-``seeded_init_``; the work of a call does not depend on where the random
-heads stop or how long they make a phone.  On the card each
+initializers (``init_tacotron2_``, ``init_transformer_tts_``,
+``init_flax_defaults_``), the vocoder ``seeded_init_``; the work of a
+call does not depend on where the random heads stop or how long they
+make a phone.  On the card each
 program is captured in one CUDA graph (``utils/graphs.py``); each call's
 noise is multiplied in place by ``1 + 0 * mean(wav)``, so chained
 replays depend on each other.  After 3 warm calls, ``--iters`` chained
@@ -31,7 +38,11 @@ Prints one JSON line a family: ``metric`` ``<family>_pwgan_e2e_rtf``,
 ``launches`` (K1's launches in one eager call, by its wrapper's counter),
 ``replay_kernels`` (the port's kernels in one replay, by name, from
 ``torch.profiler``), ``replay_kernels_total``, ``replay_busy_ms``,
-``frame_lengths``, the dtype, backend, card and power limit.
+``frame_lengths``, ``capture_s`` (the capture, its two warm-up runs
+included) and ``graph_pool_mib`` (the card memory the graph's pool
+keeps: reserved after the capture less before it, the allocator's cache
+emptied on both sides),
+the dtype, backend, card and power limit.
 ``vs_baseline`` is null (the JAX bench's 0.01 is a TPU target).  On
 ``--device cpu`` the program runs eagerly only.
 
@@ -50,30 +61,35 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models import (PWGGenerator, SpeedySpeech, Tacotron2,
-                      init_tacotron2_)
+from ..models import (PWGGenerator, SpeedySpeech, Tacotron2, TransformerTTS,
+                      init_tacotron2_, init_transformer_tts_)
 from ..models.parallel_wavegan import edge_pad
 from ..nn.initializer import init_flax_defaults_
 from ..ops.kernels.pwg_stack import fused_residual_stack
 from ..utils.device import add_device_arg, set_device
 from ..utils.graphs import CapturedProgram
-from .common import DTYPES, card, profiled_kernels, seeded_init_, wall_seconds
+from .common import (DTYPES, TRANSFORMER_TTS_CONFIG, card, profiled_kernels,
+                     seeded_init_, timed_capture, wall_seconds)
 
 __all__ = ["main", "run", "FamilyProgram", "FAMILIES"]
 
-FAMILIES = ("tacotron2", "speedyspeech")
-NOT_PORTED = {"transformer_tts_r1": 13, "transformer_tts_r2": 13}
+FAMILIES = ("tacotron2", "transformer_tts_r1", "transformer_tts_r2",
+            "speedyspeech")
 TEXT_LEN, FRAMES = 96, 1000
-VOCAB, TONES = 80, 8
+VOCAB, TONES, ODIM = 80, 8, 80
 WARM_ITERS = 3
 # (sample rate, PWG upsample scales) of each family's vocoder
 VOCODER = {"tacotron2": (22050, (4, 4, 4, 4)),
+           "transformer_tts_r1": (22050, (4, 4, 4, 4)),
+           "transformer_tts_r2": (22050, (4, 4, 4, 4)),
            "speedyspeech": (24000, (5, 6, 10))}
 PWG_CONFIG = dict(layers=30, stacks=3, residual_channels=64,
                   gate_channels=128, skip_channels=64, aux_context_window=2)
-# each family's constructor arguments beyond the JAX bench's (none: its
-# defaults); tests shrink them
-MODEL_CONFIGS = {"tacotron2": {}, "speedyspeech": {}}
+# each family's constructor arguments beyond the JAX bench's (Tacotron2
+# and SpeedySpeech: none, their defaults; TransformerTTS: its recipe's
+# widths); tests shrink them
+MODEL_CONFIGS = {"tacotron2": {}, "speedyspeech": {},
+                 "transformer_tts": TRANSFORMER_TTS_CONFIG}
 
 
 class FamilyProgram:
@@ -82,18 +98,22 @@ class FamilyProgram:
 
     def __init__(self, family: str, dtype: torch.dtype,
                  device: torch.device, seed: int = 0):
-        if family in NOT_PORTED:
-            raise NotImplementedError(
-                f"{family} is not ported yet (ROADMAP queue 1, item "
-                f"{NOT_PORTED[family]})")
         if family not in FAMILIES:
             raise ValueError(f"unknown family {family!r}")
         self.family = family
         self.sample_rate, scales = VOCODER[family]
         gen = torch.Generator().manual_seed(seed)
+        # decoder steps a call: 1,000 frames, r a step
+        self.steps = FRAMES
         if family == "tacotron2":
             am = Tacotron2(vocab_size=VOCAB, **MODEL_CONFIGS[family])
             init_tacotron2_(am, gen)
+        elif family.startswith("transformer_tts"):
+            r = int(family.rsplit("r", 1)[1])
+            am = TransformerTTS(idim=VOCAB, odim=ODIM, reduction_factor=r,
+                                **MODEL_CONFIGS["transformer_tts"])
+            init_transformer_tts_(am, gen)
+            self.steps = FRAMES // r
         else:
             am = SpeedySpeech(vocab_size=VOCAB, tone_size=TONES,
                               **MODEL_CONFIGS[family])
@@ -109,11 +129,12 @@ class FamilyProgram:
                                     device=device),
             "noise": torch.randn((1, FRAMES * self.pwg.upsample_factor, 1),
                                  generator=noise_gen).to(device)}
-        if family == "tacotron2":
+        if family != "speedyspeech":
             self.inputs["text_lengths"] = torch.full((1,), TEXT_LEN,
                                                      device=device)
             keep = self.am.prenet_masks(
-                1, FRAMES, torch.Generator().manual_seed(seed + 2), "cpu")
+                1, self.steps, torch.Generator().manual_seed(seed + 2),
+                "cpu")
             if keep is not None:
                 self.inputs["prenet_keep"] = keep.to(device)
         else:
@@ -132,6 +153,11 @@ class FamilyProgram:
             out = self.am.infer(text, text_lengths, max_decoder_steps=FRAMES,
                                 prenet_keep=prenet_keep)
             mel, lengths = out["mel_outputs_postnet"], out["lengths"]
+        elif self.family != "speedyspeech":
+            out = self.am.inference(text, text_lengths,
+                                    max_decoder_steps=self.steps,
+                                    prenet_keep=prenet_keep)
+            mel, lengths = out["mel"], out["lengths"]
         else:
             out = self.am.inference(text, tones, max_frames=FRAMES)
             mel, lengths = out["mel"], out["frame_lengths"]
@@ -149,11 +175,11 @@ class FamilyProgram:
         return CapturedProgram(self, self.inputs)
 
 
-def run(family: str, *, dtype: str, device: torch.device,
-        iters: int) -> dict:
+def run(family: str, *, dtype: str, device: torch.device, iters: int,
+        warmup: int = WARM_ITERS) -> dict:
     """Build, time and check one family's program; returns its record."""
     program = FamilyProgram(family, DTYPES[dtype], device)
-    eager_s = wall_seconds(program.eager, device, iters, WARM_ITERS)
+    eager_s = wall_seconds(program.eager, device, iters, warmup)
     before = fused_residual_stack.launches
     want, lengths = program.eager()
     launches = {"K1": fused_residual_stack.launches - before}
@@ -161,9 +187,10 @@ def run(family: str, *, dtype: str, device: torch.device,
         raise AssertionError(f"{family}: non-finite wav")
     name, limit = card(device)
     graph_s = kernels = n_kernels = busy_ms = same = None
+    capture_s = pool_mib = None
     if device.type == "cuda":
-        graph = program.capture()
-        graph_s = wall_seconds(graph, device, iters, WARM_ITERS)
+        graph, capture_s, pool_mib = timed_capture(program, device)
+        graph_s = wall_seconds(graph, device, iters, warmup)
         got, _ = graph()
         same = bool(torch.equal(got, want))
         kernels, n_kernels, busy_ms = profiled_kernels(graph)
@@ -178,7 +205,8 @@ def run(family: str, *, dtype: str, device: torch.device,
             "launches": launches, "replay_kernels": kernels,
             "replay_kernels_total": n_kernels, "replay_busy_ms": busy_ms,
             "frame_lengths": lengths.tolist(),
-            "samples": int(want.shape[-1])}
+            "samples": int(want.shape[-1]), "capture_s": capture_s,
+            "graph_pool_mib": pool_mib}
 
 
 def main(argv=None):
@@ -190,20 +218,19 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--families", nargs="+", default=list(FAMILIES))
     parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--warmup", type=int, default=WARM_ITERS)
     parser.add_argument("--dtype", default="bfloat16", choices=DTYPES,
                         help="the programs' dtype (parameters and compute)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
     for family in args.families:
-        if family in NOT_PORTED:
-            raise NotImplementedError(
-                f"{family} is not ported yet (ROADMAP queue 1, item "
-                f"{NOT_PORTED[family]})")
+        if family not in FAMILIES:
+            raise ValueError(f"unknown family {family!r}")
     device = set_device(args.device)
     records = []
     for family in args.families:
         records.append(run(family, dtype=args.dtype, device=device,
-                           iters=args.iters))
+                           iters=args.iters, warmup=args.warmup))
         print(json.dumps(records[-1]), flush=True)
     return records
 

@@ -4,10 +4,14 @@ parakeet/training/trainer.py:160-168).
 
 N training steps of a family's model at the JAX bench's shapes (batch 32,
 96 tokens, 640 frames, every utterance full length; SpeedySpeech's
-durations frames // 96 with the rest on the last token) and its default
-widths (Tacotron2: the JAX module's defaults, 1024-wide LSTMs, 640
-decoder steps; SpeedySpeech: 128 wide, 8 tones), float32, Adam (1e-3),
-with flax's initializers drawn from seed 0.  Prints one JSON line a
+durations frames // 96 with the rest on the last token; WaveFlow batch 8
+of 65-frame clips, 16,640 samples) and widths (Tacotron2: the JAX
+module's defaults, 1024-wide LSTMs, 640 decoder steps; SpeedySpeech: 128
+wide, 8 tones; TransformerTTS and WaveFlow: their recipes' YAMLs,
+``TRANSFORMER_TTS_CONFIG`` and ``WAVEFLOW_CONFIG``, where the JAX bench
+builds the modules' defaults), float32, Adam (1e-3; WaveFlow 2e-4), with
+flax's initializers drawn from seed 0 (WaveFlow's output projections
+then drawn N(0, 0.01^2) too, so that its flows are not the identity).  Prints one JSON line a
 family: ``value = batch_size / avg_batch_cost`` in sequences per second
 under the JAX bench's metric name ``<family>_train_avg_ips``, with the
 ms a step, the backend, the card's name and power limit.  One step and 3
@@ -35,33 +39,40 @@ import time
 import numpy as np
 import torch
 
-from ..models import (SpeedySpeech, Tacotron2, init_speedyspeech_train_state,
-                      init_tacotron2_, init_tacotron2_train_state,
+from ..models import (SpeedySpeech, Tacotron2, TransformerTTS,
+                      init_speedyspeech_train_state, init_tacotron2_,
+                      init_tacotron2_train_state, init_transformer_tts_,
+                      init_transformer_tts_train_state,
+                      init_waveflow_train_state,
                       make_speedyspeech_train_step,
-                      make_tacotron2_train_step)
+                      make_tacotron2_train_step,
+                      make_transformer_tts_train_step,
+                      make_waveflow_train_step)
 from ..nn.initializer import init_flax_defaults_
 from ..training import (build_optimizer, deterministic_training,
                         resolve_model_kwargs, seed_everything)
 from ..utils.device import add_device_arg, set_device
-from .common import card
+from .common import (TRANSFORMER_TTS_CONFIG, WAVEFLOW_CONFIG, card,
+                     seeded_waveflow)
 
 __all__ = ["main", "build_train_step", "FAMILIES", "MODEL_CONFIGS"]
 
-FAMILIES = ("tacotron2", "speedyspeech")
-NOT_PORTED = {"transformer_tts": 13, "waveflow": 14}
-# each family's constructor arguments beyond the JAX bench's (none: its
-# defaults); tests shrink them
-MODEL_CONFIGS = {"tacotron2": {}, "speedyspeech": {}}
+FAMILIES = ("tacotron2", "transformer_tts", "speedyspeech", "waveflow")
+# each family's constructor arguments beyond the JAX bench's (Tacotron2
+# and SpeedySpeech: none, their defaults; TransformerTTS and WaveFlow:
+# their recipes' widths); tests shrink them
+MODEL_CONFIGS = {"tacotron2": {}, "speedyspeech": {},
+                 "transformer_tts": TRANSFORMER_TTS_CONFIG,
+                 "waveflow": WAVEFLOW_CONFIG}
 VOCAB, TONES, ODIM = 80, 8, 80
+# WaveFlow's batch: the reference protocol's 8 clips of 65 frames
+# (recipes/waveflow/conf/default.yaml), hop 256
+WAVEFLOW_B, WAVEFLOW_FRAMES = 8, 65
 WARM_STEPS = 3
 
 
 def check_family(name: str) -> None:
-    """Raise unless ``name`` is a ported family of the JAX bench."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP queue 1, item "
-            f"{NOT_PORTED[name]})")
+    """Raise unless ``name`` is a family of the JAX bench."""
     if name not in FAMILIES:
         raise ValueError(f"unknown family {name!r}")
 
@@ -73,16 +84,36 @@ def build_train_step(name: str, batch_size: int, text_len: int,
     b, t = batch_size, text_len
     rng = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(0)
+    text_batch = {"text": rng.integers(1, VOCAB, (b, t)),
+                  "text_lengths": np.full(b, t),
+                  "speech": rng.standard_normal((b, frames, ODIM)).astype(
+                      np.float32),
+                  "speech_lengths": np.full(b, frames)}
+    lr = 1e-3
     if name == "tacotron2":
         model = Tacotron2(vocab_size=VOCAB, **MODEL_CONFIGS[name])
         init_tacotron2_(model, gen)
-        batch = {"text": rng.integers(1, VOCAB, (b, t)),
-                 "text_lengths": np.full(b, t),
-                 "speech": rng.standard_normal((b, frames, ODIM)).astype(
-                     np.float32),
-                 "speech_lengths": np.full(b, frames)}
+        batch = text_batch
         make_step, init_state = (make_tacotron2_train_step,
                                  init_tacotron2_train_state)
+    elif name == "transformer_tts":
+        model = TransformerTTS(idim=VOCAB, odim=ODIM, **MODEL_CONFIGS[name])
+        init_transformer_tts_(model, gen)
+        batch = text_batch
+        make_step, init_state = (make_transformer_tts_train_step,
+                                 init_transformer_tts_train_state)
+    elif name == "waveflow":
+        model = seeded_waveflow(MODEL_CONFIGS[name], gen)
+        hop = model.encoder.upsample_factor
+        batch = {"wav": 0.1 * rng.standard_normal(
+                     (WAVEFLOW_B, WAVEFLOW_FRAMES * hop)).astype(np.float32),
+                 "mel": rng.standard_normal(
+                     (WAVEFLOW_B, WAVEFLOW_FRAMES,
+                      MODEL_CONFIGS[name].get("n_mels", ODIM))
+                 ).astype(np.float32)}
+        lr = 2e-4
+        make_step, init_state = (make_waveflow_train_step,
+                                 init_waveflow_train_state)
     else:
         model = SpeedySpeech(vocab_size=VOCAB, tone_size=TONES,
                              **MODEL_CONFIGS[name])
@@ -99,7 +130,7 @@ def build_train_step(name: str, batch_size: int, text_len: int,
                                  init_speedyspeech_train_state)
     model.to(device)
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-    opt = build_optimizer(model.parameters(), "adam", 1e-3)
+    opt = build_optimizer(model.parameters(), "adam", lr)
     state = init_state(model, opt, seed_everything(0, device=device))
     return make_step(model, opt), state, batch
 
@@ -131,6 +162,8 @@ def bench_family(name: str, iters: int, batch_size: int, text_len: int,
     if not np.isfinite(loss):
         raise AssertionError(f"{name}: non-finite loss {loss}")
     name_, limit = card(device)
+    if name == "waveflow":
+        batch_size, text_len, frames = WAVEFLOW_B, None, WAVEFLOW_FRAMES
     return {"metric": f"{name}_train_avg_ips", "batch_size": batch_size,
             "value": batch_size / avg, "unit": "sequences/sec",
             "ms_per_step": 1e3 * avg, "dtype": "float32", "rng": "threefry",

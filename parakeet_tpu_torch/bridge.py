@@ -10,8 +10,10 @@ its last part the flax leaf, converted by the torch module's type:
   ``Dense`` (in, out) and ``DenseGeneral`` q/k/v (d, H, dk) and out
   (H, dk, d), whose biases are flattened.
 - ``nn.Conv1d``: kernel (k, Cin, Cout) -> weight (Cout, Cin, k).
-- ``nn.LayerNorm`` / ``nn.BatchNorm1d``: scale -> weight, bias -> bias;
-  ``batch_stats`` mean / var -> running_mean / running_var.
+- ``nn.Conv2d``: kernel (kh, kw, Cin, Cout) -> weight (Cout, Cin, kh, kw).
+- ``nn.LayerNorm`` / ``nn.BatchNorm1d`` / ``nn.BatchNorm2d``: scale ->
+  weight, bias -> bias; ``batch_stats`` mean / var -> running_mean /
+  running_var.
 - ``nn.Embedding``: embedding -> weight.
 - ``nn.LSTMCell`` (flax's ``OptimizedLSTMCell``): flax keeps eight dense
   layers under the cell, ``ii/if/ig/io`` (in, H) kernels without bias and
@@ -19,8 +21,16 @@ its last part the flax leaf, converted by the torch module's type:
   torch's order i, f, g, o, into ``weight_ih`` and ``weight_hh`` (4H, .)
   and ``bias_hh``.  The cell must have no ``bias_ih`` parameter (the
   port's ``nn.rnn.LSTMCell`` keeps a zero buffer there).
+- the port's ``nn.rnn.GRUCell`` (flax's ``GRUCell``): ``ir/iz/in``
+  (in, H) kernels with bias and ``hr/hz/hn`` (H, H) kernels, only ``hn``
+  with a bias, stack by gate, in torch's order r, z, n, into
+  ``weight_ih``, ``bias_ih`` and ``weight_hh``; ``hn``'s bias is
+  ``bias_hn``.
 - any other module: the leaf is a parameter of that name, copied as it is
-  (the PWG modules keep the flax layouts).
+  (the PWG modules keep the flax layouts, as do WaveFlow's
+  ``UpsampleNet``, with its raw ``deconv_{i}_kernel`` (3, 2s, 1, 1) and
+  ``deconv_{i}_bias`` (1,), and GST's ``gst_tokens_param``; GST's bias-free
+  ``DenseGeneral`` q/k/v are ``nn.Linear`` layers without a bias).
 
 Every key must land and every parameter and BatchNorm statistic of the
 module must be written: anything missing or unused raises ``KeyError``.
@@ -56,6 +66,9 @@ from typing import Callable, Dict, Iterator, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
+
+from .nn.rnn import GRUCell
 
 __all__ = ["load_flax_params", "flax_arrays", "train_state_arrays",
            "load_train_state", "RNG_KEY", "ROOT_MODULE"]
@@ -75,6 +88,10 @@ def _conv_kernel(mod: nn.Conv1d, a: np.ndarray) -> np.ndarray:
     return a.transpose(2, 1, 0)
 
 
+def _conv2d_kernel(mod: nn.Conv2d, a: np.ndarray) -> np.ndarray:
+    return a.transpose(3, 2, 0, 1)
+
+
 def _flat(mod: nn.Module, a: np.ndarray) -> np.ndarray:
     return a.reshape(-1)
 
@@ -89,24 +106,36 @@ _RULES: Dict[type, Dict[Tuple[str, str], Tuple[str, Callable]]] = {
                 ("params", "bias"): ("bias", _flat)},
     nn.Conv1d: {("params", "kernel"): ("weight", _conv_kernel),
                 ("params", "bias"): ("bias", _same)},
+    nn.Conv2d: {("params", "kernel"): ("weight", _conv2d_kernel),
+                ("params", "bias"): ("bias", _same)},
     nn.LayerNorm: {("params", "scale"): ("weight", _same),
                    ("params", "bias"): ("bias", _same)},
-    nn.BatchNorm1d: {("params", "scale"): ("weight", _same),
-                     ("params", "bias"): ("bias", _same),
-                     ("batch_stats", "mean"): ("running_mean", _same),
-                     ("batch_stats", "var"): ("running_var", _same)},
+    _BatchNorm: {("params", "scale"): ("weight", _same),
+                 ("params", "bias"): ("bias", _same),
+                 ("batch_stats", "mean"): ("running_mean", _same),
+                 ("batch_stats", "var"): ("running_var", _same)},
     nn.Embedding: {("params", "embedding"): ("weight", _same)},
 }
 
 
-# flax's OptimizedLSTMCell gates in torch's LSTMCell row order
+# flax's OptimizedLSTMCell and GRUCell gates in torch's row order
 _LSTM_GATES = ("i", "f", "g", "o")
+_GRU_GATES = ("r", "z", "n")
+_CELLS = (nn.LSTMCell, GRUCell)
 
 
-def _lstm_pieces(mod: nn.LSTMCell):
+def _cell_pieces(mod: nn.Module):
     """(flax dense layer, flax leaf, torch tensor name, rows, transposed)
-    of each flax leaf of an LSTM cell."""
+    of each flax leaf of an LSTM or GRU cell."""
     h = mod.hidden_size
+    if isinstance(mod, GRUCell):
+        for k, gate in enumerate(_GRU_GATES):
+            rows = slice(k * h, (k + 1) * h)
+            yield f"i{gate}", "kernel", "weight_ih", rows, True
+            yield f"i{gate}", "bias", "bias_ih", rows, False
+            yield f"h{gate}", "kernel", "weight_hh", rows, True
+        yield "hn", "bias", "bias_hn", slice(0, h), False
+        return
     for k, gate in enumerate(_LSTM_GATES):
         rows = slice(k * h, (k + 1) * h)
         yield f"i{gate}", "kernel", "weight_ih", rows, True
@@ -114,20 +143,23 @@ def _lstm_pieces(mod: nn.LSTMCell):
         yield f"h{gate}", "bias", "bias_hh", rows, False
 
 
-def _lstm_target(module: nn.Module, collection: str, path, leaf: str):
-    """(torch tensor name, rows, transposed) of a flax leaf that lies in an
-    LSTM cell's dense layer ``path[-1]``, or None."""
+def _cell_target(module: nn.Module, collection: str, path, leaf: str):
+    """(torch tensor name, rows, transposed, pieces of that tensor) of a
+    flax leaf that lies in an LSTM or GRU cell's dense layer ``path[-1]``,
+    or None."""
     if collection != "params" or not path:
         return None
     try:
         cell = module.get_submodule(".".join(path[:-1]))
     except AttributeError:
         return None
-    if not isinstance(cell, nn.LSTMCell):
+    if not isinstance(cell, _CELLS):
         return None
-    for dense, fleaf, tname, rows, transposed in _lstm_pieces(cell):
+    pieces = list(_cell_pieces(cell))
+    for dense, fleaf, tname, rows, transposed in pieces:
         if (dense, fleaf) == (path[-1], leaf):
-            return ".".join(list(path[:-1]) + [tname]), rows, transposed
+            return (".".join(list(path[:-1]) + [tname]), rows, transposed,
+                    sum(p[2] == tname for p in pieces))
     return None
 
 
@@ -142,6 +174,7 @@ def _rule(mod: nn.Module, collection: str, leaf: str):
 # each converter's inverse (torch layout -> flax layout)
 _TO_FLAX = {_linear_kernel: lambda a: a.T,
             _conv_kernel: lambda a: a.transpose(2, 1, 0),
+            _conv2d_kernel: lambda a: a.transpose(2, 3, 1, 0),
             _flat: lambda a: a, _same: lambda a: a}
 
 
@@ -161,24 +194,24 @@ def _flax_leaves(module: nn.Module) -> Iterator[Tuple[str, str, torch.Tensor,
                                                       Callable]]:
     """(flax key, torch name, tensor, torch -> flax converter) of every
     flax leaf of ``module``'s parameters and BatchNorm statistics (an LSTM
-    cell's tensors give four leaves each)."""
+    or GRU cell's stacked tensors give one leaf a gate)."""
     for name, tensor in _targets(module).items():
         path, _, leaf = name.rpartition(".")
         mod = module.get_submodule(path)
         prefix = path.split(".") if path else []
-        if isinstance(mod, nn.LSTMCell):
-            for dense, fleaf, tname, rows, transposed in _lstm_pieces(mod):
+        if isinstance(mod, _CELLS):
+            for dense, fleaf, tname, rows, transposed in _cell_pieces(mod):
                 if tname == leaf:
                     yield (_SEP.join(["params"] + prefix + [dense, fleaf]),
                            name, tensor, functools.partial(
-                               _lstm_to_flax, rows=rows,
+                               _cell_to_flax, rows=rows,
                                transposed=transposed))
             continue
         collection, fleaf, conv = _inverse_rule(mod, leaf)
         yield _SEP.join([collection] + prefix + [fleaf]), name, tensor, conv
 
 
-def _lstm_to_flax(a: np.ndarray, *, rows: slice,
+def _cell_to_flax(a: np.ndarray, *, rows: slice,
                   transposed: bool) -> np.ndarray:
     return a[rows].T if transposed else a[rows]
 
@@ -196,7 +229,7 @@ def _targets(module: nn.Module) -> Dict[str, torch.Tensor]:
     running statistics."""
     out = dict(module.named_parameters())
     for path, mod in module.named_modules():
-        if isinstance(mod, nn.BatchNorm1d):
+        if isinstance(mod, _BatchNorm):
             for name in ("running_mean", "running_var"):
                 out[f"{path}.{name}" if path else name] = getattr(mod, name)
     return out
@@ -211,14 +244,15 @@ def _assemble(module: nn.Module, flat: Dict[str, np.ndarray],
     ``ValueError``."""
     out: Dict[str, torch.Tensor] = {}
     pieces: Dict[str, int] = {}
+    expected: Dict[str, int] = {}
     unused = []
     for key, value in flat.items():
         parts = key.split(_SEP)
         collection, path, leaf = parts[0], parts[1:-1], parts[-1]
         a = np.asarray(value)
-        lstm = _lstm_target(module, collection, path, leaf)
-        if lstm is not None:
-            name, rows, transposed = lstm
+        cell = _cell_target(module, collection, path, leaf)
+        if cell is not None:
+            name, rows, transposed, expected[name] = cell
             if name not in targets:
                 unused.append(key)
                 continue
@@ -248,7 +282,7 @@ def _assemble(module: nn.Module, flat: Dict[str, np.ndarray],
                              f"{tuple(src.shape)}, but {name} is "
                              f"{tuple(targets[name].shape)}")
         out[name] = src
-    partial = sorted(n for n, k in pieces.items() if k != len(_LSTM_GATES))
+    partial = sorted(n for n, k in pieces.items() if k != expected[n])
     missing = sorted(set(targets) - set(out)) + partial
     if unused or missing:
         raise KeyError(f"flax keys with no counterpart: {sorted(unused)}; "

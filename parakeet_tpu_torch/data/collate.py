@@ -1,8 +1,9 @@
 """Collate functions (counterpart of ``parakeet_tpu/data/collate.py``).
 
-Ported so far: ``fastspeech2_batch_fn`` and ``speedyspeech_batch_fn``,
-the acoustic models' padded batches, and ``VocoderClip``, the random aligned (wav, mel) window of
-GAN-vocoder training.  They return numpy arrays; the step moves them to
+Ported so far: ``fastspeech2_batch_fn``, ``speedyspeech_batch_fn`` and
+``transformer_tts_batch_fn``, the acoustic models' padded batches, and
+``VocoderClip``, the random aligned (wav, mel) window of GAN-vocoder
+training.  They return numpy arrays; the step moves them to
 the card.
 """
 from __future__ import annotations
@@ -11,7 +12,8 @@ import numpy as np
 
 from .batch import batch_sequences, bucket_length
 
-__all__ = ["fastspeech2_batch_fn", "speedyspeech_batch_fn", "VocoderClip"]
+__all__ = ["fastspeech2_batch_fn", "speedyspeech_batch_fn",
+           "transformer_tts_batch_fn", "VocoderClip"]
 
 
 def _lens(items, key) -> np.ndarray:
@@ -76,6 +78,27 @@ def speedyspeech_batch_fn(examples, text_bucket: int = 16,
         "num_frames": _lens(examples, "feats"),
         "feats": _padded(examples, "feats", np.float32, frame_len),
         "durations": _padded(examples, "durations", np.int64, text_len),
+    }
+
+
+def transformer_tts_batch_fn(examples, text_bucket: int = 16,
+                             frame_bucket: int = 64):
+    """TransformerTTS batch: text padded to a multiple of ``text_bucket``,
+    speech (T, n_mels) to one of ``frame_bucket``, with zeros;
+    text_lengths and speech_lengths.  The JAX package's Tacotron2 batch
+    function is this one; the Tacotron2 recipe adds ``spk_emb`` to it
+    (``recipes/tacotron2/train.py``)."""
+    if not examples:
+        raise ValueError("collate called with an empty example list")
+    text_len = bucket_length(
+        max(len(np.asarray(x["text"])) for x in examples), text_bucket)
+    frame_len = bucket_length(
+        max(np.asarray(x["speech"]).shape[0] for x in examples), frame_bucket)
+    return {
+        "text": _padded(examples, "text", np.int64, text_len),
+        "text_lengths": _lens(examples, "text"),
+        "speech": _padded(examples, "speech", np.float32, frame_len),
+        "speech_lengths": _lens(examples, "speech"),
     }
 
 

@@ -16,6 +16,17 @@ from .tacotron2_updater import (init_tacotron2_train_state,
                                 make_tacotron2_eval_step,
                                 make_tacotron2_predict_step,
                                 make_tacotron2_train_step)
+from .transformer_tts import (TransformerTTS, guided_multihead_attention_loss,
+                              init_transformer_tts_, transformer_tts_loss)
+from .transformer_tts_updater import (init_transformer_tts_train_state,
+                                      make_transformer_tts_eval_step,
+                                      make_transformer_tts_predict_step,
+                                      make_transformer_tts_train_step)
+from .waveflow import (ConditionalWaveFlow, UpsampleNet, WaveFlow, fold,
+                       init_waveflow_, unfold, waveflow_loss)
+from .waveflow_updater import (init_waveflow_train_state,
+                               make_waveflow_eval_step,
+                               make_waveflow_train_step)
 
 __all__ = ["FastSpeech2", "fastspeech2_loss", "init_fs2_train_state",
            "make_fs2_train_step", "make_fs2_eval_step", "PWGGenerator", "PWGDiscriminator",
@@ -26,4 +37,13 @@ __all__ = ["FastSpeech2", "fastspeech2_loss", "init_fs2_train_state",
            "make_speedyspeech_train_step", "make_speedyspeech_eval_step",
            "Tacotron2", "tacotron2_loss", "init_tacotron2_",
            "init_tacotron2_train_state", "make_tacotron2_train_step",
-           "make_tacotron2_eval_step", "make_tacotron2_predict_step"]
+           "make_tacotron2_eval_step", "make_tacotron2_predict_step",
+           "TransformerTTS", "transformer_tts_loss",
+           "guided_multihead_attention_loss", "init_transformer_tts_",
+           "init_transformer_tts_train_state",
+           "make_transformer_tts_train_step",
+           "make_transformer_tts_eval_step",
+           "make_transformer_tts_predict_step", "ConditionalWaveFlow",
+           "UpsampleNet", "WaveFlow", "fold", "unfold", "init_waveflow_",
+           "waveflow_loss", "init_waveflow_train_state",
+           "make_waveflow_train_step", "make_waveflow_eval_step"]

@@ -10,9 +10,11 @@ Fans follow the flax convention on the flax shape (the last axis out,
 the one before it in, the rest a receptive field), which the bridge's
 layouts give: a torch ``Linear`` (out, in) is flax (in, out), or (d, H,
 dk) for an attention's q/k/v and (H, dk, d) for its out; a ``Conv1d``
-(out, in, k) is (k, in, out); an ``Embedding`` (num, dim) is ``Embed``
-(num, dim); an LSTM cell's ``weight_ih`` and ``weight_hh`` (4H, in) are
-four flax kernels (in, H) of the same fans, one a gate.  The draws
+(out, in, k) is (k, in, out), a ``Conv2d`` (out, in, kh, kw) is
+(kh, kw, in, out); an ``Embedding`` (num, dim) is ``Embed`` (num, dim);
+an LSTM cell's ``weight_ih`` and ``weight_hh`` (4H, in) are four flax
+kernels (in, H) of the same fans, one a gate, and a GRU cell's (3H, in)
+three; GST's bias-free q/k/v are ``DenseGeneral`` kernels (in, H, dk).  The draws
 differ from JAX's, whose generator differs; the set of redrawn
 parameters and each one's distribution do not.
 
@@ -29,7 +31,10 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
+from .rnn import GRUCell
+from .style_encoder import StyleTokenLayer
 from .transformer import MultiHeadAttention
 
 __all__ = ["INIT_SCHEMES", "flax_shapes", "initialize_",
@@ -51,7 +56,7 @@ def flax_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """{parameter name: the shape of its leaf in the flax tree}."""
     heads = {}
     for path, mod in module.named_modules():
-        if isinstance(mod, MultiHeadAttention):
+        if isinstance(mod, (MultiHeadAttention, StyleTokenLayer)):
             hd = (mod.n_heads, mod.d_model // mod.n_heads)
             for child in ("q", "k", "v", "out"):
                 heads[f"{path}.{child}" if path else child] = (child, hd)
@@ -71,8 +76,11 @@ def flax_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
                     shape = (mod.in_features, mod.out_features)
             elif isinstance(mod, nn.Conv1d) and name == "weight":
                 shape = (shape[2], shape[1], shape[0])
-            elif isinstance(mod, nn.LSTMCell) and name != "bias_hh":
-                # one gate's flax kernel (in, H); the four share its fans
+            elif isinstance(mod, nn.Conv2d) and name == "weight":
+                shape = (shape[2], shape[3], shape[1], shape[0])
+            elif (isinstance(mod, (nn.LSTMCell, GRUCell))
+                  and name.startswith("weight")):
+                # one gate's flax kernel (in, H); the gates share its fans
                 shape = (shape[1], mod.hidden_size)
             shapes[f"{path}.{name}" if path else name] = shape
     return shapes
@@ -135,17 +143,19 @@ def init_flax_defaults_(module: nn.Module, gen: torch.Generator) -> None:
     lecun-normal input kernel, an orthogonal recurrent kernel and a zero
     bias."""
     for _, mod in module.named_modules():
-        if isinstance(mod, nn.LSTMCell):
+        if isinstance(mod, (nn.LSTMCell, GRUCell)):
             h, std = mod.hidden_size, math.sqrt(1.0 / mod.input_size)
-            for k in range(4):
+            for k in range(mod.weight_hh.shape[0] // h):
                 rows = slice(k * h, (k + 1) * h)
                 mod.weight_ih[rows] = _draw((h, mod.input_size),
                                             "truncated_normal",
                                             std / _TRUNC_STD, gen)
                 mod.weight_hh[rows] = nn.init.orthogonal_(
                     torch.empty(h, h), generator=gen)
-            mod.bias_hh.zero_()
-        elif isinstance(mod, (nn.Linear, nn.Conv1d)):
+            for name, p in mod.named_parameters(recurse=False):
+                if name.startswith("bias"):
+                    p.zero_()
+        elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             mod.weight.copy_(_draw(mod.weight.shape, "truncated_normal",
@@ -155,6 +165,6 @@ def init_flax_defaults_(module: nn.Module, gen: torch.Generator) -> None:
         elif isinstance(mod, nn.Embedding):
             mod.weight.copy_(_draw(mod.weight.shape, "normal",
                                    math.sqrt(1.0 / mod.embedding_dim), gen))
-        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+        elif isinstance(mod, (nn.LayerNorm, _BatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

@@ -10,6 +10,11 @@ by its path.  The compute dtype is the parameters' dtype
 As in flax, every forward takes ``deterministic`` (default True: no
 dropout) and, when it is False, the ``torch.Generator`` that the dropout
 masks are drawn from (``rng``); ``module.training`` plays no part.
+
+An autoregressive decode keeps each self-attention's keys and values in a
+``KVCache``: buffers (B, t_max, H, dk) allocated once, written a step at a
+time in place, so that every step of a decode unrolled in Python has
+static shapes and the whole loop may be captured in one CUDA graph.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from .flash import AUTO_FLASH_MIN_T
 
 __all__ = ["PositionalEncoding", "ScaledPositionalEncoding",
            "MultiHeadAttention", "PositionwiseFeedForward", "MultiLayerConv",
-           "EncoderLayer", "TransformerEncoder", "AUTO_FLASH_MIN_T"]
+           "EncoderLayer", "TransformerEncoder", "KVCache", "DecoderLayer",
+           "TransformerDecoder", "AUTO_FLASH_MIN_T"]
 
 _NEG_INF = -1e9
 _LN_EPS = 1e-6          # flax LayerNorm's default epsilon
@@ -51,9 +57,15 @@ class PositionalEncoding(nn.Module):
             self.alpha = nn.Parameter(torch.full((1,), float(init_alpha)))
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
-                rng=None) -> torch.Tensor:
-        pe = sinusoid_position_encoding(x.shape[1], self.d_model,
-                                        dtype=x.dtype, device=x.device)[None]
+                rng=None, start_pos: int = 0,
+                pe: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``pe``: the (1, T, d) rows of the table, when the caller holds
+        them (a decode loop slices one table made before the loop);
+        otherwise they are made here from ``start_pos``."""
+        if pe is None:
+            pe = sinusoid_position_encoding(
+                x.shape[1], self.d_model, start_pos=start_pos,
+                dtype=x.dtype, device=x.device)[None]
         if self.scaled:
             x = x + self.alpha.to(x.dtype) * pe
         else:
@@ -82,6 +94,13 @@ class MultiHeadAttention(nn.Module):
     raises ``ValueError``, unless the core sets ``dense_fallback`` (the
     'auto' core), which falls back to the dense path; a core that returns
     None also means the dense path.
+
+    ``kv``: the projected (K, V) heads of ``project_kv``, which a decode
+    loop computes once for its cross-attention.  ``cache``: a ``KVCache``
+    that this call's keys and values are written into at ``cache_index``;
+    the attention then runs over the cache (see ``KVCache.append``).  With
+    ``return_weights`` the call returns (output, attention weights
+    (B, H, Tq, Tk), after dropout, in the compute dtype).
     """
 
     def __init__(self, n_heads: int, d_model: int, dropout_rate: float = 0.0,
@@ -96,17 +115,32 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(d_model, d_model)
         self.attn_dropout = Dropout(dropout_rate)
 
+    def project_kv(self, key, value):
+        """The projected (K, V) heads (B, Tk, H, dk) of ``key`` and
+        ``value``."""
+        b, tk, _ = key.shape
+        h = self.n_heads
+        dk = self.d_model // h
+        return (self.k(key).view(b, tk, h, dk),
+                self.v(value).view(b, tk, h, dk))
+
     def forward(self, query, key, value, mask=None, *,
-                deterministic: bool = True, rng=None) -> torch.Tensor:
+                deterministic: bool = True, rng=None, kv=None,
+                cache: Optional["KVCache"] = None, cache_index: int = 0,
+                return_weights: bool = False):
         b, tq, _ = query.shape
-        tk = key.shape[1]
         h = self.n_heads
         dk = self.d_model // h
         q = self.q(query).view(b, tq, h, dk)
-        k = self.k(key).view(b, tk, h, dk)
-        v = self.v(value).view(b, tk, h, dk)
-        if self.attn_core is not None:
-            auto = getattr(self.attn_core, "dense_fallback", False)
+        k, v = kv if kv is not None else self.project_kv(key, value)
+        core = self.attn_core
+        auto = getattr(core, "dense_fallback", False)
+        if cache is not None:
+            if core is not None and not auto:
+                raise ValueError("attn_core does not support KV caches")
+            core = None                 # 'auto' decodes on the dense path
+            k, v = cache.append(cache_index, k, v)
+        if core is not None:
             if self.dropout_rate > 0.0 and not deterministic:
                 if not auto:
                     raise ValueError(
@@ -115,10 +149,12 @@ class MultiHeadAttention(nn.Module):
                         "core would silently lose regularization (set the "
                         "rate to 0 or train with the dense path)")
             else:
-                core_out = self.attn_core(q, k, v, mask)
+                core_out = core(q, k, v, mask)
                 if core_out is not None:
-                    return self.out(core_out.to(query.dtype).reshape(
+                    out = self.out(core_out.to(query.dtype).reshape(
                         b, tq, self.d_model))
+                    # a core keeps no weights, as in the JAX package
+                    return (out, None) if return_weights else out
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         scores = scores / math.sqrt(dk)
         if mask is not None:
@@ -128,7 +164,8 @@ class MultiHeadAttention(nn.Module):
         attn = torch.softmax(scores, dim=-1).to(query.dtype)
         attn = self.attn_dropout(attn, deterministic=deterministic, rng=rng)
         out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), v.float())
-        return self.out(out.to(query.dtype).reshape(b, tq, self.d_model))
+        out = self.out(out.to(query.dtype).reshape(b, tq, self.d_model))
+        return (out, attn) if return_weights else out
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -207,12 +244,18 @@ class EncoderLayer(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, mask=None, *, deterministic: bool = True,
-                rng=None):
+                rng=None, return_weights: bool = False):
+        """(B, T, d), or with ``return_weights`` ((B, T, d), the
+        self-attention's weights (B, H, T, T))."""
         kw = dict(deterministic=deterministic, rng=rng)
         residual = x
         if self.normalize_before:
             x = self.norm1(x)
-        x = residual + self.dropout(self.self_attn(x, x, x, mask, **kw), **kw)
+        attn_out = self.self_attn(x, x, x, mask, return_weights=return_weights,
+                                  **kw)
+        if return_weights:
+            attn_out, weights = attn_out
+        x = residual + self.dropout(attn_out, **kw)
         if not self.normalize_before:
             x = self.norm1(x)
         residual = x
@@ -222,7 +265,7 @@ class EncoderLayer(nn.Module):
                                     **kw)
         if not self.normalize_before:
             x = self.norm2(x)
-        return x
+        return (x, weights) if return_weights else x
 
 
 class TransformerEncoder(nn.Module):
@@ -265,7 +308,9 @@ class TransformerEncoder(nn.Module):
             self.after_norm = _layer_norm(d_model)
 
     def forward(self, xs, mask=None, *, deterministic: bool = True,
-                rng=None):
+                rng=None, return_attns: bool = False):
+        """(B, T, d), or with ``return_attns`` ((B, T, d), the layers'
+        self-attention weights stacked (L, B, H, T, T))."""
         kw = dict(deterministic=deterministic, rng=rng)
         if self.input_layer == "embed":
             emb = self.embed(xs)
@@ -273,8 +318,165 @@ class TransformerEncoder(nn.Module):
         else:
             x = xs
         x = self.pos_enc(x, **kw)
+        attns = []
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, mask, **kw)
+            x = getattr(self, f"layer_{i}")(x, mask, return_weights=return_attns,
+                                            **kw)
+            if return_attns:
+                x, attn = x
+                attns.append(attn)
         if self.normalize_before:
             x = self.after_norm(x)
-        return x
+        return (x, torch.stack(attns)) if return_attns else x
+
+
+class KVCache:
+    """One self-attention's keys and values during an autoregressive
+    decode: (B, t_max, H, dk) buffers, zero until written.
+
+    ``append`` writes a call's rows at ``index`` in place and returns the
+    rows written so far, ``[:index + n]``: each step's shape differs,
+    which the port's decode loop, unrolled in Python, allows.  The JAX
+    package's scan needs one shape for every step and attends over the
+    whole buffer masked to the written rows; both give the same values up
+    to the order of the sums (a masked score's weight is exactly 0).
+    """
+
+    def __init__(self, batch: int, t_max: int, heads: int, dk: int,
+                 dtype: torch.dtype, device):
+        self.k = torch.zeros((batch, t_max, heads, dk), dtype=dtype,
+                             device=device)
+        self.v = torch.zeros_like(self.k)
+
+    def append(self, index: int, k: torch.Tensor, v: torch.Tensor):
+        n = k.shape[1]
+        self.k[:, index:index + n] = k.to(self.k.dtype)
+        self.v[:, index:index + n] = v.to(self.v.dtype)
+        return self.k[:, :index + n], self.v[:, :index + n]
+
+
+class DecoderLayer(nn.Module):
+    """Masked self-attention, cross-attention over the encoder memory and
+    a linear feed-forward block, pre- or post-LN, dropout on each residual
+    branch.  Submodules keep the flax names: ``norm1``-``norm3``,
+    ``self_attn``, ``src_attn``, ``ff``."""
+
+    def __init__(self, d_model: int, n_heads: int, units: int,
+                 dropout_rate: float = 0.1, attn_dropout_rate: float = 0.0,
+                 src_attn_dropout_rate: Optional[float] = None,
+                 normalize_before: bool = True, concat_after: bool = False):
+        super().__init__()
+        if concat_after:
+            raise NotImplementedError("concat_after=True is not ported yet")
+        self.normalize_before = normalize_before
+        self.norm1 = _layer_norm(d_model)
+        self.norm2 = _layer_norm(d_model)
+        self.norm3 = _layer_norm(d_model)
+        self.self_attn = MultiHeadAttention(n_heads, d_model,
+                                            attn_dropout_rate)
+        self.src_attn = MultiHeadAttention(
+            n_heads, d_model, attn_dropout_rate
+            if src_attn_dropout_rate is None else src_attn_dropout_rate)
+        self.ff = PositionwiseFeedForward(units, d_model, dropout_rate)
+        self.dropout = Dropout(dropout_rate)
+
+    def cross_kv(self, memory):
+        """This layer's projected cross-attention (K, V) over ``memory``,
+        the same at every step of a decode."""
+        return self.src_attn.project_kv(memory, memory)
+
+    def _residual(self, x, norm, fn, kw):
+        """x + dropout(fn(norm(x))) (pre-LN) or norm(x + dropout(fn(x)));
+        returns (new x, whatever else fn returned)."""
+        y = norm(x) if self.normalize_before else x
+        out, extra = fn(y)
+        x = x + self.dropout(out, **kw)
+        return (x if self.normalize_before else norm(x)), extra
+
+    def forward(self, x, memory, self_mask=None, cross_mask=None, *,
+                deterministic: bool = True, rng=None,
+                cache: Optional[KVCache] = None, cache_index: int = 0,
+                cross_kv=None):
+        """Returns (x (B, Tq, d), (self-attention weights, cross-attention
+        weights))."""
+        kw = dict(deterministic=deterministic, rng=rng)
+        x, sa_w = self._residual(x, self.norm1, lambda y: self.self_attn(
+            y, y, y, self_mask, cache=cache, cache_index=cache_index,
+            return_weights=True, **kw), kw)
+        x, ca_w = self._residual(x, self.norm2, lambda y: self.src_attn(
+            y, memory, memory, cross_mask, kv=cross_kv, return_weights=True,
+            **kw), kw)
+        x, _ = self._residual(x, self.norm3,
+                              lambda y: (self.ff(y, **kw), None), kw)
+        return x, (sa_w, ca_w)
+
+
+class TransformerDecoder(nn.Module):
+    """Decoder stack over inputs already ``d_model`` wide (the JAX
+    package's "linear" input layer is not ported yet).
+
+    ``forward`` returns (hs, self-attention weights (L, B, H, Tq, Tk),
+    cross-attention weights (L, B, H, Tq, T_enc)).  For one decode step,
+    pass ``caches`` (a ``KVCache`` a layer, from ``new_caches``), the
+    step's position ``start_pos``, ``cross_kvs`` from
+    ``precompute_cross_kv`` and the positional rows ``pos_pe``.
+    """
+
+    def __init__(self, d_model: int = 384, n_heads: int = 4,
+                 units: int = 1536, num_layers: int = 6,
+                 dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 attn_dropout_rate: float = 0.0,
+                 src_attn_dropout_rate: Optional[float] = None,
+                 use_scaled_pos_enc: bool = True, init_alpha: float = 1.0,
+                 normalize_before: bool = True, concat_after: bool = False,
+                 input_layer: Optional[str] = None):
+        super().__init__()
+        if input_layer is not None:
+            raise NotImplementedError(
+                f"input_layer={input_layer!r} is not ported yet")
+        self.d_model, self.n_heads = d_model, n_heads
+        self.num_layers = num_layers
+        self.normalize_before = normalize_before
+        self.pos_enc = PositionalEncoding(d_model, positional_dropout_rate,
+                                          scaled=use_scaled_pos_enc,
+                                          init_alpha=init_alpha)
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", DecoderLayer(
+                d_model, n_heads, units, dropout_rate, attn_dropout_rate,
+                src_attn_dropout_rate, normalize_before, concat_after))
+        if normalize_before:
+            self.after_norm = _layer_norm(d_model)
+
+    def layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def precompute_cross_kv(self, memory):
+        """Each layer's cross-attention (K, V) over ``memory``: what a
+        decode loop computes once, before its first step."""
+        return [layer.cross_kv(memory) for layer in self.layers()]
+
+    def new_caches(self, batch: int, t_max: int, dtype, device):
+        """One empty ``KVCache`` a layer for a decode of ``t_max``
+        steps."""
+        dk = self.d_model // self.n_heads
+        return [KVCache(batch, t_max, self.n_heads, dk, dtype, device)
+                for _ in range(self.num_layers)]
+
+    def forward(self, xs, memory, self_mask=None, cross_mask=None, *,
+                deterministic: bool = True, rng=None, caches=None,
+                start_pos: int = 0, cross_kvs=None, pos_pe=None):
+        kw = dict(deterministic=deterministic, rng=rng)
+        x = self.pos_enc(xs, start_pos=start_pos, pe=pos_pe, **kw)
+        self_attns, cross_attns = [], []
+        for i, layer in enumerate(self.layers()):
+            x, (sa, ca) = layer(
+                x, memory, self_mask, cross_mask,
+                cache=None if caches is None else caches[i],
+                cache_index=start_pos,
+                cross_kv=None if cross_kvs is None else cross_kvs[i], **kw)
+            self_attns.append(sa)
+            cross_attns.append(ca)
+        if self.normalize_before:
+            x = self.after_norm(x)
+        return x, torch.stack(self_attns), torch.stack(cross_attns)

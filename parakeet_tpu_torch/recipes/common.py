@@ -1,6 +1,7 @@
-"""What the acoustic-model recipes' CLIs share: their common flags, the
+"""What the recipes' CLIs share: the acoustic models' common flags, the
 line count of an id map, and the run of a ``Trainer`` with an evaluator
-and a snapshot every epoch under the bitwise-resume setting."""
+and snapshots (every epoch, or at the intervals the caller gives) under
+the bitwise-resume setting."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -32,11 +33,14 @@ def add_recipe_args(parser) -> None:
 
 
 def run_trainer(cfg, train_step, eval_step, state, train_dl, dev_dl,
-                device, output_dir) -> Trainer:
-    """Train ``cfg.max_epoch`` epochs, with the evaluator on ``dev_dl``
-    and a snapshot (``num_snapshots`` kept) every epoch, resuming from
-    the newest snapshot in ``output_dir``; returns the finished
-    ``Trainer``.
+                device, output_dir, *, stop=None, eval_trigger=(1, "epoch"),
+                save_trigger=(1, "epoch"), log_interval: int = 1
+                ) -> Trainer:
+    """Train until ``stop`` (default ``cfg.max_epoch`` epochs), with the
+    evaluator on ``dev_dl`` at ``eval_trigger`` and a snapshot
+    (``num_snapshots`` kept) at ``save_trigger``, every epoch by default,
+    resuming from the newest snapshot in ``output_dir``; returns the
+    finished ``Trainer``.
 
     A resumed run equals a straight one bit for bit only under
     ``deterministic_training`` (deterministic algorithms, cuDNN off;
@@ -50,10 +54,11 @@ def run_trainer(cfg, train_step, eval_step, state, train_dl, dev_dl,
         return eval_step(st, to_device_batch(batch, device))
 
     trainer = Trainer(StandardUpdater(step, state, train_dl),
-                      (cfg.max_epoch, "epoch"), out=output_dir, config=cfg)
-    trainer.extend(StandardEvaluator(evaluate, dev_dl), trigger=(1, "epoch"))
+                      stop or (cfg.max_epoch, "epoch"), out=output_dir,
+                      log_interval=log_interval, config=cfg)
+    trainer.extend(StandardEvaluator(evaluate, dev_dl), trigger=eval_trigger)
     trainer.extend(Snapshot(max_size=cfg.get("num_snapshots", 5)),
-                   trigger=(1, "epoch"), priority=-100)
+                   trigger=save_trigger, priority=-100)
     with deterministic_training():
         trainer.run()
     return trainer

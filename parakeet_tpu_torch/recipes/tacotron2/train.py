@@ -32,8 +32,8 @@ import argparse
 import numpy as np
 import torch
 
-from ...data import BatchSampler, DataLoader, DataTable
-from ...data.batch import batch_sequences, bucket_length
+from ...data import (BatchSampler, DataLoader, DataTable,
+                     transformer_tts_batch_fn)
 from ...models import (Tacotron2, init_tacotron2_,
                        init_tacotron2_train_state, make_tacotron2_eval_step,
                        make_tacotron2_train_step)
@@ -47,27 +47,11 @@ __all__ = ["main", "tacotron2_batch_fn", "build_dataloader", "build_model"]
 
 def tacotron2_batch_fn(examples, text_bucket: int = 16,
                        frame_bucket: int = 64):
-    """Tacotron2 training batch (the JAX recipe's own): text padded to a
-    multiple of ``text_bucket``, speech (T, n_mels) to one of
-    ``frame_bucket``, with zeros; text_lengths, speech_lengths, and
-    spk_emb stacked when the rows have it."""
-    text_len = bucket_length(
-        max(len(np.asarray(x["text"])) for x in examples), text_bucket)
-    frame_len = bucket_length(
-        max(np.asarray(x["speech"]).shape[0] for x in examples),
-        frame_bucket)
-    batch = {
-        "text": batch_sequences(
-            [np.asarray(x["text"], np.int64) for x in examples],
-            length=text_len),
-        "text_lengths": np.array(
-            [len(np.asarray(x["text"])) for x in examples], np.int64),
-        "speech": batch_sequences(
-            [np.asarray(x["speech"], np.float32) for x in examples],
-            length=frame_len),
-        "speech_lengths": np.array(
-            [np.asarray(x["speech"]).shape[0] for x in examples], np.int64),
-    }
+    """Tacotron2 training batch (the JAX recipe's own):
+    ``transformer_tts_batch_fn`` (text padded to a multiple of
+    ``text_bucket``, speech to one of ``frame_bucket``, with zeros, and
+    their lengths), with spk_emb stacked when the rows have it."""
+    batch = transformer_tts_batch_fn(examples, text_bucket, frame_bucket)
     if "spk_emb" in examples[0]:
         batch["spk_emb"] = np.stack(
             [np.asarray(x["spk_emb"], np.float32) for x in examples])

@@ -1,6 +1,7 @@
 """FLOPs and MFU accounting of the port's benchmarks (counterpart of
-``parakeet_tpu/utils/flops.py``: ``chip_peak_flops``, ``mfu_stats`` and
-``fs2_pwg_synthesis_flops``).
+``parakeet_tpu/utils/flops.py``: ``chip_peak_flops``, ``mfu_stats``,
+``fs2_pwg_synthesis_flops`` and the analytic counts of the loops,
+``waveflow_sampler_flops`` and ``ar_decode_step_flops``).
 
 The JAX package takes its FLOP count from XLA's cost model; the port
 counts the products and convolutions of one eager call with
@@ -27,7 +28,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..models.parallel_wavegan import ResidualStack, edge_pad
 from ..nn.transformer import MultiHeadAttention
 
-__all__ = ["chip_peak_flops", "mfu_stats", "fs2_pwg_synthesis_flops"]
+__all__ = ["chip_peak_flops", "mfu_stats", "fs2_pwg_synthesis_flops",
+           "waveflow_sampler_flops", "ar_decode_step_flops"]
 
 # NVIDIA's data sheet: dense bf16 tensor-core FLOP/s of the H100 SXM
 # (700 W), by its full ``torch.cuda.get_device_name()``; the PCIe and NVL
@@ -95,3 +97,31 @@ def fs2_pwg_synthesis_flops(fs2, pwg, text: torch.Tensor,
                             min_duration=min_duration)
         pwg(noise, edge_pad(out["after_outs"], pwg.aux_context_window))
     return float(counter.get_total_flops())
+
+
+def waveflow_sampler_flops(t_samples: int, *, n_flows: int = 8,
+                           n_layers: int = 8, n_group: int = 16,
+                           channels: int = 128, mel_bands: int = 80,
+                           kernel_size=(3, 3)) -> float:
+    """FLOPs of the WaveFlow sampler (``Flow.inverse``) at ``t_samples``:
+    (n_group - 1) rows a flow, each pushing one (W, kh C) row through
+    every layer's kw tap products, its conditioning and output
+    projections, then the skips through the flow's output projection
+    (the JAX package's count, copied)."""
+    w = t_samples // n_group
+    kh, kw = kernel_size
+    c2 = 2 * channels
+    per_layer = (kw * w * (kh * channels) * c2     # tap products
+                 + w * mel_bands * c2              # conditioning 1x1
+                 + w * channels * c2)              # out projection
+    per_row = n_layers * per_layer + w * channels * 2   # + skips @ okern
+    return 2.0 * per_row * (n_group - 1) * n_flows
+
+
+def ar_decode_step_flops(modules, attn_context_flops: float = 0.0) -> float:
+    """FLOPs of one step of a batch-1 autoregressive decode: each weight
+    of the step's ``modules`` takes part in one product of a vector
+    (2 FLOPs an element), plus the attention context terms, which grow
+    with the attended length (``attn_context_flops``)."""
+    n = sum(p.numel() for m in modules for p in m.parameters())
+    return 2.0 * n + attn_context_flops

@@ -40,7 +40,14 @@ def test_port_imports_no_jax_and_no_yaml():
             "parakeet_tpu_torch.training.extensions.snapshot",
             "parakeet_tpu_torch.data.dataloader",
             "parakeet_tpu_torch.recipes.pwgan.train",
-            "parakeet_tpu_torch.benchmarks.train_pwgan"} <= names
+            "parakeet_tpu_torch.benchmarks.train_pwgan",
+            "parakeet_tpu_torch.models.transformer_tts",
+            "parakeet_tpu_torch.models.waveflow",
+            "parakeet_tpu_torch.nn.style_encoder",
+            "parakeet_tpu_torch.recipes.transformer_tts.train",
+            "parakeet_tpu_torch.recipes.waveflow.train",
+            "parakeet_tpu_torch.benchmarks.waveflow_rtf",
+            "parakeet_tpu_torch.benchmarks.ar_decode"} <= names
     assert loaded == "[]", f"the port pulled in {loaded}"
 
 
@@ -81,6 +88,31 @@ def test_chip_smoke_configs_are_the_recipes():
                                 if k not in skip}
     assert smoke.ODIM == fs2["n_mels"] == pwg["n_mels"]
     assert smoke.SAMPLE_RATE == fs2["fs"] == pwg["fs"]
+    # phases 15 and 16: the TransformerTTS and WaveFlow recipes' YAMLs,
+    # whose model sections the benches they run build
+    from parakeet_tpu_torch.benchmarks import common
+    tts = yaml.safe_load((REPO / smoke.TT_RECIPE_CONF).read_text())
+    wf = yaml.safe_load((REPO / smoke.WF_RECIPE_CONF).read_text())
+    assert smoke.TT_RECIPE_CONF == "recipes/transformer_tts/conf/default.yaml"
+    assert smoke.WF_RECIPE_CONF == "recipes/waveflow/conf/default.yaml"
+    assert common.TRANSFORMER_TTS_CONFIG == {
+        k: v for k, v in tts["model"].items()
+        if k not in ("init_type", "reduction_factor")}
+    assert common.WAVEFLOW_CONFIG == {
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in wf["model"].items()}
+    assert smoke.ODIM == tts["n_mels"] == wf["n_mels"]
+    # two steps an epoch at the YAMLs' batches, one eval batch at least
+    for splits, cfg in ((smoke.TT_RECIPE_SPLITS, tts),
+                        (smoke.WF_RECIPE_SPLITS, wf)):
+        assert splits["train"] == 2 * cfg["batch_size"]
+        assert splits["dev"] >= min(cfg["batch_size"], 8)
+    # the WaveFlow clips fit in every utterance, and the iteration-based
+    # run resumes at an epoch's end, on a snapshot it wrote
+    assert smoke.WF_RECIPE_FRAMES[0] > wf["clip_frames"]
+    opts = dict(zip(smoke.WF_RECIPE_OPTS[::2], smoke.WF_RECIPE_OPTS[1::2]))
+    assert smoke.WF_RECIPE_ITERS == 2 == int(opts["save_interval"])
+    assert smoke.WF_RECIPE_RESUME_ITERS % int(opts["valid_interval"]) == 0
 
 
 def test_chip_smoke_training_slice_is_the_pwgan_recipe():
