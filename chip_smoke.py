@@ -160,7 +160,25 @@ Phases, one line each (the checks raise; nothing is caught):
    one CUDA graph bitwise eager, bf16 against float32 in relative L2;
    the bf16 sampler's products against float64 products at their shapes
    (float32 sums); then the training bench's TransformerTTS and WaveFlow
-   legs, with PyTorch's defaults and deterministic.
+   legs, with PyTorch's defaults and deterministic;
+17. GE2E at the JAX bench's widths (64 speakers x 10 utterances x 160
+   frames x 40 mels, 3 x 256 LSTM, a 256-wide embedding): one train step
+   on the card against the port's CPU step from the same weights and
+   batch (the loss, every gradient after the (w, b) scaling, every
+   parameter after Adam, within stated float32 tolerances), the recipe's
+   CLI (``parakeet_tpu_torch.recipes.ge2e.train.main``) for 4 iterations
+   on a seeded tree of 640 mels with a snapshot, its ``inference.py``
+   over the tree (unit norms; one embedding against the CPU's), and
+   ``benchmarks/ge2e_train.py``'s ``ge2e_train_avg_ips``;
+18. voice cloning through ``recipes/tacotron2_aishell3/voice_cloning.py``
+   at the YAMLs' widths with random weights (GE2E's defaults, the
+   aishell3 Tacotron2, WaveFlow): a seeded formant reference wav, two
+   sentences of pinyin at 1,000 decoder steps, the Tacotron2 program one
+   CUDA graph bitwise its eager program, WaveFlow eager, each wav finite
+   with frames x 256 samples, the reference's embedding against the
+   CPU's, the parts' times and the RTF; then the aishell3 recipe's CLI
+   at its YAML's widths and batch 32 (1 epoch of 2 steps, resumed to 2,
+   against 2 straight, bitwise).
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
@@ -185,6 +203,8 @@ checkout (the parent commit, unpacked with ``git archive`` into DIR) on
 the same inputs, in turns: parent, change, change, parent.
 """
 import argparse
+import contextlib
+import io
 import json
 import math
 import pathlib
@@ -472,6 +492,45 @@ WAVEFLOW_BF16_REL_L2 = 2 ** -5
 # products of the same bf16 values: float32 sums are ~1e-6 of the range
 # off, a bf16 result up to 2^-9
 WAVEFLOW_ACCUM_REL = 1e-4
+# phase 17: GE2E at the JAX bench's widths (64 speakers x 10 utterances x
+# 160 frames x 40 mels, 3 x 256 LSTM, a 256-wide embedding, Adam 1e-4):
+# one step on the card against the port's CPU step on the same batch and
+# weights (losses within 1e-5 relative; each gradient within 1e-4
+# relative L2 of its leaf's; after Adam, an element whose gradient is at
+# least 1e-3 of its leaf's largest within 1e-2 lr of the CPU's; the others,
+# and b, whose gradient is rounding noise since b adds to every logit, are
+# not held: Adam's first step moves each by about lr times the sign of its
+# gradient, whatever its size), then the recipe's CLI for 4 iterations on a seeded tree of 64
+# speakers x 10 utterances of 160-300 frames with a snapshot at 4, its
+# inference over the tree, and the bench over 5 iterations
+GE2E_SPEAKERS, GE2E_UTTS, GE2E_FRAMES, GE2E_MELS = 64, 10, 160, 40
+GE2E_LR = 1e-4
+GE2E_TREE_FRAMES = (160, 300)
+GE2E_ITERS = 4
+GE2E_BENCH_ITERS = 5
+GE2E_LOSS_RTOL, GE2E_GRAD_REL_L2, GE2E_SURE, GE2E_MOVE_TOL = (
+    1e-5, 1e-4, 1e-3, 1e-2)
+# phase 18: voice cloning at the YAMLs' widths (GE2E's defaults,
+# recipes/tacotron2_aishell3/conf/default.yaml's Tacotron2,
+# recipes/waveflow/conf/default.yaml's WaveFlow), random weights: two
+# sentences of pinyin through the CLI at its defaults (text padded to 128,
+# 1,000 decoder steps), then the aishell3 recipe at its YAML's widths and
+# batch 32 on a seeded dump (64 train utterances: two steps an epoch; 16
+# dev) of 120-200 frames and 30-60 phones: 1 epoch resumed to 2 against 2
+VC_RECIPE_CONF = "recipes/tacotron2_aishell3/conf/default.yaml"
+VC_SENTENCES = (
+    "vc_0001 jin1 tian1 tian1 qi4 hen3 hao3 wo3 men5 yi4 qi3 qu4 gong1 "
+    "yuan2 san4 bu4 ba5",
+    "vc_0002 zhe4 shi4 yi2 ge4 yong4 lai2 ce4 shi4 sheng1 yin1 ke4 long2 "
+    "de5 ju4 zi5 qing3 ren4 zhen1 ting1")
+# the reference speaker: a formant utterance of ~1.9 s at 16 kHz (two
+# partial windows of 160 frames)
+VC_REF_PHONES = [("sil", 0.1), ("a", 0.3), ("i", 0.25), ("s", 0.15),
+                 ("u", 0.3), ("e", 0.25), ("sh", 0.15), ("o", 0.3),
+                 ("sil", 0.1)]
+VC_RECIPE_SPLITS = {"train": 64, "dev": 16}
+VC_RECIPE_FRAMES, VC_RECIPE_PHONES = (120, 200), (30, 60)
+VC_RECIPE_EPOCHS, VC_RECIPE_RESUME_EPOCHS = 1, 2
 # NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
 # FLOP/s by operand type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2539,6 +2598,242 @@ def phase_am_bench(models):
               for r in recs))
 
 
+def phase_ge2e():
+    """Phase 17: GE2E at the JAX bench's widths: one step on the card
+    against the CPU's, the recipe's CLI on a seeded tree with a snapshot,
+    its inference over the tree, then the bench."""
+    import shutil
+    from parakeet_tpu_torch.benchmarks import ge2e_train
+    from parakeet_tpu_torch.benchmarks.common import card
+    from parakeet_tpu_torch.recipes.ge2e import inference, train
+    from parakeet_tpu_torch.recipes.ge2e.dump import write_synthetic_mels
+    name, limit = card(torch.device("cuda"))
+    ge2e_step_against_cpu(name, limit)
+    out = pathlib.Path("build") / "chip_smoke_ge2e"
+    shutil.rmtree(out, ignore_errors=True)
+    root = write_synthetic_mels(out / "mels", seed=SEED + 20,
+                                speakers=GE2E_SPEAKERS, utterances=GE2E_UTTS,
+                                frames=GE2E_TREE_FRAMES, n_mels=GE2E_MELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = train.main([
+        "--data-root", str(root), "--output-dir", str(out / "exp"),
+        "--max-iteration", str(GE2E_ITERS), "--save-interval",
+        str(GE2E_ITERS)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    snap = out / "exp" / "checkpoints" / f"snapshot_iter_{GE2E_ITERS}.npz"
+    if not (state.step == GE2E_ITERS and snap.exists() and all(
+            math.isfinite(float(v)) for v in metrics.values())):
+        raise AssertionError(f"ge2e recipe: step {state.step}, {metrics}, "
+                             f"snapshot {snap.exists()}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):     # a line a file
+        embeds = inference.main(["--checkpoint", str(snap), "--input",
+                                 str(root), "--output", str(out / "embeds")])
+    infer_s = time.perf_counter() - t0
+    norms = np.array([np.linalg.norm(e) for e in embeds.values()])
+    first = sorted(root.rglob("*.npy"))[0]
+    cpu_model = inference.load_encoder(snap, torch.device("cpu"),
+                                       n_mels=GE2E_MELS)
+    from parakeet_tpu_torch.models import embed_utterance
+    err = float(np.abs(embed_utterance(cpu_model, np.load(first)) - embeds[
+        str(first.relative_to(root))]).max())
+    if not (len(embeds) == GE2E_SPEAKERS * GE2E_UTTS
+            and np.allclose(norms, 1.0, atol=1e-5) and err <= 1e-5):
+        raise AssertionError(f"ge2e inference: {len(embeds)} embeddings, "
+                             f"norms {norms.min()}-{norms.max()}, against "
+                             f"the CPU {err}")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"ge2e recipe ({name}, {limit}): {GE2E_ITERS} iterations of "
+          f"{GE2E_SPEAKERS} x {GE2E_UTTS} x {GE2E_FRAMES} frames in "
+          f"{train_s:.2f} s with the model's set-up, the snapshot and the "
+          f"host's loading of {GE2E_SPEAKERS * GE2E_UTTS} mels a batch "
+          f"(host clock); last loss {float(metrics['loss']):.6g}, accuracy "
+          f"{float(metrics['accuracy']):.6g}; inference over the tree's "
+          f"{len(embeds)} utterances in {infer_s:.2f} s "
+          f"({1e3 * infer_s / len(embeds):.2f} ms an utterance with its "
+          f"files), unit norms, the first against the CPU's {err:.3g} "
+          "(tol 1e-5)")
+    rec = ge2e_train.main(["--iters", str(GE2E_BENCH_ITERS)])
+    if not rec["value"] > 0:
+        raise AssertionError(f"ge2e_train: {rec}")
+    print(f"ge2e_train ({rec['device']}, {rec['power_limit']}; "
+          f"{rec['speakers']} x {rec['utts_per_speaker']} x {rec['frames']} "
+          f"x {rec['n_mels']}, float32, {GE2E_BENCH_ITERS} iterations): "
+          f"ge2e_train_avg_ips {rec['value']:.4f} utterances/s, "
+          f"{rec['ms_per_step']:.3f} ms a step, "
+          f"{rec['flops_per_step'] / 1e12:.4f} TFLOP a step, "
+          f"{rec['achieved_tflops']:.4f} TFLOP/s, MFU "
+          + ("not stated for this card" if rec["mfu_pct"] is None else
+             f"{rec['mfu_pct']:.4f}% of the bf16 peak"))
+
+
+def ge2e_step_against_cpu(name, limit):
+    """One GE2E step at full width on the card and on the CPU from the same
+    weights and batch: the losses, the gradients (after the (w, b)
+    scaling) and the parameters after Adam, within the GE2E_* tolerances
+    (see the constants)."""
+    from parakeet_tpu_torch.models import (LSTMSpeakerEncoder,
+                                           init_ge2e_train_state,
+                                           make_ge2e_train_step)
+    from parakeet_tpu_torch.nn.initializer import init_flax_defaults_
+    from parakeet_tpu_torch.training import build_optimizer
+    x = torch.from_numpy(np.random.default_rng(SEED + 19).standard_normal(
+        (GE2E_SPEAKERS * GE2E_UTTS, GE2E_FRAMES, GE2E_MELS)).astype(
+            np.float32))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = LSTMSpeakerEncoder(n_mels=GE2E_MELS)
+        init_flax_defaults_(model, torch.Generator().manual_seed(SEED + 19))
+        model.to(device)
+        opt = build_optimizer(model.parameters(), "adam", GE2E_LR)
+        step = make_ge2e_train_step(model, opt, GE2E_SPEAKERS)
+        state = init_ge2e_train_state(model, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, {"utterances": x.to(device)})
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        runs[device] = (loss, 1e3 * (time.perf_counter() - t0), {
+            n: (p.detach().cpu(), p.grad.detach().cpu())
+            for n, p in model.named_parameters()})
+    (cpu_loss, cpu_ms, cpu), (loss, ms, card_) = runs["cpu"], runs["cuda"]
+    if not (math.isfinite(loss)
+            and abs(loss - cpu_loss) <= GE2E_LOSS_RTOL * abs(cpu_loss)):
+        raise AssertionError(f"ge2e step: loss {loss} on the card, "
+                             f"{cpu_loss} on the CPU")
+    worst_g = worst_p = 0.0
+    for n, (p_cpu, g_cpu) in cpu.items():
+        p, g = card_[n]
+        if n == "similarity_bias":
+            continue
+        rel = ((g.double() - g_cpu.double()).norm()
+               / max(g_cpu.double().norm().item(), 1e-30)).item()
+        sure = g_cpu.abs() >= GE2E_SURE * g_cpu.abs().max()
+        diff = (p - p_cpu).abs()
+        err = diff[sure].max().item()
+        if not (rel <= GE2E_GRAD_REL_L2 and err <= GE2E_MOVE_TOL * GE2E_LR):
+            raise AssertionError(f"ge2e step {n}: gradient relative L2 "
+                                 f"{rel}, parameter error {err}")
+        worst_g, worst_p = max(worst_g, rel), max(worst_p, err)
+    print(f"ge2e step ({name}, {limit}; {GE2E_SPEAKERS} x {GE2E_UTTS} x "
+          f"{GE2E_FRAMES} x {GE2E_MELS}, 3 x 256 LSTM, float32, TF32 off): "
+          f"loss {loss:.7g} on the card, {cpu_loss:.7g} on the CPU; worst "
+          f"gradient relative L2 {worst_g:.3g} (tol {GE2E_GRAD_REL_L2}), "
+          f"worst parameter error after Adam {worst_p:.3g} (tol "
+          f"{GE2E_MOVE_TOL * GE2E_LR:.3g}; b not held); the "
+          f"first step {ms:.1f} ms on the card (cuDNN's plans and the "
+          f"allocator's first use included), {cpu_ms:.1f} ms on the CPU "
+          "(host clock)")
+
+
+def phase_voice_cloning():
+    """Phase 18: voice cloning through the CLI at the YAMLs' widths with
+    random weights (the reference embedded on the card and on the CPU, the
+    Tacotron2 graph held bitwise to its eager program, timed parts and
+    RTF), then the aishell3 recipe resumed against straight."""
+    import shutil
+    from parakeet_tpu_torch.audio import save_wav
+    from parakeet_tpu_torch.audio.synthetic import formant_utterance
+    from parakeet_tpu_torch.benchmarks.common import (WAVEFLOW_CONFIG, card,
+                                                      seeded_waveflow)
+    from parakeet_tpu_torch.bridge import flax_arrays
+    from parakeet_tpu_torch.frontend import Vocab, generate_lexicon
+    from parakeet_tpu_torch.models import LSTMSpeakerEncoder
+    from parakeet_tpu_torch.nn.initializer import init_flax_defaults_
+    from parakeet_tpu_torch.recipes.tacotron2 import train as t2_train
+    from parakeet_tpu_torch.recipes.tacotron2_aishell3 import voice_cloning
+    from parakeet_tpu_torch.recipes.tacotron2_aishell3.dump import \
+        write_synthetic_dump
+    from parakeet_tpu_torch.training import Config, save_pytree
+    name, limit = card(torch.device("cuda"))
+    out = pathlib.Path("build") / "chip_smoke_voice_cloning"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    ge2e = LSTMSpeakerEncoder()
+    init_flax_defaults_(ge2e, gen)
+    save_pytree(out / "ge2e.npz", flax_arrays(ge2e))
+    lexicon = generate_lexicon(with_tone=True, with_erhua=True)
+    vocab = Vocab(sorted({p for v in lexicon.values() for p in v.split()}))
+    (out / "phone_id_map.txt").write_text(
+        "".join(f"{sym} {i}\n" for sym, i in vocab.stoi.items()))
+    t2 = t2_train.build_model(Config.from_yaml(VC_RECIPE_CONF), len(vocab))
+    save_pytree(out / "t2.npz", flax_arrays(t2))
+    save_pytree(out / "wf.npz", flax_arrays(seeded_waveflow(WAVEFLOW_CONFIG,
+                                                            gen)))
+    (out / "sentences.txt").write_text("\n".join(VC_SENTENCES) + "\n")
+    ref = formant_utterance(VC_REF_PHONES, sr=voice_cloning.REF_SR,
+                            hop_length=160, seed=SEED + 22)["wav"]
+    save_wav(out / "ref.wav", ref, voice_cloning.REF_SR)
+    res = voice_cloning.main([
+        "--config", VC_RECIPE_CONF, "--checkpoint", str(out / "t2.npz"),
+        "--ge2e-checkpoint", str(out / "ge2e.npz"), "--ref-wav",
+        str(out / "ref.wav"), "--phones-dict",
+        str(out / "phone_id_map.txt"), "--text", str(out / "sentences.txt"),
+        "--waveflow-config", WF_RECIPE_CONF, "--waveflow-checkpoint",
+        str(out / "wf.npz"), "--output-dir", str(out / "cloned")])
+    lines, fs = res["lines"], res["sample_rate"]
+    cpu_emb = voice_cloning.embed_reference(out / "ref.wav", out / "ge2e.npz",
+                                            torch.device("cpu"))
+    emb_err = float(np.abs(res["embedding"] - cpu_emb).max())
+    hop = math.prod(WAVEFLOW_CONFIG["upsample_factors"])
+    from parakeet_tpu_torch.audio import load_wav
+    for r in lines:
+        wav, sr = load_wav(r["path"])
+        if not (sr == fs and len(wav) == r["samples"] == r["frames"] * hop
+                and np.isfinite(wav).all()):
+            raise AssertionError(f"voice cloning {r}: {len(wav)} samples "
+                                 f"at {sr}")
+    if not (len(lines) == len(VC_SENTENCES) and emb_err <= 1e-5):
+        raise AssertionError(f"voice cloning: {lines}, embedding against "
+                             f"the CPU {emb_err}")
+    speech = res["speech"]
+    ids = voice_cloning.phone_ids(VC_SENTENCES[-1].split(maxsplit=1)[1],
+                                  lexicon, vocab.stoi)
+    speech.load(ids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_mel, eager_len = speech.eager()
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    graph_mel, graph_len = speech.program()
+    if not (torch.equal(graph_mel, eager_mel)
+            and torch.equal(graph_len, eager_len)):
+        raise AssertionError("voice cloning: the Tacotron2 graph's mel is "
+                             "not its eager program's")
+    decode = sum(r["decode_s"] for r in lines)
+    vocode = sum(r["vocoder_s"] for r in lines)
+    total = res["embed_s"] + decode + vocode
+    audio = sum(r["samples"] for r in lines) / fs
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"voice cloning ({name}, {limit}; GE2E 3 x 256, Tacotron2 of "
+          f"{VC_RECIPE_CONF} over {len(ids)} of 128 tokens x 1,000 steps "
+          f"as one CUDA graph, WaveFlow of {WF_RECIPE_CONF} eager, float32, "
+          "random weights; host clock, synchronised): embedding "
+          f"{1e3 * res['embed_s']:.1f} ms (the encoder's load included; "
+          f"against the CPU's {emb_err:.3g}, tol 1e-5), capture "
+          f"{res['capture_s']:.2f} s, " + "; ".join(
+              f"{r['utt_id']} {r['frames']} frames: decode "
+              f"{1e3 * r['decode_s']:.1f} ms, vocoder "
+              f"{1e3 * r['vocoder_s']:.1f} ms" for r in lines)
+          + f"; total {total:.3f} s for {audio:.3f} s of audio, RTF "
+          f"{total / audio:.4f}; the graph's mel and lengths bitwise the "
+          f"eager program's ({1e3 * eager_s:.1f} ms eager)")
+    md = write_synthetic_dump(out / "dump", seed=SEED + 23,
+                              splits=VC_RECIPE_SPLITS,
+                              frames=VC_RECIPE_FRAMES,
+                              phones=VC_RECIPE_PHONES, n_mels=ODIM)
+    family_recipe("tacotron2_aishell3", t2_train,
+                  "make_tacotron2_train_step",
+                  ["--config", VC_RECIPE_CONF, "--train-metadata",
+                   str(md["train"]), "--dev-metadata", str(md["dev"]),
+                   "--phones-dict", str(md["phones"])], out,
+                  VC_RECIPE_EPOCHS, VC_RECIPE_RESUME_EPOCHS, "speech")
+    shutil.rmtree(out, ignore_errors=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2578,6 +2873,8 @@ def main():
     k1_t2 = phase_tacotron2()
     k1_tt = phase_transformer_tts()
     phase_waveflow()
+    phase_ge2e()
+    phase_voice_cloning()
     print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
                                   *k4.values(), k1_ss, k1_t2, *k1_tt]}))
     print(json.dumps({"ok": True, "device": {

@@ -51,8 +51,8 @@ Usage:
       [--families tacotron2 speedyspeech] [--iters 10] \\
       [--dtype bfloat16|float32] [--device cpu]
 
-The ``transformer_tts_r1`` and ``transformer_tts_r2`` legs are not
-ported yet (ROADMAP queue 1, item 13): asking for them raises.
+Every leg of the JAX bench runs: ``tacotron2``, ``transformer_tts_r1``,
+``transformer_tts_r2`` and ``speedyspeech``; an unknown family raises.
 """
 import argparse
 import json

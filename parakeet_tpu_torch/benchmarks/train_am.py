@@ -26,10 +26,10 @@ Usage:
       [--models tacotron2 speedyspeech] [--iters 20] [--deterministic] \\
       [--batch-size 32] [--text-len 96] [--frames 640] [--device cpu]
 
-Not ported: the ``transformer_tts`` and ``waveflow`` legs (ROADMAP queue
-1, items 13 and 14: they raise), ``--rng rbg`` (a TPU device generator)
-and ``--dtype bfloat16`` (the port trains in float32; item 10), both
-refused with a message.
+Every leg of the JAX bench runs: ``tacotron2``, ``transformer_tts``,
+``speedyspeech`` and ``waveflow``.  Not ported: ``--rng rbg`` (a TPU
+device generator) and ``--dtype bfloat16`` (the port trains in float32;
+ROADMAP queue 1, item 10), both refused with a message.
 """
 import argparse
 import contextlib

@@ -27,7 +27,8 @@ its last part the flax leaf, converted by the torch module's type:
   ``weight_ih``, ``bias_ih`` and ``weight_hh``; ``hn``'s bias is
   ``bias_hn``.
 - any other module: the leaf is a parameter of that name, copied as it is
-  (the PWG modules keep the flax layouts, as do WaveFlow's
+  (the PWG modules keep the flax layouts, as do the GE2E encoder's 0-d
+  ``similarity_weight`` and ``similarity_bias`` at its root, WaveFlow's
   ``UpsampleNet``, with its raw ``deconv_{i}_kernel`` (3, 2s, 1, 1) and
   ``deconv_{i}_bias`` (1,), and GST's ``gst_tokens_param``; GST's bias-free
   ``DenseGeneral`` q/k/v are ``nn.Linear`` layers without a bias).
@@ -35,7 +36,9 @@ its last part the flax leaf, converted by the torch module's type:
 Every key must land and every parameter and BatchNorm statistic of the
 module must be written: anything missing or unused raises ``KeyError``.
 ``flax_arrays`` is the inverse (a ``DenseGeneral`` kernel comes back 2-D,
-which ``load_flax_params`` reshapes).
+which ``load_flax_params`` reshapes).  ``load_checkpoint_params`` loads
+the params (and BatchNorm statistics) of a checkpoint file, either
+package's train state or a bare tree, into a module for inference.
 
 The train state crosses too, in both directions, under the keys of the
 JAX ``TrainState`` that ``parakeet_tpu.training.checkpoint.flatten_tree``
@@ -71,7 +74,8 @@ from torch.nn.modules.batchnorm import _BatchNorm
 from .nn.rnn import GRUCell
 
 __all__ = ["load_flax_params", "flax_arrays", "train_state_arrays",
-           "load_train_state", "RNG_KEY", "ROOT_MODULE"]
+           "load_train_state", "load_checkpoint_params", "RNG_KEY",
+           "ROOT_MODULE"]
 
 _SEP = "::"
 RNG_KEY = "torch_rng"
@@ -98,6 +102,12 @@ def _flat(mod: nn.Module, a: np.ndarray) -> np.ndarray:
 
 def _same(mod: nn.Module, a: np.ndarray) -> np.ndarray:
     return a
+
+
+def _contiguous(a: np.ndarray) -> np.ndarray:
+    """``a`` C-contiguous with its shape (``np.ascontiguousarray`` makes a
+    0-d array, such as GE2E's similarity scale, 1-d)."""
+    return np.ascontiguousarray(a).reshape(np.shape(a))
 
 
 # torch type -> {(collection, flax leaf): (torch tensor name, convert)}
@@ -220,7 +230,7 @@ def _cell_to_flax(a: np.ndarray, *, rows: slice,
 def flax_arrays(module: nn.Module) -> Dict[str, np.ndarray]:
     """The inverse of ``load_flax_params``: ``module``'s parameters and
     BatchNorm statistics as a flat flax tree of host float32 arrays."""
-    return {key: np.ascontiguousarray(conv(t.detach().float().cpu().numpy()))
+    return {key: _contiguous(conv(t.detach().float().cpu().numpy()))
             for key, _, t, conv in _flax_leaves(module)}
 
 
@@ -276,7 +286,7 @@ def _assemble(module: nn.Module, flat: Dict[str, np.ndarray],
         if name not in targets:
             unused.append(key)
             continue
-        src = torch.from_numpy(np.ascontiguousarray(rule[1](mod, a)))
+        src = torch.from_numpy(_contiguous(rule[1](mod, a)))
         if tuple(src.shape) != tuple(targets[name].shape):
             raise ValueError(f"{key}: flax shape {a.shape} gives "
                              f"{tuple(src.shape)}, but {name} is "
@@ -297,6 +307,15 @@ def load_flax_params(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
     targets = _targets(module)
     for name, src in _assemble(module, flat, targets).items():
         targets[name].copy_(src)
+
+
+def load_checkpoint_params(module: nn.Module, path) -> None:
+    """Load the ``params`` (and ``batch_stats``) of the checkpoint at
+    ``path`` (``training/checkpoint.py::load_variables``: a GAN state's
+    generator) into ``module`` in place."""
+    # the training package imports this module
+    from .training.checkpoint import flatten_nested, load_variables
+    load_flax_params(module, flatten_nested(load_variables(path)))
 
 
 def _adam(opt) -> torch.optim.Optimizer:
@@ -356,7 +375,7 @@ def train_state_arrays(state) -> Dict[str, np.ndarray]:
             else:                       # never stepped: optax's zeros
                 mu = nu = torch.zeros_like(p)
             for moment, value in (("mu", mu), ("nu", nu)):
-                flat[_SEP.join((prefix, moment, key))] = np.ascontiguousarray(
+                flat[_SEP.join((prefix, moment, key))] = _contiguous(
                     conv(value.detach().float().cpu().numpy()))
         flat[_SEP.join((prefix, "count"))] = np.asarray(count, np.int32)
     if state.rng is not None:

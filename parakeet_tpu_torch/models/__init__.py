@@ -2,6 +2,11 @@
 from .fastspeech2 import FastSpeech2, fastspeech2_loss
 from .fs2_updater import (init_fs2_train_state, make_fs2_eval_step,
                           make_fs2_train_step)
+from .ge2e_updater import init_ge2e_train_state, make_ge2e_train_step
+from .lstm_speaker_encoder import (LSTMSpeakerEncoder, compute_eer,
+                                   embed_utterance, ge2e_loss,
+                                   partial_slices, scale_wb_gradients,
+                                   similarity_matrix)
 from .parallel_wavegan import (PWGDiscriminator, PWGGenerator, ResidualStack,
                                pwg_inference, pwg_streaming_inference,
                                pwg_window_program)
@@ -46,4 +51,8 @@ __all__ = ["FastSpeech2", "fastspeech2_loss", "init_fs2_train_state",
            "make_transformer_tts_predict_step", "ConditionalWaveFlow",
            "UpsampleNet", "WaveFlow", "fold", "unfold", "init_waveflow_",
            "waveflow_loss", "init_waveflow_train_state",
-           "make_waveflow_train_step", "make_waveflow_eval_step"]
+           "make_waveflow_train_step", "make_waveflow_eval_step",
+           "LSTMSpeakerEncoder", "ge2e_loss", "similarity_matrix",
+           "scale_wb_gradients", "compute_eer", "partial_slices",
+           "embed_utterance", "init_ge2e_train_state",
+           "make_ge2e_train_step"]

@@ -92,7 +92,11 @@ def gru_sequence(cell: GRUCell, x: torch.Tensor) -> torch.Tensor:
 def lstm_sequence(cell: LSTMCell, x: torch.Tensor) -> torch.Tensor:
     """(B, T, C) -> (B, T, H): ``cell`` from the zero state over every
     position of ``x`` (flax's ``nn.RNN`` outputs, which are not masked
-    past a sequence's length)."""
+    past a sequence's length).  A width that the cell does not take
+    raises: ``torch.lstm`` itself does not check it on the CPU."""
+    if x.shape[-1] != cell.weight_ih.shape[1]:
+        raise ValueError(f"the LSTM takes {cell.weight_ih.shape[1]} "
+                         f"channels, the input has {x.shape[-1]}")
     h0, c0 = cell.zero_state(x.shape[0], x)
     out, _, _ = torch.lstm(
         x, (h0[None], c0[None]),

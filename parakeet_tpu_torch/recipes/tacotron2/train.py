@@ -4,7 +4,9 @@
 Reads a recipe YAML (``recipes/tacotron2/conf/default.yaml`` runs
 unchanged: full widths, batch 32) and a normalised dump in the recipe's
 format (``metadata.jsonl`` rows with ``text`` ids and the path of a
-``.npy`` mel, ``speech``; ``spk_emb`` rows give a global condition),
+``.npy`` mel, ``speech``; rows with the path of a GE2E embedding's
+``.npy``, ``spk_emb``, give a global condition, as the AISHELL-3
+voice-cloning recipe's do),
 builds the model with flax's initializers drawn from the config's seed,
 and trains through the port's ``Trainer`` on the card with the
 ``updater`` keys of the YAML (``use_stop_token_loss``,
@@ -42,7 +44,12 @@ from ...training import (Config, Trainer, build_optimizer,
 from ...utils.device import set_device
 from ..common import add_recipe_args, count_lines, run_trainer
 
-__all__ = ["main", "tacotron2_batch_fn", "build_dataloader", "build_model"]
+__all__ = ["main", "tacotron2_batch_fn", "build_dataloader", "build_model",
+           "CONVERTERS"]
+
+# the rows' mel and, where a row has one, its GE2E embedding are paths of
+# .npy files (a converter applies only to the fields a row holds)
+CONVERTERS = {"speech": np.load, "spk_emb": np.load}
 
 
 def tacotron2_batch_fn(examples, text_bucket: int = 16,
@@ -62,7 +69,7 @@ def build_dataloader(metadata, cfg, shuffle: bool) -> DataLoader:
     """Batches of ``cfg.batch_size``, shuffled by epoch with the last
     partial one dropped when ``shuffle`` (train), in order and kept
     otherwise (dev)."""
-    table = DataTable.from_jsonl(metadata, converters={"speech": np.load})
+    table = DataTable.from_jsonl(metadata, converters=CONVERTERS)
     sampler = BatchSampler(len(table), cfg.batch_size, shuffle=shuffle,
                            drop_last=shuffle)
     return DataLoader(table, sampler, tacotron2_batch_fn)

@@ -1,7 +1,9 @@
 """FLOPs and MFU accounting of the port's benchmarks (counterpart of
 ``parakeet_tpu/utils/flops.py``: ``chip_peak_flops``, ``mfu_stats``,
 ``fs2_pwg_synthesis_flops`` and the analytic counts of the loops,
-``waveflow_sampler_flops`` and ``ar_decode_step_flops``).
+``waveflow_sampler_flops`` and ``ar_decode_step_flops``, and of the GE2E
+train step, ``ge2e_train_flops``, which the JAX package reads from XLA's
+cost model).
 
 The JAX package takes its FLOP count from XLA's cost model; the port
 counts the products and convolutions of one eager call with
@@ -29,7 +31,8 @@ from ..models.parallel_wavegan import ResidualStack, edge_pad
 from ..nn.transformer import MultiHeadAttention
 
 __all__ = ["chip_peak_flops", "mfu_stats", "fs2_pwg_synthesis_flops",
-           "waveflow_sampler_flops", "ar_decode_step_flops"]
+           "waveflow_sampler_flops", "ar_decode_step_flops",
+           "ge2e_train_flops"]
 
 # NVIDIA's data sheet: dense bf16 tensor-core FLOP/s of the H100 SXM
 # (700 W), by its full ``torch.cuda.get_device_name()``; the PCIe and NVL
@@ -125,3 +128,21 @@ def ar_decode_step_flops(modules, attn_context_flops: float = 0.0) -> float:
     with the attended length (``attn_context_flops``)."""
     n = sum(p.numel() for m in modules for p in m.parameters())
     return 2.0 * n + attn_context_flops
+
+
+def ge2e_train_flops(utterances: int, frames: int, *, n_mels: int = 40,
+                     num_layers: int = 3, hidden_size: int = 256,
+                     output_size: int = 256, backward: bool = True
+                     ) -> float:
+    """FLOPs of a GE2E step over ``utterances`` x ``frames``: each LSTM
+    layer's four gates take 2 x 4H x (in + H) a frame (the input and
+    recurrent products), then the projection to the embedding; the
+    backward's products (the inputs' and the weights' gradients) are
+    twice the forward's.  ``FlopCounterMode`` does not see inside
+    ``torch.lstm``; the similarity matrix and the softmax (N x M x N) are
+    left out, as negligible."""
+    h = hidden_size
+    per_frame = sum(2 * 4 * h * ((n_mels if i == 0 else h) + h)
+                    for i in range(num_layers))
+    forward = utterances * (frames * per_frame + 2 * h * output_size)
+    return float(3 * forward if backward else forward)

@@ -47,7 +47,27 @@ def test_port_imports_no_jax_and_no_yaml():
             "parakeet_tpu_torch.recipes.transformer_tts.train",
             "parakeet_tpu_torch.recipes.waveflow.train",
             "parakeet_tpu_torch.benchmarks.waveflow_rtf",
-            "parakeet_tpu_torch.benchmarks.ar_decode"} <= names
+            "parakeet_tpu_torch.benchmarks.ar_decode",
+            "parakeet_tpu_torch.audio.spectrum",
+            "parakeet_tpu_torch.audio.codec",
+            "parakeet_tpu_torch.audio.normalizer",
+            "parakeet_tpu_torch.audio.features",
+            "parakeet_tpu_torch.audio.synthetic",
+            "parakeet_tpu_torch.frontend.generate_lexicon",
+            "parakeet_tpu_torch.frontend.vocab",
+            "parakeet_tpu_torch.utils.mp_tools",
+            "parakeet_tpu_torch.models.lstm_speaker_encoder",
+            "parakeet_tpu_torch.models.ge2e_updater",
+            "parakeet_tpu_torch.recipes.ge2e.preprocess",
+            "parakeet_tpu_torch.recipes.ge2e.train",
+            "parakeet_tpu_torch.recipes.ge2e.inference",
+            "parakeet_tpu_torch.recipes.ge2e.dump",
+            "parakeet_tpu_torch.recipes.tacotron2_aishell3.extract_mel",
+            "parakeet_tpu_torch.recipes.tacotron2_aishell3.chinese_g2p",
+            "parakeet_tpu_torch.recipes.tacotron2_aishell3.train",
+            "parakeet_tpu_torch.recipes.tacotron2_aishell3.voice_cloning",
+            "parakeet_tpu_torch.recipes.tacotron2_aishell3.dump",
+            "parakeet_tpu_torch.benchmarks.ge2e_train"} <= names
     assert loaded == "[]", f"the port pulled in {loaded}"
 
 
@@ -221,3 +241,50 @@ def _sweep_parser(tree):
                                 for k in call.keywords if k.arg == "default")
     return [Arg(n) for n in ast.walk(tree) if isinstance(n, ast.Call)
             and getattr(n.func, "attr", None) == "add_argument"]
+
+
+def test_chip_smoke_ge2e_and_voice_cloning_phases_are_the_recipes():
+    """Phase 17 runs GE2E at the JAX bench's and recipe's defaults (read
+    with ast), phase 18 the aishell3 YAML with WaveFlow's recipe, two
+    steps an epoch at the YAML's batch and one eval batch at least, and
+    sentences of fewer phones than the CLI's 128."""
+    smoke = _load_chip_smoke()
+    bench = _defaults(REPO / "benchmarks/ge2e_train.py")
+    recipe = _defaults(REPO / "recipes/ge2e/train.py")
+    assert (smoke.GE2E_SPEAKERS, smoke.GE2E_UTTS, smoke.GE2E_FRAMES,
+            smoke.GE2E_MELS) == (bench["speakers"], bench["utts"],
+                                 bench["frames"], bench["n-mels"]) == (
+        recipe["speakers-per-batch"], recipe["utterances-per-speaker"],
+        recipe["frames"], recipe["n-mels"])
+    assert smoke.GE2E_LR == recipe["learning-rate"]
+    assert smoke.GE2E_TREE_FRAMES[0] >= smoke.GE2E_FRAMES
+    assert smoke.VC_RECIPE_CONF == \
+        "recipes/tacotron2_aishell3/conf/default.yaml"
+    vc = yaml.safe_load((REPO / smoke.VC_RECIPE_CONF).read_text())
+    assert vc["model"]["use_stop_token"] is False
+    assert vc["updater"]["use_guided_attention_loss"] is True
+    assert smoke.VC_RECIPE_SPLITS["train"] == 2 * vc["batch_size"]
+    assert smoke.VC_RECIPE_SPLITS["dev"] >= min(vc["batch_size"], 8)
+    from parakeet_tpu_torch.frontend import generate_lexicon
+    lexicon = generate_lexicon(with_tone=True, with_erhua=True)
+    for line in smoke.VC_SENTENCES:
+        sylls = line.split()[1:]
+        assert all(s in lexicon for s in sylls)
+        assert sum(len(lexicon[s].split()) for s in sylls) < 128
+
+
+def _defaults(path):
+    """{flag without dashes: literal default} of a script's add_argument
+    calls that have one."""
+    out = {}
+    for n in ast.walk(ast.parse(pathlib.Path(path).read_text())):
+        if (isinstance(n, ast.Call)
+                and getattr(n.func, "attr", None) == "add_argument"):
+            for k in n.keywords:
+                if k.arg == "default":
+                    try:
+                        out[ast.literal_eval(n.args[0]).lstrip("-")] = \
+                            ast.literal_eval(k.value)
+                    except ValueError:
+                        pass
+    return out
