@@ -178,7 +178,19 @@ Phases, one line each (the checks raise; nothing is caught):
    with frames x 256 samples, the reference's embedding against the
    CPU's, the parts' times and the RTF; then the aishell3 recipe's CLI
    at its YAML's widths and batch 32 (1 epoch of 2 steps, resumed to 2,
-   against 2 straight, bitwise).
+   against 2 straight, bitwise);
+19. text in, a waveform out through the port's CLIs at the recipe YAMLs'
+   widths with random-weight snapshots it writes (the phone maps from the
+   frontends' phone sets): four sentences of recipes/text_frontend/data/
+   g2p_test_cases.txt through the FastSpeech2 ``synthesize_e2e`` twin
+   (the AM one CUDA graph, bitwise its eager program; PWG eagerly) with
+   K1 and again with K1's plain version, each wav held to the other; one
+   through the SpeedySpeech twin (tones) and one English sentence through
+   the TransformerTTS twin (500 decoder steps as one graph, PWG); K1 30
+   times a vocoded line; the four through the serving twin (batch 8,
+   ``--warmup``), its graphs' wavs bitwise its engine's eager wavs; the
+   frontend's path (jieba or one word a sentence), each line's frontend,
+   AM and vocoder ms, RTF and the serving twin's audio-s/s.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
@@ -188,7 +200,9 @@ dk 192; K4b is one launch a call at both widths; K1 again as
 ``pwg_residual_stack_speedyspeech``, ``_tacotron2``,
 ``_transformer_tts_r1`` and ``_transformer_tts_r2``: the family
 programs' runs, eager calls and capture, with its error and times at
-their shapes), error, times, bound
+their shapes; and as ``pwg_residual_stack_text_to_wav`` the text-to-wav
+CLIs' eager vocoder calls, at the longest line's shape), error, times,
+bound
 (the larger of its bytes over the H100's memory rate and its operations
 over its peak for the operands' type, from this run's shapes; K4's
 float32 products at the 3xTF32 rate, a third of the TF32 peak) and, where
@@ -531,6 +545,19 @@ VC_REF_PHONES = [("sil", 0.1), ("a", 0.3), ("i", 0.25), ("s", 0.15),
 VC_RECIPE_SPLITS = {"train": 64, "dev": 16}
 VC_RECIPE_FRAMES, VC_RECIPE_PHONES = (120, 200), (30, 60)
 VC_RECIPE_EPOCHS, VC_RECIPE_RESUME_EPOCHS = 1, 2
+# phase 19: text in, a waveform out, through the port's CLIs at the recipe
+# YAMLs' widths with random weights written as snapshots: the first four
+# sentences of the Chinese G2P cases through the FastSpeech2 CLI (with K1
+# and with its plain version) and the serving twin (batch 8, warmed up),
+# one of them through the SpeedySpeech CLI (tones), one English sentence
+# through the TransformerTTS CLI (500 decoder steps, its default) with
+# PWG.  The duration heads give ~5 frames a phone (log 5 +- 0.25, as the
+# serving slice's engine) and the CLIs floor them at TTW_MIN_DURATION
+TTW_CASES = "recipes/text_frontend/data/g2p_test_cases.txt"
+TTW_LINES = 4
+TTW_EN_SENTENCE = "tt_0001 The quick brown fox jumped over the lazy dog."
+TTW_MIN_DURATION = 2
+TTW_SERVE_BATCH = 8
 # NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
 # FLOP/s by operand type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -2834,6 +2861,210 @@ def phase_voice_cloning():
     shutil.rmtree(out, ignore_errors=True)
 
 
+def _ttw_snapshots(out):
+    """Random-weight snapshots of the phase-19 models at the recipe YAMLs'
+    widths (FastSpeech2 and SpeedySpeech over the Chinese frontend's phone
+    maps, TransformerTTS over the ARPABET map, PWG), written as the port
+    writes them; returns their paths by name."""
+    from parakeet_tpu_torch.benchmarks.common import seeded_init_
+    from parakeet_tpu_torch.bridge import flax_arrays
+    from parakeet_tpu_torch.models import PWGGenerator
+    from parakeet_tpu_torch.recipes.fastspeech2 import train as fs2_train
+    from parakeet_tpu_torch.recipes.speedyspeech import train as ss_train
+    from parakeet_tpu_torch.recipes.synthesis import write_id_maps
+    from parakeet_tpu_torch.recipes.transformer_tts import train as tt_train
+    from parakeet_tpu_torch.training import Config, save_pytree
+    paths = {"zh": write_id_maps(out / "zh", "zh"),
+             "en": write_id_maps(out / "en", "en")}
+
+    def count(path):
+        return len(path.read_text().splitlines())
+
+    gen = torch.Generator().manual_seed(SEED + 24)
+    fs2 = fs2_train.build_model(Config.from_yaml(FS2_RECIPE_CONF),
+                                count(paths["zh"]["phones"]), ODIM)
+    ss = ss_train.build_model(Config.from_yaml(SS_RECIPE_CONF),
+                              count(paths["zh"]["tone_phones"]),
+                              count(paths["zh"]["tones"]))
+    tt = tt_train.build_model(Config.from_yaml(TT_RECIPE_CONF),
+                              count(paths["en"]["phones"]), ODIM)
+    with torch.no_grad():
+        for head in (fs2.duration_predictor.stack.linear,
+                     ss.duration_predictor.fc):
+            head.weight.mul_(DURATION_SPREAD)
+        # FastSpeech2 predicts log(d + 1), SpeedySpeech log d
+        fs2.duration_predictor.stack.linear.bias.fill_(DURATION_BIAS)
+        ss.duration_predictor.fc.bias.fill_(math.log(4.0))
+    pwg = PWGGenerator(**PWG_CONFIG)
+    seeded_init_(pwg, gen)
+    for name, model in (("fs2", fs2), ("ss", ss), ("tt", tt), ("pwg", pwg)):
+        paths[name] = out / f"{name}.npz"
+        save_pytree(paths[name], flax_arrays(model))
+    return paths
+
+
+def phase_text_to_wav():
+    """Phase 19: text in, a waveform out through the port's CLIs (the
+    FastSpeech2, SpeedySpeech and TransformerTTS ``synthesize_e2e``
+    twins and the serving twin) at the recipe YAMLs' widths, random
+    weights; K1 30 times a vocoded line, the FastSpeech2 CLI's wavs with
+    K1 against those with its plain version, its AM graph against its
+    eager program, the serving twin's graphs against its eager engine bit
+    for bit.  Returns K1's record, its launches over the three CLIs' K1
+    runs."""
+    import copy
+    import shutil
+    from parakeet_tpu_torch.benchmarks.common import card
+    from parakeet_tpu_torch.frontend import zh_frontend
+    from parakeet_tpu_torch.models import parallel_wavegan
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    from parakeet_tpu_torch.recipes.fastspeech2 import serve
+    from parakeet_tpu_torch.recipes.fastspeech2 import \
+        synthesize_e2e as fs2_e2e
+    from parakeet_tpu_torch.recipes.speedyspeech import \
+        synthesize_e2e as ss_e2e
+    from parakeet_tpu_torch.recipes.transformer_tts import \
+        synthesize_e2e as tt_e2e
+    name, limit = card(torch.device("cuda"))
+    t_phase = time.perf_counter()
+    out = pathlib.Path("build") / "chip_smoke_text_to_wav"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    snap = _ttw_snapshots(out)
+    cases = [ln.split("|")[0] for ln in pathlib.Path(
+        TTW_CASES).read_text(encoding="utf-8").splitlines()
+             if ln and not ln.startswith("#")][:TTW_LINES]
+    (out / "zh.txt").write_text("".join(
+        f"zh_{i:04d} {s}\n" for i, s in enumerate(cases)), encoding="utf-8")
+    (out / "zh1.txt").write_text(f"zh_0000 {cases[0]}\n", encoding="utf-8")
+    (out / "en.txt").write_text(TTW_EN_SENTENCE + "\n")
+    segmentation = ("jieba" if zh_frontend._HAS_JIEBA
+                    else "without jieba: one word a sentence")
+    fs2_argv = ["--fastspeech2-config", FS2_RECIPE_CONF,
+                "--fastspeech2-checkpoint", str(snap["fs2"]),
+                "--pwg-config", RECIPE_CONF, "--pwg-checkpoint",
+                str(snap["pwg"]), "--phones-dict",
+                str(snap["zh"]["phones"]), "--text", str(out / "zh.txt"),
+                "--min-duration", str(TTW_MIN_DURATION)]
+    # (a) FastSpeech2, with K1 and with its plain version
+    k1.fused_residual_stack.launches = 0
+    fs2 = fs2_e2e.main(fs2_argv + ["--output-dir", str(out / "fs2")])
+    k1_fs2 = k1.fused_residual_stack.launches
+    real = parallel_wavegan.fused_residual_stack
+    # K1's plain version in the residual stack's place: it launches nothing
+    parallel_wavegan.fused_residual_stack = \
+        k1.fused_residual_stack_reference
+    try:
+        plain = fs2_e2e.main(fs2_argv + ["--output-dir",
+                                         str(out / "fs2_plain")])
+    finally:
+        parallel_wavegan.fused_residual_stack = real
+    lines, fs = fs2["lines"], fs2["sample_rate"]
+    layers = PWG_CONFIG["layers"]
+    hop = math.prod(PWG_CONFIG["upsample_scales"])
+    errs = []
+    for got, ref in zip(lines, plain["lines"]):
+        err = float(np.abs(got["wav"] - ref["wav"]).max())
+        tol = K1_REL_TOL * max(1.0, float(np.abs(ref["wav"]).max()))
+        if not (got["ids"] == ref["ids"] and got["frames"] == ref["frames"]
+                and 0 < got["frames"] <= 1024 and err <= tol
+                and got["samples"] == got["frames"] * hop
+                and np.isfinite(got["wav"]).all()):
+            raise AssertionError(f"text to wav {got['utt_id']}: "
+                                 f"{got['frames']} frames, K1 against "
+                                 f"plain {err} > {tol}")
+        errs.append(err / tol * K1_REL_TOL)
+    if not (len(lines) == TTW_LINES and k1_fs2 == layers * TTW_LINES):
+        raise AssertionError(f"text to wav: {len(lines)} lines, K1 "
+                             f"launched {k1_fs2} times")
+    program = fs2["program"]
+    program.load(lines[-1]["ids"])
+    eager = program.eager()
+    graph = program.program()
+    if not all(torch.equal(a, b) for a, b in zip(graph, eager)):
+        raise AssertionError("text to wav: the FastSpeech2 graph is not "
+                             "its eager program")
+    print(f"text to wav, FastSpeech2 CLI ({name}, {limit}; "
+          f"{FS2_RECIPE_CONF} and {RECIPE_CONF}, float32, random weights; "
+          f"zh frontend {segmentation}; the AM one CUDA graph at (1, 128) x "
+          f"1,024 frames, captured in {fs2['capture_s']:.2f} s; host "
+          "clock, synchronised): " + "; ".join(
+              f"{r['utt_id']} {len(r['ids'])} phones, {r['frames']} frames: "
+              f"frontend {1e3 * r['frontend_s']:.3f} ms, AM "
+              f"{1e3 * r['am_s']:.2f} ms, vocoder "
+              f"{1e3 * r['vocoder_s']:.2f} ms, RTF "
+              f"{(r['am_s'] + r['vocoder_s']) * fs / r['samples']:.4f}"
+              for r in lines)
+          + f"; K1 x {k1_fs2}; wavs against K1's plain version within "
+          f"{max(errs):.3g} of their range (tol {K1_REL_TOL:.3g}); the "
+          "graph bitwise its eager program")
+    # (b) SpeedySpeech with tones, one line
+    k1.fused_residual_stack.launches = 0
+    ss = ss_e2e.main([
+        "--config", SS_RECIPE_CONF, "--checkpoint", str(snap["ss"]),
+        "--pwg-config", RECIPE_CONF, "--pwg-checkpoint", str(snap["pwg"]),
+        "--phones-dict", str(snap["zh"]["tone_phones"]), "--tones-dict",
+        str(snap["zh"]["tones"]), "--text", str(out / "zh1.txt"),
+        "--output-dir", str(out / "ss")])
+    k1_ss = k1.fused_residual_stack.launches
+    (r,) = ss["lines"]
+    if not (k1_ss == layers and r["frames"] > 0 and r["tones"]
+            and np.isfinite(r["wav"]).all()):
+        raise AssertionError(f"text to wav, SpeedySpeech: K1 x {k1_ss}, "
+                             f"{r['frames']} frames")
+    print(f"text to wav, SpeedySpeech CLI ({SS_RECIPE_CONF}, tones): "
+          f"{r['utt_id']} {len(r['ids'])} phones, {r['frames']} frames: AM "
+          f"{1e3 * r['am_s']:.2f} ms, vocoder (1,024 frames) "
+          f"{1e3 * r['vocoder_s']:.2f} ms; capture {ss['capture_s']:.2f} s; "
+          f"K1 x {k1_ss}")
+    # (c) TransformerTTS, English, the decode one graph, PWG
+    k1.fused_residual_stack.launches = 0
+    tt = tt_e2e.main([
+        "--config", TT_RECIPE_CONF, "--checkpoint", str(snap["tt"]),
+        "--phones-dict", str(snap["en"]["phones"]), "--text",
+        str(out / "en.txt"), "--pwg-config", RECIPE_CONF,
+        "--pwg-checkpoint", str(snap["pwg"]), "--output-dir",
+        str(out / "tt")])
+    k1_tt = k1.fused_residual_stack.launches
+    (r,) = tt["lines"]
+    if not (k1_tt == layers and 0 < r["frames"] <= 500
+            and r["samples"] == r["frames"] * hop
+            and np.isfinite(r["wav"]).all()):
+        raise AssertionError(f"text to wav, TransformerTTS: K1 x {k1_tt}, "
+                             f"{r['frames']} frames")
+    print(f"text to wav, TransformerTTS CLI ({TT_RECIPE_CONF}, en, 500 "
+          f"steps): {len(r['ids'])} phones, {r['frames']} frames: decode "
+          f"{1e3 * r['am_s']:.1f} ms, vocoder {1e3 * r['vocoder_s']:.2f} ms; "
+          f"capture {tt['capture_s']:.2f} s; K1 x {k1_tt}")
+    # (d) the serving twin, warmed up, against its own engine eagerly
+    served = serve.main(fs2_argv + [
+        "--batch-size", str(TTW_SERVE_BATCH), "--warmup", "--output-dir",
+        str(out / "served")])
+    engine = served["engine"]
+    eager = copy.copy(engine)
+    eager.graphs, eager._programs, eager._pool = False, {}, None
+    want = eager.synthesize(served["requests"])
+    for got, ref in zip(served["results"], want):
+        if not (got.n_frames == ref.n_frames > 0
+                and np.array_equal(got.wav, ref.wav)):
+            raise AssertionError(f"serving twin {got.utt_id}: the graphs' "
+                                 "wav is not the eager engine's")
+    print(f"text to wav, serving twin (batch buckets up to "
+          f"{TTW_SERVE_BATCH}, --warmup: {engine.compiled_programs} graphs "
+          f"in {served['warmup_s']:.2f} s): {len(want)} requests "
+          f"(frontend {1e3 * served['frontend_s']:.3f} ms), "
+          f"{served['audio_s']:.3f} s of audio in {served['elapsed_s']:.4f} s,"
+          f" {served['audio_s'] / served['elapsed_s']:.1f} audio-s/s; the "
+          "graphs' wavs bitwise the eager engine's")
+    shutil.rmtree(out, ignore_errors=True)
+    longest = max(r["samples"] for r in lines)
+    record = k1_check(torch.Generator().manual_seed(SEED + 1), 1, longest,
+                      name="pwg_residual_stack_text_to_wav")
+    record["launches"] = k1_fs2 + k1_ss + k1_tt
+    print(f"text to wav: phase {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2875,8 +3106,10 @@ def main():
     phase_waveflow()
     phase_ge2e()
     phase_voice_cloning()
+    k1_text = phase_text_to_wav()
     print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
-                                  *k4.values(), k1_ss, k1_t2, *k1_tt]}))
+                                  *k4.values(), k1_ss, k1_t2, *k1_tt,
+                                  k1_text]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -44,7 +44,8 @@ import torch
 
 from ..models import (Tacotron2, TransformerTTS, init_tacotron2_,
                       init_transformer_tts_)
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 from ..utils.flops import ar_decode_step_flops, mfu_stats
 from ..utils.graphs import CapturedProgram
 from .common import (DTYPES, TRANSFORMER_TTS_CONFIG, card, timed_capture,
@@ -150,7 +151,8 @@ def run(name: str, *, dtype: str, device: torch.device, steps: int,
             "capture_s": capture_s, "graph_pool_mib": pool_mib,
             "step_flops": step_flops,
             **mfu_stats(step_flops * steps, seconds, dev_name),
-            "backend": device.type, "device": dev_name,
+            "backend": device.type, "tf32": tf32_enabled(),
+            "device": dev_name,
             "power_limit": limit}
 
 
@@ -172,6 +174,7 @@ def main(argv=None):
     add_device_arg(parser)
     args = parser.parse_args(argv)
     device = set_device(args.device)
+    disable_tf32()
     records = []
     for name in args.models:
         records.append(run(name, dtype=args.dtype, device=device,

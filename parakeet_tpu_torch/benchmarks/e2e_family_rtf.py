@@ -66,7 +66,8 @@ from ..models import (PWGGenerator, SpeedySpeech, Tacotron2, TransformerTTS,
 from ..models.parallel_wavegan import edge_pad
 from ..nn.initializer import init_flax_defaults_
 from ..ops.kernels.pwg_stack import fused_residual_stack
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 from ..utils.graphs import CapturedProgram
 from .common import (DTYPES, TRANSFORMER_TTS_CONFIG, card, profiled_kernels,
                      seeded_init_, timed_capture, wall_seconds)
@@ -198,7 +199,8 @@ def run(family: str, *, dtype: str, device: torch.device, iters: int,
     return {"metric": f"{family}_pwgan_e2e_rtf",
             "value": seconds / program.audio_seconds, "unit": "rtf",
             "audio_seconds": program.audio_seconds, "vs_baseline": None,
-            "dtype": dtype, "backend": device.type, "device": name,
+            "dtype": dtype, "backend": device.type, "tf32": tf32_enabled(),
+            "device": name,
             "power_limit": limit,
             "graph_ms": None if graph_s is None else 1e3 * graph_s,
             "eager_ms": 1e3 * eager_s, "graph_matches_eager": same,
@@ -227,6 +229,7 @@ def main(argv=None):
         if family not in FAMILIES:
             raise ValueError(f"unknown family {family!r}")
     device = set_device(args.device)
+    disable_tf32()
     records = []
     for family in args.families:
         records.append(run(family, dtype=args.dtype, device=device,

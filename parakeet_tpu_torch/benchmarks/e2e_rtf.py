@@ -38,7 +38,8 @@ import torch
 
 from ..ops.kernels.flash_attn import flash_attention_forward
 from ..ops.kernels.pwg_stack import fused_residual_stack
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 from ..utils.flops import mfu_stats
 from .common import (DTYPES, SynthesisProgram, build_models, card,
                      profiled_kernels, wall_seconds)
@@ -81,7 +82,8 @@ def run(*, dtype: str, attn_impl: str, device: torch.device, iters: int,
             "audio_seconds": program.audio_seconds, "seconds": seconds,
             "dtype": dtype,
             **mfu_stats(flops, graph_s or 0.0, name), "flops": flops,
-            "backend": device.type, "device": name, "power_limit": limit,
+            "backend": device.type, "tf32": tf32_enabled(), "device": name,
+            "power_limit": limit,
             "graph_ms": None if graph_s is None else 1e3 * graph_s,
             "eager_ms": 1e3 * eager_s, "graph_matches_eager": same,
             "attn_impl": attn_impl, "frame_lengths": frames.tolist(),
@@ -105,6 +107,7 @@ def main(argv=None):
     parser.add_argument("--iters", type=int, default=10)
     add_device_arg(parser)
     args = parser.parse_args(argv)
+    disable_tf32()
     res = run(dtype=args.dtype, attn_impl=args.attn_impl,
               device=set_device(args.device), iters=args.iters, batch=1,
               text_len=TEXT_LEN, max_frames=MAX_FRAMES)

@@ -37,7 +37,8 @@ from ..models import (LSTMSpeakerEncoder, init_ge2e_train_state,
                       make_ge2e_train_step)
 from ..nn.initializer import init_flax_defaults_
 from ..training import build_optimizer, resolve_model_kwargs
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 from ..utils.flops import ge2e_train_flops, mfu_stats
 from .common import card
 
@@ -87,9 +88,9 @@ def run(speakers: int, utts: int, frames: int, n_mels: int, iters: int,
             "utts_per_speaker": utts, "value": speakers * utts / avg,
             "unit": "utterances/sec", "ms_per_step": 1e3 * avg,
             "frames": frames, "n_mels": n_mels, "dtype": "float32",
-            "tf32": torch.backends.cudnn.allow_tf32,
             "flops_per_step": flops, "loss": loss,
-            "backend": device.type, "device": name, "power_limit": limit,
+            "backend": device.type, "tf32": tf32_enabled(), "device": name,
+            "power_limit": limit,
             **mfu_stats(flops, avg, name)}
 
 
@@ -111,7 +112,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     resolve_model_kwargs({"dtype": args.dtype})     # raises but float32
     device = set_device(args.device)
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     record = run(args.speakers, args.utts, args.frames, args.n_mels,
                  args.iters, device)
     print(json.dumps(record), flush=True)

@@ -17,7 +17,7 @@ Usage:
 import argparse
 import json
 
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import add_device_arg, disable_tf32, set_device
 from .common import DTYPES
 from .e2e_rtf import run
 
@@ -41,6 +41,7 @@ def main(argv=None):
     add_device_arg(parser)
     args = parser.parse_args(argv)
     device = set_device(args.device)
+    disable_tf32()
     records = []
     for impl in args.attn_impls:
         res = run(dtype=args.dtype, attn_impl=impl, device=device,

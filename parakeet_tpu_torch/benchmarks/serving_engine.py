@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..serving import Request, TTSEngine
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 from .common import DTYPES, SAMPLE_RATE, build_models, card
 
 __all__ = ["main", "build_engine", "workload", "run"]
@@ -80,6 +81,7 @@ def main(argv=None):
     add_device_arg(parser)
     args = parser.parse_args(argv)
     device = set_device(args.device)
+    disable_tf32()
     on_card = device.type == "cuda"
     max_len = max(args.buckets)
     models = build_models(DTYPES[args.dtype], "auto", device)
@@ -118,6 +120,7 @@ def main(argv=None):
               "graphs_match_eager": same,
               "graph_reserved_gib": held, "dtype": args.dtype,
               "attn_impl": "auto", "backend": device.type,
+              "tf32": tf32_enabled(),
               "device": name, "power_limit": limit}
     print(json.dumps(record))
     return record

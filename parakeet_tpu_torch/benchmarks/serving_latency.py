@@ -29,7 +29,8 @@ import time
 
 import numpy as np
 
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 from .common import DTYPES, build_models, card
 from .serving_engine import build_engine, workload
 
@@ -87,6 +88,7 @@ def main(argv=None):
     add_device_arg(parser)
     args = parser.parse_args(argv)
     device = set_device(args.device)
+    disable_tf32()
     engine = build_engine(build_models(DTYPES[args.dtype], "auto",
                                        device),
                           args.buckets, args.batch_size,
@@ -106,7 +108,8 @@ def main(argv=None):
                   "mean_batch": float(np.mean(sizes)),
                   "utilization": util, "window_ms": args.window,
                   "dtype": args.dtype, "graphs": engine.graphs,
-                  "backend": device.type, "device": name,
+                  "backend": device.type, "tf32": tf32_enabled(),
+                  "device": name,
                   "power_limit": limit}
         print(json.dumps(record))
         records.append(record)

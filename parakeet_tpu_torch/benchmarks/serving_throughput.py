@@ -18,7 +18,7 @@ Usage:
 import argparse
 import json
 
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import add_device_arg, disable_tf32, set_device
 from .common import DTYPES
 from .e2e_rtf import run
 
@@ -39,6 +39,7 @@ def main(argv=None):
     parser.add_argument("--dtype", default="float32", choices=DTYPES)
     add_device_arg(parser)
     args = parser.parse_args(argv)
+    disable_tf32()
     res = run(dtype=args.dtype, attn_impl="auto",
               device=set_device(args.device), iters=args.iters,
               batch=args.batch_size, text_len=args.text_len,

@@ -51,7 +51,8 @@ from ..models import (SpeedySpeech, Tacotron2, TransformerTTS,
 from ..nn.initializer import init_flax_defaults_
 from ..training import (build_optimizer, deterministic_training,
                         resolve_model_kwargs, seed_everything)
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 from .common import (TRANSFORMER_TTS_CONFIG, WAVEFLOW_CONFIG, card,
                      seeded_waveflow)
 
@@ -168,7 +169,8 @@ def bench_family(name: str, iters: int, batch_size: int, text_len: int,
             "value": batch_size / avg, "unit": "sequences/sec",
             "ms_per_step": 1e3 * avg, "dtype": "float32", "rng": "threefry",
             "deterministic": deterministic, "text_len": text_len,
-            "frames": frames, "backend": device.type, "device": name_,
+            "frames": frames, "backend": device.type,
+            "tf32": tf32_enabled(), "device": name_,
             "power_limit": limit}
 
 
@@ -202,6 +204,7 @@ def main(argv=None):
     for name in args.models:
         check_family(name)
     device = set_device(args.device)
+    disable_tf32()
     records = []
     for name in args.models:
         records.append(bench_family(name, args.iters, args.batch_size,

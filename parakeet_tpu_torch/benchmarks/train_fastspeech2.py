@@ -34,7 +34,8 @@ import torch
 from ..models import FastSpeech2, init_fs2_train_state, make_fs2_train_step
 from ..nn.initializer import init_flax_defaults_
 from ..training import build_optimizer, resolve_model_kwargs, seed_everything
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 
 __all__ = ["main", "build_train_step"]
 
@@ -103,6 +104,7 @@ def main(argv=None):
                                   "the port draws from a torch.Generator")
     resolve_model_kwargs({"dtype": args.dtype})     # raises but float32
     device = set_device(args.device)
+    disable_tf32()
     step, state, batch = build_train_step(args.batch_size, args.text_len,
                                           args.frames, args.attn_impl,
                                           device)
@@ -141,6 +143,7 @@ def main(argv=None):
               "value": args.batch_size / avg_batch_cost,
               "unit": "sequences/sec", "dtype": args.dtype,
               "attn_impl": args.attn_impl, "backend": device.type,
+              "tf32": tf32_enabled(),
               "device": (torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu")}
     print(json.dumps(record))

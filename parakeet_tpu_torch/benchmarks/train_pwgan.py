@@ -36,7 +36,8 @@ from ..models import (PWGDiscriminator, PWGGenerator, init_pwg_train_state,
 from ..models.parallel_wavegan import init_pwg_params_
 from ..training import (Config, build_optimizer, resolve_model_kwargs,
                         seed_everything)
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 
 __all__ = ["main", "bench_batch_size", "build_train_step"]
 
@@ -152,6 +153,7 @@ def main(argv=None):
     add_device_arg(parser)
     args = parser.parse_args(argv)
     device = set_device(args.device)
+    disable_tf32()
     cfg = Config.from_yaml(_CONFIG).merge_opts(args.opts)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -166,7 +168,8 @@ def main(argv=None):
                   "value": ips, "unit": "sequences/sec",
                   "dtype": "float32", "stack_impl": args.stack_impl,
                   "disc_impl": args.disc_impl, "disc_vjp": args.disc_vjp,
-                  "backend": device.type, "device": name}
+                  "backend": device.type, "tf32": tf32_enabled(),
+                  "device": name}
         print(json.dumps(record))
         records.append(record)
     return records

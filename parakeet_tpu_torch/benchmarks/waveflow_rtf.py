@@ -42,7 +42,8 @@ import json
 import numpy as np
 import torch
 
-from ..utils.device import add_device_arg, set_device
+from ..utils.device import (add_device_arg, disable_tf32, set_device,
+                            tf32_enabled)
 from ..utils.flops import mfu_stats, waveflow_sampler_flops
 from ..utils.graphs import CapturedProgram
 from .common import (DTYPES, WAVEFLOW_CONFIG, card, seeded_waveflow,
@@ -127,6 +128,7 @@ def run(dtype: str, device: torch.device, iters: int, frames: int = FRAMES):
              "eager_ms": 1e3 * eager_s, "graph_matches_eager": same,
              "capture_s": capture_s, "flops": flops,
              **mfu_stats(flops, seconds, name), "backend": device.type,
+             "tf32": tf32_enabled(),
              "device": name, "power_limit": limit}, want)
 
 
@@ -145,6 +147,7 @@ def main(argv=None):
     add_device_arg(parser)
     args = parser.parse_args(argv)
     device = set_device(args.device)
+    disable_tf32()
     record, _ = run(args.dtype, device, args.iters, args.frames)
     print(json.dumps(record), flush=True)
     return record

@@ -24,10 +24,10 @@ examples/tacotron2_aishell3/voice_cloning.ipynb).
    the sampler runs eagerly rather than as a graph a length.  Without a
    vocoder the mel is written as ``.npy``.
 
-Each line prints its frames and the host-clock times (synchronised) of
-its decode and vocoder; ``main`` returns them with the embedding's time
-and the capture's.  Checkpoints are any the JAX package or the port
-writes (``bridge.load_checkpoint_params``).
+TF32 is off.  Each line prints its frames and the host-clock times
+(synchronised) of its decode and vocoder; ``main`` returns them with the
+embedding's time and the capture's.  Checkpoints are any the JAX package
+or the port writes (``bridge.load_checkpoint_params``).
 
 Usage:
   python -m parakeet_tpu_torch.recipes.tacotron2_aishell3.voice_cloning \\
@@ -41,7 +41,6 @@ Usage:
       --output-dir cloned [--device cpu]
 """
 import argparse
-import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -55,9 +54,9 @@ from ...frontend.generate_lexicon import generate_lexicon
 from ...models import ConditionalWaveFlow, Tacotron2, embed_utterance
 from ...ops.normalizer import ZScore
 from ...training import Config, inference_model_kwargs
-from ...utils.device import add_device_arg, set_device
-from ...utils.graphs import CapturedProgram
+from ...utils.device import add_device_arg, disable_tf32, set_device
 from ..ge2e.inference import load_encoder
+from ..synthesis import Stopwatch, TextProgram
 
 __all__ = ["main", "embed_reference", "phone_ids", "ClonedSpeech",
            "REF_SR"]
@@ -65,11 +64,6 @@ __all__ = ["main", "embed_reference", "phone_ids", "ClonedSpeech",
 REF_SR = 16000
 # the prenet's masks and the vocoder's noise: one seed for every line
 MASK_SEED, NOISE_SEED = 0, 0
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def embed_reference(ref_wav, ge2e_checkpoint, device) -> np.ndarray:
@@ -96,20 +90,20 @@ def phone_ids(pinyin: str, lexicon: Dict[str, str],
     return ids
 
 
-class ClonedSpeech:
+class ClonedSpeech(TextProgram):
     """``Tacotron2.infer`` conditioned on one speaker embedding at the
     static shape (1, ``max_text_len``): one CUDA graph on the card when
-    ``graph``, else eager.  ``inputs`` are its static buffers."""
+    ``graph``, else eager (``recipes/synthesis.py::TextProgram``).
+    ``inputs`` are its static buffers."""
 
     def __init__(self, model: Tacotron2, spk_emb: np.ndarray,
                  max_text_len: int, max_decoder_steps: int,
                  device: torch.device, graph: bool):
         self.model, self.steps = model, max_decoder_steps
-        self.max_text_len = max_text_len
         keep = model.prenet_masks(1, max_decoder_steps,
                                   torch.Generator().manual_seed(MASK_SEED),
                                   "cpu")
-        self.inputs = {
+        inputs = {
             "text": torch.zeros((1, max_text_len), dtype=torch.int64,
                                 device=device),
             "text_lengths": torch.zeros((1,), dtype=torch.int64,
@@ -117,37 +111,14 @@ class ClonedSpeech:
             "spk_emb": torch.as_tensor(spk_emb, dtype=torch.float32,
                                        device=device)[None]}
         if keep is not None:
-            self.inputs["prenet_keep"] = keep.to(device)
-        self.load([0])                  # a valid line for the capture's runs
-        self.program = (CapturedProgram(self._infer, self.inputs)
-                        if graph else None)
+            inputs["prenet_keep"] = keep.to(device)
+        super().__init__(self._infer, inputs, graph)
 
     def _infer(self, text, text_lengths, spk_emb, prenet_keep=None):
         out = self.model.infer(text, text_lengths, global_condition=spk_emb,
                                max_decoder_steps=self.steps,
                                prenet_keep=prenet_keep)
         return out["mel_outputs_postnet"], out["lengths"]
-
-    def load(self, ids: List[int]) -> None:
-        """Write a line's ids (cut to ``max_text_len``) into the inputs."""
-        ids = ids[:self.max_text_len]
-        text = torch.zeros((1, self.max_text_len), dtype=torch.int64)
-        text[0, :len(ids)] = torch.as_tensor(ids, dtype=torch.int64)
-        self.inputs["text"].copy_(text)
-        self.inputs["text_lengths"].fill_(len(ids))
-
-    @torch.no_grad()
-    def eager(self):
-        """(mel (1, steps, d_mels), lengths (1,)) of the loaded line,
-        eagerly."""
-        return self._infer(**self.inputs)
-
-    def __call__(self, ids: List[int]):
-        """(mel, lengths) of ``ids``: a replay of the graph, or eager."""
-        self.load(ids)
-        if self.program is None:
-            return self.eager()
-        return self.program()
 
 
 def _vocoder(args, cfg, device):
@@ -184,6 +155,7 @@ def main(argv=None) -> dict:
     add_device_arg(parser)
     args = parser.parse_args(argv)
     device = set_device(args.device)
+    disable_tf32()
 
     cfg = Config.from_yaml(args.config)
     vocab = {}
@@ -198,16 +170,14 @@ def main(argv=None) -> dict:
     model.to(device).eval()
     norm = ZScore(*np.load(args.stat)) if args.stat else None
 
-    _sync(device)
-    tic = time.perf_counter()
+    clock = Stopwatch(device)
     spk_emb = embed_reference(args.ref_wav, args.ge2e_checkpoint, device)
-    embed_s = time.perf_counter() - tic
-    tic = time.perf_counter()
+    embed_s = clock.seconds()
+    clock = Stopwatch(device)
     speech = ClonedSpeech(model, spk_emb, args.max_text_len,
                           args.max_decoder_steps, device,
                           graph=device.type == "cuda")
-    _sync(device)
-    capture_s = time.perf_counter() - tic
+    capture_s = clock.seconds()
     vocoder = fs = None
     if args.waveflow_checkpoint is not None:
         vocoder, fs = _vocoder(args, cfg, device)
@@ -219,10 +189,10 @@ def main(argv=None) -> dict:
         sentences = [line.strip().split(maxsplit=1) for line in f
                      if line.strip()]
     for utt_id, pinyin in sentences:
-        tic = time.perf_counter()
+        clock = Stopwatch(device)
         mel, lengths = speech(phone_ids(pinyin, lexicon, vocab))
         n = int(lengths[0])
-        decode_s = time.perf_counter() - tic
+        decode_s = clock.seconds()
         if n == 0:
             print(f"{utt_id}: decoded 0 frames, skipping")
             continue
@@ -235,12 +205,12 @@ def main(argv=None) -> dict:
             out = args.output_dir / f"{utt_id}.npy"
             np.save(out, mel.float().cpu().numpy())
         else:
-            tic = time.perf_counter()
+            clock = Stopwatch(device)
             with torch.no_grad():
                 wav = vocoder.infer(mel[None].float(), torch.Generator(
                     device=device).manual_seed(NOISE_SEED))[0]
             wav = wav.cpu().numpy()
-            record["vocoder_s"] = time.perf_counter() - tic
+            record["vocoder_s"] = clock.seconds()
             record["samples"] = len(wav)
             out = args.output_dir / f"{utt_id}.wav"
             save_wav(out, wav, fs)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["add_device_arg", "set_device"]
+__all__ = ["add_device_arg", "set_device", "disable_tf32", "tf32_enabled"]
 
 
 def add_device_arg(parser) -> None:
@@ -24,3 +24,17 @@ def set_device(device: str) -> torch.device:
     if device not in ("cuda", "cpu"):
         raise ValueError(f"unknown device {device!r}")
     return torch.device(device)
+
+
+def disable_tf32() -> None:
+    """Run float32 products as float32 on the card: TF32 off in cuBLAS's
+    matmuls and cuDNN's convolutions (PyTorch leaves cuDNN's on), as
+    ``chip_smoke.py`` runs.  The benches and CLIs call it in ``main``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def tf32_enabled() -> bool:
+    """Whether any float32 product may run in TF32 (a record's ``tf32``)."""
+    return bool(torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)

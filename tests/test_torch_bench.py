@@ -4,6 +4,9 @@ JAX package's, and MFU against the card's bf16 peak), each benchmark's
 ``main(argv)`` on ``--device cpu`` at tiny widths, and the latency
 simulator on a fake engine with fixed service times.  Times and MFU are
 the card's and come from chip runs only; here their keys are checked.
+Every bench twin turns TF32 off (cuBLAS's and cuDNN's float32 products
+as float32, as ``chip_smoke.py`` runs) and records ``tf32`` False, from
+flags set True before its ``main``.
 """
 import jax
 import jax.numpy as jnp
@@ -187,6 +190,20 @@ def tiny(monkeypatch):
     monkeypatch.setattr(longform_rtf, "TEXT_LEN", 8)
 
 
+@pytest.fixture
+def tf32_on(monkeypatch):
+    """Both TF32 flags on (cuDNN's is on by default), as a process may
+    leave them; a bench's ``main`` must turn them off."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+
+
+def _tf32_off(*records):
+    assert records and all(r["tf32"] is False for r in records)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
 def _cpu_record(rec):
     assert rec["backend"] == rec["device"] == "cpu"
     assert rec["power_limit"] is None and rec["graph_ms"] is None
@@ -197,7 +214,7 @@ def _cpu_record(rec):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_e2e_rtf_main_on_the_cpu(tiny, capsys, dtype):
+def test_e2e_rtf_main_on_the_cpu(tiny, tf32_on, capsys, dtype):
     rec = e2e_rtf.main(["--device", "cpu", "--iters", "1", "--dtype", dtype,
                         "--attn-impl", "dense"])
     assert BENCH_KEYS | NEW_KEYS <= set(rec)
@@ -205,10 +222,11 @@ def test_e2e_rtf_main_on_the_cpu(tiny, capsys, dtype):
     assert rec["vs_baseline"] is None and rec["dtype"] == dtype
     assert rec["audio_seconds"] == 32 * 4 / 24000
     _cpu_record(rec)
+    _tf32_off(rec)
     assert capsys.readouterr().out.count("\n") == 1
 
 
-def test_serving_throughput_main_on_the_cpu(tiny):
+def test_serving_throughput_main_on_the_cpu(tiny, tf32_on):
     rec = serving_throughput.main(["--device", "cpu", "--iters", "1",
                                    "--batch-size", "2", "--text-len", "6",
                                    "--max-frames", "24"])
@@ -218,9 +236,10 @@ def test_serving_throughput_main_on_the_cpu(tiny):
     assert rec["unit"] == "audio_seconds/sec" and rec["batch_size"] == 2
     assert rec["audio_seconds"] == 2 * 24 * 4 / 24000
     _cpu_record(rec)
+    _tf32_off(rec)
 
 
-def test_longform_rtf_main_on_the_cpu(tiny):
+def test_longform_rtf_main_on_the_cpu(tiny, tf32_on):
     recs = longform_rtf.main(["--device", "cpu", "--iters", "1",
                               "--frames", "40"])
     assert [r["attn_impl"] for r in recs] == ["dense", "auto"]
@@ -230,9 +249,10 @@ def test_longform_rtf_main_on_the_cpu(tiny):
             "frames", "audio_seconds"} <= set(rec)
         assert rec["frame_lengths"] == [40]
         _cpu_record(rec)
+    _tf32_off(*recs)
 
 
-def test_serving_engine_main_on_the_cpu(tiny):
+def test_serving_engine_main_on_the_cpu(tiny, tf32_on):
     rec = serving_engine.main(["--device", "cpu", "--requests", "5",
                                "--min-len", "3", "--buckets", "8", "16",
                                "--batch-size", "2", "--frames-per-token",
@@ -242,9 +262,10 @@ def test_serving_engine_main_on_the_cpu(tiny):
     assert rec["pad_to_max_value"] > 0 and rec["bucketing_speedup"] > 0
     assert rec["graphs"] is False and rec["eager_value"] is None
     assert rec["graph_reserved_gib"] is None and rec["device"] == "cpu"
+    _tf32_off(rec)
 
 
-def test_serving_latency_main_on_the_cpu(tiny):
+def test_serving_latency_main_on_the_cpu(tiny, tf32_on):
     recs = serving_latency.main(["--device", "cpu", "--rates", "50",
                                  "--requests", "4", "--min-len", "3",
                                  "--buckets", "8", "--batch-size", "2",
@@ -253,6 +274,71 @@ def test_serving_latency_main_on_the_cpu(tiny):
     assert rec["metric"] == "serving_latency" and rec["graphs"] is False
     assert 0 < rec["p50_ms"] <= rec["p95_ms"] <= rec["p99_ms"]
     assert 1 <= rec["mean_batch"] <= 2 and 0 < rec["utilization"] <= 1
+    _tf32_off(rec)
+
+
+def _family_twins(monkeypatch):
+    from parakeet_tpu_torch.benchmarks import (ar_decode, e2e_family_rtf,
+                                               train_am, waveflow_rtf)
+    from test_torch_family_recipes import (SS_SMALL, T2_SMALL, TT_SMALL,
+                                           WF_SMALL)
+    for mod in (e2e_family_rtf, train_am, ar_decode):
+        monkeypatch.setattr(mod, "MODEL_CONFIGS", {
+            "tacotron2": T2_SMALL, "speedyspeech": SS_SMALL,
+            "transformer_tts": TT_SMALL, "waveflow": WF_SMALL})
+    monkeypatch.setattr(e2e_family_rtf, "PWG_CONFIG", dict(
+        layers=2, stacks=1, residual_channels=8, gate_channels=16,
+        skip_channels=8, aux_context_window=2))
+    for mod in (e2e_family_rtf, ar_decode):
+        monkeypatch.setattr(mod, "TEXT_LEN", 8)
+    monkeypatch.setattr(e2e_family_rtf, "FRAMES", 6)
+    monkeypatch.setattr(train_am, "WAVEFLOW_FRAMES", 6)
+    monkeypatch.setattr(waveflow_rtf, "MODEL_CONFIG", WF_SMALL)
+    return {
+        "e2e_family_rtf": lambda: e2e_family_rtf.main([
+            "--device", "cpu", "--iters", "1", "--warmup", "0",
+            "--families", "speedyspeech"]),
+        "ar_decode": lambda: ar_decode.main([
+            "--device", "cpu", "--steps", "3", "--iters", "1", "--warmup",
+            "0", "--models", "transformer_tts"]),
+        "waveflow_rtf": lambda: waveflow_rtf.main([
+            "--device", "cpu", "--iters", "1", "--frames", "5"]),
+        "train_am": lambda: train_am.main([
+            "--device", "cpu", "--iters", "1", "--batch-size", "2",
+            "--text-len", "8", "--frames", "24", "--models",
+            "speedyspeech"])}
+
+
+def _train_twins(monkeypatch):
+    from parakeet_tpu_torch.benchmarks import (ge2e_train, train_fastspeech2,
+                                               train_pwgan)
+    from test_torch_recipe import TINY_OPTS
+    monkeypatch.setattr(ge2e_train, "MODEL_CONFIG", dict(
+        num_layers=1, hidden_size=8, output_size=8))
+    return {
+        "train_pwgan": lambda: train_pwgan.main([
+            "--device", "cpu", "--batch-sizes", "1", "--iters", "1",
+            "--opts", *TINY_OPTS]),
+        "train_fastspeech2": lambda: train_fastspeech2.main([
+            "--device", "cpu", "--iters", "1", "--batch-size", "2",
+            "--text-len", "8", "--frames", "24"]),
+        "ge2e_train": lambda: ge2e_train.main([
+            "--device", "cpu", "--iters", "1", "--speakers", "2", "--utts",
+            "2", "--frames", "8", "--n-mels", "8"])}
+
+
+@pytest.mark.parametrize("name", [
+    "e2e_family_rtf", "ar_decode", "waveflow_rtf", "train_am",
+    "train_pwgan", "train_fastspeech2", "ge2e_train"])
+def test_other_bench_twins_turn_tf32_off(name, monkeypatch, tf32_on):
+    """The bench twins outside this file's synthesis benches (their own
+    tests are in test_torch_family_recipes.py, test_torch_recipe.py,
+    test_torch_fs2_recipe.py and test_torch_ge2e_recipes.py), each at
+    tiny widths on the CPU: TF32 off and ``tf32`` False in every
+    record."""
+    twins = {**_family_twins(monkeypatch), **_train_twins(monkeypatch)}
+    out = twins[name]()
+    _tf32_off(*(out if isinstance(out, list) else [out]))
 
 
 class _FakeEngine:

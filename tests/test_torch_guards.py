@@ -1,6 +1,7 @@
-"""Guards of the PyTorch port: it imports no JAX and no YAML, its chip
-smoke test refuses to run without a card, and the smoke test's model
-configurations are the recipes' and the flash sweep's."""
+"""Guards of the PyTorch port: it imports no JAX and no YAML, and needs no
+jieba, its chip smoke test refuses to run without a card, and the smoke
+test's model configurations are the recipes' and the flash sweep's, its
+text-to-wav phase the recipes' YAMLs and the CLIs' defaults."""
 import ast
 import importlib.util
 import pathlib
@@ -67,8 +68,59 @@ def test_port_imports_no_jax_and_no_yaml():
             "parakeet_tpu_torch.recipes.tacotron2_aishell3.train",
             "parakeet_tpu_torch.recipes.tacotron2_aishell3.voice_cloning",
             "parakeet_tpu_torch.recipes.tacotron2_aishell3.dump",
-            "parakeet_tpu_torch.benchmarks.ge2e_train"} <= names
+            "parakeet_tpu_torch.benchmarks.ge2e_train",
+            "parakeet_tpu_torch.data.preprocess",
+            "parakeet_tpu_torch.data.textgrid",
+            "parakeet_tpu_torch.frontend.cli",
+            "parakeet_tpu_torch.frontend.arpabet",
+            "parakeet_tpu_torch.frontend.phonectic",
+            "parakeet_tpu_torch.frontend.pinyin",
+            "parakeet_tpu_torch.frontend.punctuation",
+            "parakeet_tpu_torch.frontend.tone_sandhi",
+            "parakeet_tpu_torch.frontend.zh_frontend",
+            "parakeet_tpu_torch.frontend._arpabet_data",
+            "parakeet_tpu_torch.frontend._pinyin_data",
+            "parakeet_tpu_torch.frontend._sandhi_data",
+            "parakeet_tpu_torch.frontend.normalizer.normalizer",
+            "parakeet_tpu_torch.frontend.normalizer.numbers",
+            "parakeet_tpu_torch.frontend.normalizer.abbreviations",
+            "parakeet_tpu_torch.frontend.zh_normalization.text_normlization",
+            "parakeet_tpu_torch.frontend.zh_normalization.num",
+            "parakeet_tpu_torch.frontend.zh_normalization.chronology",
+            "parakeet_tpu_torch.frontend.zh_normalization.phonecode",
+            "parakeet_tpu_torch.frontend.zh_normalization.quantifier",
+            "parakeet_tpu_torch.frontend.zh_normalization.char_convert",
+            "parakeet_tpu_torch.frontend.zh_normalization._char_convert_data",
+            "parakeet_tpu_torch.recipes.synthesis",
+            "parakeet_tpu_torch.recipes.fastspeech2.synthesize_e2e",
+            "parakeet_tpu_torch.recipes.fastspeech2.serve",
+            "parakeet_tpu_torch.recipes.speedyspeech.synthesize_e2e",
+            "parakeet_tpu_torch.recipes.transformer_tts.synthesize_e2e"
+            } <= names
     assert loaded == "[]", f"the port pulled in {loaded}"
+
+
+_WITHOUT_JIEBA = """
+import sys
+sys.modules["jieba"] = sys.modules["jieba.posseg"] = None   # not installed
+from parakeet_tpu_torch.frontend import Frontend, tone_sandhi, zh_frontend
+from parakeet_tpu_torch.recipes.fastspeech2 import synthesize_e2e, serve
+from parakeet_tpu_torch.recipes.speedyspeech import synthesize_e2e
+assert not zh_frontend._HAS_JIEBA and zh_frontend.psg is None
+assert not tone_sandhi._HAS_JIEBA and tone_sandhi.jieba is None
+print(Frontend(strict=False).get_syllables("今天天气很好"))
+"""
+
+
+def test_port_needs_no_jieba():
+    """Where jieba is missing (the card's machine) the frontend and the
+    CLIs import, and the Chinese frontend takes its path without
+    segmentation."""
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_JIEBA], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    sylls = ast.literal_eval(proc.stdout.strip())
+    assert len(sylls) == 6 and all(s[-1] in "12345" for s in sylls)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -288,3 +340,42 @@ def _defaults(path):
                     except ValueError:
                         pass
     return out
+
+
+@pytest.mark.parametrize("jax_cli,port_cli", [
+    ("recipes/fastspeech2/synthesize_e2e.py",
+     "parakeet_tpu_torch/recipes/fastspeech2/synthesize_e2e.py"),
+    ("recipes/speedyspeech/synthesize_e2e.py",
+     "parakeet_tpu_torch/recipes/speedyspeech/synthesize_e2e.py"),
+    ("recipes/transformer_tts/synthesize_e2e.py",
+     "parakeet_tpu_torch/recipes/transformer_tts/synthesize_e2e.py"),
+    ("tools/serve.py", "parakeet_tpu_torch/recipes/fastspeech2/serve.py")])
+def test_text_to_wav_clis_keep_the_jax_defaults(jax_cli, port_cli):
+    """Each text-to-wav twin parses every flag of its JAX CLI with the
+    same literal default (the device's, set by ``add_device_arg``, is the
+    card); the refused ``--export-dir`` and ``--sp`` are parsed by
+    ``recipes/synthesis.py``."""
+    want = _defaults(REPO / jax_cli)
+    got = {**_defaults(REPO / "parakeet_tpu_torch/recipes/synthesis.py"),
+           **_defaults(REPO / port_cli)}
+    assert want and {k: got.get(k) for k in want} == want
+
+
+def test_chip_smoke_text_to_wav_phase_is_the_recipes():
+    """Phase 19 runs the recipes' YAMLs through the CLIs at their
+    defaults: four sentences of the Chinese G2P cases, the TransformerTTS
+    CLI's 500 decoder steps, a serving batch of 8."""
+    smoke = _load_chip_smoke()
+    assert (smoke.FS2_RECIPE_CONF, smoke.SS_RECIPE_CONF,
+            smoke.TT_RECIPE_CONF, smoke.RECIPE_CONF) == (
+        "recipes/fastspeech2/conf/default.yaml",
+        "recipes/speedyspeech/conf/default.yaml",
+        "recipes/transformer_tts/conf/default.yaml",
+        "recipes/pwgan/conf/default.yaml")
+    cases = [ln for ln in (REPO / smoke.TTW_CASES).read_text(
+        encoding="utf-8").splitlines() if ln and not ln.startswith("#")]
+    assert smoke.TTW_LINES == 4 <= len(cases)
+    tts = _defaults(REPO / "recipes/transformer_tts/synthesize_e2e.py")
+    assert tts["max-decoder-steps"] == 500
+    assert smoke.TTW_SERVE_BATCH == 8
+    assert smoke.TTW_EN_SENTENCE.split()[0] == "tt_0001"
