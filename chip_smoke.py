@@ -190,7 +190,27 @@ Phases, one line each (the checks raise; nothing is caught):
    times a vocoded line; the four through the serving twin (batch 8,
    ``--warmup``), its graphs' wavs bitwise its engine's eager wavs; the
    frontend's path (jieba or one word a sentence), each line's frontend,
-   AM and vocoder ms, RTF and the serving twin's audio-s/s.
+   AM and vocoder ms, RTF and the serving twin's audio-s/s;
+20. the corpus legs around training through the port's CLIs at the
+   recipe YAMLs' widths with random-weight snapshots it writes: six
+   seeded formant utterances (``audio/synthetic.py``) at 24 kHz with a
+   durations file, and as an LJSpeech tree, through the FastSpeech2,
+   PWGAN (``--cut-sil``) and Tacotron2 preprocess and normalize CLIs (host
+   seconds); ``fastspeech2/synthesize.py`` on the test split,
+   ``pwgan/synthesize.py`` on the dev split and
+   ``pwgan/synthesize_from_wav.py`` on one wav, each with K1 and again
+   with K1's plain version, each wav held to the other (K1 30 times a
+   line); ``tacotron2/synthesize.py`` with WaveFlow and
+   ``transformer_tts/synthesize.py`` with PWG (200 decoder steps as one
+   graph each) and ``waveflow/synthesize.py`` (the sampler one graph),
+   one utterance each; then the FastSpeech2 ``synthesize_e2e`` twin with
+   ``--export-dir`` on phase 19's snapshots (``torch.export``: the
+   exported vocoder's graph must hold K1's registered operator) and
+   ``inference.py`` on two of its sentences (K1 30 times a line through
+   the exported program), the exported acoustic program's mel against
+   the eager program's and the exported vocoder's wav against the eager
+   vocoder's on the same mel and noise, with the export's seconds and
+   both vocoders' ms.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
@@ -200,8 +220,12 @@ dk 192; K4b is one launch a call at both widths; K1 again as
 ``pwg_residual_stack_speedyspeech``, ``_tacotron2``,
 ``_transformer_tts_r1`` and ``_transformer_tts_r2``: the family
 programs' runs, eager calls and capture, with its error and times at
-their shapes; and as ``pwg_residual_stack_text_to_wav`` the text-to-wav
-CLIs' eager vocoder calls, at the longest line's shape), error, times,
+their shapes; as ``pwg_residual_stack_text_to_wav`` the text-to-wav
+CLIs' eager vocoder calls, at the longest line's shape; as
+``pwg_residual_stack_synthesize`` phase 20's synthesis CLIs' calls, at
+the FastSpeech2 CLI's longest line's shape; and as
+``pwg_residual_stack_exported`` the exported vocoder's calls in
+``inference.py``, at its capacity, 1,024 frames x 300), error, times,
 bound
 (the larger of its bytes over the H100's memory rate and its operations
 over its peak for the operands' type, from this run's shapes; K4's
@@ -558,6 +582,33 @@ TTW_LINES = 4
 TTW_EN_SENTENCE = "tt_0001 The quick brown fox jumped over the lazy dog."
 TTW_MIN_DURATION = 2
 TTW_SERVE_BATCH = 8
+# phase 20: the corpus legs around training, at the recipe YAMLs' widths
+# with random-weight snapshots: six formant utterances at 24 kHz (a
+# durations file of two speakers, and the same wavs as an LJSpeech tree)
+# through the preprocess and normalize CLIs (one dev and two test
+# utterances; the LJSpeech tree one and one), then synthesis from the
+# dumps: FastSpeech2 and PWG on their test and dev splits and copy
+# synthesis of one wav, each with K1 and with its plain version;
+# Tacotron2 -> WaveFlow, WaveFlow alone and TransformerTTS -> PWG on one
+# utterance each, the decodes over CORPUS_STEPS steps as one graph each
+# (their stop logits' bias at CORPUS_STOP_BIAS: they decode every step),
+# WaveFlow's sampler one graph at CORPUS_WF_FRAMES (a cut of its 1,024);
+# then FastSpeech2's e2e twin with --export-dir on phase 19's snapshots
+# and inference.py on CORPUS_EXPORT_LINES of its sentences
+CORPUS_PHONES = [
+    [("sil", 0.10), ("a", 0.20), ("s", 0.10), ("i", 0.20), ("sil", 0.10)],
+    [("sil", 0.08), ("o", 0.25), ("sh", 0.12), ("u", 0.18), ("sil", 0.10)],
+    [("sil", 0.10), ("e", 0.22), ("f", 0.10), ("a", 0.24), ("sil", 0.08)],
+    [("sil", 0.06), ("i", 0.30), ("h", 0.08), ("o", 0.20), ("sil", 0.10)],
+    [("sil", 0.10), ("u", 0.18), ("s", 0.14), ("e", 0.26), ("sil", 0.06)],
+    [("sil", 0.08), ("a", 0.16), ("sh", 0.10), ("i", 0.28), ("sil", 0.10)]]
+CORPUS_LJ_TEXT = ["Printing, in the only sense", "with which we are at",
+                  "present concerned, differs", "from most if not from all",
+                  "the arts and crafts", "represented in the Exhibition."]
+CORPUS_STEPS = 200
+CORPUS_STOP_BIAS = -10.0
+CORPUS_WF_FRAMES = 256
+CORPUS_EXPORT_LINES = 2
 # NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
 # FLOP/s by operand type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -3065,6 +3116,371 @@ def phase_text_to_wav():
     return record
 
 
+def _corpus(out):
+    """Phase 20's corpus under ``out``: six formant utterances at 24 kHz
+    (seeded) in wavs/ with durations.txt (speakers spk0 and spk1), and
+    the same wavs as an LJSpeech tree in lj/."""
+    from parakeet_tpu_torch.audio import save_wav
+    from parakeet_tpu_torch.audio.synthetic import formant_utterance
+    (out / "wavs").mkdir(parents=True)
+    (out / "lj" / "wavs").mkdir(parents=True)
+    lines, csv = [], []
+    for i, phones in enumerate(CORPUS_PHONES):
+        utt = formant_utterance(phones, sr=SAMPLE_RATE, hop_length=300,
+                                seed=SEED + 30 + i)
+        save_wav(out / "wavs" / f"utt{i:03d}.wav", utt["wav"], SAMPLE_RATE)
+        save_wav(out / "lj" / "wavs" / f"LJ001-{i:04d}.wav", utt["wav"],
+                 SAMPLE_RATE)
+        lines.append(f"utt{i:03d}|spk{i % 2}|" + " ".join(
+            f"{p} {d}" for p, d in zip(utt["phones"], utt["durations"])))
+        csv.append(f"LJ001-{i:04d}|{CORPUS_LJ_TEXT[i].upper()}|"
+                   f"{CORPUS_LJ_TEXT[i]}")
+    (out / "durations.txt").write_text("\n".join(lines) + "\n")
+    (out / "lj" / "metadata.csv").write_text("\n".join(csv) + "\n")
+
+
+def _with_plain_k1(main, argv):
+    """``main(argv)`` with K1's plain version in the residual stack's
+    place (it launches nothing)."""
+    from parakeet_tpu_torch.models import parallel_wavegan
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    real = parallel_wavegan.fused_residual_stack
+    parallel_wavegan.fused_residual_stack = \
+        k1.fused_residual_stack_reference
+    try:
+        return main(argv)
+    finally:
+        parallel_wavegan.fused_residual_stack = real
+
+
+def _k1_against_plain(what, lines, plain_lines, hop):
+    """Each line's wav against the plain version's within K1_REL_TOL of
+    its range, the same frames, finite, frames x hop samples; returns the
+    largest error as a share of the range."""
+    worst = 0.0
+    for got, ref in zip(lines, plain_lines):
+        err = float(np.abs(got["wav"] - ref["wav"]).max())
+        scale = max(1.0, float(np.abs(ref["wav"]).max()))
+        if not (got["frames"] == ref["frames"] > 0
+                and err <= K1_REL_TOL * scale
+                and got["samples"] == got["frames"] * hop
+                and np.isfinite(got["wav"]).all()):
+            raise AssertionError(f"{what} {got.get('utt_id')}: "
+                                 f"{got['frames']} frames, K1 against plain "
+                                 f"{err} > {K1_REL_TOL * scale}")
+        worst = max(worst, err / scale)
+    if len(lines) != len(plain_lines) or not lines:
+        raise AssertionError(f"{what}: {len(lines)} lines")
+    return worst
+
+
+def _corpus_snapshots(out, dumps):
+    """Random-weight snapshots at the recipe YAMLs' widths over the dumps'
+    maps: FastSpeech2 (durations as phase 19's), Tacotron2 and
+    TransformerTTS (the LJSpeech dump's character map), PWG and WaveFlow;
+    returns their paths by name."""
+    from parakeet_tpu_torch.benchmarks.common import (WAVEFLOW_CONFIG,
+                                                      seeded_init_,
+                                                      seeded_waveflow)
+    from parakeet_tpu_torch.bridge import flax_arrays
+    from parakeet_tpu_torch.models import PWGGenerator
+    from parakeet_tpu_torch.recipes.fastspeech2 import train as fs2_train
+    from parakeet_tpu_torch.recipes.tacotron2 import train as t2_train
+    from parakeet_tpu_torch.recipes.transformer_tts import train as tt_train
+    from parakeet_tpu_torch.training import Config, save_pytree
+
+    def count(path):
+        return len(path.read_text().splitlines())
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    fs2 = fs2_train.build_model(Config.from_yaml(FS2_RECIPE_CONF),
+                                count(dumps["fs2"] / "phone_id_map.txt"),
+                                ODIM)
+    with torch.no_grad():
+        fs2.duration_predictor.stack.linear.weight.mul_(DURATION_SPREAD)
+        fs2.duration_predictor.stack.linear.bias.fill_(DURATION_BIAS)
+    chars = count(dumps["lj"] / "phone_id_map.txt")
+    pwg = PWGGenerator(**PWG_CONFIG)
+    seeded_init_(pwg, gen)
+    t2 = t2_train.build_model(Config.from_yaml(T2_RECIPE_CONF), chars)
+    tt = tt_train.build_model(Config.from_yaml(TT_RECIPE_CONF), chars, ODIM)
+    with torch.no_grad():           # decode every step: the stop logit low
+        t2.cell.stop_proj.bias.fill_(CORPUS_STOP_BIAS)
+        tt.prob_out.bias.fill_(CORPUS_STOP_BIAS)
+    models = {"fs2": fs2, "pwg": pwg, "t2": t2, "tt": tt,
+              "wf": seeded_waveflow(WAVEFLOW_CONFIG, gen)}
+    paths = {}
+    for name, model in models.items():
+        paths[name] = out / f"{name}.npz"
+        save_pytree(paths[name], flax_arrays(model))
+    return paths
+
+
+def phase_corpus():
+    """Phase 20: the corpus legs around training through the port's CLIs
+    at the recipe YAMLs' widths: preprocess and normalize, synthesis from
+    the dumps (K1 30 times a PWG line, each PWG CLI's wavs against K1's
+    plain version's), the decodes and WaveFlow, then FastSpeech2's export
+    (K1's operator in the exported vocoder's graph) and inference.py (K1
+    30 times a line through the exported program; the exported programs
+    against the eager ones).  Returns K1's records for the synthesis CLIs
+    and for the exported vocoder."""
+    import shutil
+    from parakeet_tpu_torch.benchmarks.common import WAVEFLOW_CONFIG, card
+    from parakeet_tpu_torch.models import pwg_inference
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    from parakeet_tpu_torch.recipes.fastspeech2 import inference as fs2_inf
+    from parakeet_tpu_torch.recipes.fastspeech2 import normalize as fs2_norm
+    from parakeet_tpu_torch.recipes.fastspeech2 import preprocess as fs2_pre
+    from parakeet_tpu_torch.recipes.fastspeech2 import synthesize as fs2_syn
+    from parakeet_tpu_torch.recipes.fastspeech2 import \
+        synthesize_e2e as fs2_e2e
+    from parakeet_tpu_torch.recipes.pwgan import normalize as pwg_norm
+    from parakeet_tpu_torch.recipes.pwgan import preprocess as pwg_pre
+    from parakeet_tpu_torch.recipes.pwgan import synthesize as pwg_syn
+    from parakeet_tpu_torch.recipes.pwgan import \
+        synthesize_from_wav as copy_syn
+    from parakeet_tpu_torch.recipes.tacotron2 import normalize as t2_norm
+    from parakeet_tpu_torch.recipes.tacotron2 import preprocess as t2_pre
+    from parakeet_tpu_torch.recipes.tacotron2 import synthesize as t2_syn
+    from parakeet_tpu_torch.recipes.transformer_tts import \
+        synthesize as tt_syn
+    from parakeet_tpu_torch.recipes.waveflow import synthesize as wf_syn
+    name, limit = card(torch.device("cuda"))
+    t_phase = time.perf_counter()
+    out = (pathlib.Path("build") / "chip_smoke_corpus").resolve()
+    shutil.rmtree(out, ignore_errors=True)
+    _corpus(out)
+    layers = PWG_CONFIG["layers"]
+    hop = math.prod(PWG_CONFIG["upsample_scales"])
+    # (a) preprocess and normalize, host code
+    tic = time.perf_counter()
+    dumps = {k: out / k for k in ("fs2", "pwg", "lj")}
+    splits = ["--num-cpu", "1", "--dev-size", "1"]
+    fs2_rows = fs2_pre.main([
+        "--rootdir", str(out / "wavs"), "--duration-file",
+        str(out / "durations.txt"), "--dumpdir", str(dumps["fs2"]),
+        "--config", FS2_RECIPE_CONF, *splits, "--test-size", "2"])
+    pwg_rows = pwg_pre.main([
+        "--rootdir", str(out / "wavs"), "--dumpdir", str(dumps["pwg"]),
+        "--config", RECIPE_CONF, "--dur-file", str(out / "durations.txt"),
+        "--cut-sil", *splits])
+    lj_rows = t2_pre.main([
+        "--rootdir", str(out / "lj"), "--dumpdir", str(dumps["lj"]),
+        "--config", T2_RECIPE_CONF, *splits, "--test-size", "1"])
+    for split in ("train", "test"):
+        extra = ["--compute-stats"] if split == "train" else []
+        fs2_norm.main([
+            "--metadata", str(dumps["fs2"] / f"metadata_{split}.jsonl"),
+            "--dumpdir", str(dumps["fs2"] / "norm" / split),
+            "--phones-dict", str(dumps["fs2"] / "phone_id_map.txt"),
+            "--speaker-dict", str(dumps["fs2"] / "speaker_id_map.txt"),
+            *extra])
+        t2_norm.main([
+            "--metadata", str(dumps["lj"] / f"metadata_{split}.jsonl"),
+            "--dumpdir", str(dumps["lj"] / "norm" / split),
+            "--phones-dict", str(dumps["lj"] / "phone_id_map.txt"), *extra])
+    for split, extra in (("train", ["--compute-stats"]), ("dev", [])):
+        pwg_norm.main([
+            "--metadata", str(dumps["pwg"] / f"metadata_{split}.jsonl"),
+            "--dumpdir", str(dumps["pwg"] / "norm" / split), "--stats",
+            str(dumps["pwg"] / "feats_stats.npy"), *extra])
+    prep_s = time.perf_counter() - tic
+    if not (len(fs2_rows) == len(pwg_rows) == len(lj_rows)
+            == len(CORPUS_PHONES)):
+        raise AssertionError(f"corpus: {len(fs2_rows)}, {len(pwg_rows)}, "
+                             f"{len(lj_rows)} utterances preprocessed")
+    frames = [r["speech_lengths"] for r in fs2_rows]
+    print(f"corpus ({name}, {limit}; {len(CORPUS_PHONES)} formant "
+          f"utterances at {SAMPLE_RATE} Hz, {min(frames)}-{max(frames)} "
+          f"frames): preprocess (FastSpeech2, PWGAN --cut-sil, Tacotron2's "
+          f"characters) and normalize on the host in {prep_s:.2f} s, "
+          f"{prep_s / (3 * len(CORPUS_PHONES)):.3f} s an utterance and CLI")
+    snap = _corpus_snapshots(out, dumps)
+    # (b) FastSpeech2 and PWG from the dumps, copy synthesis: K1 against
+    # its plain version
+    k1_syn = 0
+    runs = [("fastspeech2/synthesize.py", fs2_syn.main, [
+        "--fastspeech2-config", FS2_RECIPE_CONF, "--fastspeech2-checkpoint",
+        str(snap["fs2"]), "--fastspeech2-stat",
+        str(dumps["fs2"] / "norm" / "speech_stats.npy"), "--pwg-config",
+        RECIPE_CONF, "--pwg-checkpoint", str(snap["pwg"]),
+        "--test-metadata", str(dumps["fs2"] / "norm" / "test" /
+                               "metadata.jsonl"), "--phones-dict",
+        str(dumps["fs2"] / "phone_id_map.txt")]),
+        ("pwgan/synthesize.py", pwg_syn.main, [
+            "--config", RECIPE_CONF, "--checkpoint", str(snap["pwg"]),
+            "--test-metadata", str(dumps["pwg"] / "norm" / "dev" /
+                                   "metadata.jsonl")]),
+        ("pwgan/synthesize_from_wav.py", copy_syn.main, [
+            "--config", RECIPE_CONF, "--checkpoint", str(snap["pwg"]),
+            "--stats", str(dumps["pwg"] / "feats_stats.npy"), "--input-wav",
+            str(out / "wavs" / "utt005.wav")])]
+    fs2_t = None
+    for i, (what, main, argv) in enumerate(runs):
+        k1.fused_residual_stack.launches = 0
+        got = main(argv + ["--output-dir", str(out / f"syn{i}")])
+        launches = k1.fused_residual_stack.launches
+        plain = _with_plain_k1(main, argv + ["--output-dir",
+                                             str(out / f"plain{i}")])
+        worst = _k1_against_plain(what, got["lines"], plain["lines"], hop)
+        if launches != layers * len(got["lines"]):
+            raise AssertionError(f"{what}: K1 launched {launches} times for "
+                                 f"{len(got['lines'])} lines")
+        k1_syn += launches
+        if fs2_t is None:
+            fs2_t = max(r["samples"] for r in got["lines"])
+        capture = (f", the AM graph captured in {got['capture_s']:.2f} s"
+                   if "capture_s" in got else "")
+        print(f"corpus, {what} ({FS2_RECIPE_CONF + ', ' if i == 0 else ''}"
+              f"{RECIPE_CONF}, float32, random weights; "
+              f"host clock, synchronised{capture}"
+              + ("" if i == 0 else "; the mel padded to 1,024 frames")
+              + "): " + "; ".join(
+                  f"{r.get('utt_id', 'wav')} {r['frames']} frames, K1 at T="
+                  f"{r['samples'] if i == 0 else 1024 * hop}: " + "".join(
+                      f"{part} {1e3 * r[key]:.2f} ms, " for part, key in (
+                          ("AM", "am_s"), ("mel", "mel_s")) if key in r)
+                  + f"vocoder {1e3 * r['vocoder_s']:.2f} ms"
+                  for r in got["lines"])
+              + f"; K1 x {launches}; wavs against K1's plain version within "
+              f"{worst:.3g} of their range (tol {K1_REL_TOL:.3g})")
+    # (c) the decodes and WaveFlow, one utterance each
+    test_md = str(dumps["lj"] / "norm" / "test" / "metadata.jsonl")
+    stat = str(dumps["lj"] / "norm" / "speech_stats.npy")
+    chars = str(dumps["lj"] / "phone_id_map.txt")
+    t2 = t2_syn.main([
+        "--config", T2_RECIPE_CONF, "--checkpoint", str(snap["t2"]),
+        "--stat", stat, "--test-metadata", test_md, "--phones-dict", chars,
+        "--waveflow-config", WF_RECIPE_CONF, "--waveflow-checkpoint",
+        str(snap["wf"]), "--max-decoder-steps", str(CORPUS_STEPS),
+        "--output-dir", str(out / "t2")])
+    mels = out / "mels"
+    mels.mkdir()
+    np.save(mels / "utt000.npy", np.load(fs2_rows[0]["speech"]))
+    wf = wf_syn.main([
+        "--config", WF_RECIPE_CONF, "--checkpoint", str(snap["wf"]),
+        "--input", str(mels), "--max-frames", str(CORPUS_WF_FRAMES),
+        "--output", str(out / "wf")])
+    k1.fused_residual_stack.launches = 0
+    tt = tt_syn.main([
+        "--config", TT_RECIPE_CONF, "--checkpoint", str(snap["tt"]),
+        "--stat", stat, "--test-metadata", test_md, "--phones-dict", chars,
+        "--pwg-config", RECIPE_CONF, "--pwg-checkpoint", str(snap["pwg"]),
+        "--max-decoder-steps", str(CORPUS_STEPS), "--output-dir",
+        str(out / "tt")])
+    k1_tt = k1.fused_residual_stack.launches
+    wf_hop = math.prod(WAVEFLOW_CONFIG["upsample_factors"])
+    for what, res, want_hop in (("tacotron2", t2, wf_hop),
+                                ("waveflow", wf, wf_hop),
+                                ("transformer_tts", tt, hop)):
+        (r,) = res["lines"]
+        if not (0 < r["frames"] <= max(CORPUS_STEPS, CORPUS_WF_FRAMES)
+                and r["samples"] == r["frames"] * want_hop
+                and np.isfinite(r["wav"]).all()):
+            raise AssertionError(f"corpus, {what}: {r['frames']} frames, "
+                                 f"{r['samples']} samples")
+    if k1_tt != layers:
+        raise AssertionError(f"corpus, transformer_tts: K1 x {k1_tt}")
+    k1_syn += k1_tt
+    (r2,), (rw,), (rt,) = t2["lines"], wf["lines"], tt["lines"]
+    print(f"corpus, decodes ({T2_RECIPE_CONF}, {TT_RECIPE_CONF}, "
+          f"{WF_RECIPE_CONF}; {CORPUS_STEPS} steps; host clock, "
+          f"synchronised): Tacotron2 {r2['frames']} frames, decode "
+          f"{1e3 * r2['am_s']:.1f} ms (capture {t2['capture_s']:.2f} s), "
+          f"WaveFlow eager {1e3 * r2['vocoder_s']:.1f} ms; waveflow/"
+          f"synthesize.py {rw['frames']} frames, the sampler graph at "
+          f"{CORPUS_WF_FRAMES} frames {1e3 * rw['vocoder_s']:.1f} ms "
+          f"(capture {wf['capture_s']:.2f} s); TransformerTTS "
+          f"{rt['frames']} frames, decode {1e3 * rt['am_s']:.1f} ms "
+          f"(capture {tt['capture_s']:.2f} s), PWG "
+          f"{1e3 * rt['vocoder_s']:.2f} ms, K1 x {k1_tt}")
+    # (d) export on the card, then inference.py
+    ttw = out / "ttw"
+    ttw.mkdir()
+    tsnap = _ttw_snapshots(ttw)
+    cases = [ln.split("|")[0] for ln in pathlib.Path(
+        TTW_CASES).read_text(encoding="utf-8").splitlines()
+             if ln and not ln.startswith("#")][:CORPUS_EXPORT_LINES]
+    (ttw / "zh.txt").write_text("".join(
+        f"zh_{i:04d} {s}\n" for i, s in enumerate(cases)), encoding="utf-8")
+    export = out / "export"
+    e2e = fs2_e2e.main([
+        "--fastspeech2-config", FS2_RECIPE_CONF, "--fastspeech2-checkpoint",
+        str(tsnap["fs2"]), "--pwg-config", RECIPE_CONF, "--pwg-checkpoint",
+        str(tsnap["pwg"]), "--phones-dict", str(tsnap["zh"]["phones"]),
+        "--text", str(ttw / "zh.txt"), "--min-duration",
+        str(TTW_MIN_DURATION), "--output-dir", str(out / "e2e"),
+        "--export-dir", str(export)])
+    ep = torch.export.load(export / "pwgan.pt2")
+    ops = [n for n in ep.graph.nodes if n.op == "call_function"
+           and n.target == torch.ops.parakeet_tpu_torch.pwg_residual_stack
+           .default]
+    if len(ops) != 1:
+        raise AssertionError(f"export: the vocoder's graph holds K1's "
+                             f"operator {len(ops)} times")
+    k1.fused_residual_stack.launches = 0
+    inf = fs2_inf.main([
+        "--export-dir", str(export), "--phones-dict",
+        str(tsnap["zh"]["phones"]), "--text", str(ttw / "zh.txt"),
+        "--output-dir", str(out / "inference")])
+    k1_exp = k1.fused_residual_stack.launches
+    lines = inf["lines"]
+    if not (len(lines) == CORPUS_EXPORT_LINES
+            and k1_exp == layers * len(lines)
+            and [(r["ids"], r["frames"]) for r in lines]
+            == [(r["ids"], r["frames"]) for r in e2e["lines"]]
+            and all(np.isfinite(r["wav"]).all() for r in lines)):
+        raise AssertionError(f"inference: {len(lines)} lines, K1 x {k1_exp}")
+    # the exported programs against the eager ones on the last line
+    speech, program = inf["speech"], e2e["program"]
+    speech.program.load(lines[-1]["ids"])
+    exp_mel, exp_n = speech.program.eager()
+    program.load(lines[-1]["ids"])
+    mel, n = program.eager()
+    am_err = float((exp_mel - mel).abs().max()) / max(
+        1.0, float(mel.abs().max()))
+    if not (torch.equal(exp_n, n) and am_err <= 1e-5):
+        raise AssertionError(f"export: the acoustic program's mel {am_err} "
+                             "of its range from the eager program's")
+    voc = fs2_e2e.build_vocoder(RECIPE_CONF, tsnap["pwg"],
+                                torch.device("cuda"))
+    with torch.no_grad():
+        exp_wav = speech.voc(exp_mel, speech.noise)
+        wav = pwg_inference(voc, exp_mel, noise=speech.noise)
+        voc_err = float((exp_wav - wav).abs().max()) / max(
+            1.0, float(wav.abs().max()))
+        if voc_err > 2 ** -8:
+            raise AssertionError(f"export: the vocoder's wav {voc_err} of "
+                                 "its range from the eager vocoder's")
+        exp_ms = cuda_ms(lambda: speech.voc(exp_mel, speech.noise), 5)
+        eager_ms = cuda_ms(lambda: pwg_inference(voc, exp_mel,
+                                                 noise=speech.noise), 5)
+    cap = speech.max_frames * speech.hop
+    print(f"corpus, export ({name}, {limit}): fastspeech2.pt2 and pwgan.pt2 "
+          f"through torch.export in {e2e['export_s']:.2f} s, the vocoder's "
+          f"graph holding K1's operator once; inference.py (AM graph "
+          f"captured in {inf['capture_s']:.2f} s): " + "; ".join(
+              f"{r['utt_id']} {r['frames']} frames: AM {1e3 * r['am_s']:.2f} "
+              f"ms, vocoder at T={cap} {1e3 * r['vocoder_s']:.2f} ms"
+              for r in lines)
+          + f"; K1 x {k1_exp}; the exported AM's mel "
+          + ("bitwise" if am_err == 0 else f"within {am_err:.3g} of its "
+             "range of") + " the eager program's, the exported vocoder's "
+          "wav " + ("bitwise" if voc_err == 0 else f"within {voc_err:.3g} "
+                    "of its range of") + " the eager vocoder's; exported "
+          f"vocoder {exp_ms:.3f} ms, eager {eager_ms:.3f} ms (median, CUDA "
+          "events)")
+    shutil.rmtree(out, ignore_errors=True)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    syn = k1_check(gen, 1, fs2_t, name="pwg_residual_stack_synthesize")
+    syn["launches"] = k1_syn
+    exported = k1_check(gen, 1, cap, name="pwg_residual_stack_exported")
+    exported["launches"] = k1_exp
+    print(f"corpus: phase {time.perf_counter() - t_phase:.1f} s")
+    return syn, exported
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3107,9 +3523,10 @@ def main():
     phase_ge2e()
     phase_voice_cloning()
     k1_text = phase_text_to_wav()
+    k1_corpus = phase_corpus()
     print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
                                   *k4.values(), k1_ss, k1_t2, *k1_tt,
-                                  k1_text]}))
+                                  k1_text, *k1_corpus]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,10 +14,19 @@ On CUDA tensors both launch the hand-written kernel in
 ``parakeet_tpu_torch/csrc/pwg_stack.cu``, one launch per layer, or raise;
 ``fused_residual_stack.launches`` and ``fused_group_forward_save.launches``
 count those launches.  On CPU tensors they run ``group_forward_reference``,
-the plain PyTorch statement of the same arithmetic.  The launcher's
-geometry is stated as plain functions: ``k1_warps`` and
-``k1_smem_bytes`` (a block's warps and shared memory) and
-``k1_layer_bytes`` (the bytes its launches must move).
+the plain PyTorch statement of the same arithmetic.
+
+K1's launches sit behind a registered PyTorch operator,
+``torch.ops.parakeet_tpu_torch.pwg_residual_stack`` (CUDA only, with a
+fake kernel that states its outputs' shapes and types), so that
+``torch.export`` can trace a vocoder that holds it (its fake tensors have
+no addresses to hand to the launcher): the weights' packing and the bf16
+casts stay ordinary operators in front of it, and an exported program
+runs K1 through the operator.  Loading such a program needs this module
+imported first (it registers the operator).  The launcher's geometry is
+stated as plain functions: ``k1_warps`` and ``k1_smem_bytes`` (a block's
+warps and shared memory) and ``k1_layer_bytes`` (the bytes its launches
+must move).
 
 Rounding points, copied from the TPU kernel: x and c enter as bf16;
 inside a group of layers x is carried in float32; every matmul operand
@@ -31,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,7 +51,7 @@ __all__ = ["fused_residual_stack", "fused_residual_stack_reference",
            "fused_group_forward_save", "group_forward_reference",
            "fused_stack_supported", "pack_stack_weights", "check_tensor",
            "kernel_call", "aux_rows", "k1_warps", "k1_smem_bytes",
-           "k1_layer_bytes", "SMEM_LIMIT"]
+           "k1_layer_bytes", "SMEM_LIMIT", "pwg_residual_stack", "K1_OP"]
 
 _SQRT_HALF = math.sqrt(0.5)
 _F32, _BF16 = torch.float32, torch.bfloat16
@@ -286,7 +295,8 @@ def _check_stack_args(x, c, n, stacks, what):
 
 def _run_layers(x_cur, c16, wg16, wso16, bso, dilations, *, per, out,
                 saved, counter):
-    """One launch per layer from float32 x_cur; the last layer writes
+    """One launch per layer from float32 x_cur (overwritten: the layers
+    ping-pong between it and a buffer of their own); the last layer writes
     ``out`` (bf16 to end the stack, float32 to end a group)."""
     b, t, cr = x_cur.shape
     ca = c16.shape[-1]
@@ -315,26 +325,58 @@ def _run_layers(x_cur, c16, wg16, wso16, bso, dilations, *, per, out,
     return skip
 
 
-def _fused_residual_stack_cuda(x, c, weights, dilations, stacks):
+K1_OP = "parakeet_tpu_torch::pwg_residual_stack"
+
+
+@torch.library.custom_op(
+    K1_OP, mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor c, Tensor wg, Tensor wso, Tensor bso, "
+           "int[] dilations, int stacks) -> (Tensor, Tensor)")
+def pwg_residual_stack(x: torch.Tensor, c: torch.Tensor, wg: torch.Tensor,
+                       wso: torch.Tensor, bso: torch.Tensor,
+                       dilations: List[int], stacks: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's launches as a registered operator, CUDA tensors only: x (B, T,
+    cr) and c (B, T, ca) bf16, wg (L, KP, 2cr) and wso (L, cr, 2cr) bf16
+    and bso (L, 2cr) float32 as ``pack_stack_weights`` packs them.
+    Returns (x_final bf16, skip_sum float32), (B, T, cr) each; advances
+    ``fused_residual_stack.launches`` once a layer."""
     b, t, cr = x.shape
-    ca = c.shape[-1]
     n = len(dilations)
-    _check_stack_args(x, c, n, stacks, "K1")
     dev = x.device
-    wg, wso, bso = pack_stack_weights(weights, cr, ca)
-    kp = 3 * cr + _aux_width(ca)
-    wg16, wso16 = wg.to(_BF16), wso.to(_BF16).contiguous()
-    check_tensor("wg", wg16, (n, kp, 2 * cr), _BF16, dev)
-    check_tensor("wso", wso16, (n, cr, 2 * cr), _BF16, dev)
+    kp = 3 * cr + _aux_width(c.shape[-1])
+    check_tensor("x", x, (b, t, cr), _BF16, dev)
+    check_tensor("c", c, (b, t, c.shape[-1]), _BF16, dev)
+    check_tensor("wg", wg, (n, kp, 2 * cr), _BF16, dev)
+    check_tensor("wso", wso, (n, cr, 2 * cr), _BF16, dev)
     check_tensor("bso", bso, (n, 2 * cr), _F32, dev)
     with torch.cuda.device(dev):
-        x_cur = x.to(_BF16).to(_F32).contiguous()   # enters as bf16
-        c16 = c.to(_BF16).contiguous()
+        x_cur = x.to(_F32)          # a buffer of the op's own
         out = torch.empty((b, t, cr), dtype=_BF16, device=dev)
-        skip = _run_layers(x_cur, c16, wg16, wso16, bso, dilations,
+        skip = _run_layers(x_cur, c, wg, wso, bso, dilations,
                            per=n // stacks, out=out, saved=None,
                            counter=fused_residual_stack)
     return out, skip
+
+
+@pwg_residual_stack.register_fake
+def _pwg_residual_stack_fake(x, c, wg, wso, bso, dilations, stacks):
+    return (x.new_empty(x.shape, dtype=_BF16),
+            x.new_empty(x.shape, dtype=_F32))
+
+
+def _fused_residual_stack_cuda(x, c, weights, dilations, stacks):
+    """The operands of ``pwg_residual_stack`` from x, c and the stacked
+    weights (ordinary operators, which ``torch.export`` keeps in front of
+    the op), then the op."""
+    cr, ca = x.shape[-1], c.shape[-1]
+    _check_stack_args(x, c, len(dilations), stacks, "K1")
+    wg, wso, bso = pack_stack_weights(weights, cr, ca)
+    return pwg_residual_stack(x.to(_BF16).contiguous(),
+                              c.to(_BF16).contiguous(),
+                              wg.to(_BF16).contiguous(),
+                              wso.to(_BF16).contiguous(), bso.contiguous(),
+                              [int(d) for d in dilations], int(stacks))
 
 
 def fused_residual_stack(x, c, weights, *, dilations: Sequence[int],

@@ -1,17 +1,22 @@
 """What the recipes' CLIs share: the acoustic models' common flags, the
-line count of an id map, and the run of a ``Trainer`` with an evaluator
-and snapshots (every epoch, or at the intervals the caller gives) under
-the bitwise-resume setting."""
+line count of an id map, the run of a ``Trainer`` with an evaluator and
+snapshots (every epoch, or at the intervals the caller gives) under the
+bitwise-resume setting, and the preprocessing CLIs' worker pool and
+metadata splits."""
 from __future__ import annotations
 
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 from ..training import (StandardUpdater, Trainer, deterministic_training,
                         to_device_batch)
 from ..training.extensions import Snapshot, StandardEvaluator
+from ..data.datatable import write_jsonl
 from ..utils.device import add_device_arg
 
-__all__ = ["count_lines", "add_recipe_args", "run_trainer"]
+__all__ = ["count_lines", "add_recipe_args", "run_trainer", "run_jobs",
+           "add_split_args", "write_splits"]
 
 
 def count_lines(path) -> int:
@@ -62,3 +67,36 @@ def run_trainer(cfg, train_step, eval_step, state, train_dl, dev_dl,
     with deterministic_training():
         trainer.run()
     return trainer
+
+
+def run_jobs(fn, jobs, num_cpu: int, *extra):
+    """``fn(*job, *extra)`` for every job, in order: in ``num_cpu`` worker
+    processes when it is above 1 (spawned, not forked: the parent has
+    torch's threads), else in this one."""
+    if num_cpu > 1:
+        with ProcessPoolExecutor(num_cpu, mp_context=multiprocessing
+                                 .get_context("spawn")) as ex:
+            futures = [ex.submit(fn, *j, *extra) for j in jobs]
+            return [f.result() for f in futures]
+    return [fn(*j, *extra) for j in jobs]
+
+
+def write_splits(dumpdir: Path, records, dev_size: int,
+                 test_size: int) -> None:
+    """The first ``dev_size`` rows to metadata_dev.jsonl, the next
+    ``test_size`` to metadata_test.jsonl, the rest to
+    metadata_train.jsonl; prints the count."""
+    write_jsonl(dumpdir / "metadata_dev.jsonl", records[:dev_size])
+    write_jsonl(dumpdir / "metadata_test.jsonl",
+                records[dev_size:dev_size + test_size])
+    write_jsonl(dumpdir / "metadata_train.jsonl",
+                records[dev_size + test_size:])
+    print(f"wrote {len(records)} utterances to {dumpdir}")
+
+
+def add_split_args(parser) -> None:
+    """--num-cpu, --dev-size and --test-size, with the JAX CLIs'
+    defaults."""
+    parser.add_argument("--num-cpu", type=int, default=1)
+    parser.add_argument("--dev-size", type=int, default=100)
+    parser.add_argument("--test-size", type=int, default=100)

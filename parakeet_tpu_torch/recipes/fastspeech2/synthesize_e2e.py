@@ -22,12 +22,21 @@ examples/fastspeech2/baker/synthesize_e2e.py:32-90).
    frames with the same samples.  Without a vocoder, the mel's
    pseudo-inverse and Griffin-Lim make the wav.
 
+With ``--export-dir`` (and a vocoder) the two programs that JAX's
+``jax.export`` writes are written first through ``torch.export``, for
+``inference.py``: ``fastspeech2.pt2``, the acoustic model at (1,
+``--max-text-len``) -> (the mel in the vocoder's domain, both statistics
+and the speaker baked in; its frames), and ``pwgan.pt2``, the vocoder at
+(1, ``--max-frames``, n_mels) with noise (1, ``--max-frames`` * hop, 1)
+-> wav.  Each records the device it was made for; an export made on the
+card holds K1's operator (``ops/kernels/pwg_stack.py``), one made on the
+CPU its plain version.
+
 TF32 is off.  Each line prints its frames and the host-clock times
 (synchronised) of the acoustic model and the vocoder; ``main`` returns
 them with the frontend's.  Checkpoints are any the JAX package or the
-port writes (``bridge.load_checkpoint_params``).  Not ported:
-``--export-dir`` (ROADMAP queue 1, item 17) and ``--sp`` above 1 (item
-18), refused.
+port writes (``bridge.load_checkpoint_params``).  Not ported: ``--sp``
+above 1 (ROADMAP queue 1, item 18), refused.
 
 Usage:
   python -m parakeet_tpu_torch.recipes.fastspeech2.synthesize_e2e \\
@@ -42,6 +51,7 @@ import argparse
 import time
 import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -56,10 +66,12 @@ from ...ops.normalizer import ZScore
 from ...training import Config, inference_model_kwargs
 from ...utils.device import add_device_arg, disable_tf32, set_device
 from ..common import count_lines
-from ..synthesis import (Stopwatch, TextProgram, add_unported_args,
-                         read_sentences, refuse_unported)
+from ..synthesis import (Stopwatch, TextProgram, add_deploy_args,
+                         read_sentences, refuse_unported, save_export)
 
-__all__ = ["main", "build_acoustic_model", "build_vocoder"]
+__all__ = ["main", "build_acoustic_model", "build_vocoder", "vocode",
+           "acoustic_program",
+           "PaddedVocoder", "VocoderProgram", "export_programs"]
 
 
 def build_vocoder(config, checkpoint, device) -> PWGGenerator:
@@ -69,7 +81,7 @@ def build_vocoder(config, checkpoint, device) -> PWGGenerator:
     voc = PWGGenerator(**inference_model_kwargs(
         cfg.get("generator_params", {})))
     load_checkpoint_params(voc, checkpoint)
-    return voc.to(device).eval()
+    return voc.to(device).eval().requires_grad_(False)
 
 
 def build_acoustic_model(config, checkpoint, phones_dict, speaker_dict,
@@ -86,7 +98,31 @@ def build_acoustic_model(config, checkpoint, phones_dict, speaker_dict,
     am = FastSpeech2(idim=count_lines(phones_dict), odim=cfg.n_mels,
                      **inference_model_kwargs(overrides))
     load_checkpoint_params(am, checkpoint)
-    return am.to(device).eval(), cfg
+    return am.to(device).eval().requires_grad_(False), cfg
+
+
+def acoustic_program(am: FastSpeech2, max_text_len: int, max_frames: int,
+                     min_duration: int, device: torch.device,
+                     spk_id: Optional[int] = None) -> TextProgram:
+    """``FastSpeech2.inference`` at (1, ``max_text_len``) with
+    ``max_frames`` of capacity and durations floored at ``min_duration``,
+    returning (after_outs, frame_lengths): one CUDA graph on the card,
+    else eager.  With ``spk_id`` its input ``spk_id`` (1,) holds the
+    speaker, which the caller may refill between lines."""
+    inputs = {"text": torch.zeros((1, max_text_len), dtype=torch.int64,
+                                  device=device),
+              "text_lengths": torch.zeros((1,), dtype=torch.int64,
+                                          device=device)}
+    if spk_id is not None:
+        inputs["spk_id"] = torch.full((1,), spk_id, dtype=torch.int64,
+                                      device=device)
+
+    def infer(text, text_lengths, spk_id=None):
+        out = am.inference(text, text_lengths, max_frames=max_frames,
+                           min_duration=min_duration, spk_id=spk_id)
+        return out["after_outs"], out["frame_lengths"]
+
+    return TextProgram(infer, inputs, graph=device.type == "cuda")
 
 
 def vocode(voc, mel, seed: int, chunk_frames: int = 0) -> torch.Tensor:
@@ -101,11 +137,102 @@ def vocode(voc, mel, seed: int, chunk_frames: int = 0) -> torch.Tensor:
         return pwg_inference(voc, mel, rng=rng)
 
 
+class PaddedVocoder:
+    """``voc`` on mels cut or zero-padded to ``max_frames`` frames (the
+    JAX CLIs' static length) and one noise, drawn once from a generator
+    on its device seeded ``seed``: ``(mel (T, n_mels) numpy) -> (wav
+    (min(T, max_frames) * hop,) float32 numpy, frames)``."""
+
+    def __init__(self, voc: PWGGenerator, max_frames: int, seed: int = 0):
+        self.voc, self.max_frames = voc, max_frames
+        self.hop = voc.upsample_factor
+        self.device = next(voc.parameters()).device
+        self.noise = torch.randn(
+            (1, max_frames * self.hop, 1), device=self.device,
+            generator=torch.Generator(device=self.device).manual_seed(seed))
+
+    def __call__(self, mel: np.ndarray):
+        n = min(mel.shape[0], self.max_frames)
+        padded = np.zeros((self.max_frames, mel.shape[1]), np.float32)
+        padded[:n] = mel[:n]
+        with torch.no_grad():
+            wav = pwg_inference(self.voc,
+                                torch.from_numpy(padded).to(self.device),
+                                noise=self.noise)
+        return wav[:n * self.hop].float().cpu().numpy(), n
+
+
+class VocoderProgram(torch.nn.Module):
+    """The program that ``pwgan.pt2`` holds: mel (B, T, n_mels) and noise
+    (B, T * hop, 1) -> wav (B, T * hop), ``pwg_inference``."""
+
+    def __init__(self, voc: PWGGenerator):
+        super().__init__()
+        self.voc = voc
+
+    def forward(self, mel, noise):
+        return pwg_inference(self.voc, mel, noise=noise)
+
+
+class AcousticProgram(torch.nn.Module):
+    """The program that ``fastspeech2.pt2`` holds: (text (1, L), text
+    lengths (1,)) -> (after_outs in the vocoder's domain (1, max_frames,
+    n_mels), frame lengths (1,)), with the speaker (or None) and the
+    statistics ((mu, sigma) tensors or None) held as buffers."""
+
+    def __init__(self, am: FastSpeech2, max_frames: int, min_duration: int,
+                 spk_id=None, am_stats=None, voc_stats=None):
+        super().__init__()
+        self.am, self.max_frames = am, max_frames
+        self.min_duration = min_duration
+        self.register_buffer("spk_id", spk_id)
+        for name, stats in (("am_stats", am_stats), ("voc_stats", voc_stats)):
+            self.register_buffer(name, None if stats is None
+                                 else torch.stack(stats))
+
+    def forward(self, text, text_lengths):
+        out = self.am.inference(text, text_lengths,
+                                max_frames=self.max_frames,
+                                min_duration=self.min_duration,
+                                spk_id=self.spk_id)
+        mel = out["after_outs"]
+        if self.am_stats is not None:
+            mel = ZScore(*self.am_stats).inverse(mel)
+        if self.voc_stats is not None:
+            mel = ZScore(*self.voc_stats).transform(mel)
+        return mel, out["frame_lengths"]
+
+
+def export_programs(export_dir: Path, am_name: str, am_program, am_inputs,
+                    voc: PWGGenerator, max_frames: int, n_mels: int,
+                    device: torch.device) -> float:
+    """Export ``am_program`` on ``am_inputs`` (static (1, L) int64 text
+    buffers) and the vocoder at (1, ``max_frames``, ``n_mels``) through
+    ``torch.export``, and save them as ``<am_name>.pt2`` and
+    ``pwgan.pt2`` under ``export_dir`` with their records; returns the
+    seconds it took."""
+    tic = time.perf_counter()
+    export_dir.mkdir(parents=True, exist_ok=True)
+    hop = voc.upsample_factor
+    am_ep = torch.export.export(am_program, tuple(am_inputs), strict=False)
+    voc_ep = torch.export.export(
+        VocoderProgram(voc), (torch.zeros((1, max_frames, n_mels),
+                                          device=device),
+                              torch.zeros((1, max_frames * hop, 1),
+                                          device=device)), strict=False)
+    save_export(export_dir / f"{am_name}.pt2", am_ep, device,
+                program=am_name, max_text_len=am_inputs[0].shape[1],
+                max_frames=max_frames, n_mels=n_mels)
+    save_export(export_dir / "pwgan.pt2", voc_ep, device, program="pwgan",
+                max_frames=max_frames, n_mels=n_mels, hop=hop)
+    return time.perf_counter() - tic
+
+
 def main(argv=None) -> dict:
     """Synthesize with ``argv`` (default: the command line); returns
-    {"capture_s", "sample_rate", "lines": [{utt_id, ids, frames, samples,
-    frontend_s, am_s, vocoder_s, path, mel, wav}], "program": the
-    ``TextProgram``}."""
+    {"capture_s", "export_s" (None without ``--export-dir``),
+    "sample_rate", "lines": [{utt_id, ids, frames, samples, frontend_s,
+    am_s, vocoder_s, path, mel, wav}], "program": the ``TextProgram``}."""
     parser = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         epilog=__doc__.split("\n\n")[-1],
@@ -134,13 +261,15 @@ def main(argv=None) -> dict:
     parser.add_argument("--streaming-chunk-frames", type=int, default=0,
                         help="vocode in windows of this many frames (the "
                              "same samples); 0 = one shot")
-    add_unported_args(parser)
+    add_deploy_args(parser)
     add_device_arg(parser)
     args = parser.parse_args(argv)
     if (args.pwg_checkpoint is None) != (args.pwg_config is None):
         parser.error("--pwg-config and --pwg-checkpoint must be given "
                      "together (omit both for the Griffin-Lim fallback)")
     refuse_unported(args)
+    if args.export_dir is not None and args.pwg_checkpoint is None:
+        raise SystemExit("--export-dir requires --pwg-checkpoint")
     device = set_device(args.device)
     disable_tf32()
 
@@ -156,22 +285,26 @@ def main(argv=None) -> dict:
                 if args.pwg_stat else None)
     get_ids = build_text_to_ids(args.lang, args.phones_dict)
 
-    inputs = {"text": torch.zeros((1, args.max_text_len), dtype=torch.int64,
-                                  device=device),
-              "text_lengths": torch.zeros((1,), dtype=torch.int64,
-                                          device=device)}
-    if args.speaker_dict is not None:
-        inputs["spk_id"] = torch.full((1,), args.spk_id, dtype=torch.int64,
-                                      device=device)
-
-    def infer(text, text_lengths, spk_id=None):
-        out = am.inference(text, text_lengths, max_frames=args.max_frames,
-                           min_duration=args.min_duration, spk_id=spk_id)
-        return out["after_outs"], out["frame_lengths"]
-
     clock = Stopwatch(device)
-    program = TextProgram(infer, inputs, graph=device.type == "cuda")
+    program = acoustic_program(am, args.max_text_len, args.max_frames,
+                               args.min_duration, device,
+                               None if args.speaker_dict is None
+                               else args.spk_id)
     capture_s = clock.seconds()
+
+    export_s = None
+    if args.export_dir is not None:
+        inputs = program.inputs
+        am_program = AcousticProgram(
+            am, args.max_frames, args.min_duration, inputs.get("spk_id"),
+            None if am_norm is None else (am_norm.mu, am_norm.sigma),
+            None if voc_norm is None else (voc_norm.mu, voc_norm.sigma))
+        export_s = export_programs(
+            args.export_dir, "fastspeech2", am_program,
+            (inputs["text"], inputs["text_lengths"]), voc, args.max_frames,
+            am_cfg.n_mels, device)
+        print(f"exported fastspeech2.pt2 and pwgan.pt2 for {device.type} to "
+              f"{args.export_dir} in {export_s:.2f} s")
 
     fs = am_cfg.fs
     args.output_dir.mkdir(parents=True, exist_ok=True)
@@ -217,8 +350,8 @@ def main(argv=None) -> dict:
               f"{1e3 * am_s:.1f} ms" + (
                   "" if record["vocoder_s"] is None else
                   f", vocoder {1e3 * record['vocoder_s']:.1f} ms") + ")")
-    return {"capture_s": capture_s, "sample_rate": fs, "lines": lines,
-            "program": program}
+    return {"capture_s": capture_s, "export_s": export_s, "sample_rate": fs,
+            "lines": lines, "program": program}
 
 
 if __name__ == "__main__":

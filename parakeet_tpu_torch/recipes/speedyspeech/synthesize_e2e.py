@@ -18,10 +18,19 @@ examples/speedyspeech/baker/synthesize_e2e.py:32-101).
    the JAX CLI's key; the streams differ), and the wav is cut to the
    predicted frames.
 
+With ``--export-dir`` the two programs that JAX's ``jax.export``
+writes are written first through ``torch.export``, for ``inference.py``:
+``speedyspeech.pt2``, the acoustic model at (1, ``--max-text-len``) ids
+and tones -> (the mel with ``--stat`` undone, its frames), and
+``pwgan.pt2``, the vocoder at (1, ``--max-frames``, n_mels) with noise
+(1, ``--max-frames`` * hop, 1) -> wav (``fastspeech2/synthesize_e2e.py::
+export_programs``).  Each records the device it was made for; an export
+made on the card holds K1's operator, one made on the CPU its plain
+version.
+
 TF32 is off.  Each line prints its frames and the host-clock times
 (synchronised) of the acoustic model and the vocoder; ``main`` returns
-them with the frontend's.  Not ported: ``--export-dir`` (ROADMAP queue 1,
-item 17), refused.
+them with the frontend's.
 
 Usage:
   python -m parakeet_tpu_torch.recipes.speedyspeech.synthesize_e2e \\
@@ -47,19 +56,40 @@ from ...ops.normalizer import ZScore
 from ...training import Config, inference_model_kwargs
 from ...utils.device import add_device_arg, disable_tf32, set_device
 from ..common import count_lines
-from ..fastspeech2.synthesize_e2e import build_vocoder
-from ..synthesis import (Stopwatch, TextProgram, add_unported_args,
-                         read_sentences, refuse_unported)
+from ..fastspeech2.synthesize_e2e import build_vocoder, export_programs
+from ..synthesis import (Stopwatch, TextProgram, add_deploy_args,
+                         read_sentences)
 
-__all__ = ["main"]
+__all__ = ["main", "AcousticProgram"]
 
 NOISE_SEED = 0          # the vocoder's noise: one seed for every line
 
 
+class AcousticProgram(torch.nn.Module):
+    """The program that ``speedyspeech.pt2`` holds: (text, tones), each
+    (1, L) int64 -> (mel (1, max_frames, n_mels) with the statistics
+    (``stats``: (mu, sigma) tensors, held as a buffer, or None) undone,
+    frame lengths (1,)); the function the CLI captures, too."""
+
+    def __init__(self, am: SpeedySpeech, max_frames: int, stats=None):
+        super().__init__()
+        self.am, self.max_frames = am, max_frames
+        self.register_buffer("stats", None if stats is None
+                             else torch.stack(stats))
+
+    def forward(self, text, tones=None):
+        out = self.am.inference(text, tones, max_frames=self.max_frames)
+        mel = out["mel"]
+        if self.stats is not None:
+            mel = ZScore(*self.stats).inverse(mel)
+        return mel, out["frame_lengths"]
+
+
 def main(argv=None) -> dict:
     """Synthesize with ``argv`` (default: the command line); returns
-    {"capture_s", "sample_rate", "lines": [{utt_id, ids, tones, frames,
-    samples, frontend_s, am_s, vocoder_s, path, mel, wav}], "program"}."""
+    {"capture_s", "export_s" (None without ``--export-dir``),
+    "sample_rate", "lines": [{utt_id, ids, tones, frames, samples,
+    frontend_s, am_s, vocoder_s, path, mel, wav}], "program"}."""
     parser = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         epilog=__doc__.split("\n\n")[-1],
@@ -76,10 +106,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--output-dir", type=Path, default=Path("wavs"))
     parser.add_argument("--max-text-len", type=int, default=128)
     parser.add_argument("--max-frames", type=int, default=1024)
-    add_unported_args(parser, sp=False)
+    add_deploy_args(parser, sp=False)
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    refuse_unported(args)
     device = set_device(args.device)
     disable_tf32()
 
@@ -90,18 +119,13 @@ def main(argv=None) -> dict:
                       tone_size=tone_size,
                       **inference_model_kwargs(cfg.get("model", {})))
     load_checkpoint_params(am, args.checkpoint)
-    am.to(device).eval()
+    am.to(device).eval().requires_grad_(False)
     voc = build_vocoder(args.pwg_config, args.pwg_checkpoint, device)
     norm = ZScore(*np.load(args.stat)).to(device) if args.stat else None
     frontend = Frontend(phone_vocab_path=args.phones_dict,
                         tone_vocab_path=args.tones_dict)
-
-    def infer(text, tones=None):
-        out = am.inference(text, tones, max_frames=args.max_frames)
-        mel = out["mel"]
-        if norm is not None:
-            mel = norm.inverse(mel)
-        return mel, out["frame_lengths"]
+    infer = AcousticProgram(am, args.max_frames, None if norm is None
+                            else (norm.mu, norm.sigma))
 
     def buffer():
         return torch.zeros((1, args.max_text_len), dtype=torch.int64,
@@ -110,6 +134,15 @@ def main(argv=None) -> dict:
     inputs = {"text": buffer()}
     if args.tones_dict is not None:
         inputs["tones"] = buffer()
+    export_s = None
+    if args.export_dir is not None:
+        # JAX exports the ids and the tones as inputs, tones or not
+        export_s = export_programs(
+            args.export_dir, "speedyspeech", infer,
+            (inputs["text"], inputs.get("tones", buffer())), voc,
+            args.max_frames, cfg.n_mels, device)
+        print(f"exported speedyspeech.pt2 and pwgan.pt2 for {device.type} "
+              f"to {args.export_dir} in {export_s:.2f} s")
     clock = Stopwatch(device)
     program = TextProgram(infer, inputs, graph=device.type == "cuda")
     capture_s = clock.seconds()
@@ -148,8 +181,8 @@ def main(argv=None) -> dict:
                       "mel": mel[0, :n].float().cpu().numpy(), "wav": wav})
         print(f"{utt_id}: {n} frames -> {out} (AM {1e3 * am_s:.1f} ms, "
               f"vocoder {1e3 * vocoder_s:.1f} ms)")
-    return {"capture_s": capture_s, "sample_rate": fs, "lines": lines,
-            "program": program}
+    return {"capture_s": capture_s, "export_s": export_s, "sample_rate": fs,
+            "lines": lines, "program": program}
 
 
 if __name__ == "__main__":

@@ -50,7 +50,7 @@ from ..common import count_lines
 from ..fastspeech2.synthesize_e2e import build_vocoder as build_pwg
 from ..synthesis import Stopwatch, TextProgram, read_sentences
 
-__all__ = ["main", "build_vocoder"]
+__all__ = ["main", "build_vocoder", "decode_program"]
 
 # the prenet's masks and the vocoders' noise: one seed for every line
 MASK_SEED, NOISE_SEED = 0, 0
@@ -58,7 +58,8 @@ MASK_SEED, NOISE_SEED = 0, 0
 
 def build_vocoder(args, device):
     """(fn mel (T, n_mels) on ``device`` -> wav (T * hop,), sample rate) of
-    the vocoder flags, or (None, None)."""
+    the vocoder flags (``--pwg-*``, else ``--waveflow-*`` where the CLI has
+    them), or (None, None)."""
     if args.pwg_checkpoint is not None:
         voc = build_pwg(args.pwg_config, args.pwg_checkpoint, device)
 
@@ -66,7 +67,7 @@ def build_vocoder(args, device):
             return pwg_inference(voc, mel, rng=torch.Generator(
                 device=device).manual_seed(NOISE_SEED))
         return run, Config.from_yaml(args.pwg_config).fs
-    if args.waveflow_checkpoint is not None:
+    if getattr(args, "waveflow_checkpoint", None) is not None:
         cfg = Config.from_yaml(args.waveflow_config)
         voc = ConditionalWaveFlow(**inference_model_kwargs(
             cfg.get("model", {})))
@@ -80,6 +81,29 @@ def build_vocoder(args, device):
             return wav[0, :mel.shape[0] * upsample]
         return run, cfg.fs
     return None, None
+
+
+def decode_program(model: TransformerTTS, max_text_len: int, steps: int,
+                   device: torch.device) -> TextProgram:
+    """``TransformerTTS.inference`` over exactly ``steps`` decoder steps at
+    (1, ``max_text_len``), returning (mel, lengths): one CUDA graph on the
+    card, else eager.  The prenet's masks are drawn once from seed
+    ``MASK_SEED``."""
+    inputs = {"text": torch.zeros((1, max_text_len), dtype=torch.int64,
+                                  device=device),
+              "text_lengths": torch.zeros((1,), dtype=torch.int64,
+                                          device=device)}
+    keep = model.prenet_masks(1, steps,
+                              torch.Generator().manual_seed(MASK_SEED), "cpu")
+    if keep is not None:
+        inputs["prenet_keep"] = keep.to(device)
+
+    def infer(text, text_lengths, prenet_keep=None):
+        out = model.inference(text, text_lengths, max_decoder_steps=steps,
+                              prenet_keep=prenet_keep)
+        return out["mel"], out["lengths"]
+
+    return TextProgram(infer, inputs, graph=device.type == "cuda")
 
 
 def main(argv=None) -> dict:
@@ -127,23 +151,9 @@ def main(argv=None) -> dict:
     get_ids = build_text_to_ids(args.lang, args.phones_dict)
     vocoder, fs = build_vocoder(args, device)
 
-    steps = args.max_decoder_steps
-    inputs = {"text": torch.zeros((1, args.max_text_len), dtype=torch.int64,
-                                  device=device),
-              "text_lengths": torch.zeros((1,), dtype=torch.int64,
-                                          device=device)}
-    keep = model.prenet_masks(1, steps,
-                              torch.Generator().manual_seed(MASK_SEED), "cpu")
-    if keep is not None:
-        inputs["prenet_keep"] = keep.to(device)
-
-    def infer(text, text_lengths, prenet_keep=None):
-        out = model.inference(text, text_lengths, max_decoder_steps=steps,
-                              prenet_keep=prenet_keep)
-        return out["mel"], out["lengths"]
-
     clock = Stopwatch(device)
-    program = TextProgram(infer, inputs, graph=device.type == "cuda")
+    program = decode_program(model, args.max_text_len,
+                             args.max_decoder_steps, device)
     capture_s = clock.seconds()
 
     args.output_dir.mkdir(parents=True, exist_ok=True)

@@ -95,7 +95,28 @@ def test_port_imports_no_jax_and_no_yaml():
             "parakeet_tpu_torch.recipes.fastspeech2.synthesize_e2e",
             "parakeet_tpu_torch.recipes.fastspeech2.serve",
             "parakeet_tpu_torch.recipes.speedyspeech.synthesize_e2e",
-            "parakeet_tpu_torch.recipes.transformer_tts.synthesize_e2e"
+            "parakeet_tpu_torch.recipes.transformer_tts.synthesize_e2e",
+            "parakeet_tpu_torch.data.dataset",
+            "parakeet_tpu_torch.data.datasets",
+            "parakeet_tpu_torch.recipes.pwgan.preprocess",
+            "parakeet_tpu_torch.recipes.pwgan.normalize",
+            "parakeet_tpu_torch.recipes.pwgan.synthesize",
+            "parakeet_tpu_torch.recipes.pwgan.synthesize_from_wav",
+            "parakeet_tpu_torch.recipes.waveflow.preprocess",
+            "parakeet_tpu_torch.recipes.waveflow.synthesize",
+            "parakeet_tpu_torch.recipes.fastspeech2.preprocess",
+            "parakeet_tpu_torch.recipes.fastspeech2.normalize",
+            "parakeet_tpu_torch.recipes.fastspeech2.synthesize",
+            "parakeet_tpu_torch.recipes.fastspeech2.inference",
+            "parakeet_tpu_torch.recipes.speedyspeech.preprocess",
+            "parakeet_tpu_torch.recipes.speedyspeech.normalize",
+            "parakeet_tpu_torch.recipes.speedyspeech.inference",
+            "parakeet_tpu_torch.recipes.transformer_tts.preprocess",
+            "parakeet_tpu_torch.recipes.transformer_tts.normalize",
+            "parakeet_tpu_torch.recipes.transformer_tts.synthesize",
+            "parakeet_tpu_torch.recipes.tacotron2.preprocess",
+            "parakeet_tpu_torch.recipes.tacotron2.normalize",
+            "parakeet_tpu_torch.recipes.tacotron2.synthesize",
             } <= names
     assert loaded == "[]", f"the port pulled in {loaded}"
 
@@ -379,3 +400,90 @@ def test_chip_smoke_text_to_wav_phase_is_the_recipes():
     assert tts["max-decoder-steps"] == 500
     assert smoke.TTW_SERVE_BATCH == 8
     assert smoke.TTW_EN_SENTENCE.split()[0] == "tt_0001"
+
+
+# the JAX CLIs of the corpus legs and of synthesis from a dump, beside
+# their twins; the shared flags live in recipes/common.py (the worker
+# pool and splits) and recipes/synthesis.py (--export-dir, --sp)
+_CORPUS_CLIS = [
+    ("pwgan/preprocess.py", "pwgan/preprocess.py"),
+    ("pwgan/normalize.py", "pwgan/normalize.py"),
+    ("pwgan/synthesize.py", "pwgan/synthesize.py"),
+    ("pwgan/synthesize_from_wav.py", "pwgan/synthesize_from_wav.py"),
+    ("fastspeech2/preprocess.py", "fastspeech2/preprocess.py"),
+    ("fastspeech2/normalize.py", "fastspeech2/normalize.py"),
+    ("fastspeech2/synthesize.py", "fastspeech2/synthesize.py"),
+    ("fastspeech2/inference.py", "fastspeech2/inference.py"),
+    ("speedyspeech/preprocess.py", "speedyspeech/preprocess.py"),
+    ("speedyspeech/normalize.py", "speedyspeech/normalize.py"),
+    ("speedyspeech/inference.py", "speedyspeech/inference.py"),
+    ("transformer_tts/preprocess.py", "transformer_tts/preprocess.py"),
+    ("transformer_tts/normalize.py", "transformer_tts/normalize.py"),
+    ("transformer_tts/synthesize.py", "transformer_tts/synthesize.py"),
+    ("tacotron2/synthesize.py", "tacotron2/synthesize.py"),
+    ("waveflow/synthesize.py", "waveflow/synthesize.py")]
+
+
+@pytest.mark.parametrize("jax_cli,port_cli", _CORPUS_CLIS)
+def test_corpus_and_dump_clis_keep_the_jax_defaults(jax_cli, port_cli):
+    """Each corpus-leg, dump-synthesis and deploy twin parses every flag of
+    its JAX CLI with the same literal default (the device's is the
+    card's); flags that several twins share are parsed in
+    ``recipes/common.py`` and ``recipes/synthesis.py``.  The JAX shims
+    (WaveFlow's preprocess, Tacotron2's preprocess and normalize) run
+    these twins' ``main``."""
+    pkg = REPO / "parakeet_tpu_torch/recipes"
+    shared = (pkg / "common.py", pkg / "synthesis.py", pkg / port_cli)
+    assert _flags(REPO / "recipes" / jax_cli) <= set().union(
+        *map(_flags, shared))
+    want = _defaults(REPO / "recipes" / jax_cli)
+    got = {k: v for path in shared for k, v in _defaults(path).items()}
+    assert {k: got.get(k) for k in want} == want
+
+
+def _flags(path):
+    """The option strings of a script's add_argument calls."""
+    return {ast.literal_eval(n.args[0]) for n in ast.walk(ast.parse(
+        pathlib.Path(path).read_text())) if isinstance(n, ast.Call)
+        and getattr(n.func, "attr", None) == "add_argument"}
+
+
+_DEPLOY_IMPORTS = """
+import sys
+import parakeet_tpu_torch.recipes.fastspeech2.inference
+import parakeet_tpu_torch.recipes.speedyspeech.inference
+from parakeet_tpu_torch.ops.kernels import pwg_stack
+import torch
+assert hasattr(torch.ops.parakeet_tpu_torch, "pwg_residual_stack")
+print(sorted(m for m in sys.modules if m.startswith(
+    ("parakeet_tpu_torch.models", "parakeet_tpu_torch.nn",
+     "parakeet_tpu_torch.bridge", "parakeet_tpu_torch.training"))))
+"""
+
+
+def test_inference_clis_import_no_model_code():
+    """The deploy CLIs load exported programs without the models: importing
+    them registers K1's operator and pulls in no model, layer, bridge or
+    training module."""
+    proc = subprocess.run([sys.executable, "-c", _DEPLOY_IMPORTS], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_chip_smoke_corpus_phase_is_the_issue_s():
+    """Phase 20 runs six formant utterances (phones that
+    ``audio/synthetic.py`` voices or hisses), the decodes at no more than
+    200 steps, WaveFlow's sampler below the CLI's 1,024 frames, and
+    ``inference.py`` on two of phase 19's sentences, at the defaults of
+    the CLIs it does not set."""
+    smoke = _load_chip_smoke()
+    from parakeet_tpu_torch.audio.synthetic import (FRICATIVE_BANDS,
+                                                    VOWEL_FORMANTS)
+    known = set(VOWEL_FORMANTS) | set(FRICATIVE_BANDS) | {"sil", "sp"}
+    assert len(smoke.CORPUS_PHONES) == len(smoke.CORPUS_LJ_TEXT) == 6
+    assert all(p in known for utt in smoke.CORPUS_PHONES for p, _ in utt)
+    assert 0 < smoke.CORPUS_STEPS <= 200 and smoke.CORPUS_STOP_BIAS < 0
+    assert smoke.CORPUS_WF_FRAMES < _defaults(
+        REPO / "recipes/waveflow/synthesize.py")["max-frames"]
+    assert smoke.CORPUS_EXPORT_LINES == 2 <= smoke.TTW_LINES
