@@ -210,7 +210,25 @@ Phases, one line each (the checks raise; nothing is caught):
    the exported program), the exported acoustic program's mel against
    the eager program's and the exported vocoder's wav against the eager
    vocoder's on the same mel and noise, with the export's seconds and
-   both vocoders' ms.
+   both vocoders' ms;
+21. Paddle checkpoints through the port's converters at the recipe
+   YAMLs' widths and the mixed-precision GAN step: seeded Paddle-layout
+   dicts under the reference's names (a whole GAN's dump converted by
+   ``tools/convert_pwg_checkpoint``, which strips the ``generator.``
+   scope; the discriminator by ``convert_pwg_discriminator``;
+   FastSpeech2 by ``tools/convert_fastspeech2_checkpoint``);
+   ``pwgan/synthesize.py`` vocodes 100 frames with the converted
+   generator (K1 30 times), its wav held against the float64 oracle of
+   ``tools/golden/pwg.py`` on the card, and K1 against its plain version
+   on the converted weights; the converted FastSpeech2 teacher-forced and
+   as the AM graph against ``tools/golden/fastspeech2.py``; the GAN
+   step's losses and gradients on a short clip in float32 and bf16
+   against ``golden_pwg_gan_grads`` (and through K2a/K2b's plain
+   versions); the GAN step of the converted networks at B=8, T=25,500 in
+   float32 and bf16 in turns, with its launches; the discriminator's
+   update at bf16, K3a/K3b against the eager loop in turns (the evidence
+   behind 'auto' at bf16); the training bench in both types in turns; and
+   the recipe's CLI for four steps with the YAML's bf16 ``--opts``.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
@@ -225,8 +243,11 @@ CLIs' eager vocoder calls, at the longest line's shape; as
 ``pwg_residual_stack_synthesize`` phase 20's synthesis CLIs' calls, at
 the FastSpeech2 CLI's longest line's shape; and as
 ``pwg_residual_stack_exported`` the exported vocoder's calls in
-``inference.py``, at its capacity, 1,024 frames x 300), error, times,
-bound
+``inference.py``, at its capacity, 1,024 frames x 300; as
+``pwg_residual_stack_converted`` phase 21's vocoder, at its shape on the
+converted weights; and K2a-K3b again as ``*_converted_float32`` and
+``*_converted_bfloat16`` with the launches of phase 21's GAN steps and
+phase 5's numbers, the same shapes), error, times, bound
 (the larger of its bytes over the H100's memory rate and its operations
 over its peak for the operands' type, from this run's shapes; K4's
 float32 products at the 3xTF32 rate, a third of the TF32 peak) and, where
@@ -609,6 +630,65 @@ CORPUS_STEPS = 200
 CORPUS_STOP_BIAS = -10.0
 CORPUS_WF_FRAMES = 256
 CORPUS_EXPORT_LINES = 2
+# phase 21: Paddle-layout state dicts drawn from a seed at the recipe
+# YAMLs' widths, converted by the port's CLIs.  The converted generator
+# vocodes CONV_FRAMES mel frames through pwgan/synthesize.py (K1), held
+# against the float64 oracle of tools/golden/pwg.py on the card; the
+# converted FastSpeech2 (default.yaml's widths; the CLIs read 5 pitch
+# predictor layers where the YAML names none) runs teacher-forced on
+# CONV_FS2_LENGTHS phones and as the AM graph on the first, held against
+# tools/golden/fastspeech2.py's float64 forward; the GAN step of the
+# converted networks at TRAIN_B x TRAIN_T in float32 and mixed bf16, timed
+# in turns, and its gradients on a clip of CONV_CLIP_FRAMES frames against
+# golden_pwg_gan_grads; the discriminator's K3a/K3b against its eager
+# loop at bf16, in turns; the training bench in both types in turns and
+# the recipe's CLI with the YAML's bf16 --opts for CONV_RECIPE_STEPS steps
+CONV_FRAMES = 100
+CONV_FS2_LENGTHS = (96, 70)
+CONV_FS2_MAX_FRAMES = 1024
+CONV_FS2_PITCH_LAYERS = 5
+CONV_CLIP_FRAMES = 24
+CONV_STEP_ITERS = 3
+CONV_DISC_REPS = 5
+CONV_BENCH_ITERS = 10
+CONV_RECIPE_STEPS = 4
+CONV_BF16_OPTS = ["generator_params.dtype", "bfloat16",
+                  "discriminator_params.dtype", "bfloat16"]
+# the converted vocoder's wav (K1: bf16 operands, float32 sums) against
+# the float64 oracle: K1 rounds x to bf16 at group ends and h inside every
+# layer, about 1% of the wav's range, as REFERENCE_REL_TOL
+CONV_WAV_REL_TOL = REFERENCE_REL_TOL
+# the converted FastSpeech2 in float32 (TF32 off) against float64: sums
+# of 384-1,536 products over eight layers and the Postnet; 2^-10 of each
+# output's range (the CPU tests hold the tiny fixtures to 1e-3 absolute),
+# teacher-forced and free-running at the utterance's own length.  The AM
+# graph decodes to its 1,024-frame capacity, as the JAX package's static
+# programs do: the decoder's feed-forward convolutions read the frames
+# past the utterance at its last frames (the reference decodes exactly
+# the utterance), and the next layers' self-attention carries that to
+# every frame, diluted by the softmax (9.6e-4 of the range at 354 frames
+# measured on one H100); its frames outside the convolutions' reach are held
+# to 2^-8
+CONV_FS2_REL_TOL = 2 ** -10
+CONV_FS2_GRAPH_REL_TOL = 2 ** -8
+# the GAN step's losses against float64, relative; the discriminator's
+# gradients and the generator's through the spectral-convergence and
+# adversarial terms in relative L2 (measured on the CPU at these widths
+# with the kernels' plain versions: 2.3e-3 and 4.5e-3 for the
+# discriminator, 2.2e-3 and 5.7e-3 for the generator, float32 and bf16).
+# On the card the adversarial term's input gradient comes back through
+# the discriminator's kernels (K3a/K3b: bf16 operands), which the CPU's
+# eager float32 discriminator does not round: 1.6% at float32 as
+# measured on one H100, so the generator's part is held to 2^-4.  The generator's whole
+# gradient is dominated by the log-magnitude term's near-silent bins
+# (STEP_GRAD_REL_L2's reason): any bf16 operand moves it by 11-19% in
+# relative L2 (the CPU measurement, 8.5e-5 with no bf16 product at all;
+# 19.4% on the card), so it is held to 2^-2, which a wrong layout still
+# fails by far
+CONV_LOSS_REL_TOL = 2 ** -9
+CONV_GRAD_REL_L2 = 2 ** -6
+CONV_GEN_GRAD_REL_L2 = 2 ** -4
+CONV_FULL_GRAD_REL_L2 = 2 ** -2
 # NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
 # FLOP/s by operand type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -783,13 +863,18 @@ def k1_stack(gen):
 
 
 @torch.no_grad()     # the plain version at LONG_T would save 30 layers
-def k1_check(gen, b, t, parent=None, name="pwg_residual_stack"):
-    """K1 against its plain version at (B, T) on seeded inputs: max abs
-    error against the tolerance, bit-identity on a second run, median
+def k1_check(gen, b, t, parent=None, name="pwg_residual_stack", stack=None):
+    """K1 against its plain version at (B, T) on seeded inputs (and the
+    weights of ``stack``, a ResidualStack on the card, when given): max
+    abs error against the tolerance, bit-identity on a second run, median
     times; with ``parent`` (the parent checkout's pwg_stack module), also
     the parent's kernel, in turns.  Returns the kernel record."""
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
-    stack, weights, kw, layers = k1_stack(gen)
+    if stack is None:
+        stack, weights, kw, layers = k1_stack(gen)
+    else:
+        kw = dict(dilations=stack.dilations(), stacks=stack.stacks)
+        weights, layers = stack.fused_weights(), stack.layers
     x = torch.randn((b, t, 64), generator=gen).cuda()
     c = torch.randn((b, t, ODIM), generator=gen).cuda()
     got_x, got_s = k1.fused_residual_stack(x, c, weights, **kw)
@@ -3481,6 +3566,613 @@ def phase_corpus():
     return syn, exported
 
 
+def paddle_pwg_state(seed):
+    """A Paddle PWGGenerator state dict at PWG_CONFIG's widths (aux ODIM)
+    under the reference's names and layouts, drawn from ``seed`` at
+    tools/golden/fixtures.py's scales."""
+    from tools.golden.fixtures import _B
+    b = _B(np.random.default_rng(seed))
+    cr, cg, cs = (PWG_CONFIG[k] for k in ("residual_channels",
+                                          "gate_channels", "skip_channels"))
+    b.wn_conv("first_conv", (cr, 1, 1))
+    b.wn_conv("upsample_net.conv_in",
+              (ODIM, ODIM, 2 * PWG_CONFIG["aux_context_window"] + 1),
+              bias=False)
+    for i, scale in enumerate(PWG_CONFIG["upsample_scales"]):
+        p = f"upsample_net.upsample.up_layers.{2 * i + 1}"
+        b.wn_conv(p, (1, 1, 1, 2 * scale + 1), bias=False)
+        b.state[f"{p}.weight_g"] = b.state[f"{p}.weight_g"].reshape(1)
+    for i in range(PWG_CONFIG["layers"]):
+        p = f"conv_layers.{i}"
+        b.wn_conv(f"{p}.conv", (cg, cr, 3))
+        b.wn_conv(f"{p}.conv1x1_aux", (cg, ODIM, 1), bias=False)
+        b.wn_conv(f"{p}.conv1x1_skip", (cs, cg // 2, 1))
+        b.wn_conv(f"{p}.conv1x1_out", (cr, cg // 2, 1))
+    b.wn_conv("last_conv_layers.1", (cs, cs, 1))
+    b.wn_conv("last_conv_layers.3", (1, cs, 1))
+    return b.state
+
+
+def paddle_disc_state(seed):
+    """A Paddle PWGDiscriminator state dict at DISC_CONFIG's widths: the
+    convs at the even indices of one Sequential."""
+    from tools.golden.fixtures import _B
+    b = _B(np.random.default_rng(seed))
+    n, ch, cin = DISC_CONFIG["layers"], DISC_CONFIG["conv_channels"], 1
+    for i in range(n - 1):
+        b.wn_conv(f"conv_layers.{2 * i}", (ch, cin, 3))
+        cin = ch
+    b.wn_conv(f"conv_layers.{2 * (n - 1)}", (1, cin, 3))
+    return b.state
+
+
+def paddle_fs2_state(seed):
+    """A Paddle FastSpeech2 state dict at FS2_CONFIG's widths (the
+    predictors at the model's defaults, CONV_FS2_PITCH_LAYERS pitch
+    layers), the duration head scaled as phase 3's AM so that phones last
+    a few frames."""
+    from tools.golden.fixtures import _B
+    cfg = FS2_CONFIG
+    adim, k = cfg["adim"], cfg["positionwise_conv_kernel_size"]
+    b = _B(np.random.default_rng(seed))
+
+    def stack(prefix, layers, units, alpha_idx):
+        b.state[f"{prefix}.embed.{alpha_idx}.alpha"] = np.ones((1,),
+                                                               np.float32)
+        if alpha_idx == 1:
+            b.embed(f"{prefix}.embed.0", IDIM, adim)
+        for i in range(layers):
+            lp = f"{prefix}.encoders.{i}"
+            for nm in ("q", "k", "v", "out"):
+                b.dense(f"{lp}.self_attn.linear_{nm}", adim, adim)
+            b.ln(f"{lp}.norm1", adim)
+            b.ln(f"{lp}.norm2", adim)
+            b.conv(f"{lp}.feed_forward.w_1", units, adim, k)
+            b.conv(f"{lp}.feed_forward.w_2", adim, units, k)
+        b.ln(f"{prefix}.after_norm", adim)
+
+    stack("encoder", cfg["elayers"], cfg["eunits"], 1)
+    stack("decoder", cfg["dlayers"], cfg["dunits"], 0)
+    for name, layers, chans in (
+            ("duration_predictor", cfg["duration_predictor_layers"],
+             cfg["duration_predictor_chans"]),
+            ("pitch_predictor", CONV_FS2_PITCH_LAYERS, 384),
+            ("energy_predictor", 2, 384)):
+        cin = adim
+        for i in range(layers):
+            b.conv(f"{name}.conv.{i}.0", chans, cin, 3)
+            b.ln(f"{name}.conv.{i}.2", chans)
+            cin = chans
+        b.dense(f"{name}.linear", chans, 1)
+    b.state["duration_predictor.linear.weight"] *= DURATION_SPREAD
+    b.state["duration_predictor.linear.bias"][:] = DURATION_BIAS
+    b.conv("pitch_embed.0", adim, 1, 9)
+    b.conv("energy_embed.0", adim, 1, 9)
+    b.dense("feat_out", adim, ODIM)
+    n, chans = cfg["postnet_layers"], cfg["postnet_chans"]
+    for i in range(n):
+        b.conv(f"postnet.postnet.{i}.0", ODIM if i == n - 1 else chans,
+               ODIM if i == 0 else chans, cfg["postnet_filts"], bias=False)
+        b.bn(f"postnet.postnet.{i}.1", ODIM if i == n - 1 else chans)
+    return b.state
+
+
+def _fs2_oracle_kw():
+    return dict(odim=ODIM, heads=FS2_CONFIG["aheads"],
+                elayers=FS2_CONFIG["elayers"], dlayers=FS2_CONFIG["dlayers"],
+                predictor_layers=FS2_CONFIG["duration_predictor_layers"],
+                pitch_predictor_layers=CONV_FS2_PITCH_LAYERS,
+                energy_predictor_layers=2,
+                postnet_layers=FS2_CONFIG["postnet_layers"])
+
+
+def _hold_rows(what, got, ref, lens, rel_tol):
+    """Max abs error of ``got`` against ``ref`` (numpy) over each row's
+    first ``lens[b]`` steps, held to rel_tol of ref's range there."""
+    err = max(float(np.abs(got[b, :n] - ref[b, :n]).max())
+              for b, n in enumerate(lens))
+    scale = max(float(np.abs(ref[b, :n]).max()) for b, n in enumerate(lens))
+    if not (np.isfinite(got).all() and err <= rel_tol * scale):
+        raise AssertionError(f"{what}: max abs err {err} > "
+                             f"{rel_tol * scale}")
+    return err / scale
+
+
+def _rel_l2_flat(got, want):
+    """Relative L2 of the flat trees ``got`` against ``want`` (the same
+    keys)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"gradient keys differ: "
+                             f"{sorted(set(got) ^ set(want))}")
+    g = np.concatenate([np.asarray(got[k], np.float64).ravel()
+                        for k in sorted(want)])
+    w = np.concatenate([np.asarray(want[k], np.float64).reshape(
+        np.shape(got[k])).ravel() for k in sorted(want)])
+    return float(np.linalg.norm(g - w) / np.linalg.norm(w))
+
+
+def _converted_fs2(out, name, limit):
+    """The FastSpeech2 dict through the port's CLI, teacher-forced and as
+    the AM graph against the float64 oracle."""
+    from parakeet_tpu_torch.bridge import load_checkpoint_params
+    from parakeet_tpu_torch.models import FastSpeech2
+    from parakeet_tpu_torch.recipes.fastspeech2.synthesize_e2e import \
+        acoustic_program
+    from parakeet_tpu_torch.tools import convert_fastspeech2_checkpoint
+    from parakeet_tpu_torch.training import Config, inference_model_kwargs
+    from tools.golden.fastspeech2 import golden_fastspeech2_forward
+    state = paddle_fs2_state(SEED + 61)
+    np.savez(out / "fs2_paddle.npz", **state)
+    path = convert_fastspeech2_checkpoint.main([
+        "--input", str(out / "fs2_paddle.npz"), "--config", FS2_RECIPE_CONF,
+        "--output", str(out / "fs2.npz")])
+    am = FastSpeech2(idim=IDIM, odim=ODIM, **inference_model_kwargs(
+        Config.from_yaml(FS2_RECIPE_CONF).model),
+        pitch_predictor_layers=CONV_FS2_PITCH_LAYERS)
+    load_checkpoint_params(am, path)
+    am = am.cuda().eval().requires_grad_(False)
+    rng = np.random.default_rng(SEED + 62)
+    ilens = np.asarray(CONV_FS2_LENGTHS)
+    tmax = int(ilens.max())
+    text = rng.integers(1, IDIM, (len(ilens), tmax))
+    keep = np.arange(tmax)[None] < ilens[:, None]
+    text = text * keep
+    dur = rng.integers(2, 8, text.shape) * keep
+    olens = dur.sum(1)
+    pitch = rng.standard_normal((*text.shape, 1)).astype(np.float32)
+    energy = rng.standard_normal((*text.shape, 1)).astype(np.float32)
+    kw = _fs2_oracle_kw()
+
+    def cuda(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype).cuda()
+
+    with torch.no_grad():
+        got = am(cuda(text), cuda(ilens), torch.zeros(
+            (len(ilens), int(olens.max()), ODIM), device="cuda"),
+            cuda(olens), cuda(dur), cuda(pitch), cuda(energy),
+            deterministic=True)
+    gold = golden_fastspeech2_forward(state, text, ilens, dur, pitch,
+                                      energy, **kw)
+    held = {k: _hold_rows(f"converted FastSpeech2 {k}",
+                          got[k].float().cpu().numpy(), gold[k], lens,
+                          CONV_FS2_REL_TOL)
+            for k, lens in (("before_outs", olens), ("after_outs", olens),
+                            ("d_outs", ilens), ("p_outs", ilens),
+                            ("e_outs", ilens))}
+    # the AM graph on the first line; the oracle with its durations and
+    # the oracle's own pitch and energy
+    n = int(ilens[0])
+    ids = text[0, :n].tolist()
+    prog = acoustic_program(am, n, CONV_FS2_MAX_FRAMES, 0,
+                            torch.device("cuda"))
+    mel, frames = prog(ids)
+    with torch.no_grad():
+        eager = am.inference(cuda(text[:1, :n]), cuda(ilens[:1]),
+                             max_frames=CONV_FS2_MAX_FRAMES)
+    frames = int(frames[0])
+    d_port = eager["d_outs"][0].long().cpu().numpy()
+    if not (torch.equal(mel[0, :frames], eager["after_outs"][0, :frames])
+            and frames == int(d_port.sum()) <= CONV_FS2_MAX_FRAMES):
+        raise AssertionError(f"AM graph: {frames} frames, durations "
+                             f"{d_port.sum()}, or not its eager program")
+    first = golden_fastspeech2_forward(
+        state, text[:1, :n], ilens[:1], d_port[None], np.zeros((1, n, 1)),
+        np.zeros((1, n, 1)), **kw)
+    d_gold = np.clip(np.round(np.exp(first["d_outs"][0]) - 1.0), 0, None)
+    near = np.abs(np.exp(first["d_outs"][0]) - 1.0 - np.floor(
+        np.exp(first["d_outs"][0]) - 1.0) - 0.5) < 1e-3
+    if not np.all((d_gold == d_port) | near):
+        raise AssertionError(f"AM graph durations {d_port} against the "
+                             f"oracle's {d_gold}")
+    gold_inf = golden_fastspeech2_forward(
+        state, text[:1, :n], ilens[:1], d_port[None], first["p_outs"],
+        first["e_outs"], **kw)
+    # the program decodes to its capacity, so the decoder's feed-forward
+    # convolutions (two a layer) and the Postnet read, at the last frames,
+    # the frames past the utterance, where the reference's read zeros:
+    # hold the frames outside their reach
+    edge = (FS2_CONFIG["dlayers"]
+            * (FS2_CONFIG["positionwise_conv_kernel_size"] - 1)
+            + FS2_CONFIG["postnet_layers"]
+            * (FS2_CONFIG["postnet_filts"] - 1) // 2)
+    got_mel = mel[:, :frames].float().cpu().numpy()
+    with torch.no_grad():
+        exact = am.inference(cuda(text[:1, :n]), cuda(ilens[:1]),
+                             max_frames=frames, durations=cuda(d_port[None]))
+    held["inference_at_length"] = _hold_rows(
+        "converted FastSpeech2 inference at the utterance's length",
+        exact["after_outs"].float().cpu().numpy(), gold_inf["after_outs"],
+        [frames], CONV_FS2_REL_TOL)
+    held["graph_after_outs"] = _hold_rows(
+        "converted FastSpeech2 AM graph", got_mel, gold_inf["after_outs"],
+        [frames - edge], CONV_FS2_GRAPH_REL_TOL)
+    edge_err = float(np.abs(got_mel[0, frames - edge:]
+                            - gold_inf["after_outs"][0, frames - edge:])
+                     .max())
+    print(f"checkpoints ({name}, {limit}): FastSpeech2 converted by "
+          f"convert_fastspeech2_checkpoint at default.yaml's widths "
+          f"({len(state)} Paddle tensors); teacher-forced on "
+          f"{ilens.tolist()} phones and the AM graph on {n} ({frames} frames) "
+          f"against the float64 oracle, max abs err over each output's "
+          f"range (tol {CONV_FS2_REL_TOL:.3g}, the graph's "
+          f"{CONV_FS2_GRAPH_REL_TOL:.3g}): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in held.items())
+          + f"; the graph's last {edge} frames (within reach of the frames "
+          f"past the utterance, not held) max abs err {edge_err:.4g}")
+
+
+def _gan_grads(g, d, noise, mel, wav):
+    """(generator loss, discriminator loss, the generator's gradients of
+    the whole loss, the discriminator's, the generator's through the
+    spectral-convergence and adversarial terms) of the GAN step's two
+    objectives, the discriminator live, as flat flax trees."""
+    from parakeet_tpu_torch.bridge import flax_grads
+    from parakeet_tpu_torch.models.pwg_updater import (
+        discriminator_objective, generator_objective)
+    from parakeet_tpu_torch.ops.stft_loss import multi_resolution_stft_loss
+    g.zero_grad(set_to_none=True)
+    d.zero_grad(set_to_none=True)
+    loss, _ = generator_objective(g, d, noise, mel, wav,
+                                  lambda_adv=LAMBDA_ADV, disc_on=True,
+                                  stft_kw=STFT_LOSS)
+    loss.backward()
+    with torch.no_grad():
+        fake = g(noise, mel, deterministic=False)
+    d_loss, _ = discriminator_objective(d, wav, fake)
+    d_loss.backward()
+    full_g, full_d = flax_grads(g), flax_grads(d)
+    g.zero_grad(set_to_none=True)
+    d.requires_grad_(False)
+    fake = g(noise, mel, deterministic=False)
+    sc, _ = multi_resolution_stft_loss(fake[..., 0], wav, **STFT_LOSS)
+    adv = torch.mean(torch.square(d(fake).float() - 1.0))
+    (sc + LAMBDA_ADV * adv).backward()
+    d.requires_grad_(True)
+    return loss.item(), d_loss.item(), full_g, full_d, flax_grads(g)
+
+
+def _oracle_gan_grads(gen_state, disc_state, noise, mel, wav):
+    """The float64 oracle's counterparts of ``_gan_grads`` on the CPU,
+    through the port's converters onto the same keys."""
+    from parakeet_tpu_torch.utils import convert as tc
+    from tools.golden.common import grads_of, make_grad_state
+    from tools.golden.pwg import (golden_mrstft_loss, golden_pwg_discriminator,
+                                  golden_pwg_forward_t, golden_pwg_gan_grads)
+    cfg = dict(layers=PWG_CONFIG["layers"], stacks=PWG_CONFIG["stacks"],
+               upsample_scales=PWG_CONFIG["upsample_scales"],
+               aux_context_window=PWG_CONFIG["aux_context_window"])
+    noise_ncl, mel_ncl = noise.transpose(0, 2, 1), mel.transpose(0, 2, 1)
+    metrics, gen_g, disc_g = golden_pwg_gan_grads(
+        gen_state, disc_state, noise_ncl, mel_ncl, wav, gen_cfg=cfg,
+        disc_layers=DISC_CONFIG["layers"], lambda_adv=LAMBDA_ADV,
+        **STFT_LOSS)
+    gs = make_grad_state(gen_state)
+    fake = golden_pwg_forward_t(gs, noise_ncl, mel_ncl, **cfg)
+    sc, _ = golden_mrstft_loss(fake[:, 0], torch.as_tensor(
+        wav, dtype=torch.float64), **STFT_LOSS)
+    adv = torch.mean(torch.square(golden_pwg_discriminator(
+        disc_state, fake, layers=DISC_CONFIG["layers"]) - 1.0))
+    (sc + LAMBDA_ADV * adv).backward()
+
+    def gen_tree(grads):
+        return tc.checkpoint_arrays(tc.convert_pwg_generator(
+            grads, layers=PWG_CONFIG["layers"],
+            upsample_scales=PWG_CONFIG["upsample_scales"]))
+    return (metrics["generator_loss"], metrics["discriminator_loss"],
+            gen_tree(gen_g), tc.checkpoint_arrays(
+                tc.convert_pwg_discriminator(
+                    disc_g, layers=DISC_CONFIG["layers"])),
+            gen_tree(grads_of(gs)))
+
+
+def _plain_k2():
+    """A context in which the residual stack's training route runs K2a's
+    and K2b's plain versions (they launch nothing)."""
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    from parakeet_tpu_torch.ops.kernels import pwg_stack_train as k2
+
+    def plain_backward(*args, need_weights=True, **kwargs):
+        out = k2.group_backward_reference(*args, **kwargs)
+        return out if need_weights else out[:2] + (None, None, None)
+
+    @contextlib.contextmanager
+    def swapped():
+        real = k2.fused_group_forward_save, k2.fused_group_backward
+        k2.fused_group_forward_save = k1.group_forward_reference
+        k2.fused_group_backward = plain_backward
+        try:
+            yield
+        finally:
+            k2.fused_group_forward_save, k2.fused_group_backward = real
+    return swapped()
+
+
+def _converted_gan(paths, dtype):
+    """The recipe's generator and discriminator (its YAML's impls) with
+    the converted weights, on the card, computing in ``dtype``."""
+    from parakeet_tpu_torch.bridge import load_checkpoint_params
+    from parakeet_tpu_torch.models import PWGDiscriminator, PWGGenerator
+    from parakeet_tpu_torch.training import Config, resolve_model_kwargs
+    cfg = Config.from_yaml(RECIPE_CONF)
+    dt = {"dtype": dtype}
+    g = PWGGenerator(**resolve_model_kwargs({**cfg.generator_params, **dt},
+                                            compute_dtype=True))
+    d = PWGDiscriminator(**resolve_model_kwargs(
+        {**cfg.discriminator_params, **dt}, compute_dtype=True))
+    load_checkpoint_params(g, paths["gen"])
+    load_checkpoint_params(d, paths["disc"])
+    return g.cuda(), d.cuda()
+
+
+def _gan_step(g, d, seed):
+    from parakeet_tpu_torch.models import (init_pwg_train_state,
+                                           make_pwg_train_step)
+    from parakeet_tpu_torch.training import build_optimizer, seed_everything
+    state = init_pwg_train_state(
+        g, d, build_optimizer(g.parameters(), "adam", GEN_LR),
+        build_optimizer(d.parameters(), "adam", DISC_LR),
+        seed_everything(seed, device="cuda"))
+    step = make_pwg_train_step(g, d, lambda_adv=LAMBDA_ADV,
+                               discriminator_train_start_steps=0,
+                               **STFT_LOSS)
+    return step, state
+
+
+def _disc_update_fn(d, wav, fake):
+    from parakeet_tpu_torch.models.pwg_updater import discriminator_objective
+
+    def run():
+        d.zero_grad(set_to_none=True)
+        loss, _ = discriminator_objective(d, wav, fake)
+        loss.backward()
+    return run
+
+
+def phase_checkpoints(records):
+    """Phase 21: Paddle checkpoints through the port's converters at the
+    recipe YAMLs' widths, and the mixed-precision GAN step.  ``records``:
+    phase 5's K2a/K2b/K3a/K3b records, whose numbers the GAN steps'
+    records carry (same shapes) with this phase's launches.  Returns the
+    phase's kernel records."""
+    import shutil
+    from parakeet_tpu_torch.benchmarks import train_pwgan
+    from parakeet_tpu_torch.benchmarks.common import card
+    from parakeet_tpu_torch.models import parallel_wavegan as tpwg
+    from parakeet_tpu_torch.models import PWGDiscriminator
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    from parakeet_tpu_torch.recipes.pwgan import synthesize as pwg_syn
+    from parakeet_tpu_torch.recipes.pwgan import train
+    from parakeet_tpu_torch.recipes.pwgan.dump import write_synthetic_dump
+    from parakeet_tpu_torch.tools import convert_pwg_checkpoint
+    from parakeet_tpu_torch.training import save_pytree
+    from parakeet_tpu_torch.utils import convert as tc
+    from tools.golden.pwg import golden_pwg_forward_t
+    t_phase = time.perf_counter()
+    name, limit = card(torch.device("cuda"))
+    out = (pathlib.Path("build") / "chip_smoke_checkpoints").resolve()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    layers = PWG_CONFIG["layers"]
+    hop = math.prod(PWG_CONFIG["upsample_scales"])
+    w = PWG_CONFIG["aux_context_window"]
+    # (a) the generator through the CLI (a whole GAN's dump: the scope is
+    # stripped), the discriminator through the converter
+    gen_state = paddle_pwg_state(SEED + 60)
+    disc_state = paddle_disc_state(SEED + 63)
+    np.savez(out / "gan_paddle.npz",
+             **{f"generator.{k}": v for k, v in gen_state.items()},
+             **{f"discriminator.{k}": v for k, v in disc_state.items()})
+    paths = {"gen": convert_pwg_checkpoint.main([
+        "--input", str(out / "gan_paddle.npz"), "--config", RECIPE_CONF,
+        "--output", str(out / "pwg.npz")]), "disc": out / "disc.npz"}
+    save_pytree(paths["disc"], tc.checkpoint_arrays(
+        tc.convert_pwg_discriminator(disc_state,
+                                     layers=DISC_CONFIG["layers"])))
+    # (b) vocode through pwgan/synthesize.py (K1) against the oracle
+    rng = np.random.default_rng(SEED + 64)
+    mel = rng.standard_normal((CONV_FRAMES, ODIM)).astype(np.float32)
+    np.save(out / "conv0.npy", mel)
+    (out / "metadata.jsonl").write_text(json.dumps(
+        {"utt_id": "conv0", "feats": str(out / "conv0.npy")}) + "\n")
+    k1.fused_residual_stack.launches = 0
+    syn = pwg_syn.main(["--config", RECIPE_CONF, "--checkpoint",
+                        str(paths["gen"]), "--test-metadata",
+                        str(out / "metadata.jsonl"), "--output-dir",
+                        str(out / "wavs"), "--max-frames", str(CONV_FRAMES)])
+    k1_launches = k1.fused_residual_stack.launches
+    if k1_launches != layers:
+        raise AssertionError(f"converted vocoder: K1 launched {k1_launches} "
+                             f"times, not {layers}")
+    voc = syn["vocoder"]
+    gold_state = {k: torch.as_tensor(v, dtype=torch.float64).cuda()
+                  for k, v in gen_state.items()}
+    mel_pad = tpwg.edge_pad(torch.from_numpy(mel)[None].cuda(), w)
+    gold = golden_pwg_forward_t(
+        gold_state, voc.noise.double().transpose(1, 2),
+        mel_pad.double().transpose(1, 2), layers=layers,
+        stacks=PWG_CONFIG["stacks"],
+        upsample_scales=PWG_CONFIG["upsample_scales"],
+        aux_context_window=w)[0, 0]
+    wav = torch.from_numpy(syn["lines"][0]["wav"]).cuda()
+    wav_err, wav_tol = _hold("converted vocoder against the oracle", wav,
+                             gold, CONV_WAV_REL_TOL)
+    k1_rec = k1_check(torch.Generator().manual_seed(SEED + 65), 1,
+                      CONV_FRAMES * hop, name="pwg_residual_stack_converted",
+                      stack=voc.voc.stack)
+    k1_rec["launches"] = k1_launches
+    print(f"checkpoints ({name}, {limit}): a whole GAN's Paddle dump "
+          f"({len(gen_state)} + {len(disc_state)} tensors) converted by "
+          f"convert_pwg_checkpoint (generator. scope stripped); "
+          f"pwgan/synthesize.py on {CONV_FRAMES} frames: K1 {k1_launches} "
+          f"launches, vocoder {1e3 * syn['lines'][0]['vocoder_s']:.2f} ms; "
+          f"wav against the float64 oracle on the card: max abs err "
+          f"{wav_err:.4g} (tol {wav_tol:.4g}, range "
+          f"{gold.abs().max().item():.4g})")
+    _converted_fs2(out, name, limit)
+    # (c) the GAN step's gradients on a clip against the oracle, float32
+    # and mixed bf16, each also with K2a/K2b's plain versions
+    rng = np.random.default_rng(SEED + 66)
+    t_clip = CONV_CLIP_FRAMES * hop
+    noise = rng.standard_normal((1, t_clip, 1)).astype(np.float32)
+    cmel = rng.standard_normal((1, CONV_CLIP_FRAMES + 2 * w, ODIM)).astype(
+        np.float32)
+    cwav = (0.3 * rng.standard_normal((1, t_clip))).astype(np.float32)
+    gold = _oracle_gan_grads(gen_state, disc_state, noise, cmel, cwav)
+    inputs = [torch.from_numpy(a).cuda() for a in (noise, cmel, cwav)]
+    nets = {dt: _converted_gan(paths, dt) for dt in ("float32", "bfloat16")}
+    for dt, (g, d) in nets.items():
+        got = _gan_grads(g, d, *inputs)
+        with _plain_k2():
+            plain = _gan_grads(g, d, *inputs)
+        loss_err = [abs(got[i] - gold[i]) / abs(gold[i]) for i in (0, 1)]
+        rel = [_rel_l2_flat(got[i], gold[i]) for i in (2, 3, 4)]
+        plain_rel = _rel_l2_flat(got[4], plain[4])
+        print(f"checkpoints ({name}, {limit}): GAN step {dt} on a "
+              f"{CONV_CLIP_FRAMES}-frame clip against golden_pwg_gan_grads "
+              f"(float64): losses relative {loss_err[0]:.3g}, "
+              f"{loss_err[1]:.3g} (tol {CONV_LOSS_REL_TOL:.3g}); relative "
+              f"L2 of the generator's gradient {rel[0]:.4g} (tol "
+              f"{CONV_FULL_GRAD_REL_L2:.3g}), of its spectral + "
+              f"adversarial part {rel[2]:.4g} (tol "
+              f"{CONV_GEN_GRAD_REL_L2:.3g}) and of the discriminator's "
+              f"{rel[1]:.4g} (tol {CONV_GRAD_REL_L2:.3g}); K2a/K2b against "
+              f"their plain versions on that part {plain_rel:.4g} (tol "
+              f"{K2_REL_TOL:.3g})")
+        if not (max(loss_err) <= CONV_LOSS_REL_TOL
+                and rel[0] <= CONV_FULL_GRAD_REL_L2
+                and rel[1] <= CONV_GRAD_REL_L2
+                and rel[2] <= CONV_GEN_GRAD_REL_L2
+                and plain_rel <= K2_REL_TOL):
+            raise AssertionError(
+                f"GAN gradients {dt}: losses {loss_err}, relative L2 "
+                f"{rel}, kernels against plain K2 {plain_rel}")
+    # (d) the GAN step at the recipe's shape, float32 and bf16 in turns
+    gen = torch.Generator().manual_seed(SEED + 67)
+    frames = TRAIN_T // hop + 2 * w
+    batch = {"wav": (0.3 * torch.randn((TRAIN_B, TRAIN_T),
+                                       generator=gen)).cuda(),
+             "mel": torch.randn((TRAIN_B, frames, ODIM),
+                                generator=gen).cuda()}
+    counters = _train_counters()
+    steps, launches = {}, {}
+    for dt, (g, d) in nets.items():
+        steps[dt] = _gan_step(g, d, SEED + 68)
+        step, state = steps[dt]
+        step(state, batch)                                 # warm-up
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        launches[dt] = {k: f.launches for k, f in counters.items()}
+        bad = {k: float(v) for k, v in metrics.items()
+               if not math.isfinite(float(v))}
+        fused = d.supported and (d.impl == "fused" or getattr(torch, dt)
+                                 in tpwg.FUSED_AUTO_DTYPES)
+        want = expected_launches(True)
+        if not fused:
+            want.update(K3a=0, K3b=0)
+        if bad or launches[dt] != want:
+            raise AssertionError(f"GAN step {dt}: metrics {bad}, launches "
+                                 f"{launches[dt]}, expected {want}")
+
+    def timed(dt):
+        step, state = steps[dt]
+
+        def run():
+            for _ in range(CONV_STEP_ITERS):
+                step(state, batch)
+        return run
+    ms = {dt: [] for dt in nets}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed(dt)()
+        torch.cuda.synchronize()
+        ms[dt].append(1e3 * (time.perf_counter() - t0) / CONV_STEP_ITERS)
+    print(f"checkpoints ({name}, {limit}): GAN step of the converted "
+          f"networks at B={TRAIN_B}, T={TRAIN_T}, the discriminator live, "
+          f"in turns (float32, bf16, bf16, float32; {CONV_STEP_ITERS} "
+          f"chained steps each, host clock): float32 "
+          f"{ms['float32'][0]:.2f}, {ms['float32'][1]:.2f} ms; bf16 "
+          f"{ms['bfloat16'][0]:.2f}, {ms['bfloat16'][1]:.2f} ms a step; "
+          f"launches a step {launches}")
+    # (e) the discriminator's update at bf16: K3a/K3b against the eager
+    # loop, in turns (the evidence for 'auto' under bf16)
+    g, d = nets["bfloat16"]
+    with torch.no_grad():
+        fake = g(torch.randn((TRAIN_B, TRAIN_T, 1), generator=gen).cuda(),
+                 batch["mel"])
+    disc = {impl: PWGDiscriminator(impl=impl, dtype=torch.bfloat16,
+                                   **DISC_CONFIG).cuda()
+            for impl in ("eager", "fused")}
+    for m in disc.values():
+        m.load_state_dict(d.state_dict())
+    eager_a, fused_a, fused_b, eager_b = (
+        cuda_ms(_disc_update_fn(disc[i], batch["wav"], fake), CONV_DISC_REPS)
+        for i in ("eager", "fused", "fused", "eager"))
+    disc32 = PWGDiscriminator(impl="fused", **DISC_CONFIG).cuda()
+    disc32.load_state_dict(d.state_dict())
+    fused32 = cuda_ms(_disc_update_fn(disc32, batch["wav"], fake.float()),
+                      CONV_DISC_REPS)
+    print(f"checkpoints ({name}, {limit}): the discriminator's update "
+          f"(real and fake, forward and backward) at bf16, B={TRAIN_B}, "
+          f"T={TRAIN_T}, in turns: eager {eager_a:.3f}, K3a/K3b "
+          f"{fused_a:.3f}, K3a/K3b {fused_b:.3f}, eager {eager_b:.3f} ms "
+          f"(median of {CONV_DISC_REPS}, CUDA events; K3a/K3b at float32 "
+          f"{fused32:.3f}); 'auto' at bf16 "
+          f"runs " + ("K3a/K3b" if torch.bfloat16 in tpwg.FUSED_AUTO_DTYPES
+                      else "the eager loop"))
+    # (f) the training bench, float32 and bf16 in turns
+    ips = {"float32": [], "bfloat16": []}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        rec = train_pwgan.main(["--batch-sizes", str(TRAIN_B), "--iters",
+                                str(CONV_BENCH_ITERS), "--dtype", dt])
+        ips[dt].append(rec[0]["value"])
+    print(f"checkpoints ({name}, {limit}): benchmarks/train_pwgan.py at "
+          f"batch {TRAIN_B}, in turns: pwgan_train_avg_ips float32 "
+          f"{ips['float32'][0]:.3f}, {ips['float32'][1]:.3f}; bf16 "
+          f"{ips['bfloat16'][0]:.3f}, {ips['bfloat16'][1]:.3f} "
+          f"sequences/s")
+    # (g) the recipe's CLI with the YAML's bf16 --opts
+    md = write_synthetic_dump(out / "dump", seed=SEED + 69,
+                              splits=RECIPE_SPLITS, frames=RECIPE_FRAMES,
+                              n_mels=ODIM, n_shift=hop)
+    for f in counters.values():
+        f.launches = 0
+    tic = time.perf_counter()
+    trainer = train.main([
+        "--config", RECIPE_CONF, "--train-metadata", str(md["train"]),
+        "--dev-metadata", str(md["dev"]), "--output-dir", str(out / "exp"),
+        "--opts", *CONV_BF16_OPTS, "updater.discriminator_train_start_steps",
+        str(RECIPE_DISC_START), "save_interval_steps", str(RECIPE_INTERVAL),
+        "eval_interval_steps", str(RECIPE_INTERVAL), "train_max_steps",
+        str(CONV_RECIPE_STEPS)])
+    recipe_s = time.perf_counter() - tic
+    obs = {k: float(v) for k, v in trainer.observation.items()}
+    modules = trainer.updater.train_state.modules
+    totals = {k: f.launches for k, f in counters.items()}
+    if not (all(math.isfinite(v) for v in obs.values())
+            and "eval/generator_loss" in obs
+            and modules["generator"].dtype == torch.bfloat16
+            and modules["discriminator"].dtype == torch.bfloat16
+            and totals["K2a"] > 0 and totals["K2b"] > 0):
+        raise AssertionError(f"bf16 recipe run: {obs}, launches {totals}")
+    print(f"checkpoints ({name}, {limit}): the PWGAN recipe's CLI with "
+          f"{' '.join(CONV_BF16_OPTS)}: {CONV_RECIPE_STEPS} steps and "
+          f"evaluations in {recipe_s:.2f} s, launches {totals}; " + ", ".join(
+              f"{k} {v:.5g}" for k, v in obs.items()))
+    out_records = [k1_rec]
+    for dt in nets:
+        for key in ("K2a", "K2b", "K3a", "K3b"):
+            if launches[dt][key]:
+                out_records.append(dict(
+                    records[key], name=f"{records[key]['name']}_converted_"
+                    f"{dt}", launches=launches[dt][key]))
+    print(f"checkpoints: phase {time.perf_counter() - t_phase:.1f} s")
+    return out_records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3524,9 +4216,11 @@ def main():
     phase_voice_cloning()
     k1_text = phase_text_to_wav()
     k1_corpus = phase_corpus()
+    k_conv = phase_checkpoints({"K2a": k2a, "K2b": k2b, "K3a": k3a,
+                                "K3b": k3b})
     print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
                                   *k4.values(), k1_ss, k1_t2, *k1_tt,
-                                  k1_text, *k1_corpus]}))
+                                  k1_text, *k1_corpus, *k_conv]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,7 +24,7 @@ Usage:
       [--speakers 64] [--utts 10] [--frames 160] [--device cpu]
 
 Not ported: ``--dtype bfloat16`` (the port trains in float32; ROADMAP
-queue 1, item 10), refused with a message.
+queue 1, item 21), refused with a message.
 """
 import argparse
 import json

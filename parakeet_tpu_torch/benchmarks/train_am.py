@@ -29,7 +29,7 @@ Usage:
 Every leg of the JAX bench runs: ``tacotron2``, ``transformer_tts``,
 ``speedyspeech`` and ``waveflow``.  Not ported: ``--rng rbg`` (a TPU
 device generator) and ``--dtype bfloat16`` (the port trains in float32;
-ROADMAP queue 1, item 10), both refused with a message.
+ROADMAP queue 1, item 21), both refused with a message.
 """
 import argparse
 import contextlib

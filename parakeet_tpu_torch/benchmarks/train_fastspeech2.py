@@ -20,7 +20,7 @@ Usage:
 
 Not ported from the JAX bench: ``--rng rbg`` (a TPU device generator
 switch), ``--dtype bfloat16`` (the port trains FastSpeech2 in float32
-only; ROADMAP queue 1, item 10), both refused with a message, and the MFU
+only; ROADMAP queue 1, item 21), both refused with a message, and the MFU
 fields (their denominator needs a training FLOP count of the port).
 """
 import argparse

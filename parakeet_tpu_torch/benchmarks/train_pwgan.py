@@ -15,11 +15,14 @@ host with one synchronisation at the end.
 Usage:
   python -m parakeet_tpu_torch.benchmarks.train_pwgan --disc-vjp recompute \\
       [--stack-impl fused] [--disc-impl auto] [--batch-sizes 6 26] \\
-      [--iters 20] [--profile DIR] [--device cpu] [--opts KEY VALUE ...]
+      [--dtype bfloat16] [--iters 20] [--profile DIR] [--device cpu] \\
+      [--opts KEY VALUE ...]
+
+``--dtype bfloat16`` sets both networks' compute dtype (mixed precision:
+parameters, losses and Adam state stay float32), as the JAX bench.
 
 Not ported from the JAX bench: ``--rng`` (threefry / rbg, a TPU device
-generator switch), ``--dtype bfloat16`` (the port trains PWG in float32
-only) and the MFU field (its denominator, ``utils/flops.py``, is the TPU
+generator switch) and the MFU field (its denominator, ``utils/flops.py``, is the TPU
 v5e's; an MFU against the H100's peak waits for the analytic FLOP counts
 of ROADMAP queue 1 item 17).
 """
@@ -27,6 +30,7 @@ import argparse
 import json
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,14 +50,18 @@ _CONFIG = (Path(__file__).resolve().parents[2] / "recipes" / "pwgan"
 
 
 def build_train_step(cfg, batch_size: int, *, stack_impl: str,
-                     disc_impl: str, disc_vjp: str, device: torch.device):
-    """The recipe's GAN train step at ``batch_size`` with seeded weights:
-    (step, state, batch), the discriminator on from the first step."""
-    gen_kwargs = resolve_model_kwargs({**cfg.generator_params,
-                                       "stack_impl": stack_impl})
-    disc_kwargs = resolve_model_kwargs({**cfg.discriminator_params,
-                                        "impl": disc_impl,
-                                        "vjp_mode": disc_vjp})
+                     disc_impl: str, disc_vjp: str, device: torch.device,
+                     dtype: Optional[str] = None):
+    """The recipe's GAN train step at ``batch_size`` with seeded weights
+    and ``dtype`` (when given) the networks' compute dtype: (step, state,
+    batch), the discriminator on from the first step."""
+    dt = {} if dtype is None else {"dtype": dtype}
+    gen_kwargs = resolve_model_kwargs(
+        {**cfg.generator_params, "stack_impl": stack_impl, **dt},
+        compute_dtype=True)
+    disc_kwargs = resolve_model_kwargs(
+        {**cfg.discriminator_params, "impl": disc_impl,
+         "vjp_mode": disc_vjp, **dt}, compute_dtype=True)
     gen = PWGGenerator(**gen_kwargs)
     disc = PWGDiscriminator(**disc_kwargs)
     weights = torch.Generator().manual_seed(0)
@@ -83,12 +91,12 @@ def build_train_step(cfg, batch_size: int, *, stack_impl: str,
 
 def bench_batch_size(cfg, batch_size: int, iters: int, *, stack_impl: str,
                      disc_impl: str, disc_vjp: str, device: torch.device,
-                     profile=None) -> float:
+                     profile=None, dtype: Optional[str] = None) -> float:
     """Average sequences per second of ``iters`` chained train steps after
     one warm-up step."""
     step, state, batch = build_train_step(
         cfg, batch_size, stack_impl=stack_impl, disc_impl=disc_impl,
-        disc_vjp=disc_vjp, device=device)
+        disc_vjp=disc_vjp, device=device, dtype=dtype)
 
     def sync():
         if device.type == "cuda":
@@ -131,6 +139,11 @@ def main(argv=None):
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--batch-sizes", type=int, nargs="+",
                         default=[6, 26])
+    parser.add_argument("--dtype", default=None,
+                        choices=("float32", "bfloat16"),
+                        help="compute dtype of both networks (default: the "
+                             "config's); parameters, losses and Adam state "
+                             "stay float32")
     parser.add_argument("--stack-impl", default="fused",
                         choices=("auto", "eager", "fused", "xla", "pallas"),
                         help="generator residual-stack impl ('fused' trains "
@@ -163,10 +176,12 @@ def main(argv=None):
                                stack_impl=args.stack_impl,
                                disc_impl=args.disc_impl,
                                disc_vjp=args.disc_vjp, device=device,
-                               profile=args.profile)
+                               profile=args.profile, dtype=args.dtype)
         record = {"metric": "pwgan_train_avg_ips", "batch_size": bs,
                   "value": ips, "unit": "sequences/sec",
-                  "dtype": "float32", "stack_impl": args.stack_impl,
+                  "dtype": args.dtype or str(cfg.generator_params.get(
+                      "dtype", "float32")),
+                  "stack_impl": args.stack_impl,
                   "disc_impl": args.disc_impl, "disc_vjp": args.disc_vjp,
                   "backend": device.type, "tf32": tf32_enabled(),
                   "device": name}

@@ -36,7 +36,8 @@ its last part the flax leaf, converted by the torch module's type:
 Every key must land and every parameter and BatchNorm statistic of the
 module must be written: anything missing or unused raises ``KeyError``.
 ``flax_arrays`` is the inverse (a ``DenseGeneral`` kernel comes back 2-D,
-which ``load_flax_params`` reshapes).  ``load_checkpoint_params`` loads
+which ``load_flax_params`` reshapes), and ``flax_grads`` maps the
+parameters' gradients onto the same keys.  ``load_checkpoint_params`` loads
 the params (and BatchNorm statistics) of a checkpoint file, either
 package's train state or a bare tree, into a module for inference.
 
@@ -73,7 +74,8 @@ from torch.nn.modules.batchnorm import _BatchNorm
 
 from .nn.rnn import GRUCell
 
-__all__ = ["load_flax_params", "flax_arrays", "train_state_arrays",
+__all__ = ["load_flax_params", "flax_arrays", "flax_grads",
+           "train_state_arrays",
            "load_train_state", "load_checkpoint_params", "RNG_KEY",
            "ROOT_MODULE"]
 
@@ -232,6 +234,18 @@ def flax_arrays(module: nn.Module) -> Dict[str, np.ndarray]:
     BatchNorm statistics as a flat flax tree of host float32 arrays."""
     return {key: _contiguous(conv(t.detach().float().cpu().numpy()))
             for key, _, t, conv in _flax_leaves(module)}
+
+
+@torch.no_grad()
+def flax_grads(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The gradients of ``module``'s parameters under ``flax_arrays``'s
+    ``params::`` keys, as host float32 arrays (zeros where a parameter has
+    no gradient): the form in which a flax gradient tree, or a converter's
+    map of a reference's gradients, compares leaf by leaf."""
+    return {"params" + _SEP + key: _contiguous(conv(
+        (t.grad if t.grad is not None else torch.zeros_like(t))
+        .detach().float().cpu().numpy()))
+        for t, key, conv in _param_keys(module)}
 
 
 def _targets(module: nn.Module) -> Dict[str, torch.Tensor]:

@@ -7,7 +7,8 @@ from .lstm_speaker_encoder import (LSTMSpeakerEncoder, compute_eer,
                                    embed_utterance, ge2e_loss,
                                    partial_slices, scale_wb_gradients,
                                    similarity_matrix)
-from .parallel_wavegan import (PWGDiscriminator, PWGGenerator, ResidualStack,
+from .parallel_wavegan import (PWGDiscriminator, PWGGenerator,
+                               ResidualPWGDiscriminator, ResidualStack,
                                pwg_inference, pwg_streaming_inference,
                                pwg_window_program)
 from .pwg_updater import (init_pwg_train_state, make_pwg_eval_step,
@@ -34,8 +35,9 @@ from .waveflow_updater import (init_waveflow_train_state,
                                make_waveflow_train_step)
 
 __all__ = ["FastSpeech2", "fastspeech2_loss", "init_fs2_train_state",
-           "make_fs2_train_step", "make_fs2_eval_step", "PWGGenerator", "PWGDiscriminator",
-           "ResidualStack", "pwg_inference", "pwg_streaming_inference",
+           "make_fs2_train_step", "make_fs2_eval_step", "PWGGenerator",
+           "PWGDiscriminator", "ResidualPWGDiscriminator", "ResidualStack",
+           "pwg_inference", "pwg_streaming_inference",
            "pwg_window_program", "init_pwg_train_state",
            "make_pwg_train_step", "make_pwg_eval_step", "SpeedySpeech",
            "speedyspeech_loss", "init_speedyspeech_train_state",

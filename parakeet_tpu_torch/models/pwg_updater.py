@@ -12,12 +12,17 @@ eagerly, so there are no two compiled programs to choose between, and
 reading the step from the state (not from a host mirror of it) keeps the
 gate right when states are not fed in sequence (the JAX dispatcher's
 drifting mirror, ROADMAP queue 3).  Noise comes from the state's
-generator.  Losses reduce in float32.
+generator, and so do the generator's dropout masks (its training forward,
+``deterministic=False``): the regeneration replays the generator's state
+from before the update's forward, so the discriminator sees the fake of
+the same masks, as the JAX step reuses its dropout key.  Losses reduce in
+float32, whatever the networks' compute dtype; parameters and Adam state
+stay float32.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,11 +63,13 @@ def _frozen(module: torch.nn.Module):
 
 
 def generator_objective(generator, discriminator, noise, mel, wav, *,
-                        lambda_adv: float, disc_on: bool, stft_kw: Dict
+                        lambda_adv: float, disc_on: bool, stft_kw: Dict,
+                        rng: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, Tuple]:
-    """(loss, (sc_loss, mag_loss, adv_loss)) of the generator update; the
-    discriminator's weights are treated as constants."""
-    fake = generator(noise, mel)
+    """(loss, (sc_loss, mag_loss, adv_loss)) of the generator update (its
+    training forward, dropout drawn from ``rng``); the discriminator's
+    weights are treated as constants."""
+    fake = generator(noise, mel, deterministic=False, rng=rng)
     sc_loss, mag_loss = multi_resolution_stft_loss(fake[..., 0], wav,
                                                    **stft_kw)
     if disc_on:
@@ -105,11 +112,13 @@ def make_pwg_train_step(generator, discriminator, *,
         noise = torch.randn((*wav.shape, 1), generator=state.rng,
                             device=wav.device, dtype=wav.dtype)
         disc_on = state.step >= discriminator_train_start_steps
+        masks_from = state.rng.get_state()
 
         # ---------------- generator update ----------------
         gen_loss, (sc_loss, mag_loss, adv_loss) = generator_objective(
             generator, discriminator, noise, mel, wav,
-            lambda_adv=lambda_adv, disc_on=disc_on, stft_kw=stft_kw)
+            lambda_adv=lambda_adv, disc_on=disc_on, stft_kw=stft_kw,
+            rng=state.rng)
         g_opt.zero_grad()
         gen_loss.backward()
         g_opt.step()
@@ -118,8 +127,12 @@ def make_pwg_train_step(generator, discriminator, *,
         zero = torch.zeros((), device=wav.device)
         d_loss = real_loss = fake_loss = zero
         if disc_on:
+            after = state.rng.get_state()
+            state.rng.set_state(masks_from)
             with torch.no_grad():
-                fake = generator(noise, mel)
+                fake = generator(noise, mel, deterministic=False,
+                                 rng=state.rng)
+            state.rng.set_state(after)
             d_loss, (real_loss, fake_loss) = discriminator_objective(
                 discriminator, wav, fake)
             d_opt.zero_grad()

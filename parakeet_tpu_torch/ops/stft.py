@@ -5,12 +5,14 @@ frames (B, F, n_fft) @ basis (n_fft, n_bins), in float32.  The JAX code
 asks for ``Precision.HIGHEST`` because the basis feeds log-magnitude
 losses; the counterpart here is float32 matmuls without TF32, which
 ``_highest_precision`` enforces around the products on every device.
-Differentiable; used by the multi-resolution STFT losses.
+Differentiable; used by the multi-resolution STFT losses.  The mel
+functions project the magnitude onto ``audio/spectrum.py``'s filterbank.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -18,7 +20,10 @@ import torch
 import torch.nn.functional as F
 from scipy import signal as _signal
 
-__all__ = ["dft_basis", "frame", "stft", "stft_magnitude"]
+from ..audio.spectrum import mel_filterbank
+
+__all__ = ["dft_basis", "frame", "stft", "stft_magnitude", "mel_spectrogram",
+           "log_mel_spectrogram"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -94,3 +99,30 @@ def stft_magnitude(x: torch.Tensor, n_fft: int, hop_length: int,
     real, imag = stft(x, n_fft, hop_length, win_length, window, center,
                       pad_mode)
     return torch.sqrt(torch.clamp(real * real + imag * imag, min=eps))
+
+
+@functools.lru_cache(maxsize=16)
+def _mel_basis(sr: int, n_fft: int, n_mels: int, fmin: float,
+               fmax: Optional[float], device: torch.device) -> torch.Tensor:
+    """(n_bins, n_mels) filterbank on ``device``, uploaded once."""
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(fb.T)).to(device)
+
+
+def mel_spectrogram(x: torch.Tensor, sr: int, n_fft: int, hop_length: int,
+                    win_length: Optional[int] = None, window: str = "hann",
+                    n_mels: int = 80, fmin: float = 0.0,
+                    fmax: Optional[float] = None) -> torch.Tensor:
+    """(B, T) -> (B, n_frames, n_mels) linear mel magnitude."""
+    mag = stft_magnitude(x, n_fft, hop_length, win_length, window, eps=0.0)
+    with _highest_precision():
+        return mag @ _mel_basis(sr, n_fft, n_mels, fmin, fmax, mag.device)
+
+
+def log_mel_spectrogram(x: torch.Tensor, *, base: str = "10",
+                        eps: float = 1e-10, **kwargs) -> torch.Tensor:
+    """Log (base 10 or e) mel spectrogram, as ``LogMelFBank``."""
+    log = torch.log(torch.clamp(mel_spectrogram(x, **kwargs), min=eps))
+    if base == "10":
+        log = log / math.log(10.0)
+    return log

@@ -3,7 +3,8 @@
 train.py).
 
 Reads the recipe's YAML (``recipes/pwgan/conf/default.yaml`` runs
-unchanged: ``resolve_model_kwargs`` maps the JAX impl names) and a dump in
+unchanged: ``resolve_model_kwargs`` maps the JAX impl names and the
+models' ``dtype``) and a dump in
 the recipe's format (``metadata_*.jsonl`` rows whose ``wave`` and
 ``feats`` are paths of ``.npy`` arrays), builds the generator and the
 discriminator on the device with weights drawn from the config's seed,
@@ -18,6 +19,10 @@ Usage:
       --train-metadata dump/metadata_train.jsonl \\
       --dev-metadata dump/metadata_dev.jsonl --output-dir exp/default \\
       [--opts discriminator_params.vjp_mode recompute ...] [--device cpu]
+
+Mixed precision (bf16 products, float32 parameters, losses and Adam
+state), as the YAML's comment spells it: ``--opts generator_params.dtype
+bfloat16 discriminator_params.dtype bfloat16``.
 
 Not ported: the JAX recipe's ``--dp`` (data parallelism) and its
 TensorBoard writer (ROADMAP queue 1, items 8 and 18).
@@ -81,14 +86,16 @@ def main(argv=None) -> Trainer:
     seed = cfg.get("seed", 0)
     rng = seed_everything(seed, device=device)
 
-    gen_kwargs = resolve_model_kwargs(cfg.get("generator_params", {}))
+    gen_kwargs = resolve_model_kwargs(cfg.get("generator_params", {}),
+                                      compute_dtype=True)
     acw = gen_kwargs.get("aux_context_window", 2)
     train_dl = build_dataloader(args.train_metadata, cfg, True, acw, seed)
     dev_dl = build_dataloader(args.dev_metadata, cfg, False, acw, seed)
 
     generator = PWGGenerator(**gen_kwargs)
     discriminator = PWGDiscriminator(
-        **resolve_model_kwargs(cfg.get("discriminator_params", {})))
+        **resolve_model_kwargs(cfg.get("discriminator_params", {}),
+                               compute_dtype=True))
     weights = torch.Generator().manual_seed(seed)
     init_pwg_params_(generator, weights)
     init_pwg_params_(discriminator, weights)

@@ -7,8 +7,8 @@ training/cli.py:36-48).  ``yaml`` is imported inside the functions that
 read or write YAML, so the rest of the port imports without PyYAML.
 
 ``resolve_model_kwargs`` lets the repository's YAML run unchanged: it maps
-the JAX package's impl names onto the port's and refuses what the port
-lacks rather than dropping it.
+the JAX package's impl names and dtypes onto the port's and refuses what
+the port lacks rather than dropping it.
 """
 from __future__ import annotations
 
@@ -117,17 +117,20 @@ class Config(dict):
 _IMPL_NAMES = {"pallas": "fused", "xla": "eager", "auto": "auto",
                "fused": "fused", "eager": "eager"}
 _FLOAT32_NAMES = ("float32", "fp32")
+_BFLOAT16_NAMES = ("bfloat16", "bf16")
 
 
-def resolve_model_kwargs(cfg: dict) -> dict:
+def resolve_model_kwargs(cfg: dict, *, compute_dtype: bool = False) -> dict:
     """Model-section kwargs ready for the port's ``Model(**kwargs)``.
 
     ``stack_impl`` and ``impl`` take the JAX names ('pallas', 'xla',
-    'auto') or the port's ('fused', 'eager', 'auto').  ``dtype`` may only
-    name float32, which is dropped (the port's modules compute in their
-    parameters' dtype); any other dtype raises ``NotImplementedError``:
-    the port has no mixed-precision training of these models yet
-    (ROADMAP.md, queue 1 item 10).
+    'auto') or the port's ('fused', 'eager', 'auto').  ``dtype`` naming
+    float32 is dropped (the modules compute in their parameters' dtype).
+    With ``compute_dtype`` (the Parallel WaveGAN modules, which take a
+    compute dtype as flax's ``dtype=``) 'bfloat16' becomes
+    ``torch.bfloat16``: mixed precision, float32 parameters.  Any other
+    dtype raises ``NotImplementedError``: the other families train in
+    float32 only (ROADMAP.md, queue 1, item 21).
     """
     kwargs = dict(cfg)
     for key in ("stack_impl", "impl"):
@@ -138,19 +141,28 @@ def resolve_model_kwargs(cfg: dict) -> dict:
                                  f"{sorted(_IMPL_NAMES)}")
             kwargs[key] = _IMPL_NAMES[name]
     if "dtype" in kwargs:
-        dtype = kwargs.pop("dtype")
-        if str(dtype).lower() not in _FLOAT32_NAMES:
+        name = str(kwargs.pop("dtype")).lower()
+        if compute_dtype and name in _BFLOAT16_NAMES:
+            import torch
+            kwargs["dtype"] = torch.bfloat16
+        elif name not in _FLOAT32_NAMES:
             raise NotImplementedError(
-                f"model dtype {dtype!r}: the port trains in float32 only; "
-                "mixed precision is open in ROADMAP.md (queue 1, item 10)")
+                f"model dtype {name!r}: "
+                + ("the Parallel WaveGAN modules take float32 or bfloat16"
+                   if compute_dtype else
+                   "this family trains in float32 only; the Parallel "
+                   "WaveGAN modules alone take a compute dtype (ROADMAP.md, "
+                   "queue 1, item 10), and mixed precision of the other "
+                   "families is open as item 21"))
     return kwargs
 
 
-def inference_model_kwargs(cfg: dict) -> dict:
+def inference_model_kwargs(cfg: dict, *, compute_dtype: bool = False
+                           ) -> dict:
     """Model-section kwargs with training-only keys stripped: ``init_type``
     configures the train-time initialization (the reference consumes it
     before model construction, fastspeech2.py:114) and is no constructor
     field."""
-    kwargs = resolve_model_kwargs(cfg)
+    kwargs = resolve_model_kwargs(cfg, compute_dtype=compute_dtype)
     kwargs.pop("init_type", None)
     return kwargs
