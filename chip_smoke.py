@@ -34,9 +34,11 @@ Phases, one line each (the checks raise; nothing is caught):
    chunk's wall time, graphs against eager in turns.  Then
    ``benchmarks/e2e_rtf.py`` (``bench.py``'s program at full width, one
    CUDA graph) in bf16 and float32, 'dense' against 'flash' in turns
-   (dense, flash, flash, dense): each graph's wav bitwise its eager
-   program's, K1 x 30 and, with 'flash', K4a x 8 in a replay; RTF, graph
-   and eager ms and MFU (against the bf16 peak).  Then the streaming
+   (dense, flash, flash, dense; float32 once each): each graph's wav
+   bitwise its eager program's, K1 x 30 and, with 'flash', K4a x 8 in a
+   replay; RTF, graph and eager ms and MFU (against the bf16 peak); and
+   the bf16 program against its former cast-parameter build in turns
+   (``e2e_cast_yardstick``).  Then the streaming
    vocoder (one window graph, replayed per window) against one-shot
    vocoding within a stated tolerance, and ``benchmarks/longform_rtf.py``
    (6,144 frames, 'dense' and 'auto', one timed replay each);
@@ -150,10 +152,10 @@ Phases, one line each (the checks raise; nothing is caught):
 15. TransformerTTS: its recipe's CLI with recipes/transformer_tts/conf/
    default.yaml (full widths, batch 16: 1 epoch of 2 steps, resumed to 2,
    against 2 straight); its ``transformer_tts_r1`` and ``_r2`` legs of
-   ``e2e_family_rtf`` (1,000 and 500 decoder steps -> PWG x256) as one
-   CUDA graph each, bitwise eager, K1 x 30 in a replay, and K1 at
-   T=256,000; then ``benchmarks/ar_decode.py`` (Tacotron2, TransformerTTS
-   r=1 and r=2; 500 steps, each graph bitwise eager);
+   ``e2e_family_rtf`` at 500 frames (500 and 250 decoder steps -> PWG
+   x256) as one CUDA graph each, bitwise eager, K1 x 30 in a replay, and
+   K1 at T=128,000; then ``benchmarks/ar_decode.py`` (Tacotron2, TransformerTTS
+   r=1 and r=2; 200 steps, each graph bitwise eager);
 16. WaveFlow: its recipe's CLI with recipes/waveflow/conf/default.yaml
    (iteration-based: 2 iterations resumed to 4 against 4 straight);
    ``benchmarks/waveflow_rtf.py`` (344 frames) in float32 and bf16, each
@@ -249,7 +251,19 @@ Phases, one line each (the checks raise; nothing is caught):
    card against the CPU and timed with CUDA events,
    ``LightweightConvolution`` forward and backward, ``Conv1dCell``'s
    parallel call (and its 200-step loop against that call),
-   ``gaussian_upsample`` and 10 ``lamb`` steps.
+   ``gaussian_upsample`` and 10 ``lamb`` steps;
+23. flax's mixed precision (``dtype=bfloat16``: float32 parameters and
+   Adam state, bf16 products): each family's train step at its bench's
+   shapes (``train_am``'s B=32 x 96 tokens x 640 frames, WaveFlow 8 x 65
+   frames; ``ge2e_train``'s 64 x 10 x 160; ``train_fastspeech2``'s with
+   'flash' at dk 192), float32 against bf16 in turns (float32, bf16,
+   bf16, float32) after a warm step of each: ms a step, the ratio, the
+   finite losses; in the bf16 FastSpeech2 step K4a-K4c's launches and,
+   from ``tools/op_table.py`` over a profiled step, the names of its top
+   GEMM kernels; K4a-K4c at that step's two shapes in bf16 against their
+   plain versions and timed.  Phase 4's e2e program is also timed
+   against its build before this one (the same weights rounded to bf16)
+   in turns.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
@@ -271,7 +285,9 @@ converted weights; K2a-K3b again as ``*_converted_float32`` and
 phase 5's numbers, the same shapes; and K4a-K4c again as
 ``*_dk192_layers`` with the launches of phase 22's recipe run and the
 numbers of its two shapes together, the encoder's and the decoder's
-call on its largest batch), error, times, bound
+call on its largest batch; K4a-K4c again as ``*_bf16_fs2_step`` with
+the launches of phase 23's bf16 FastSpeech2 step and the numbers of its
+two shapes together), error, times, bound
 (the larger of its bytes over the H100's memory rate and its operations
 over its peak for the operands' type, from this run's shapes; K4's
 float32 products at the 3xTF32 rate, a third of the TF32 peak) and, where
@@ -331,6 +347,8 @@ GRAPH_BATCH_BUCKETS, GRAPH_FRAMES_PER_TOKEN = (1, 2, 4, 8), 8
 K1_KERNEL, K4A_KERNEL = "pwg_layer_kernel<64, false>", "flash_fwd_kernel"
 # bench.py's FastSpeech2: 4 + 4 attention layers, all on K4a with 'flash'
 E2E_ATTN_LAYERS = 8
+# replays a timing of the bf16 program against its cast-parameter build
+E2E_YARDSTICK_REPS = 10
 # streaming against one-shot: bench.py's 896 frames in windows of 256.  A
 # window's upsampler products run at another row count than the whole
 # utterance's, so cuBLAS may sum them in another float32 order; that now
@@ -536,27 +554,35 @@ T2_RECIPE_SPLITS = {"train": 64, "dev": 16}
 T2_RECIPE_FRAMES, T2_RECIPE_PHONES = (120, 200), (30, 60)
 T2_RECIPE_EPOCHS, T2_RECIPE_RESUME_EPOCHS = 1, 2
 FAMILY_STEPS_PER_EPOCH = 2
-# the family programs of benchmarks/e2e_family_rtf.py, timed over a few
-# chained calls (Tacotron2's runs 1,000 decoder steps a call), with K1's
-# shape in each (B = 1, T = 1,000 frames x the hop)
-FAMILY_ITERS = 3
+# the family programs of benchmarks/e2e_family_rtf.py, timed over one
+# call after one warm call (Tacotron2's runs 1,000 decoder steps a call,
+# 2.5 s eagerly in bf16), with K1's shape in each (B = 1, T = 1,000
+# frames x the hop)
+FAMILY_ITERS = 1
 FAMILY_K1_T = {"speedyspeech": 300000, "tacotron2": 256000,
-               "transformer_tts_r1": 256000, "transformer_tts_r2": 256000}
+               "transformer_tts_r1": 128000, "transformer_tts_r2": 128000}
 # the per-family training bench at the JAX bench's shapes (B 32, 96
 # tokens, 640 frames): PyTorch's defaults, then the recipes'
-# deterministic setting (Tacotron2's step takes seconds: 2 iterations)
-AM_BENCH_ITERS = 2
+# deterministic setting (Tacotron2's step takes seconds: 1 iteration
+# after 1 + 1 warm ones)
+AM_BENCH_ITERS = 1
+AM_BENCH_WARMUP = 1
 # phase 15: the TransformerTTS recipe at its YAML's widths and batch 16 on
 # a seeded dump (32 train utterances: two steps an epoch; 8 dev: one eval
 # batch) of 200-400 frames (a parallel teacher-forced decoder: as many
-# steps as frames) and 40-90 tokens; ar_decode's loops at its default 500
-# steps, timed over 2 calls
+# steps as frames) and 40-90 tokens; its two programs at 500 frames (500
+# and 250 decoder steps; an eager r=1 call at 1,000 took 10-16 s in bf16)
+# timed over 1 call without a warm one
 TT_RECIPE_CONF = "recipes/transformer_tts/conf/default.yaml"
 TT_RECIPE_SPLITS = {"train": 32, "dev": 8}
 TT_RECIPE_FRAMES, TT_RECIPE_PHONES = (200, 400), (40, 90)
 TT_RECIPE_EPOCHS, TT_RECIPE_RESUME_EPOCHS = 1, 2
-TT_FAMILY_ITERS = 2
+TT_FAMILY_ITERS = 1
+TT_FAMILY_FRAMES = 500
+# ar_decode's loops at 200 steps, timed over 1 call without a warm one
+# (at its default 500 the three captures alone took 33 s)
 AR_DECODE_ITERS = 1
+AR_DECODE_STEPS = 200
 # phase 16: the WaveFlow recipe at its YAML's widths and batch on a seeded
 # dump of 16 train utterances (two iterations an epoch) and 8 dev (one
 # eval batch) of 80-160 frames (longer than the 65-frame clips), with an
@@ -746,6 +772,17 @@ LAYERS_TTS_STEPS = 200
 LIGHTCONV_B, LIGHTCONV_T, LIGHTCONV_C, LIGHTCONV_K = 16, 1024, 384, 31
 CELL_B, CELL_C, CELL_DILATION = 16, 384, 2
 GAUSS_B, GAUSS_L, GAUSS_T, GAUSS_D = 16, 128, 1024, 384
+# phase 23: the benches' shapes (train_am's and train_fastspeech2's batch,
+# tokens and frames; ge2e_train's speakers, utterances, frames, mels), the
+# families in the order they run, the GEMM kernels' names as the profiler
+# gives them (cuBLAS's nvjet and sm90/sm80 kernels, CUTLASS's) and how
+# many of the longest are printed
+MP_AM_SHAPE = (32, 96, 640)
+MP_GE2E = (64, 10, 160, 40)
+MP_FAMILIES = ("fastspeech2", "speedyspeech", "tacotron2",
+               "transformer_tts", "waveflow", "ge2e")
+MP_GEMM = re.compile(r"gemm|nvjet|xmma|cutlass|sm\d\d_", re.IGNORECASE)
+MP_TOP_GEMMS = 3
 LAMB_SHAPES = [(1536, 384), (384, 1536), (384, 384), (384,), (80, 384),
                (1536,)]
 LAMB_STEPS, LAYERS_REPS = 10, 10
@@ -993,22 +1030,23 @@ def build_engine(graphs, text_buckets=TEXT_BUCKETS,
                  batch_buckets=BATCH_BUCKETS,
                  frames_per_token=FRAMES_PER_TOKEN, attn_impl="auto"):
     """The serving slice's engine (one CUDA graph a grid point with
-    ``graphs``) on bf16 models at the recipes' widths with ``attn_impl``,
-    from SEED; CPU statistics in its normalizers, which the engine moves
-    to the card."""
+    ``graphs``) on models computing in bf16 on float32 parameters (flax's
+    ``dtype=``) at the recipes' widths with ``attn_impl``, from SEED; CPU
+    statistics in its normalizers, which the engine moves to the card."""
     from parakeet_tpu_torch.models import FastSpeech2, PWGGenerator
     from parakeet_tpu_torch.ops.normalizer import ZScore
     from parakeet_tpu_torch.serving import TTSEngine
     gen = torch.Generator().manual_seed(SEED)
-    am = FastSpeech2(IDIM, ODIM, attn_impl=attn_impl, **FS2_CONFIG)
-    voc = PWGGenerator(**PWG_CONFIG)
+    am = FastSpeech2(IDIM, ODIM, attn_impl=attn_impl, dtype=torch.bfloat16,
+                     **FS2_CONFIG)
+    voc = PWGGenerator(**PWG_CONFIG, dtype=torch.bfloat16)
     seeded_init_(am, gen)
     seeded_init_(voc, gen)
     with torch.no_grad():
         am.duration_predictor.stack.linear.weight.mul_(DURATION_SPREAD)
         am.duration_predictor.stack.linear.bias.fill_(DURATION_BIAS)
-    am = am.to("cuda", torch.bfloat16).eval()
-    voc = voc.to("cuda", torch.bfloat16).eval()
+    am = am.to("cuda").eval()
+    voc = voc.to("cuda").eval()
     am_norm = ZScore(torch.randn(ODIM, generator=gen) - 5.0,
                      torch.rand(ODIM, generator=gen) + 0.5)
     voc_norm = ZScore(am_norm.mu + 0.1, am_norm.sigma * 1.1)
@@ -1203,12 +1241,14 @@ def phase_serving_graphs():
 def phase_e2e():
     """``bench.py``'s program through ``benchmarks/e2e_rtf.py`` in bf16
     and float32, 'dense' against 'flash' in turns (dense, flash, flash,
-    dense): each run's graph gives the eager program's wav bit for bit,
-    and a replay holds K1 30 times and, with 'flash', K4a 8 times."""
+    dense; float32 once each): each run's graph gives the eager program's
+    wav bit for bit, and a replay holds K1 30 times and, with 'flash',
+    K4a 8 times."""
     from parakeet_tpu_torch.benchmarks import e2e_rtf
-    for dtype in ("bfloat16", "float32"):
+    for dtype, order in (("bfloat16", ("dense", "flash", "flash", "dense")),
+                         ("float32", ("dense", "flash"))):
         runs = {"dense": [], "flash": []}
-        for impl in ("dense", "flash", "flash", "dense"):
+        for impl in order:
             rec = e2e_rtf.main(["--dtype", dtype, "--attn-impl", impl])
             n_k1 = _named(rec["replay_kernels"], K1_KERNEL)
             n_k4 = _named(rec["replay_kernels"], K4A_KERNEL)
@@ -1219,15 +1259,50 @@ def phase_e2e():
                 raise AssertionError(f"e2e {dtype} {impl}: {rec}")
             runs[impl].append(rec)
         print(f"e2e {dtype} (graph ms | eager ms | RTF | MFU % | busy ms "
-              "in a replay), dense, flash, flash, dense: " + "; ".join(
+              f"in a replay), {', '.join(order)}: " + "; ".join(
                   f"{r['graph_ms']:.3f} | {r['eager_ms']:.3f} | "
                   f"{r['value']:.6f} | {r['mfu_pct']:.2f} | "
                   f"{r['replay_busy_ms']:.3f}"
                   for r in (runs["dense"][0], *runs["flash"],
-                            runs["dense"][1]))
+                            *runs["dense"][1:]))
               + f"; {runs['dense'][0]['flops'] / 1e12:.4f} TFLOP a call; "
               "each graph bitwise its eager program, K1 x 30 (and K4a x "
               f"{E2E_ATTN_LAYERS} with flash) in a replay")
+    e2e_cast_yardstick()
+
+
+def e2e_cast_yardstick():
+    """The yardstick of the bf16 program: ``bench.py``'s program (one CUDA
+    graph, 'auto') as built now (flax's ``dtype=``: float32 parameters,
+    bf16 products) and as the port built it before, the same weights
+    rounded to bf16 (``module.to(torch.bfloat16)``), timed in turns (cast,
+    new, new, cast).  The two compute different functions, so only
+    their finiteness and distance are printed beside the times."""
+    from parakeet_tpu_torch.benchmarks.common import (SynthesisProgram,
+                                                      build_models)
+    from parakeet_tpu_torch.benchmarks.e2e_rtf import MAX_FRAMES, TEXT_LEN
+    cuda = torch.device("cuda")
+    programs = {}
+    for name, dtype in (("new", torch.bfloat16), ("cast", torch.float32)):
+        fs2, pwg = build_models(dtype, "auto", cuda)
+        if name == "cast":
+            fs2, pwg = fs2.to(torch.bfloat16), pwg.to(torch.bfloat16)
+        program = SynthesisProgram(fs2, pwg, batch=1, text_len=TEXT_LEN,
+                                   max_frames=MAX_FRAMES)
+        programs[name] = (program, program.capture())
+    wavs = {name: g()[0].float() for name, (_, g) in programs.items()}
+    if not all(torch.isfinite(w).all() for w in wavs.values()):
+        raise AssertionError("e2e yardstick: a non-finite wav")
+    [cast_a, cast_b], [new_a, new_b] = in_turns(
+        programs["new"][1], programs["cast"][1], E2E_YARDSTICK_REPS)
+    dist = ((wavs["new"] - wavs["cast"]).abs().max()
+            / wavs["new"].abs().max()).item()
+    print(f"e2e bf16 yardstick (one graph, 'auto', median of "
+          f"{E2E_YARDSTICK_REPS} replays, cast, new, new, cast): flax's "
+          f"dtype= {new_a:.3f}, {new_b:.3f} ms; cast parameters "
+          f"{cast_a:.3f}, {cast_b:.3f} ms; new over cast "
+          f"{(new_a + new_b) / (cast_a + cast_b):.3f}; the two wavs "
+          f"{dist:.4g} of the range apart, both finite")
 
 
 def phase_stream():
@@ -2596,18 +2671,21 @@ def family_recipe(tag, train, factory, argv, out, epochs, resume_epochs,
           "and eval metrics equal the straight run's bitwise")
 
 
-def family_program(family, iters=FAMILY_ITERS, warmup=FAMILY_ITERS):
-    """``benchmarks/e2e_family_rtf.py``'s leg of ``family`` (bf16): one
-    CUDA graph whose wav equals the eager program's bitwise and whose
-    replay holds K1 30 times; then K1 against its plain version at the
-    program's shape.  Returns K1's record with its launches over the
-    bench's run (the eager calls and the capture)."""
+def family_program(family, iters=FAMILY_ITERS, warmup=FAMILY_ITERS,
+                   frames=None):
+    """``benchmarks/e2e_family_rtf.py``'s leg of ``family`` (bf16; its
+    1,000 frames or ``frames``): one CUDA graph whose wav equals the eager
+    program's bitwise and whose replay holds K1 30 times; then K1 against
+    its plain version at the program's shape.  Returns K1's record with
+    its launches over the bench's run (the eager calls and the
+    capture)."""
     from parakeet_tpu_torch.benchmarks import e2e_family_rtf
     from parakeet_tpu_torch.ops.kernels.pwg_stack import \
         fused_residual_stack
     fused_residual_stack.launches = 0
-    (rec,) = e2e_family_rtf.main(["--families", family, "--iters",
-                                  str(iters), "--warmup", str(warmup)])
+    (rec,) = e2e_family_rtf.main(
+        ["--families", family, "--iters", str(iters), "--warmup",
+         str(warmup)] + ([] if frames is None else ["--frames", str(frames)]))
     launches = fused_residual_stack.launches
     layers = PWG_CONFIG["layers"]
     n_k1 = _named(rec["replay_kernels"], K1_KERNEL)
@@ -2656,18 +2734,19 @@ def phase_transformer_tts():
                    "--phones-dict", str(md["phones"])], out,
                   TT_RECIPE_EPOCHS, TT_RECIPE_RESUME_EPOCHS, "speech")
     shutil.rmtree(out, ignore_errors=True)
-    records = [family_program(f"transformer_tts_r{r}", TT_FAMILY_ITERS, 1)
-               for r in (1, 2)]
+    records = [family_program(f"transformer_tts_r{r}", TT_FAMILY_ITERS, 0,
+                              TT_FAMILY_FRAMES) for r in (1, 2)]
     phase_ar_decode()
     return records
 
 
 def phase_ar_decode():
-    """``benchmarks/ar_decode.py`` at its defaults (float32, 500 steps)
-    after one warm call: Tacotron2 and TransformerTTS r=1, then r=2; each
-    graph bitwise its eager program."""
+    """``benchmarks/ar_decode.py`` in float32 at ``AR_DECODE_STEPS``
+    steps, one call timed: Tacotron2 and TransformerTTS r=1, then r=2;
+    each graph bitwise its eager program."""
     from parakeet_tpu_torch.benchmarks import ar_decode
-    iters = ["--iters", str(AR_DECODE_ITERS), "--warmup", "1"]
+    iters = ["--iters", str(AR_DECODE_ITERS), "--warmup", "0", "--steps",
+             str(AR_DECODE_STEPS)]
     recs = ar_decode.main(iters)
     recs += ar_decode.main(iters + ["--models", "transformer_tts",
                                     "--reduction-factor", "2"])
@@ -2820,7 +2899,8 @@ def phase_am_bench(models):
     recs = []
     for det in (False, True):
         recs += train_am.main(["--models", *models, "--iters",
-                               str(AM_BENCH_ITERS)]
+                               str(AM_BENCH_ITERS), "--warmup",
+                               str(AM_BENCH_WARMUP)]
                               + (["--deterministic"] if det else []))
     if not all(r["value"] > 0 for r in recs):
         raise AssertionError(f"train_am: {recs}")
@@ -3968,10 +4048,9 @@ def _converted_gan(paths, dtype):
     from parakeet_tpu_torch.training import Config, resolve_model_kwargs
     cfg = Config.from_yaml(RECIPE_CONF)
     dt = {"dtype": dtype}
-    g = PWGGenerator(**resolve_model_kwargs({**cfg.generator_params, **dt},
-                                            compute_dtype=True))
+    g = PWGGenerator(**resolve_model_kwargs({**cfg.generator_params, **dt}))
     d = PWGDiscriminator(**resolve_model_kwargs(
-        {**cfg.discriminator_params, **dt}, compute_dtype=True))
+        {**cfg.discriminator_params, **dt}))
     load_checkpoint_params(g, paths["gen"])
     load_checkpoint_params(d, paths["disc"])
     return g.cuda(), d.cuda()
@@ -4629,6 +4708,110 @@ def phase_layers():
             for k in ("K4a", "K4b", "K4c")]
 
 
+def _mp_train_step(family, dtype):
+    """(step, state, batch) of ``family``'s bench at its shapes, computing
+    in flax's ``dtype`` (None: float32)."""
+    from parakeet_tpu_torch.benchmarks import (ge2e_train, train_am,
+                                               train_fastspeech2)
+    cuda = torch.device("cuda")
+    if family == "ge2e":
+        return ge2e_train.build_train_step(
+            *MP_GE2E, cuda, "float32" if dtype is None else "bfloat16")
+    if family == "fastspeech2":
+        return train_fastspeech2.build_train_step(
+            *MP_AM_SHAPE, "flash", cuda, RECIPE_HEADS, dtype)
+    return train_am.build_train_step(family, *MP_AM_SHAPE, cuda, dtype)
+
+
+def _top_gemms(run, tag):
+    """The MP_TOP_GEMMS GEMM kernels by card time in a profiled call of
+    ``run``, from ``tools/op_table.py`` over its trace (written to a
+    temporary directory and removed): [(name, ms, calls)]."""
+    import tempfile
+    from parakeet_tpu_torch.tools import op_table
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = pathlib.Path(tmp) / f"{tag}.json"
+        prof.export_chrome_trace(str(trace))
+        rows = [(n, us / 1e3, c) for n, us, c
+                in op_table.op_table(trace, "cuda") if MP_GEMM.search(n)]
+    if not rows:
+        raise AssertionError(f"{tag}: no GEMM kernel in the profile")
+    return rows[:MP_TOP_GEMMS]
+
+
+def phase_mixed_precision():
+    """Phase 23 (see the module's doc); returns the kernels line's K4
+    records of the bf16 FastSpeech2 step."""
+    t_phase = time.perf_counter()
+    tag = "mixed precision"
+    bf16 = torch.bfloat16
+    counters = _k4_counters()
+    launches = {}
+    for family in MP_FAMILIES:
+        t0 = time.perf_counter()
+        built = {dt: _mp_train_step(family, dt) for dt in (None, bf16)}
+        states = {dt: b[1] for dt, b in built.items()}
+        losses = {None: [], bf16: []}
+
+        def run(dt):
+            step, _, batch = built[dt]
+            states[dt], metrics = step(states[dt], batch)
+            losses[dt].append(float(metrics["loss"]))
+
+        for dt in (None, bf16):             # warm: the first step of each
+            run(dt)
+        ms = {None: [], bf16: []}
+        for dt in (None, bf16, bf16, None):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run(dt)                     # its loss read waits for the card
+            ms[dt].append(1e3 * (time.perf_counter() - t1))
+        if not all(math.isfinite(x) for v in losses.values() for x in v):
+            raise AssertionError(f"{tag} {family}: losses {losses}")
+        note = ""
+        if family == "fastspeech2":
+            for f in counters.values():
+                f.launches = 0
+            run(bf16)
+            launches = {k: f.launches for k, f in counters.items()}
+            want = 2 * FS2_CONFIG["elayers"]
+            if launches != dict.fromkeys(counters, want):
+                raise AssertionError(f"{tag}: the bf16 FastSpeech2 step "
+                                     f"launched {launches}")
+            gemms = _top_gemms(lambda: run(bf16), "fs2_step_bfloat16")
+            note = (f"; the bf16 step launched {launches}; its top GEMMs "
+                    "(name ms calls): " + ", ".join(
+                        f"{n} {t:.3f} {c}" for n, t, c in gemms))
+        mean = {dt: sum(v) / len(v) for dt, v in ms.items()}
+        print(f"{tag} {family}: ms a step, float32, bf16, bf16, float32: "
+              f"{ms[None][0]:.2f}, {ms[bf16][0]:.2f}, {ms[bf16][1]:.2f}, "
+              f"{ms[None][1]:.2f}; bf16 over float32 "
+              f"{mean[bf16] / mean[None]:.3f}; last losses "
+              f"{losses[None][-1]:.5g} (float32), {losses[bf16][-1]:.5g} "
+              f"(bf16), all finite{note} ({time.perf_counter() - t0:.1f} s)")
+        del built, states
+        torch.cuda.empty_cache()
+    # K4a-K4c at the bf16 step's shapes: the encoder's self-attention over
+    # its 96 phones and the decoder's over its 640 frames, all valid
+    gen = torch.Generator().manual_seed(SEED + 23)
+    b, t_text, t_frames = MP_AM_SHAPE
+    cases = []
+    for t in (t_text, t_frames):
+        valid = torch.ones((b, t), dtype=torch.int32, device="cuda")
+        cases.append(_k4_case(gen, valid, valid.clone(), RECIPE_HEADS,
+                              RECIPE_DK, bf16))
+    records = _k4_records(cases, "_bf16_fs2_step", bf16)
+    print(f"{tag}: phase {time.perf_counter() - t_phase:.1f} s")
+    return [dict(records[f"{k}_bf16_fs2_step"], launches=launches[k])
+            for k in ("K4a", "K4b", "K4c")]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -4645,40 +4828,51 @@ def main():
                            "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_card()
+    t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        """``phase(*args)``, its seconds and the run's so far printed."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s, "
+              f"{time.perf_counter() - t_start:.1f} s in all")
+        return out
+
+    timed(phase_card)
     parent = None if args.parent is None else load_parent(args.parent)
-    k1 = phase_slice(phase_k1(parent))
-    phase_serving_graphs()
-    phase_e2e()
-    phase_stream()
-    phase_longform()
-    phase_k4a_graphs()
-    k2a, k2b = phase_k2(parent)
-    k3a, k3b, k3c = phase_k3(None if parent is None else parent_module(
-        "pwg_disc"))
-    phase_train({"K2a": k2a, "K2b": k2b, "K3a": k3a, "K3b": k3b},
-                args.profile)
-    k4 = phase_k4()
-    phase_fs2_train(k4, args.profile)
-    phase_recipe(k3c)
-    phase_bench()
-    phase_fs2_recipe(k4)
-    phase_fs2_bench()
-    k1_ss = phase_speedyspeech()
-    k1_t2 = phase_tacotron2()
-    k1_tt = phase_transformer_tts()
-    phase_waveflow()
-    phase_ge2e()
-    phase_voice_cloning()
-    k1_text = phase_text_to_wav()
-    k1_corpus = phase_corpus()
-    k_conv = phase_checkpoints({"K2a": k2a, "K2b": k2b, "K3a": k3a,
-                                "K3b": k3b})
-    k_layers = phase_layers()
+    k1 = timed(phase_slice, timed(phase_k1, parent))
+    timed(phase_serving_graphs)
+    timed(phase_e2e)
+    timed(phase_stream)
+    timed(phase_longform)
+    timed(phase_k4a_graphs)
+    k2a, k2b = timed(phase_k2, parent)
+    k3a, k3b, k3c = timed(phase_k3, None if parent is None
+                          else parent_module("pwg_disc"))
+    timed(phase_train, {"K2a": k2a, "K2b": k2b, "K3a": k3a, "K3b": k3b},
+          args.profile)
+    k4 = timed(phase_k4)
+    timed(phase_fs2_train, k4, args.profile)
+    timed(phase_recipe, k3c)
+    timed(phase_bench)
+    timed(phase_fs2_recipe, k4)
+    timed(phase_fs2_bench)
+    k1_ss = timed(phase_speedyspeech)
+    k1_t2 = timed(phase_tacotron2)
+    k1_tt = timed(phase_transformer_tts)
+    timed(phase_waveflow)
+    timed(phase_ge2e)
+    timed(phase_voice_cloning)
+    k1_text = timed(phase_text_to_wav)
+    k1_corpus = timed(phase_corpus)
+    k_conv = timed(phase_checkpoints, {"K2a": k2a, "K2b": k2b, "K3a": k3a,
+                                       "K3b": k3b})
+    k_layers = timed(phase_layers)
+    k_mixed = timed(phase_mixed_precision)
     print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
                                   *k4.values(), k1_ss, k1_t2, *k1_tt,
                                   k1_text, *k1_corpus, *k_conv,
-                                  *k_layers]}))
+                                  *k_layers, *k_mixed]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

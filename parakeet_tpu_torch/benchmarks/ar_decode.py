@@ -44,6 +44,7 @@ import torch
 
 from ..models import (Tacotron2, TransformerTTS, init_tacotron2_,
                       init_transformer_tts_)
+from ..nn.precision import flax_dtype
 from ..utils.device import (add_device_arg, disable_tf32, set_device,
                             tf32_enabled)
 from ..utils.flops import ar_decode_step_flops, mfu_stats
@@ -73,16 +74,18 @@ class DecodeProgram:
         self.name, self.steps = name, steps
         gen = torch.Generator().manual_seed(seed)
         if name == "tacotron2":
-            am = Tacotron2(vocab_size=VOCAB, **MODEL_CONFIGS[name])
+            am = Tacotron2(vocab_size=VOCAB, dtype=flax_dtype(dtype),
+                           **MODEL_CONFIGS[name])
             init_tacotron2_(am, gen)
             self.r = 1
         else:
             am = TransformerTTS(idim=VOCAB, odim=ODIM,
                                 reduction_factor=reduction_factor,
+                                dtype=flax_dtype(dtype),
                                 **MODEL_CONFIGS[name])
             init_transformer_tts_(am, gen)
             self.r = reduction_factor
-        self.am = am.to(device, dtype).eval()
+        self.am = am.to(device).eval()
         text = np.random.default_rng(seed).integers(1, VOCAB, (1, TEXT_LEN))
         self.inputs = {"text": torch.as_tensor(text, device=device),
                        "text_lengths": torch.full((1,), TEXT_LEN,

@@ -21,6 +21,7 @@ import torch
 from ..models import (ConditionalWaveFlow, FastSpeech2, PWGGenerator,
                       init_waveflow_)
 from ..models.parallel_wavegan import edge_pad
+from ..nn.precision import flax_dtype
 from ..utils.flops import fs2_pwg_synthesis_flops
 from ..utils.graphs import CapturedProgram
 
@@ -93,18 +94,20 @@ def seeded_waveflow(config: dict, gen: torch.Generator,
 
 def build_models(dtype: torch.dtype, attn_impl: str, device: torch.device,
                  seed: int = 0) -> Tuple[FastSpeech2, PWGGenerator]:
-    """``FS2_CONFIG`` and ``PWG_CONFIG`` in ``dtype`` on ``device``, in
-    eval mode, with weights from ``seeded_init_`` and a duration head of
-    ~4 frames a phone."""
+    """``FS2_CONFIG`` and ``PWG_CONFIG`` computing in ``dtype`` (flax's
+    ``dtype=``: float32 parameters) on ``device``, in eval mode, with
+    weights from ``seeded_init_`` and a duration head of ~4 frames a
+    phone."""
     gen = torch.Generator().manual_seed(seed)
-    fs2 = FastSpeech2(**FS2_CONFIG, attn_impl=attn_impl)
-    pwg = PWGGenerator(**PWG_CONFIG)
+    fs2 = FastSpeech2(**FS2_CONFIG, attn_impl=attn_impl,
+                      dtype=flax_dtype(dtype))
+    pwg = PWGGenerator(**PWG_CONFIG, dtype=flax_dtype(dtype))
     seeded_init_(fs2, gen)
     seeded_init_(pwg, gen)
     with torch.no_grad():
         fs2.duration_predictor.stack.linear.weight.mul_(DURATION_SPREAD)
         fs2.duration_predictor.stack.linear.bias.fill_(DURATION_BIAS)
-    return (fs2.to(device, dtype).eval(), pwg.to(device, dtype).eval())
+    return fs2.to(device).eval(), pwg.to(device).eval()
 
 
 def card(device: torch.device) -> Tuple[str, Optional[str]]:

@@ -48,7 +48,7 @@ the dtype, backend, card and power limit.
 
 Usage:
   python -m parakeet_tpu_torch.benchmarks.e2e_family_rtf \\
-      [--families tacotron2 speedyspeech] [--iters 10] \\
+      [--families tacotron2 speedyspeech] [--iters 10] [--frames 1000] \\
       [--dtype bfloat16|float32] [--device cpu]
 
 Every leg of the JAX bench runs: ``tacotron2``, ``transformer_tts_r1``,
@@ -56,7 +56,7 @@ Every leg of the JAX bench runs: ``tacotron2``, ``transformer_tts_r1``,
 """
 import argparse
 import json
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -65,6 +65,7 @@ from ..models import (PWGGenerator, SpeedySpeech, Tacotron2, TransformerTTS,
                       init_tacotron2_, init_transformer_tts_)
 from ..models.parallel_wavegan import edge_pad
 from ..nn.initializer import init_flax_defaults_
+from ..nn.precision import flax_dtype
 from ..ops.kernels.pwg_stack import fused_residual_stack
 from ..utils.device import (add_device_arg, disable_tf32, set_device,
                             tf32_enabled)
@@ -98,37 +99,42 @@ class FamilyProgram:
     weights; ``inputs`` are the static buffers a captured graph reads."""
 
     def __init__(self, family: str, dtype: torch.dtype,
-                 device: torch.device, seed: int = 0):
+                 device: torch.device, seed: int = 0,
+                 frames: Optional[int] = None):
         if family not in FAMILIES:
             raise ValueError(f"unknown family {family!r}")
         self.family = family
         self.sample_rate, scales = VOCODER[family]
         gen = torch.Generator().manual_seed(seed)
-        # decoder steps a call: 1,000 frames, r a step
-        self.steps = FRAMES
+        # decoder steps a call: 1,000 frames (``frames``), r a step
+        self.frames = frames = frames or FRAMES
+        self.steps = frames
+        mixed = flax_dtype(dtype)
         if family == "tacotron2":
-            am = Tacotron2(vocab_size=VOCAB, **MODEL_CONFIGS[family])
+            am = Tacotron2(vocab_size=VOCAB, dtype=mixed,
+                           **MODEL_CONFIGS[family])
             init_tacotron2_(am, gen)
         elif family.startswith("transformer_tts"):
             r = int(family.rsplit("r", 1)[1])
             am = TransformerTTS(idim=VOCAB, odim=ODIM, reduction_factor=r,
+                                dtype=mixed,
                                 **MODEL_CONFIGS["transformer_tts"])
             init_transformer_tts_(am, gen)
-            self.steps = FRAMES // r
+            self.steps = frames // r
         else:
-            am = SpeedySpeech(vocab_size=VOCAB, tone_size=TONES,
+            am = SpeedySpeech(vocab_size=VOCAB, tone_size=TONES, dtype=mixed,
                               **MODEL_CONFIGS[family])
             init_flax_defaults_(am, gen)
-        pwg = PWGGenerator(**PWG_CONFIG, upsample_scales=scales)
+        pwg = PWGGenerator(**PWG_CONFIG, upsample_scales=scales, dtype=mixed)
         seeded_init_(pwg, gen)
-        self.am = am.to(device, dtype).eval()
-        self.pwg = pwg.to(device, dtype).eval()
+        self.am = am.to(device).eval()
+        self.pwg = pwg.to(device).eval()
         rng = np.random.default_rng(seed)
         noise_gen = torch.Generator().manual_seed(seed + 4)
         self.inputs: Dict[str, torch.Tensor] = {
             "text": torch.as_tensor(rng.integers(1, VOCAB, (1, TEXT_LEN)),
                                     device=device),
-            "noise": torch.randn((1, FRAMES * self.pwg.upsample_factor, 1),
+            "noise": torch.randn((1, frames * self.pwg.upsample_factor, 1),
                                  generator=noise_gen).to(device)}
         if family != "speedyspeech":
             self.inputs["text_lengths"] = torch.full((1,), TEXT_LEN,
@@ -151,7 +157,8 @@ class FamilyProgram:
                  prenet_keep=None):
         """(wav (1, samples), frame lengths (1,)) of one call."""
         if self.family == "tacotron2":
-            out = self.am.infer(text, text_lengths, max_decoder_steps=FRAMES,
+            out = self.am.infer(text, text_lengths,
+                                max_decoder_steps=self.frames,
                                 prenet_keep=prenet_keep)
             mel, lengths = out["mel_outputs_postnet"], out["lengths"]
         elif self.family != "speedyspeech":
@@ -160,7 +167,7 @@ class FamilyProgram:
                                     prenet_keep=prenet_keep)
             mel, lengths = out["mel"], out["lengths"]
         else:
-            out = self.am.inference(text, tones, max_frames=FRAMES)
+            out = self.am.inference(text, tones, max_frames=self.frames)
             mel, lengths = out["mel"], out["frame_lengths"]
         wav = self.pwg(noise, edge_pad(mel, self.pwg.aux_context_window))
         wav = wav[..., 0]
@@ -177,9 +184,10 @@ class FamilyProgram:
 
 
 def run(family: str, *, dtype: str, device: torch.device, iters: int,
-        warmup: int = WARM_ITERS) -> dict:
-    """Build, time and check one family's program; returns its record."""
-    program = FamilyProgram(family, DTYPES[dtype], device)
+        warmup: int = WARM_ITERS, frames: Optional[int] = None) -> dict:
+    """Build, time and check one family's program (``frames`` of
+    capacity, ``FRAMES`` by default); returns its record."""
+    program = FamilyProgram(family, DTYPES[dtype], device, frames=frames)
     eager_s = wall_seconds(program.eager, device, iters, warmup)
     before = fused_residual_stack.launches
     want, lengths = program.eager()
@@ -221,8 +229,11 @@ def main(argv=None):
     parser.add_argument("--families", nargs="+", default=list(FAMILIES))
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--warmup", type=int, default=WARM_ITERS)
+    parser.add_argument("--frames", type=int, default=None,
+                        help=f"mel frames of capacity (default {FRAMES})")
     parser.add_argument("--dtype", default="bfloat16", choices=DTYPES,
-                        help="the programs' dtype (parameters and compute)")
+                        help="the programs' compute dtype (flax's dtype=: "
+                             "float32 parameters)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
     for family in args.families:
@@ -233,7 +244,8 @@ def main(argv=None):
     records = []
     for family in args.families:
         records.append(run(family, dtype=args.dtype, device=device,
-                           iters=args.iters, warmup=args.warmup))
+                           iters=args.iters, warmup=args.warmup,
+                           frames=args.frames))
         print(json.dumps(records[-1]), flush=True)
     return records
 

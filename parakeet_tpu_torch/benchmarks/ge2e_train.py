@@ -6,7 +6,10 @@ N training steps of the 3 x 256 LSTM encoder (``models/
 lstm_speaker_encoder.py``, flax's initializers from seed 0) through the
 port's updater (GE2E loss, the (w, b) gradients x0.01, Adam 1e-4) on one
 synthetic (speakers x utterances, frames, n_mels) batch, standard normal
-from numpy seed 0 as in the JAX bench, float32.  One step and 3 warm-up
+from numpy seed 0 as in the JAX bench, float32 or with ``--dtype
+bfloat16`` flax's mixed precision (``nn/precision.py``: float32 weights
+cast to bf16 for each cuDNN call, the scale (w, b) bf16 parameters as in
+the JAX module).  One step and 3 warm-up
 steps run first; then ``--iters`` chained steps are timed from the host,
 with one synchronisation at the end.  Prints one JSON line:
 ``ge2e_train_avg_ips`` in utterances a second (the reference's effective
@@ -21,10 +24,8 @@ turns it on).
 
 Usage:
   python -m parakeet_tpu_torch.benchmarks.ge2e_train [--iters 20] \\
-      [--speakers 64] [--utts 10] [--frames 160] [--device cpu]
-
-Not ported: ``--dtype bfloat16`` (the port trains in float32; ROADMAP
-queue 1, item 21), refused with a message.
+      [--speakers 64] [--utts 10] [--frames 160] \\
+      [--dtype float32|bfloat16] [--device cpu]
 """
 import argparse
 import json
@@ -42,7 +43,7 @@ from ..utils.device import (add_device_arg, disable_tf32, set_device,
 from ..utils.flops import ge2e_train_flops, mfu_stats
 from .common import card
 
-__all__ = ["main", "run", "MODEL_CONFIG", "WARM_STEPS"]
+__all__ = ["main", "run", "build_train_step", "MODEL_CONFIG", "WARM_STEPS"]
 
 # the encoder's widths beyond n_mels (the JAX bench's defaults); tests
 # shrink them
@@ -51,19 +52,29 @@ WARM_STEPS = 3
 LR = 1e-4
 
 
-def run(speakers: int, utts: int, frames: int, n_mels: int, iters: int,
-        device: torch.device) -> dict:
-    """Time ``iters`` steps; returns the record."""
+def build_train_step(speakers: int, utts: int, frames: int, n_mels: int,
+                     device: torch.device, dtype: str = "float32"):
+    """(step, state, batch) of the bench's encoder in ``dtype`` and
+    batch."""
     rng = np.random.default_rng(0)
     batch = {"utterances": torch.as_tensor(rng.standard_normal(
         (speakers * utts, frames, n_mels)).astype(np.float32),
         device=device)}
-    model = LSTMSpeakerEncoder(n_mels=n_mels, **MODEL_CONFIG)
+    model = LSTMSpeakerEncoder(
+        n_mels=n_mels, **MODEL_CONFIG,
+        **resolve_model_kwargs({"dtype": dtype}))
     init_flax_defaults_(model, torch.Generator().manual_seed(0))
     model.to(device)
     opt = build_optimizer(model.parameters(), "adam", LR)
     state = init_ge2e_train_state(model, opt)
-    step = make_ge2e_train_step(model, opt, speakers)
+    return make_ge2e_train_step(model, opt, speakers), state, batch
+
+
+def run(speakers: int, utts: int, frames: int, n_mels: int, iters: int,
+        device: torch.device, dtype: str = "float32") -> dict:
+    """Time ``iters`` steps in ``dtype``; returns the record."""
+    step, state, batch = build_train_step(speakers, utts, frames, n_mels,
+                                          device, dtype)
 
     def sync():
         if device.type == "cuda":
@@ -87,7 +98,7 @@ def run(speakers: int, utts: int, frames: int, n_mels: int, iters: int,
     return {"metric": "ge2e_train_avg_ips", "speakers": speakers,
             "utts_per_speaker": utts, "value": speakers * utts / avg,
             "unit": "utterances/sec", "ms_per_step": 1e3 * avg,
-            "frames": frames, "n_mels": n_mels, "dtype": "float32",
+            "frames": frames, "n_mels": n_mels, "dtype": dtype,
             "flops_per_step": flops, "loss": loss,
             "backend": device.type, "tf32": tf32_enabled(), "device": name,
             "power_limit": limit,
@@ -107,14 +118,14 @@ def main(argv=None):
     parser.add_argument("--frames", type=int, default=160)
     parser.add_argument("--n-mels", type=int, default=40)
     parser.add_argument("--dtype", default="float32",
-                        help="compute dtype (the port: float32 only)")
+                        choices=("float32", "bfloat16"),
+                        help="compute dtype (bfloat16: float32 weights)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    resolve_model_kwargs({"dtype": args.dtype})     # raises but float32
     device = set_device(args.device)
     disable_tf32()
     record = run(args.speakers, args.utts, args.frames, args.n_mels,
-                 args.iters, device)
+                 args.iters, device, args.dtype)
     print(json.dumps(record), flush=True)
     return record
 

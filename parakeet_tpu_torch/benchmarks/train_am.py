@@ -9,32 +9,35 @@ of 65-frame clips, 16,640 samples) and widths (Tacotron2: the JAX
 module's defaults, 1024-wide LSTMs, 640 decoder steps; SpeedySpeech: 128
 wide, 8 tones; TransformerTTS and WaveFlow: their recipes' YAMLs,
 ``TRANSFORMER_TTS_CONFIG`` and ``WAVEFLOW_CONFIG``, where the JAX bench
-builds the modules' defaults), float32, Adam (1e-3; WaveFlow 2e-4), with
+builds the modules' defaults), float32 or with ``--dtype bfloat16``
+flax's mixed precision (float32 parameters and Adam state, bf16 products;
+``nn/precision.py``), Adam (1e-3; WaveFlow 2e-4), with
 flax's initializers drawn from seed 0 (WaveFlow's output projections
 then drawn N(0, 0.01^2) too, so that its flows are not the identity).  Prints one JSON line a
 family: ``value = batch_size / avg_batch_cost`` in sequences per second
 under the JAX bench's metric name ``<family>_train_avg_ips``, with the
 ms a step, the backend, the card's name and power limit.  One step and 3
-warm-up steps run first; then ``--iters`` chained steps are timed from
-the host, with one synchronisation at the end.  ``--deterministic``
-trains under ``deterministic_training``, the setting of the recipes'
+warm-up steps (``--warmup``) run first; then ``--iters`` chained steps
+are timed from the host, with one synchronisation at the end.
+``--deterministic`` trains under ``deterministic_training``, the setting of the recipes'
 bitwise resume (PyTorch's deterministic algorithms, cuDNN off), so that
 its cost shows beside the default.
 
 Usage:
   python -m parakeet_tpu_torch.benchmarks.train_am \\
-      [--models tacotron2 speedyspeech] [--iters 20] [--deterministic] \\
-      [--batch-size 32] [--text-len 96] [--frames 640] [--device cpu]
+      [--models tacotron2 speedyspeech] [--iters 20] [--warmup 3] \\
+      [--deterministic] [--batch-size 32] [--text-len 96] [--frames 640] \\
+      [--dtype float32|bfloat16] [--device cpu]
 
 Every leg of the JAX bench runs: ``tacotron2``, ``transformer_tts``,
 ``speedyspeech`` and ``waveflow``.  Not ported: ``--rng rbg`` (a TPU
-device generator) and ``--dtype bfloat16`` (the port trains in float32;
-ROADMAP queue 1, item 21), both refused with a message.
+device generator), refused with a message.
 """
 import argparse
 import contextlib
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -79,8 +82,10 @@ def check_family(name: str) -> None:
 
 
 def build_train_step(name: str, batch_size: int, text_len: int,
-                     frames: int, device: torch.device):
-    """(step, state, batch) of family ``name`` at the bench's shapes."""
+                     frames: int, device: torch.device,
+                     dtype: Optional[torch.dtype] = None):
+    """(step, state, batch) of family ``name`` at the bench's shapes,
+    computing in flax's ``dtype`` (None: float32)."""
     check_family(name)
     b, t = batch_size, text_len
     rng = np.random.default_rng(0)
@@ -92,19 +97,22 @@ def build_train_step(name: str, batch_size: int, text_len: int,
                   "speech_lengths": np.full(b, frames)}
     lr = 1e-3
     if name == "tacotron2":
-        model = Tacotron2(vocab_size=VOCAB, **MODEL_CONFIGS[name])
+        model = Tacotron2(vocab_size=VOCAB, dtype=dtype,
+                          **MODEL_CONFIGS[name])
         init_tacotron2_(model, gen)
         batch = text_batch
         make_step, init_state = (make_tacotron2_train_step,
                                  init_tacotron2_train_state)
     elif name == "transformer_tts":
-        model = TransformerTTS(idim=VOCAB, odim=ODIM, **MODEL_CONFIGS[name])
+        model = TransformerTTS(idim=VOCAB, odim=ODIM, dtype=dtype,
+                               **MODEL_CONFIGS[name])
         init_transformer_tts_(model, gen)
         batch = text_batch
         make_step, init_state = (make_transformer_tts_train_step,
                                  init_transformer_tts_train_state)
     elif name == "waveflow":
-        model = seeded_waveflow(MODEL_CONFIGS[name], gen)
+        model = seeded_waveflow({**MODEL_CONFIGS[name], "dtype": dtype},
+                                gen)
         hop = model.encoder.upsample_factor
         batch = {"wav": 0.1 * rng.standard_normal(
                      (WAVEFLOW_B, WAVEFLOW_FRAMES * hop)).astype(np.float32),
@@ -116,7 +124,7 @@ def build_train_step(name: str, batch_size: int, text_len: int,
         make_step, init_state = (make_waveflow_train_step,
                                  init_waveflow_train_state)
     else:
-        model = SpeedySpeech(vocab_size=VOCAB, tone_size=TONES,
+        model = SpeedySpeech(vocab_size=VOCAB, tone_size=TONES, dtype=dtype,
                              **MODEL_CONFIGS[name])
         init_flax_defaults_(model, gen)
         durations = np.full((b, t), frames // t, np.int64)
@@ -138,10 +146,13 @@ def build_train_step(name: str, batch_size: int, text_len: int,
 
 def bench_family(name: str, iters: int, batch_size: int, text_len: int,
                  frames: int, device: torch.device,
-                 deterministic: bool) -> dict:
-    """Time ``iters`` steps of family ``name``; returns the record."""
-    step, state, batch = build_train_step(name, batch_size, text_len, frames,
-                                          device)
+                 deterministic: bool, dtype: str = "float32",
+                 warmup: int = WARM_STEPS) -> dict:
+    """Time ``iters`` steps of family ``name`` in ``dtype`` after 1 +
+    ``warmup`` steps; returns the record."""
+    step, state, batch = build_train_step(
+        name, batch_size, text_len, frames, device,
+        resolve_model_kwargs({"dtype": dtype}).get("dtype"))
 
     def sync():
         if device.type == "cuda":
@@ -150,7 +161,7 @@ def bench_family(name: str, iters: int, batch_size: int, text_len: int,
     setting = (deterministic_training() if deterministic
                else contextlib.nullcontext())
     with setting:
-        for _ in range(1 + WARM_STEPS):
+        for _ in range(1 + warmup):
             state, metrics = step(state, batch)
         float(metrics["loss"])
         sync()
@@ -167,7 +178,7 @@ def bench_family(name: str, iters: int, batch_size: int, text_len: int,
         batch_size, text_len, frames = WAVEFLOW_B, None, WAVEFLOW_FRAMES
     return {"metric": f"{name}_train_avg_ips", "batch_size": batch_size,
             "value": batch_size / avg, "unit": "sequences/sec",
-            "ms_per_step": 1e3 * avg, "dtype": "float32", "rng": "threefry",
+            "ms_per_step": 1e3 * avg, "dtype": dtype, "rng": "threefry",
             "deterministic": deterministic, "text_len": text_len,
             "frames": frames, "backend": device.type,
             "tf32": tf32_enabled(), "device": name_,
@@ -183,6 +194,8 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--models", nargs="+", default=list(FAMILIES))
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--warmup", type=int, default=WARM_STEPS,
+                        help="warm-up steps after the first")
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--text-len", type=int, default=96)
     parser.add_argument("--frames", type=int, default=640)
@@ -190,7 +203,8 @@ def main(argv=None):
                         help="train under the recipes' bitwise-resume "
                              "setting (deterministic algorithms, cuDNN off)")
     parser.add_argument("--dtype", default="float32",
-                        help="compute dtype (the port: float32 only)")
+                        choices=("float32", "bfloat16"),
+                        help="compute dtype (bfloat16: float32 parameters)")
     parser.add_argument("--rng", default="threefry",
                         choices=("threefry", "rbg"),
                         help="the JAX bench's device generator; 'rbg' is "
@@ -200,7 +214,6 @@ def main(argv=None):
     if args.rng != "threefry":
         raise NotImplementedError("--rng rbg is a TPU device generator; "
                                   "the port draws from a torch.Generator")
-    resolve_model_kwargs({"dtype": args.dtype})     # raises but float32
     for name in args.models:
         check_family(name)
     device = set_device(args.device)
@@ -209,7 +222,8 @@ def main(argv=None):
     for name in args.models:
         records.append(bench_family(name, args.iters, args.batch_size,
                                     args.text_len, args.frames, device,
-                                    args.deterministic))
+                                    args.deterministic, args.dtype,
+                                    args.warmup))
         print(json.dumps(records[-1]), flush=True)
     return records
 

@@ -3,7 +3,7 @@
 log line, parakeet/training/trainer.py:160-168).
 
 Runs N training steps of the default-config FastSpeech2 (adim 384, 4
-heads, 4 + 4 layers, float32, Adam 1e-4) with flax's default initializers
+heads, 4 + 4 layers, Adam 1e-4) with flax's default initializers
 drawn from seed 0 on one synthetic batch of the JAX bench's shape and
 values (B text tokens and frames, every utterance full length, durations
 frames // text_len), and prints one JSON line: ``value = batch_size /
@@ -16,17 +16,20 @@ host after one warm-up step, with one synchronisation at the end.
 Usage:
   python -m parakeet_tpu_torch.benchmarks.train_fastspeech2 \\
       [--iters 20] [--batch-size 32] [--text-len 96] [--frames 640] \\
-      [--attn-impl dense|flash|auto] [--profile DIR] [--device cpu]
+      [--attn-impl dense|flash|auto] [--aheads 4] \\
+      [--dtype float32|bfloat16] [--profile DIR] [--device cpu]
 
-Not ported from the JAX bench: ``--rng rbg`` (a TPU device generator
-switch), ``--dtype bfloat16`` (the port trains FastSpeech2 in float32
-only; ROADMAP queue 1, item 21), both refused with a message, and the MFU
-fields (their denominator needs a training FLOP count of the port).
+``--dtype bfloat16`` is flax's mixed precision: float32 parameters and
+Adam state, bf16 products (``nn/precision.py``).  ``--aheads 2`` gives
+the recipes' head width, 192.  Not ported from the JAX bench: ``--rng
+rbg`` (a TPU device generator switch), refused with a message, and the
+MFU fields (their denominator needs a training FLOP count of the port).
 """
 import argparse
 import json
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,14 +46,17 @@ ODIM = 80
 
 
 def build_train_step(batch_size: int, text_len: int, frames: int,
-                     attn_impl: str, device: torch.device):
-    """(step, state, batch) of the bench's model and batch."""
-    kwargs = {"attn_impl": attn_impl}
+                     attn_impl: str, device: torch.device, aheads: int = 4,
+                     dtype: Optional[torch.dtype] = None):
+    """(step, state, batch) of the bench's model, computing in flax's
+    ``dtype`` (None: float32), and batch."""
+    kwargs = {"attn_impl": attn_impl, "dtype": dtype}
     if attn_impl in ("flash", "auto"):
         kwargs.update(transformer_enc_attn_dropout_rate=0.0,
                       transformer_dec_attn_dropout_rate=0.0)
-    model = FastSpeech2(idim=80, odim=ODIM, adim=384, aheads=4, elayers=4,
-                        eunits=1536, dlayers=4, dunits=1536, **kwargs)
+    model = FastSpeech2(idim=80, odim=ODIM, adim=384, aheads=aheads,
+                        elayers=4, eunits=1536, dlayers=4, dunits=1536,
+                        **kwargs)
     init_flax_defaults_(model, torch.Generator().manual_seed(0))
     model.to(device)
     b, t = batch_size, text_len
@@ -84,7 +90,11 @@ def main(argv=None):
     parser.add_argument("--text-len", type=int, default=96)
     parser.add_argument("--frames", type=int, default=640)
     parser.add_argument("--dtype", default="float32",
-                        help="compute dtype (the port: float32 only)")
+                        choices=("float32", "bfloat16"),
+                        help="compute dtype (bfloat16: float32 parameters)")
+    parser.add_argument("--aheads", type=int, default=4,
+                        help="attention heads over adim 384 (2: the "
+                             "recipes' head width 192)")
     parser.add_argument("--attn-impl", default="dense",
                         choices=("dense", "flash", "auto"),
                         help="attention core; 'flash' runs kernel K4 and "
@@ -102,12 +112,12 @@ def main(argv=None):
     if args.rng != "threefry":
         raise NotImplementedError("--rng rbg is a TPU device generator; "
                                   "the port draws from a torch.Generator")
-    resolve_model_kwargs({"dtype": args.dtype})     # raises but float32
+    dtype = resolve_model_kwargs({"dtype": args.dtype}).get("dtype")
     device = set_device(args.device)
     disable_tf32()
     step, state, batch = build_train_step(args.batch_size, args.text_len,
                                           args.frames, args.attn_impl,
-                                          device)
+                                          device, args.aheads, dtype)
 
     def sync():
         if device.type == "cuda":
@@ -142,7 +152,8 @@ def main(argv=None):
               "batch_size": args.batch_size,
               "value": args.batch_size / avg_batch_cost,
               "unit": "sequences/sec", "dtype": args.dtype,
-              "attn_impl": args.attn_impl, "backend": device.type,
+              "attn_impl": args.attn_impl, "aheads": args.aheads,
+              "backend": device.type,
               "tf32": tf32_enabled(),
               "device": (torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu")}

@@ -57,11 +57,10 @@ def build_train_step(cfg, batch_size: int, *, stack_impl: str,
     batch), the discriminator on from the first step."""
     dt = {} if dtype is None else {"dtype": dtype}
     gen_kwargs = resolve_model_kwargs(
-        {**cfg.generator_params, "stack_impl": stack_impl, **dt},
-        compute_dtype=True)
+        {**cfg.generator_params, "stack_impl": stack_impl, **dt})
     disc_kwargs = resolve_model_kwargs(
         {**cfg.discriminator_params, "impl": disc_impl,
-         "vjp_mode": disc_vjp, **dt}, compute_dtype=True)
+         "vjp_mode": disc_vjp, **dt})
     gen = PWGGenerator(**gen_kwargs)
     disc = PWGDiscriminator(**disc_kwargs)
     weights = torch.Generator().manual_seed(0)

@@ -35,6 +35,9 @@ its last part the flax leaf, converted by the torch module's type:
 
 Every key must land and every parameter and BatchNorm statistic of the
 module must be written: anything missing or unused raises ``KeyError``.
+A bf16 leaf (numpy's ``bfloat16`` of ``ml_dtypes``, what JAX hands over
+for a leaf a flax module creates in ``dtype``, as GE2E's scale at
+``dtype=bfloat16``) crosses bit for bit, without that package.
 ``flax_arrays`` is the inverse (a ``DenseGeneral`` kernel comes back 2-D,
 which ``load_flax_params`` reshapes), and ``flax_grads`` maps the
 parameters' gradients onto the same keys.  ``load_checkpoint_params`` loads
@@ -111,6 +114,15 @@ def _contiguous(a: np.ndarray) -> np.ndarray:
     """``a`` C-contiguous with its shape (``np.ascontiguousarray`` makes a
     0-d array, such as GE2E's similarity scale, 1-d)."""
     return np.ascontiguousarray(a).reshape(np.shape(a))
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a CPU tensor; a bf16 array, which ``torch.from_numpy``
+    does not take, as ``torch.bfloat16`` through its bits."""
+    a = _contiguous(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 # torch type -> {(collection, flax leaf): (torch tensor name, convert)}
@@ -283,8 +295,7 @@ def _assemble(module: nn.Module, flat: Dict[str, np.ndarray],
                 continue
             dst = out.setdefault(name, torch.empty(
                 targets[name].shape, dtype=torch.float32))
-            src = torch.from_numpy(np.ascontiguousarray(
-                a.T if transposed else a)).float()
+            src = _tensor(a.T if transposed else a).float()
             if tuple(src.shape) != tuple(dst[rows].shape):
                 raise ValueError(f"{key}: flax shape {a.shape} does not fit "
                                  f"rows {rows} of {name} {tuple(dst.shape)}")
@@ -301,7 +312,7 @@ def _assemble(module: nn.Module, flat: Dict[str, np.ndarray],
         if name not in targets:
             unused.append(key)
             continue
-        src = torch.from_numpy(_contiguous(rule[1](mod, a)))
+        src = _tensor(rule[1](mod, a))
         if tuple(src.shape) != tuple(targets[name].shape):
             raise ValueError(f"{key}: flax shape {a.shape} gives "
                              f"{tuple(src.shape)}, but {name} is "

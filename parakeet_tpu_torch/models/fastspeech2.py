@@ -5,7 +5,11 @@ Constructor arguments keep the JAX module's hyperparameter names, so a
 recipe's ``model`` section maps onto both.  Speakers and tones
 (``num_tones``, ``tone_embed_dim``: a per-token tone embedding, L2
 normalised, then projected) are supported with the "add" and "concat"
-integrations.  The compute dtype is the parameters' dtype.
+integrations.  ``dtype`` is flax's (``nn/precision.py``): with
+``torch.bfloat16`` the parameters stay float32 and every layer computes in
+bf16 at the JAX module's cast points (LayerNorm and BatchNorm statistics,
+the dense attention's scores, softmax and context sums in float32); the
+loss is float32.  ``None`` computes in the parameters' dtype.
 
 ``attn_impl`` selects the attention core of both transformer stacks, as
 in the JAX package: 'dense' (scores in device memory; attention-weight
@@ -29,6 +33,7 @@ from torch import nn
 
 from ..nn.flash import make_auto_attn_core, make_flash_attn_core
 from ..nn.postnet import Postnet
+from ..nn.precision import Dense, Embedding
 from ..nn.predictors import (DurationPredictor, VarianceEmbedding,
                              VariancePredictor, duration_predictor_loss)
 from ..nn.transformer import TransformerEncoder
@@ -103,7 +108,8 @@ class FastSpeech2(nn.Module):
                  transformer_dec_positional_dropout_rate: float = 0.1,
                  transformer_dec_attn_dropout_rate: float = 0.1,
                  postnet_dropout_rate: float = 0.5,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         for kind, value in (("spk", spk_embed_integration_type),
                             ("tone", tone_embed_integration_type)):
@@ -111,6 +117,7 @@ class FastSpeech2(nn.Module):
                 raise ValueError(f"unknown {kind}_embed_integration_type "
                                  f"{value!r}")
         self.odim = odim
+        self.dtype = dtype
         self.reduction_factor = reduction_factor
         self.postnet_layers = postnet_layers
         self.spk_embed_dim = spk_embed_dim
@@ -126,7 +133,7 @@ class FastSpeech2(nn.Module):
                       positionwise_layer_type=positionwise_layer_type,
                       positionwise_conv_kernel_size=(
                           positionwise_conv_kernel_size),
-                      attn_core=make_attn_core(attn_impl))
+                      attn_core=make_attn_core(attn_impl), dtype=dtype)
         self.encoder = TransformerEncoder(
             units=eunits, num_layers=elayers, input_layer="embed",
             vocab_size=idim, init_alpha=init_enc_alpha,
@@ -145,36 +152,37 @@ class FastSpeech2(nn.Module):
             concat_after=decoder_concat_after, **common)
         self.duration_predictor = DurationPredictor(
             adim, duration_predictor_layers, duration_predictor_chans,
-            duration_predictor_kernel_size, duration_predictor_dropout_rate)
+            duration_predictor_kernel_size, duration_predictor_dropout_rate,
+            dtype=dtype)
         self.pitch_predictor = VariancePredictor(
             adim, pitch_predictor_layers, pitch_predictor_chans,
-            pitch_predictor_kernel_size, pitch_predictor_dropout)
+            pitch_predictor_kernel_size, pitch_predictor_dropout, dtype)
         self.energy_predictor = VariancePredictor(
             adim, energy_predictor_layers, energy_predictor_chans,
-            energy_predictor_kernel_size, energy_predictor_dropout)
+            energy_predictor_kernel_size, energy_predictor_dropout, dtype)
         self.pitch_embed = VarianceEmbedding(adim, pitch_embed_kernel_size,
-                                             pitch_embed_dropout)
+                                             pitch_embed_dropout, dtype)
         self.energy_embed = VarianceEmbedding(adim, energy_embed_kernel_size,
-                                              energy_embed_dropout)
-        self.feat_out = nn.Linear(adim, odim * reduction_factor)
+                                              energy_embed_dropout, dtype)
+        self.feat_out = Dense(adim, odim * reduction_factor, dtype=dtype)
         if postnet_layers > 0:
             self.postnet = Postnet(odim, postnet_layers, postnet_chans,
                                    postnet_filts, use_batch_norm,
-                                   postnet_dropout_rate)
+                                   postnet_dropout_rate, dtype)
         if spk_embed_dim is not None:
             if num_speakers is not None:
-                self.spk_embedding_table = nn.Embedding(num_speakers,
-                                                        spk_embed_dim)
+                self.spk_embedding_table = Embedding(num_speakers,
+                                                     spk_embed_dim, dtype)
             # "concat" projects [hs, speaker] (adim + spk_embed_dim) to adim
-            self.spk_projection = nn.Linear(
+            self.spk_projection = Dense(
                 spk_embed_dim + (adim if spk_embed_integration_type
-                                 == "concat" else 0), adim)
+                                 == "concat" else 0), adim, dtype=dtype)
         if tone_embed_dim is not None:
-            self.tone_embedding_table = nn.Embedding(num_tones,
-                                                     tone_embed_dim)
-            self.tone_projection = nn.Linear(
+            self.tone_embedding_table = Embedding(num_tones, tone_embed_dim,
+                                                  dtype)
+            self.tone_projection = Dense(
                 tone_embed_dim + (adim if tone_embed_integration_type
-                                  == "concat" else 0), adim)
+                                  == "concat" else 0), adim, dtype=dtype)
 
     def _encode(self, text, text_lengths, spk_id, spk_emb, tone_id=None,
                 **kw):
@@ -184,7 +192,8 @@ class FastSpeech2(nn.Module):
             if spk_emb is None and spk_id is not None:
                 spk_emb = self.spk_embedding_table(spk_id)
             if spk_emb is not None:
-                spk = _l2_normalize(spk_emb.to(hs.dtype))
+                # normalized in its own dtype, as the JAX module does
+                spk = _l2_normalize(spk_emb)
                 if self.spk_embed_integration_type == "add":
                     hs = hs + self.spk_projection(spk)[:, None, :]
                 else:

@@ -10,10 +10,16 @@ Submodules keep the flax names: ``lstm_{i}`` holds its cell as ``cell``
 (flax's ``nn.RNN`` around an ``OptimizedLSTMCell``), the projection is
 ``linear`` and the scale is two 0-d parameters at the root,
 ``similarity_weight`` (10) and ``similarity_bias`` (-5), so ``bridge.py``
-loads a JAX checkpoint.  Each layer runs over every frame of the batch in
-one ``torch.lstm`` call (``nn/rnn.py::lstm_sequence``), without lengths,
-as the JAX ``nn.RNN`` scan does.  The norms are clamped at 1e-12
+loads a JAX checkpoint.  Each layer runs over every frame of the batch,
+without lengths, as the JAX ``nn.RNN`` scan does
+(``nn/rnn.py::lstm_sequence``: in float32 one ``torch.lstm`` call).  The norms are clamped at 1e-12
 (``jnp.maximum(norm, 1e-12)``), not smoothed inside the square root.
+``dtype`` is flax's (``nn/precision.py``): with ``torch.bfloat16`` the
+LSTMs run flax's scan (``nn/rnn.py``: bf16 products and gates, the state
+carried in float32, one step at a time), the projection, the embeddings
+and the GE2E loss compute in bf16, and the scale (w, b) is created in
+bf16, as the JAX module creates it in ``self.dtype``: those two are bf16
+parameters, every other parameter float32.
 
 ``compute_eer`` and ``partial_slices`` are the JAX package's numpy and
 Python, copied; ``embed_utterance`` cuts the same partial windows and
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..nn.precision import Dense
 from ..nn.rnn import LSTMCell, lstm_sequence
 
 __all__ = ["LSTMSpeakerEncoder", "ge2e_loss", "similarity_matrix",
@@ -42,32 +49,39 @@ _WB_NAMES = ("similarity_weight", "similarity_bias")
 class _RNN(nn.Module):
     """flax's ``nn.RNN`` around one LSTM cell named ``cell``."""
 
-    def __init__(self, input_size: int, hidden_size: int):
+    def __init__(self, input_size: int, hidden_size: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.cell = LSTMCell(input_size, hidden_size)
+        self.cell = LSTMCell(input_size, hidden_size, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return lstm_sequence(self.cell, x)
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
-                           min=_NORM_FLOOR)
+    """x / max(||x||, 1e-12), the norm as ``jnp.linalg.norm`` computes it
+    (in x's dtype, op by op)."""
+    norm = torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+    return x / torch.clamp(norm, min=_NORM_FLOOR)
 
 
 class LSTMSpeakerEncoder(nn.Module):
     """Constructor arguments keep the JAX module's names."""
 
     def __init__(self, n_mels: int = 40, num_layers: int = 3,
-                 hidden_size: int = 256, output_size: int = 256):
+                 hidden_size: int = 256, output_size: int = 256,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
-            self.add_module(f"lstm_{i}", _RNN(n_mels if i == 0
-                                              else hidden_size, hidden_size))
-        self.linear = nn.Linear(hidden_size, output_size)
-        self.similarity_weight = nn.Parameter(torch.tensor(10.0))
-        self.similarity_bias = nn.Parameter(torch.tensor(-5.0))
+            self.add_module(f"lstm_{i}", _RNN(
+                n_mels if i == 0 else hidden_size, hidden_size, dtype))
+        self.linear = Dense(hidden_size, output_size, dtype=dtype)
+        scale_dtype = dtype or torch.float32
+        self.similarity_weight = nn.Parameter(torch.tensor(
+            10.0, dtype=scale_dtype))
+        self.similarity_bias = nn.Parameter(torch.tensor(
+            -5.0, dtype=scale_dtype))
 
     def forward(self, utterances: torch.Tensor) -> torch.Tensor:
         """utterances (B, T, n_mels) -> L2-normalised embeddings (B, d)."""

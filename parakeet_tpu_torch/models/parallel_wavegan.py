@@ -29,6 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..nn.dropout import Dropout
+from ..nn.precision import compute_dtype, mm_f32
 from ..ops.geometry import time_shift as _shift
 from ..ops.kernels.pwg_disc import (VJP_MODES, fused_disc_supported,
                                     fused_disc_tail)
@@ -45,12 +46,6 @@ __all__ = ["PWGGenerator", "PWGDiscriminator", "ResidualPWGDiscriminator",
 
 _WN_EPS = 1e-12
 _F32 = torch.float32
-
-
-def _compute_dtype(dtype: Optional[torch.dtype],
-                   param: torch.Tensor) -> torch.dtype:
-    """A module's compute dtype: its ``dtype``, else its parameters'."""
-    return param.dtype if dtype is None else dtype
 
 
 def _wn(kernel: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
@@ -77,8 +72,9 @@ def _wn_stacked(kernel: torch.Tensor,
 
 
 def _dot(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype):
-    """a @ w with operands rounded to ``dtype`` and a float32 result."""
-    return a.to(dtype).to(_F32) @ w.to(dtype).to(_F32)
+    """a @ w with operands rounded to ``dtype`` and a float32 result: the
+    float32-output bf16 GEMM on the card (``mm_f32``)."""
+    return mm_f32(a.to(dtype), w.to(dtype))
 
 
 def conv1d_taps(x: torch.Tensor, kernel: torch.Tensor, dilation: int = 1,
@@ -137,7 +133,7 @@ class WNConv1d(nn.Module):
         return kernel, bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = _compute_dtype(self.dtype, self.kernel)
+        dt = compute_dtype(self.dtype, self.kernel)
         y = conv1d_taps(x, _wn(self.kernel, self.scale), self.dilation,
                         self.padding, dt)
         if self.bias is not None:
@@ -208,7 +204,7 @@ class UpsampleNet(nn.Module):
                 _phase_masks(s, use_causal_conv)), persistent=False)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
-        dt = _compute_dtype(self.dtype, getattr(self, "conv_0_kernel"))
+        dt = compute_dtype(self.dtype, getattr(self, "conv_0_kernel"))
         x = c.to(dt)
         for i, s in enumerate(self.upsample_scales):
             kernel = getattr(self, f"conv_{i}_kernel")[..., 0, 0]  # (kt, kf)
@@ -384,7 +380,7 @@ class ResidualStack(nn.Module):
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None, *,
                 deterministic: bool = True,
                 rng: Optional[torch.Generator] = None):
-        dt = _compute_dtype(self.dtype, self.conv_kernel)
+        dt = compute_dtype(self.dtype, self.conv_kernel)
         grad_needed = torch.is_grad_enabled() and (
             x.requires_grad or (c is not None and c.requires_grad)
             or any(p.requires_grad for p in self.parameters()))
@@ -508,7 +504,7 @@ class PWGGenerator(nn.Module):
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """``deterministic=False`` is the training forward: the stack's
         dropout draws from ``rng``."""
-        dt = _compute_dtype(self.dtype, self.first_conv.kernel)
+        dt = compute_dtype(self.dtype, self.first_conv.kernel)
         c = self.upsample_net(c)
         x = self.first_conv(x)
         x, skips = self.stack(x, c, deterministic=deterministic, rng=rng)
@@ -722,7 +718,7 @@ class PWGDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         slope = self.negative_slope
         convs = self.convs()
-        dt = _compute_dtype(self.dtype, convs[0].kernel)
+        dt = compute_dtype(self.dtype, convs[0].kernel)
         fused = self.impl == "fused" or (
             self.impl == "auto" and self.supported and x.is_cuda
             and dt in FUSED_AUTO_DTYPES)
@@ -773,7 +769,7 @@ class ResidualPWGDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         slope = self.negative_slope
-        dt = _compute_dtype(self.dtype, self.first_conv.kernel)
+        dt = compute_dtype(self.dtype, self.first_conv.kernel)
         h = F.leaky_relu(self.first_conv(x), slope)
         _, skips = self.stack(h, None, deterministic=deterministic, rng=rng)
         skips = skips * math.sqrt(1.0 / self.layers)

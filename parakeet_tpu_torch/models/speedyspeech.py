@@ -11,8 +11,11 @@ the flax names, so ``bridge.py`` loads a JAX checkpoint leaf for leaf.
 
 As in flax, ``deterministic`` (default True) selects BatchNorm's running
 statistics; ``deterministic=False`` normalizes with the batch's and
-updates the running ones (momentum 0.99, biased variance, float32).  The
-compute dtype is the parameters' dtype.
+updates the running ones (momentum 0.99, biased variance, float32).
+``dtype`` is flax's (``nn/precision.py``): with ``torch.bfloat16`` the
+parameters stay float32 and the convolutions, dense layers, embeddings and
+positional table compute in bf16 where the JAX module does (BatchNorm in
+float32, its result bf16).  ``None`` computes in the parameters' dtype.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from torch import nn
 
 from ..nn.conv import SameConv1d
 from ..nn.postnet import _BN_EPS, flax_batch_norm
+from ..nn.precision import Dense, Embedding
 from ..ops.length_regulator import length_regulate
 from ..ops.losses import masked_l1_loss, weighted_mean
 from ..ops.masking import sequence_mask
@@ -40,12 +44,14 @@ class ResidualBlock(nn.Module):
     """x + [dilated SAME conv -> ReLU -> BatchNorm] x n."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: int = 1, n: int = 2):
+                 dilation: int = 1, n: int = 2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n = n
         for i in range(n):
             self.add_module(f"conv_{i}", SameConv1d(
-                channels, channels, kernel_size, dilation=dilation))
+                channels, channels, kernel_size, dilation=dilation,
+                dtype=dtype))
             self.add_module(f"bn_{i}", nn.BatchNorm1d(channels, eps=_BN_EPS))
 
     def forward(self, x: torch.Tensor, *,
@@ -67,13 +73,14 @@ class TextEmbedding(nn.Module):
     def __init__(self, vocab_size: int, embed_size: int,
                  tone_vocab_size: Optional[int] = None,
                  tone_embed_size: Optional[int] = None,
-                 concat: bool = False, padding_idx: int = 0):
+                 concat: bool = False, padding_idx: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.concat, self.padding_idx = concat, padding_idx
-        self.text_embed = nn.Embedding(vocab_size, embed_size)
+        self.text_embed = Embedding(vocab_size, embed_size, dtype)
         if tone_vocab_size is not None:
-            self.tone_embed = nn.Embedding(tone_vocab_size,
-                                           tone_embed_size or embed_size)
+            self.tone_embed = Embedding(tone_vocab_size,
+                                        tone_embed_size or embed_size, dtype)
 
     def _masked(self, table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
         emb = table(ids)
@@ -93,16 +100,17 @@ class SpeedySpeechEncoder(nn.Module):
     postnet -> ReLU -> BatchNorm -> linear."""
 
     def __init__(self, hidden_size: int = 128, kernel_size: int = 3,
-                 dilations: Sequence[int] = ENCODER_DILATIONS):
+                 dilations: Sequence[int] = ENCODER_DILATIONS,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_blocks = len(dilations)
-        self.prenet_fc = nn.Linear(hidden_size, hidden_size)
+        self.prenet_fc = Dense(hidden_size, hidden_size, dtype=dtype)
         for i, d in enumerate(dilations):
-            self.add_module(f"res_{i}", ResidualBlock(hidden_size,
-                                                      kernel_size, d, n=2))
-        self.postnet1_fc = nn.Linear(hidden_size, hidden_size)
+            self.add_module(f"res_{i}", ResidualBlock(
+                hidden_size, kernel_size, d, n=2, dtype=dtype))
+        self.postnet1_fc = Dense(hidden_size, hidden_size, dtype=dtype)
         self.postnet2_bn = nn.BatchNorm1d(hidden_size, eps=_BN_EPS)
-        self.postnet2_fc = nn.Linear(hidden_size, hidden_size)
+        self.postnet2_fc = Dense(hidden_size, hidden_size, dtype=dtype)
 
     def forward(self, emb: torch.Tensor, *,
                 deterministic: bool = True) -> torch.Tensor:
@@ -119,11 +127,13 @@ class SSDurationPredictor(nn.Module):
     """Residual blocks of one sub-block each, kernels 4 / 3 / 1, then a
     linear head: log-domain durations (B, T)."""
 
-    def __init__(self, hidden_size: int = 128):
+    def __init__(self, hidden_size: int = 128,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         for i, k in enumerate((4, 3, 1)):
-            self.add_module(f"res_{i}", ResidualBlock(hidden_size, k, 1, n=1))
-        self.fc = nn.Linear(hidden_size, 1)
+            self.add_module(f"res_{i}", ResidualBlock(hidden_size, k, 1, n=1,
+                                                      dtype=dtype))
+        self.fc = Dense(hidden_size, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, *,
                 deterministic: bool = True) -> torch.Tensor:
@@ -139,15 +149,17 @@ class SpeedySpeechDecoder(nn.Module):
 
     def __init__(self, hidden_size: int = 128, output_size: int = 80,
                  kernel_size: int = 3,
-                 dilations: Sequence[int] = DECODER_DILATIONS):
+                 dilations: Sequence[int] = DECODER_DILATIONS,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_blocks = len(dilations)
         for i, d in enumerate(dilations):
-            self.add_module(f"res_{i}", ResidualBlock(hidden_size,
-                                                      kernel_size, d, n=2))
-        self.postnet1_fc = nn.Linear(hidden_size, hidden_size)
-        self.postnet2_res = ResidualBlock(hidden_size, kernel_size, 1, n=2)
-        self.fc = nn.Linear(hidden_size, output_size)
+            self.add_module(f"res_{i}", ResidualBlock(
+                hidden_size, kernel_size, d, n=2, dtype=dtype))
+        self.postnet1_fc = Dense(hidden_size, hidden_size, dtype=dtype)
+        self.postnet2_res = ResidualBlock(hidden_size, kernel_size, 1, n=2,
+                                          dtype=dtype)
+        self.fc = Dense(hidden_size, output_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor, *,
                 deterministic: bool = True) -> torch.Tensor:
@@ -172,19 +184,23 @@ class SpeedySpeech(nn.Module):
                  decoder_kernel_size: int = 3,
                  decoder_dilations: Sequence[int] = DECODER_DILATIONS,
                  tone_size: Optional[int] = None,
-                 spk_num: Optional[int] = None, padding_idx: int = 0):
+                 spk_num: Optional[int] = None, padding_idx: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.embedding = TextEmbedding(vocab_size, encoder_hidden_size,
-                                       tone_size, padding_idx=padding_idx)
+                                       tone_size, padding_idx=padding_idx,
+                                       dtype=dtype)
         if spk_num is not None:
-            self.spk_emb = nn.Embedding(spk_num, encoder_hidden_size)
+            self.spk_emb = Embedding(spk_num, encoder_hidden_size, dtype)
         self.encoder = SpeedySpeechEncoder(
-            encoder_hidden_size, encoder_kernel_size, encoder_dilations)
+            encoder_hidden_size, encoder_kernel_size, encoder_dilations,
+            dtype)
         self.duration_predictor = SSDurationPredictor(
-            duration_predictor_hidden_size)
+            duration_predictor_hidden_size, dtype)
         self.decoder = SpeedySpeechDecoder(
             decoder_hidden_size, decoder_output_size, decoder_kernel_size,
-            decoder_dilations)
+            decoder_dilations, dtype)
 
     def encode(self, text, tones=None, spk_id=None, *,
                deterministic: bool = True):
@@ -203,7 +219,8 @@ class SpeedySpeech(nn.Module):
         pe = sinusoid_position_encoding(expanded.shape[1],
                                         expanded.shape[-1],
                                         dtype=expanded.dtype,
-                                        device=expanded.device)
+                                        device=expanded.device,
+                                        in_dtype=self.dtype is not None)
         return self.decoder(expanded + pe[None], deterministic=deterministic)
 
     def forward(self, text: torch.Tensor, durations: torch.Tensor,

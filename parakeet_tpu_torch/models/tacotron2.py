@@ -23,7 +23,13 @@ forward, and ``_1``, backward), so ``bridge.py`` loads a JAX checkpoint.
 As in flax, ``deterministic`` (default True) turns off the encoder's,
 attention's, decoder's and Postnet's dropout and selects BatchNorm's
 running statistics; the prenet ignores it.  Every mask is drawn from the
-``torch.Generator`` ``rng``.  The compute dtype is the parameters'.
+``torch.Generator`` ``rng``.  ``dtype`` is flax's (``nn/precision.py``):
+with ``torch.bfloat16`` the parameters stay float32, every layer computes
+in bf16 where the JAX module does, and the decoder's carry (both LSTM
+states and the context) is kept in bf16, as the JAX scan pins it, while
+the attention weights and their sum stay float32.  The encoder's BiLSTM
+runs flax's scan from a float32 carry (``nn/rnn.py``).  ``None`` computes
+in the parameters' dtype.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ from ..nn.conv import SameConv1d
 from ..nn.dropout import Dropout
 from ..nn.initializer import init_flax_defaults_
 from ..nn.postnet import _BN_EPS, Postnet, Prenet, flax_batch_norm
+from ..nn.precision import (Dense, Embedding, casts_once, compute_dtype,
+                            sigmoid)
 from ..nn.rnn import LSTMCell, flip_sequences, lstm_sequence
 from ..ops.losses import guided_attention_loss, stop_token_bce
 from ..ops.masking import sequence_mask
@@ -52,17 +60,18 @@ class Tacotron2Encoder(nn.Module):
     applies the embedding."""
 
     def __init__(self, d_encoder: int = 512, conv_layers: int = 3,
-                 kernel_size: int = 5, dropout_rate: float = 0.5):
+                 kernel_size: int = 5, dropout_rate: float = 0.5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv_layers = conv_layers
         self.dropout = Dropout(dropout_rate)
         for i in range(conv_layers):
             self.add_module(f"conv_{i}", SameConv1d(
-                d_encoder, d_encoder, kernel_size, bias=False))
+                d_encoder, d_encoder, kernel_size, bias=False, dtype=dtype))
             self.add_module(f"bn_{i}", nn.BatchNorm1d(d_encoder, eps=_BN_EPS))
         half = d_encoder // 2
-        self.add_module(_LSTM_FWD, LSTMCell(d_encoder, half))
-        self.add_module(_LSTM_BWD, LSTMCell(d_encoder, half))
+        self.add_module(_LSTM_FWD, LSTMCell(d_encoder, half, dtype))
+        self.add_module(_LSTM_BWD, LSTMCell(d_encoder, half, dtype))
 
     def forward(self, x: torch.Tensor, input_mask: torch.Tensor, *,
                 deterministic: bool = True, rng=None) -> torch.Tensor:
@@ -104,23 +113,25 @@ class Tacotron2DecoderCell(nn.Module):
                  attention_filters: int = 32,
                  attention_kernel_size: int = 31,
                  p_attention_dropout: float = 0.1,
-                 p_decoder_dropout: float = 0.1):
+                 p_decoder_dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.attention_rnn = LSTMCell(d_prenet + d_values, d_attention_rnn)
+        self.attention_rnn = LSTMCell(d_prenet + d_values, d_attention_rnn,
+                                      dtype)
         self.decoder_rnn = LSTMCell(d_attention_rnn + d_values,
-                                    d_decoder_rnn)
+                                    d_decoder_rnn, dtype)
         self.attention = LocationSensitiveAttention(
             d_attention_rnn, d_values, d_attention, attention_filters,
-            attention_kernel_size)
-        self.frame_proj = nn.Linear(d_decoder_rnn + d_values,
-                                    d_mels * reduction_factor)
-        self.stop_proj = nn.Linear(d_decoder_rnn + d_values, 1)
+            attention_kernel_size, dtype)
+        self.frame_proj = Dense(d_decoder_rnn + d_values,
+                                d_mels * reduction_factor, dtype=dtype)
+        self.stop_proj = Dense(d_decoder_rnn + d_values, 1, dtype=dtype)
         self.attn_dropout = Dropout(p_attention_dropout)
         self.dec_dropout = Dropout(p_decoder_dropout)
 
     def initial_carry(self, values: torch.Tensor) -> Carry:
         b, t, d = values.shape
-        dtype = self.frame_proj.weight.dtype
+        dtype = compute_dtype(self.frame_proj.dtype, self.frame_proj.weight)
         like = values.new_empty((), dtype=dtype)
         weights = torch.zeros((b, t), dtype=torch.float32,
                               device=values.device)
@@ -173,27 +184,30 @@ class Tacotron2(nn.Module):
                  p_decoder_dropout: float = 0.1,
                  p_postnet_dropout: float = 0.5,
                  d_global_condition: Optional[int] = None,
-                 use_stop_token: bool = True):
+                 use_stop_token: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_mels, self.reduction_factor = d_mels, reduction_factor
         self.use_stop_token = use_stop_token
         d_values = d_encoder + (d_global_condition or 0)
-        self.embedding = nn.Embedding(vocab_size, d_encoder)
+        self.embedding = Embedding(vocab_size, d_encoder, dtype)
         if n_tones is not None:
-            self.embedding_tones = nn.Embedding(n_tones, d_encoder)
+            self.embedding_tones = Embedding(n_tones, d_encoder, dtype)
         self.encoder = Tacotron2Encoder(d_encoder, encoder_conv_layers,
                                         encoder_kernel_size,
-                                        p_encoder_dropout)
+                                        p_encoder_dropout, dtype)
         # bias-free, reference tacotron2.py:58-59 (DecoderPreNet)
         self.prenet = Prenet(d_mels, 2, d_prenet, p_prenet_dropout,
-                             always_dropout=True, use_bias=False)
+                             always_dropout=True, use_bias=False,
+                             dtype=dtype)
         self.cell = Tacotron2DecoderCell(
             d_prenet, d_values, d_mels, reduction_factor, d_attention_rnn,
             d_decoder_rnn, d_attention, attention_filters,
-            attention_kernel_size, p_attention_dropout, p_decoder_dropout)
+            attention_kernel_size, p_attention_dropout, p_decoder_dropout,
+            dtype)
         self.postnet = Postnet(d_mels, postnet_conv_layers, d_postnet,
                                postnet_kernel_size, use_batch_norm=True,
-                               dropout_rate=p_postnet_dropout)
+                               dropout_rate=p_postnet_dropout, dtype=dtype)
 
     def encode(self, text, text_lengths, tones=None, global_condition=None,
                *, deterministic: bool = True, rng=None):
@@ -208,6 +222,7 @@ class Tacotron2(nn.Module):
             enc = torch.cat([enc, g.to(enc.dtype)], dim=-1)
         return enc, mask
 
+    @casts_once
     def forward(self, text: torch.Tensor, text_lengths: torch.Tensor,
                 mels: torch.Tensor, output_lengths: torch.Tensor,
                 tones=None, global_condition=None, *,
@@ -256,6 +271,7 @@ class Tacotron2(nn.Module):
         return self.prenet.keep_masks((max_decoder_steps, batch), rng,
                                       device)
 
+    @casts_once
     def infer(self, text: torch.Tensor, text_lengths: torch.Tensor,
               tones=None, global_condition=None,
               max_decoder_steps: int = 1000, stop_threshold: float = 0.5,
@@ -294,7 +310,7 @@ class Tacotron2(nn.Module):
             prev = frame.reshape(b, r, d)[:, -1, :]
             valid.append(~finished)
             if self.use_stop_token:
-                finished = finished | (torch.sigmoid(stop) > stop_threshold)
+                finished = finished | (sigmoid(stop) > stop_threshold)
             else:
                 hit = w.argmax(-1) >= (text_lengths - 1)
                 counter = counter + hit.to(torch.int32)

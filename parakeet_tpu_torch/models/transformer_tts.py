@@ -21,9 +21,12 @@ so ``bridge.py`` loads a JAX checkpoint.
 
 As in flax, ``deterministic`` (default True) turns off every dropout but
 the decoder prenet's and selects BatchNorm's running statistics; every
-mask is drawn from the ``torch.Generator`` ``rng``.  The compute dtype is
-the parameters'.  ``encoder_concat_after`` and ``decoder_concat_after``
-hold in teacher forcing and in every cached decode step.
+mask is drawn from the ``torch.Generator`` ``rng``.  ``dtype`` is flax's
+(``nn/precision.py``): with ``torch.bfloat16`` the parameters stay float32
+and every layer computes in bf16 where the JAX module does, the decode's
+caches and carried frame too; ``None`` computes in the parameters' dtype.
+``encoder_concat_after`` and ``decoder_concat_after`` hold in teacher
+forcing and in every cached decode step.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from ..nn.conv import SameConv1d
 from ..nn.dropout import Dropout
 from ..nn.initializer import init_flax_defaults_
 from ..nn.postnet import _BN_EPS, Postnet, Prenet, flax_batch_norm
+from ..nn.precision import Dense, Embedding, casts_once, sigmoid
 from ..nn.style_encoder import StyleEncoder
 from ..nn.transformer import TransformerDecoder, TransformerEncoder
 from ..ops.losses import attention_guide, stop_token_bce, weighted_mean
@@ -55,21 +59,21 @@ class EncoderPrenet(nn.Module):
                  conv_layers: int = 3, conv_chans: int = 256,
                  conv_filts: int = 5, d_model: int = 512,
                  dropout_rate: float = 0.5, use_batch_norm: bool = True,
-                 padding_idx: int = 0):
+                 padding_idx: int = 0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv_layers, self.use_batch_norm = conv_layers, use_batch_norm
         self.padding_idx = padding_idx
-        self.embed = nn.Embedding(vocab_size, embed_dim)
+        self.embed = Embedding(vocab_size, embed_dim, dtype)
         for i in range(conv_layers):
             self.add_module(f"conv_{i}", SameConv1d(
                 embed_dim if i == 0 else conv_chans, conv_chans, conv_filts,
-                bias=not use_batch_norm))
+                bias=not use_batch_norm, dtype=dtype))
             if use_batch_norm:
                 self.add_module(f"bn_{i}", nn.BatchNorm1d(conv_chans,
                                                           eps=_BN_EPS))
         self.dropout = Dropout(dropout_rate)
-        self.proj = nn.Linear(conv_chans if conv_layers else embed_dim,
-                              d_model)
+        self.proj = Dense(conv_chans if conv_layers else embed_dim,
+                          d_model, dtype=dtype)
 
     def forward(self, text, *, deterministic: bool = True, rng=None):
         emb = self.embed(text)
@@ -122,9 +126,11 @@ class TransformerTTS(nn.Module):
                  init_enc_alpha: float = 1.0, init_dec_alpha: float = 1.0,
                  eprenet_dropout_rate: float = 0.5,
                  dprenet_dropout_rate: float = 0.5,
-                 postnet_dropout_rate: float = 0.5, padding_idx: int = 0):
+                 postnet_dropout_rate: float = 0.5, padding_idx: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.idim, self.odim, self.adim = idim, odim, adim
+        self.dtype = dtype
         self.reduction_factor = reduction_factor
         self.use_gst = use_gst
         self.spk_embed_dim = spk_embed_dim
@@ -133,7 +139,7 @@ class TransformerTTS(nn.Module):
             self.encoder_prenet = EncoderPrenet(
                 idim, embed_dim, eprenet_conv_layers, eprenet_conv_chans,
                 eprenet_conv_filts, adim, eprenet_dropout_rate,
-                use_batch_norm, padding_idx)
+                use_batch_norm, padding_idx, dtype)
         else:
             self.encoder_prenet = None
         self.encoder = TransformerEncoder(
@@ -147,20 +153,20 @@ class TransformerTTS(nn.Module):
             concat_after=encoder_concat_after,
             positionwise_layer_type=positionwise_layer_type,
             positionwise_conv_kernel_size=positionwise_conv_kernel_size,
-            padding_idx=padding_idx)
+            padding_idx=padding_idx, dtype=dtype)
         if use_gst:
             self.gst = StyleEncoder(odim, gst_tokens, adim, gst_heads,
                                     gst_conv_layers, gst_conv_chans_list,
                                     gst_conv_kernel_size, gst_conv_stride,
-                                    gst_gru_layers, gst_gru_units)
+                                    gst_gru_layers, gst_gru_units, dtype)
         if spk_embed_dim is not None:
-            self.spk_projection = nn.Linear(
+            self.spk_projection = Dense(
                 spk_embed_dim if spk_embed_integration_type == "add"
-                else adim + spk_embed_dim, adim)
+                else adim + spk_embed_dim, adim, dtype=dtype)
         self.decoder_prenet = Prenet(odim, dprenet_layers, dprenet_units,
                                      dprenet_dropout_rate,
-                                     always_dropout=True)
-        self.decoder_prenet_proj = nn.Linear(dprenet_units, adim)
+                                     always_dropout=True, dtype=dtype)
+        self.decoder_prenet_proj = Dense(dprenet_units, adim, dtype=dtype)
         self.decoder = TransformerDecoder(
             adim, aheads, dunits, dlayers,
             dropout_rate=transformer_dec_dropout_rate,
@@ -169,12 +175,12 @@ class TransformerTTS(nn.Module):
             src_attn_dropout_rate=transformer_enc_dec_attn_dropout_rate,
             use_scaled_pos_enc=use_scaled_pos_enc, init_alpha=init_dec_alpha,
             normalize_before=decoder_normalize_before,
-            concat_after=decoder_concat_after)
-        self.feat_out = nn.Linear(adim, odim * reduction_factor)
-        self.prob_out = nn.Linear(adim, reduction_factor)
+            concat_after=decoder_concat_after, dtype=dtype)
+        self.feat_out = Dense(adim, odim * reduction_factor, dtype=dtype)
+        self.prob_out = Dense(adim, reduction_factor, dtype=dtype)
         self.postnet = Postnet(odim, postnet_layers, postnet_chans,
                                postnet_filts, use_batch_norm,
-                               postnet_dropout_rate)
+                               postnet_dropout_rate, dtype)
 
     def encode(self, text, text_lengths, speech=None, spk_emb=None, *,
                deterministic: bool = True, rng=None):
@@ -195,7 +201,6 @@ class TransformerTTS(nn.Module):
                      else self.gst(speech))
             hs = hs + style[:, None, :]
         if self.spk_embed_dim is not None and spk_emb is not None:
-            spk_emb = spk_emb.to(hs.dtype)
             if self.spk_embed_integration_type == "add":
                 norm = spk_emb / torch.clamp(
                     torch.linalg.norm(spk_emb, dim=-1, keepdim=True),
@@ -203,7 +208,8 @@ class TransformerTTS(nn.Module):
                 hs = hs + self.spk_projection(norm)[:, None, :]
             else:
                 g = spk_emb[:, None, :].expand(-1, hs.shape[1], -1)
-                hs = self.spk_projection(torch.cat([hs, g], dim=-1))
+                hs = self.spk_projection(torch.cat([hs, g.to(hs.dtype)],
+                                                   dim=-1))
         return hs, mask, enc_attns
 
     def _decoder_input(self, frames, *, keep=None, **kw):
@@ -252,6 +258,7 @@ class TransformerTTS(nn.Module):
         return self.decoder_prenet.keep_masks((max_decoder_steps, batch, 1),
                                               rng, device)
 
+    @casts_once
     def inference(self, text, text_lengths, spk_emb=None, speech=None,
                   max_decoder_steps: int = 500, threshold: float = 0.5,
                   min_decoder_steps: int = 10, *, deterministic: bool = True,
@@ -277,8 +284,9 @@ class TransformerTTS(nn.Module):
         # loop-invariant: the cross-attention K/V of every layer, the
         # positional table and the cross mask
         cross_kvs = self.decoder.precompute_cross_kv(hs)
-        pe_table = sinusoid_position_encoding(t_max, self.adim, dtype=dtype,
-                                              device=device)
+        pe_table = sinusoid_position_encoding(
+            t_max, self.adim, dtype=dtype, device=device,
+            in_dtype=self.dtype is not None)
         cross_mask = enc_mask[:, None, None, :]
         prev = torch.zeros((b, 1, self.odim), dtype=dtype, device=device)
         finished = torch.zeros((b,), dtype=torch.bool, device=device)
@@ -295,7 +303,7 @@ class TransformerTTS(nn.Module):
             valid.append(~finished)
             if t + 1 >= min_decoder_steps:
                 logits = self.prob_out(z)
-                finished = finished | (torch.sigmoid(logits)
+                finished = finished | (sigmoid(logits)
                                        > threshold).any(-1)
             prev = frame[:, -1:, :]
             frames.append(frame)

@@ -30,6 +30,13 @@ between flows.  Submodules and parameters keep the flax names
   as in the JAX module (``preferred_element_type=float32``), each product
   accumulates and returns float32 (``mm_f32``), and the conditioning, the
   skips and the affine inversion stay in the parameters' float32.
+- ``dtype`` is flax's (``nn/precision.py``): with ``torch.bfloat16`` the
+  parameters stay float32, and the upsampler, the input, residual,
+  conditioning and output projections compute in bf16 where the JAX
+  module does (its cast points: the upsampler and
+  ``WaveFlowResidualBlock``), so (logs, b) and the log-determinant are
+  bf16 while z and the loss are float32; the sampler's activations then
+  default to bf16 as well.
 """
 from __future__ import annotations
 
@@ -41,24 +48,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.initializer import _TRUNC_STD, init_flax_defaults_
+from ..nn.precision import cast, dense, mm_f32, sigmoid
 from ..ops.geometry import time_shift
 
 __all__ = ["UpsampleNet", "WaveFlowResidualBlock", "Flow", "WaveFlow",
            "ConditionalWaveFlow", "waveflow_loss", "fold", "unfold",
            "fold_condition", "init_waveflow_", "mm_f32"]
-
-
-def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (..., K) @ b (K, N) accumulated and returned in float32, for
-    float32 or bf16 operands: cuBLAS's float32-output GEMM on the card;
-    on the CPU the operands widened to float32 (a product of two bf16
-    values is exact in float32, so this is the same function)."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.is_cuda:
-        return torch.mm(a.reshape(-1, a.shape[-1]), b,
-                        out_dtype=torch.float32).reshape(*a.shape[:-1], -1)
-    return a.float() @ b.float()
 
 
 def fold(x: torch.Tensor, n_group: int) -> torch.Tensor:
@@ -85,8 +80,9 @@ def fold_condition(condition: torch.Tensor, n_group: int) -> torch.Tensor:
 
 def _polyphase_taps(s: int):
     """The frame offsets of one stride-``s`` stage of ``UpsampleNet`` and,
-    per (offset, phase), the kernel column it reads and whether it reads
-    one: (offsets, columns (O, s) int64, used (O, s) float).
+    per tap t (0, 1) and phase r, the offset it reads and its kernel
+    column: (offsets, rows (2, s) int64 into offsets, columns (2, s)
+    int64).
 
     A stride-s transposed convolution with a (3, 2s) kernel and flax's
     SAME padding (3s - 2 in all, the odd element low: ``pad_lo`` =
@@ -97,14 +93,12 @@ def _polyphase_taps(s: int):
     for r in range(s):
         j0 = (pad_lo - r) % s
         m0 = (r - pad_lo + j0) // s
-        taps += [(m0 + t, r, j0 + t * s) for t in range(2)]
-    offsets = sorted({o for o, _, _ in taps})
-    columns = torch.zeros((len(offsets), s), dtype=torch.int64)
-    used = torch.zeros((len(offsets), s))
-    for o, r, j in taps:
-        columns[offsets.index(o), r] = j
-        used[offsets.index(o), r] = 1.0
-    return offsets, columns, used
+        taps.append([(m0 + t, j0 + t * s) for t in range(2)])
+    offsets = sorted({o for tap in taps for o, _ in tap})
+    rows = torch.tensor([[offsets.index(tap[t][0]) for tap in taps]
+                         for t in range(2)])
+    columns = torch.tensor([[tap[t][1] for tap in taps] for t in range(2)])
+    return offsets, rows, columns
 
 
 class UpsampleNet(nn.Module):
@@ -114,45 +108,57 @@ class UpsampleNet(nn.Module):
 
     As in the JAX module, each stage is computed polyphase at frame rate:
     output phase r of frame n reads two input frames and three frequency
-    neighbours, so a stage is 3 x (offsets) shifted copies of the input
-    contracted with an (offsets x 3, s) table of kernel values.  The
-    parameters keep flax's raw shapes: ``deconv_{i}_kernel`` (3, 2s, 1, 1)
-    and ``deconv_{i}_bias`` (1,).
+    neighbours, so a stage is six multiply-adds of shifted copies of the
+    input, all phases at once, summed in the JAX module's order in the
+    compute dtype (each product and sum rounded to it).  The parameters
+    keep flax's raw shapes: ``deconv_{i}_kernel`` (3, 2s, 1, 1) and
+    ``deconv_{i}_bias`` (1,).
     """
 
-    def __init__(self, upsample_factors: Sequence[int] = (16, 16)):
+    def __init__(self, upsample_factors: Sequence[int] = (16, 16),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.upsample_factors = tuple(upsample_factors)
+        self.dtype = dtype
         self.offsets = []
         for i, s in enumerate(self.upsample_factors):
             self.register_parameter(f"deconv_{i}_kernel", nn.Parameter(
                 torch.zeros(3, 2 * s, 1, 1)))
             self.register_parameter(f"deconv_{i}_bias",
                                     nn.Parameter(torch.zeros(1)))
-            offsets, columns, used = _polyphase_taps(s)
+            offsets, rows, columns = _polyphase_taps(s)
             self.offsets.append(offsets)
+            self.register_buffer(f"rows_{i}", rows, persistent=False)
             self.register_buffer(f"columns_{i}", columns, persistent=False)
-            self.register_buffer(f"used_{i}", used, persistent=False)
 
     @property
     def upsample_factor(self) -> int:
         return math.prod(self.upsample_factors)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = mel.to(getattr(self, "deconv_0_bias").dtype)
+        dt = self.dtype or getattr(self, "deconv_0_bias").dtype
+        x = mel.to(dt)
         for i, s in enumerate(self.upsample_factors):
-            kernel = getattr(self, f"deconv_{i}_kernel")[..., 0, 0]  # (3, 2s)
-            table = (kernel[:, getattr(self, f"columns_{i}")]
-                     * getattr(self, f"used_{i}"))            # (3, O, s)
-            table = table.transpose(0, 1).reshape(-1, s)      # (O 3, s)
+            kernel = cast(getattr(self, f"deconv_{i}_kernel"), dt)[..., 0, 0]
+            rows = getattr(self, f"rows_{i}")
+            columns = getattr(self, f"columns_{i}")
             b, n, f = x.shape
             xpad = F.pad(x, (1, 1, 2, 2))
-            shifted = torch.stack([xpad[:, 2 + o:2 + o + n, dh:dh + f]
-                                   for o in self.offsets[i]
-                                   for dh in range(3)])       # (O 3, B, N, F)
-            y = torch.einsum("kbnf,ks->bnsf", shifted, table)
-            x = F.leaky_relu(y.reshape(b, n * s, f)
-                             + getattr(self, f"deconv_{i}_bias"), 0.4)
+            frames = torch.stack([xpad[:, 2 + o:2 + o + n]
+                                  for o in self.offsets[i]])  # (O, B, N, F+2)
+            acc = None
+            for t in range(2):
+                x_t = frames[rows[t]]                         # (s, B, N, F+2)
+                k_t = kernel[:, columns[t], None, None, None]  # (3, s, 1, 1, 1)
+                for dh in range(3):
+                    p = x_t[..., dh:dh + f] * k_t[dh]
+                    acc = p if acc is None else acc + p
+            y = acc.permute(1, 2, 0, 3)                       # (B, N, s, F)
+            y = (y.reshape(b, n * s, f)
+                 + cast(getattr(self, f"deconv_{i}_bias"), dt))
+            # flax's leaky_relu: the slope rounded to y's dtype
+            slope = torch.tensor(0.4, dtype=dt).item()
+            x = torch.where(y >= 0, y, y * slope)
         return x
 
 
@@ -164,9 +170,10 @@ class WaveFlowResidualBlock(nn.Module):
 
     def __init__(self, channels: int, cond_channels: int,
                  kernel_size: Tuple[int, int] = (3, 3), dilation_w: int = 1,
-                 dilation_h: int = 1):
+                 dilation_h: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.channels = channels
+        self.dtype = dtype
         self.kernel_size = tuple(kernel_size)
         self.dilation_w, self.dilation_h = dilation_w, dilation_h
         self.conv = nn.Conv2d(channels, 2 * channels, self.kernel_size,
@@ -183,20 +190,39 @@ class WaveFlowResidualBlock(nn.Module):
     def grid_conv(self, x: torch.Tensor) -> torch.Tensor:
         """The convolution of x (B, h, W, C), padded causally in height
         and SAME in width: (B, h, W, 2C).  The grid is handed to ``conv``
-        as its (B, C, h, W) view, channels-last in memory."""
+        as its (B, C, h, W) view, channels-last in memory.  With a
+        ``dtype`` the kh x kw taps, shifted copies of the padded grid
+        side by side, go through one product with the (kh kw C, 2C)
+        kernel in that dtype (accumulated in float32, rounded once, as a
+        convolution in it): cuDNN's bf16 kernels for this width-dilated
+        convolution fell back to a direct kernel, 60x slower than the
+        float32 step on an H100 (PERF.md)."""
         w_pad = (self.kernel_size[1] - 1) * self.dilation_w // 2
-        xp = F.pad(x.permute(0, 3, 1, 2), (w_pad, w_pad, self.buffer_rows, 0))
-        return self.conv(xp).permute(0, 2, 3, 1)
+        if self.dtype is None:
+            xp = F.pad(x.permute(0, 3, 1, 2),
+                       (w_pad, w_pad, self.buffer_rows, 0))
+            return self.conv(xp).permute(0, 2, 3, 1)
+        kh, kw = self.kernel_size
+        h, w = x.shape[1], x.shape[2]
+        xp = F.pad(x.to(self.dtype), (0, 0, w_pad, w_pad,
+                                      self.buffer_rows, 0))
+        taps = torch.cat([xp[:, i * self.dilation_h:i * self.dilation_h + h,
+                             j * self.dilation_w:j * self.dilation_w + w]
+                          for i in range(kh) for j in range(kw)], dim=-1)
+        kernel = self.conv.weight.permute(0, 2, 3, 1).reshape(
+            self.conv.weight.shape[0], -1)              # (2C, kh kw C)
+        return dense(taps, kernel, self.conv.bias, self.dtype)
 
     def forward(self, x: torch.Tensor, condition: torch.Tensor):
         """x (B, h, W, C), condition (B, h, W, C_cond) -> (x + residual,
         skip), each (B, h, W, C)."""
         c = self.channels
-        h = self.grid_conv(x) + F.linear(
+        h = self.grid_conv(x) + dense(
             condition, self.condition_proj.weight[:, :, 0, 0],
-            self.condition_proj.bias)
-        out = F.linear(torch.tanh(h[..., :c]) * torch.sigmoid(h[..., c:]),
-                       self.out_proj.weight[:, :, 0, 0], self.out_proj.bias)
+            self.condition_proj.bias, self.dtype)
+        out = dense(torch.tanh(h[..., :c]) * sigmoid(h[..., c:]),
+                    self.out_proj.weight[:, :, 0, 0], self.out_proj.bias,
+                    self.dtype)
         return x + out[..., :c], out[..., c:]
 
     def step_weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -252,16 +278,17 @@ class Flow(nn.Module):
     def __init__(self, n_layers: int = 8, channels: int = 64,
                  mel_bands: int = 80, kernel_size: Tuple[int, int] = (3, 3),
                  dilations_h: Sequence[int] = (),
-                 sample_act_dtype: Optional[torch.dtype] = None):
+                 sample_act_dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_layers, self.channels = n_layers, channels
-        self.sample_act_dtype = sample_act_dtype
+        self.sample_act_dtype, self.dtype = sample_act_dtype, dtype
         dil_h = tuple(dilations_h) or (1,) * n_layers
         self.input_proj = nn.Conv2d(1, channels, 1)
         for i in range(n_layers):
             self.add_module(f"resnet_{i}", WaveFlowResidualBlock(
                 channels, mel_bands, kernel_size, dilation_w=2 ** i,
-                dilation_h=dil_h[i]))
+                dilation_h=dil_h[i], dtype=dtype))
         self.output_proj = nn.Conv2d(channels, 2, 1)
 
     def blocks(self):
@@ -270,14 +297,15 @@ class Flow(nn.Module):
     def _net(self, x, condition):
         """x (B, h, W), condition (B, h, W, C_cond) -> (logs, b), each
         (B, h, W); output row i reads input rows <= i."""
-        h = (x[..., None] * self.input_proj.weight.reshape(self.channels)
-             + self.input_proj.bias)
+        dt = self.dtype or self.input_proj.weight.dtype
+        h = (x.to(dt)[..., None] * self.input_proj.weight.reshape(
+            self.channels).to(dt) + self.input_proj.bias.to(dt))
         skips = 0.0
         for block in self.blocks():
             h, skip = block(h, condition)
             skips = skips + skip
-        out = F.linear(skips, self.output_proj.weight[:, :, 0, 0],
-                       self.output_proj.bias)
+        out = dense(skips, self.output_proj.weight[:, :, 0, 0],
+                    self.output_proj.bias, self.dtype)
         return out[..., 0], out[..., 1]
 
     def forward(self, x: torch.Tensor, condition: torch.Tensor):
@@ -292,7 +320,7 @@ class Flow(nn.Module):
         b, h, w = z.shape
         c = self.channels
         f32 = self.input_proj.weight.dtype
-        adt = self.sample_act_dtype or f32
+        adt = self.sample_act_dtype or self.dtype or f32
         blocks = self.blocks()
         weights = [block.step_weights(adt) for block in blocks]
         ikern = self.input_proj.weight.reshape(c)
@@ -310,7 +338,7 @@ class Flow(nn.Module):
                 rows = torch.cat([bufs[j], h_row], dim=-1)
                 bufs[j] = rows[..., c:]
                 wts = weights[j]
-                cond_g = condition[:, i] @ wts["ck"] + wts["cb"]
+                cond_g = condition[:, i].to(f32) @ wts["ck"] + wts["cb"]
                 h_row, skip = block.step(rows, cond_g, wts)
                 skips = skips + skip
             out = skips @ okern + obias                      # (B, W, 2)
@@ -345,7 +373,8 @@ class WaveFlow(nn.Module):
     def __init__(self, n_flows: int = 8, n_layers: int = 8,
                  n_group: int = 16, channels: int = 64, mel_bands: int = 80,
                  kernel_size: Tuple[int, int] = (3, 3),
-                 sample_act_dtype: Optional[torch.dtype] = None):
+                 sample_act_dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_flows, self.n_group = n_flows, n_group
         base = self.dilations_dict.get(n_group, (1,) * n_layers)
@@ -353,7 +382,7 @@ class WaveFlow(nn.Module):
         for i in range(n_flows):
             self.add_module(f"flows_{i}", Flow(
                 n_layers, channels, mel_bands, kernel_size, dil_h,
-                sample_act_dtype))
+                sample_act_dtype, dtype))
 
     def flows(self):
         return [getattr(self, f"flows_{i}") for i in range(self.n_flows)]
@@ -391,12 +420,13 @@ class ConditionalWaveFlow(nn.Module):
                  n_flows: int = 8, n_layers: int = 8, n_group: int = 16,
                  channels: int = 64, n_mels: int = 80,
                  kernel_size: Tuple[int, int] = (3, 3), sigma: float = 1.0,
-                 sample_act_dtype: Optional[torch.dtype] = None):
+                 sample_act_dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_group, self.sigma = n_group, sigma
-        self.encoder = UpsampleNet(upsample_factors)
+        self.encoder = UpsampleNet(upsample_factors, dtype)
         self.decoder = WaveFlow(n_flows, n_layers, n_group, channels, n_mels,
-                                kernel_size, sample_act_dtype)
+                                kernel_size, sample_act_dtype, dtype)
 
     def forward(self, audio: torch.Tensor, mel: torch.Tensor):
         """audio (B, T), mel (B, T_mel, C) -> (z, logs_sum)."""

@@ -7,7 +7,9 @@ attention, and the location-sensitive attention of Tacotron2's aligner.
 ``process_keys`` projects the keys once per utterance, outside the decode
 loop; each step scores the query against them with the location feature,
 a bias-free SAME convolution (kernel 31) over the stacked [previous,
-cumulative] attention weights.
+cumulative] attention weights.  Both modules take flax's ``dtype``
+(``nn/precision.py``); the location-sensitive softmax runs in float32
+whatever the dtype, as in the JAX module.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 from ..ops.masking import masked_fill
 from .conv import SameConv1d
 from .dropout import Dropout
+from .precision import Dense, cast_product, compute_dtype
 
 __all__ = ["scaled_dot_product_attention", "MonoheadAttention",
            "LocationSensitiveAttention"]
@@ -73,14 +76,15 @@ class MonoheadAttention(nn.Module):
     def __init__(self, model_dim: int, dropout_rate: float = 0.0,
                  k_dim: Optional[int] = None, v_dim: Optional[int] = None,
                  q_in: Optional[int] = None, k_in: Optional[int] = None,
-                 v_in: Optional[int] = None):
+                 v_in: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         k_dim = k_dim or model_dim
         v_dim = v_dim or model_dim
-        self.affine_q = nn.Linear(q_in or model_dim, k_dim)
-        self.affine_k = nn.Linear(k_in or model_dim, k_dim)
-        self.affine_v = nn.Linear(v_in or model_dim, v_dim)
-        self.affine_o = nn.Linear(v_dim, model_dim)
+        self.affine_q = Dense(q_in or model_dim, k_dim, dtype=dtype)
+        self.affine_k = Dense(k_in or model_dim, k_dim, dtype=dtype)
+        self.affine_v = Dense(v_in or model_dim, v_dim, dtype=dtype)
+        self.affine_o = Dense(v_dim, model_dim, dtype=dtype)
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, q, k, v, mask=None, *, deterministic: bool = True,
@@ -97,15 +101,18 @@ class LocationSensitiveAttention(nn.Module):
     float32 and the weights return in the parameters' type."""
 
     def __init__(self, d_query: int, d_key: int, d_attention: int,
-                 location_filters: int = 32, location_kernel_size: int = 31):
+                 location_filters: int = 32, location_kernel_size: int = 31,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.query_layer = nn.Linear(d_query, d_attention, bias=False)
-        self.key_layer = nn.Linear(d_key, d_attention, bias=False)
+        self.query_layer = Dense(d_query, d_attention, bias=False,
+                                 dtype=dtype)
+        self.key_layer = Dense(d_key, d_attention, bias=False, dtype=dtype)
         self.location_conv = SameConv1d(2, location_filters,
-                                        location_kernel_size, bias=False)
-        self.location_layer = nn.Linear(location_filters, d_attention,
-                                        bias=False)
-        self.value = nn.Linear(d_attention, 1, bias=False)
+                                        location_kernel_size, bias=False,
+                                        dtype=dtype)
+        self.location_layer = Dense(location_filters, d_attention,
+                                    bias=False, dtype=dtype)
+        self.value = Dense(d_attention, 1, bias=False, dtype=dtype)
 
     def process_keys(self, keys: torch.Tensor) -> torch.Tensor:
         """(B, T, d_k) -> (B, T, d_attention); once, outside the loop."""
@@ -120,7 +127,7 @@ class LocationSensitiveAttention(nn.Module):
         d_att), values (B, T, d_v), the previous and cumulative weights
         (B, T), mask (B, T) True at valid keys.  Returns (context (B, d_v),
         weights (B, T))."""
-        dtype = self.value.weight.dtype
+        dtype = compute_dtype(self.value.dtype, self.value.weight)
         processed_query = self.query_layer(query)[:, None, :]
         location = torch.stack([attention_weights, cum_attention_weights],
                                dim=-1).to(dtype)
@@ -132,5 +139,6 @@ class LocationSensitiveAttention(nn.Module):
             energies = torch.where(mask, energies,
                                    torch.full_like(energies, _NEG_INF))
         weights = torch.softmax(energies.float(), dim=-1).to(dtype)
-        context = torch.bmm(weights[:, None, :], values.to(dtype))[:, 0]
+        context = cast_product(torch.bmm, dtype, weights[:, None, :],
+                               values)[:, 0]
         return context, weights

@@ -38,9 +38,14 @@ def flax_batch_norm(bn: nn.BatchNorm1d, h: torch.Tensor, *,
                     momentum: float = _BN_MOMENTUM) -> torch.Tensor:
     """flax ``BatchNorm(use_running_average=deterministic,
     momentum=momentum)`` over the last axis of (B, T, C): the running
-    statistics when deterministic, else ``_batch_norm_train``."""
+    statistics when deterministic, else ``_batch_norm_train``.  Under
+    flax's mixed precision (``h`` in another dtype than the parameters',
+    bf16 after a bf16 convolution) it normalizes in float32 and returns
+    ``h``'s dtype, as flax's ``BatchNorm(dtype=...)``."""
     if not deterministic:
         return _batch_norm_train(bn, h, momentum)
+    if h.dtype != bn.weight.dtype:  # flax's mixed precision: in float32
+        return flax_batch_norm(bn, h.float(), deterministic=True).to(h.dtype)
     return F.batch_norm(h.transpose(1, 2), bn.running_mean, bn.running_var,
                         bn.weight, bn.bias, training=False,
                         eps=bn.eps).transpose(1, 2)

@@ -8,6 +8,10 @@ one frame a step, with the last ``receptive_field - 1`` input frames as
 its state, which the caller carries (nothing is kept on the module).
 ``Conv1dBatchNorm`` is a convolution and flax's BatchNorm; ``GLU`` the
 gated linear unit.  Submodules keep the flax names (``conv``, ``bn``).
+Each takes flax's ``dtype`` (``nn/precision.py``): the convolution's
+operands, weight and bias in ``dtype``, BatchNorm in float32 and its
+result in the convolution's dtype; ``None`` computes in the parameters'
+dtype.
 """
 from __future__ import annotations
 
@@ -18,26 +22,44 @@ import torch.nn.functional as F
 from torch import nn
 
 from .batch_norm import flax_batch_norm
+from .precision import cast_product
 
-__all__ = ["SameConv1d", "Conv1dCell", "Conv1dBatchNorm", "GLU"]
+__all__ = ["Conv1d", "SameConv1d", "Conv1dCell", "Conv1dBatchNorm", "GLU"]
 
 
-class SameConv1d(nn.Conv1d):
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` (B, Cin, T) -> (B, Cout, T - (k - 1) d), VALID, with
+    flax's ``dtype``: the product in ``dtype``, then ``+ bias`` in
+    ``dtype``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, bias: bool = True, dilation: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_channels, out_channels, kernel_size, bias=bias,
+                         dilation=dilation)
+        self.dtype = dtype
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        if self.dtype is None or self.dtype == w.dtype:
+            return F.conv1d(h.to(w.dtype), w, self.bias,
+                            dilation=self.dilation)
+        y = cast_product(lambda a, b: F.conv1d(a, b, dilation=self.dilation),
+                         self.dtype, h, w)
+        return y if self.bias is None else (
+            y + self.bias.to(self.dtype)[:, None])
+
+
+class SameConv1d(Conv1d):
     """(B, T, Cin) -> (B, T, Cout) with flax SAME zero padding: (k - 1) d
     frames in all, ((k - 1) d) // 2 on the left and the rest on the right
     (for k 4 at d 1: 1 and 2).  The weight keeps PyTorch's (Cout, Cin, k)
     layout."""
 
-    def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, bias: bool = True, dilation: int = 1):
-        super().__init__(in_channels, out_channels, kernel_size, bias=bias,
-                         dilation=dilation)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         total = (self.kernel_size[0] - 1) * self.dilation[0]
         h = F.pad(x.transpose(1, 2), (total // 2, total - total // 2))
-        return F.conv1d(h, self.weight, self.bias,
-                        dilation=self.dilation).transpose(1, 2)
+        return super().forward(h).transpose(1, 2)
 
 
 class Conv1dCell(nn.Module):
@@ -51,11 +73,11 @@ class Conv1dCell(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: int = 3, dilation: int = 1,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_features = in_features
-        self.conv = nn.Conv1d(in_features, features, kernel_size,
-                              dilation=dilation, bias=use_bias)
+        self.conv = Conv1d(in_features, features, kernel_size,
+                           dilation=dilation, bias=use_bias, dtype=dtype)
 
     @property
     def receptive_field(self) -> int:
@@ -72,7 +94,8 @@ class Conv1dCell(nn.Module):
         """Zero history (B, receptive_field - 1, Cin)."""
         return torch.zeros((batch, self.receptive_field - 1,
                             self.in_features), device=device,
-                           dtype=dtype or self.conv.weight.dtype)
+                           dtype=dtype or self.conv.dtype
+                           or self.conv.weight.dtype)
 
     def step(self, state: torch.Tensor, x_t: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,13 +115,13 @@ class Conv1dBatchNorm(nn.Module):
     def __init__(self, in_features: int, features: int,
                  kernel_size: int = 3, padding: str = "SAME",
                  use_bias: bool = False, momentum: float = 0.9,
-                 epsilon: float = 1e-5):
+                 epsilon: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding {padding!r}: 'SAME' or 'VALID'")
         self.padding = padding
-        self.conv = (SameConv1d if padding == "SAME" else nn.Conv1d)(
-            in_features, features, kernel_size, bias=use_bias)
+        self.conv = (SameConv1d if padding == "SAME" else Conv1d)(
+            in_features, features, kernel_size, bias=use_bias, dtype=dtype)
         self.bn = nn.BatchNorm1d(features, eps=epsilon, momentum=1 - momentum)
 
     def forward(self, x: torch.Tensor, *, train: bool = False

@@ -1,5 +1,8 @@
-"""Postnet and Prenet (counterparts of ``parakeet_tpu/nn/postnet.py``)."""
+"""Postnet and Prenet (counterparts of ``parakeet_tpu/nn/postnet.py``),
+with flax's ``dtype`` (``nn/precision.py``)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -7,6 +10,7 @@ from torch import nn
 from .batch_norm import _BN_EPS, flax_batch_norm
 from .conv import SameConv1d
 from .dropout import Dropout
+from .precision import Dense
 
 __all__ = ["Postnet", "Prenet", "flax_batch_norm"]
 
@@ -24,7 +28,8 @@ class Postnet(nn.Module):
 
     def __init__(self, odim: int, n_layers: int = 5, n_chans: int = 512,
                  n_filts: int = 5, use_batch_norm: bool = True,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_layers = n_layers
         self.use_batch_norm = use_batch_norm
@@ -33,7 +38,7 @@ class Postnet(nn.Module):
             cin = odim if i == 0 else n_chans
             cout = odim if i == n_layers - 1 else n_chans
             self.add_module(f"conv_{i}", SameConv1d(
-                cin, cout, n_filts, bias=not use_batch_norm))
+                cin, cout, n_filts, bias=not use_batch_norm, dtype=dtype))
             if use_batch_norm:
                 self.add_module(f"bn_{i}", nn.BatchNorm1d(cout, eps=_BN_EPS))
 
@@ -63,14 +68,15 @@ class Prenet(nn.Module):
 
     def __init__(self, in_units: int, n_layers: int = 2, n_units: int = 256,
                  dropout_rate: float = 0.5, always_dropout: bool = True,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_layers, self.n_units = n_layers, n_units
         self.always_dropout = always_dropout
         self.dropout = Dropout(dropout_rate)
         for i in range(n_layers):
-            self.add_module(f"fc_{i}", nn.Linear(
-                in_units if i == 0 else n_units, n_units, bias=use_bias))
+            self.add_module(f"fc_{i}", Dense(
+                in_units if i == 0 else n_units, n_units, bias=use_bias,
+                dtype=dtype))
 
     def drops(self, deterministic: bool) -> bool:
         """Whether a call with ``deterministic`` drops anything."""

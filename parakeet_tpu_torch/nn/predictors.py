@@ -4,8 +4,11 @@
 PyTorch needs each layer's input width up front, so the constructors take
 ``idim`` where flax infers it.  Dropout follows flax: ``deterministic``
 (default True) and, when False, the generator ``rng`` it draws from.
+Each takes flax's ``dtype`` (``nn/precision.py``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -13,6 +16,7 @@ from torch import nn
 
 from .conv import SameConv1d
 from .dropout import Dropout
+from .precision import Dense, LayerNorm
 
 __all__ = ["DurationPredictor", "VariancePredictor", "VarianceEmbedding",
            "duration_predictor_loss"]
@@ -25,15 +29,17 @@ class _ConvStack(nn.Module):
     1."""
 
     def __init__(self, idim: int, n_layers: int, n_chans: int,
-                 kernel_size: int, dropout_rate: float):
+                 kernel_size: int, dropout_rate: float,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"conv_{i}", SameConv1d(
-                idim if i == 0 else n_chans, n_chans, kernel_size))
-            self.add_module(f"norm_{i}", nn.LayerNorm(n_chans, eps=_LN_EPS))
+                idim if i == 0 else n_chans, n_chans, kernel_size,
+                dtype=dtype))
+            self.add_module(f"norm_{i}", LayerNorm(n_chans, _LN_EPS, dtype))
         self.dropout = Dropout(dropout_rate)
-        self.linear = nn.Linear(n_chans, 1)
+        self.linear = Dense(n_chans, 1, dtype=dtype)
 
     def forward(self, xs, *, deterministic: bool = True, rng=None):
         h = xs
@@ -51,11 +57,11 @@ class DurationPredictor(nn.Module):
 
     def __init__(self, idim: int, n_layers: int = 2, n_chans: int = 384,
                  kernel_size: int = 3, dropout_rate: float = 0.1,
-                 offset: float = 1.0):
+                 offset: float = 1.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.offset = offset
         self.stack = _ConvStack(idim, n_layers, n_chans, kernel_size,
-                                dropout_rate)
+                                dropout_rate, dtype)
 
     def forward(self, xs, pad_mask=None, inference: bool = False, *,
                 deterministic: bool = True, rng=None):
@@ -72,10 +78,11 @@ class VariancePredictor(nn.Module):
     """Pitch / energy predictor; returns (B, T, 1), 0 where ``pad_mask``."""
 
     def __init__(self, idim: int, n_layers: int = 2, n_chans: int = 384,
-                 kernel_size: int = 3, dropout_rate: float = 0.5):
+                 kernel_size: int = 3, dropout_rate: float = 0.5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stack = _ConvStack(idim, n_layers, n_chans, kernel_size,
-                                dropout_rate)
+                                dropout_rate, dtype)
 
     def forward(self, xs, pad_mask=None, *, deterministic: bool = True,
                 rng=None):
@@ -90,9 +97,10 @@ class VarianceEmbedding(nn.Module):
     (B, T, out_dim)."""
 
     def __init__(self, out_dim: int, kernel_size: int = 9,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = SameConv1d(1, out_dim, kernel_size)
+        self.conv = SameConv1d(1, out_dim, kernel_size, dtype=dtype)
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, xs, *, deterministic: bool = True, rng=None):

@@ -23,19 +23,33 @@ keeps one leaf a gate, and an optimizer that works leaf by leaf
 its rows in that many equal blocks.
 
 ``lstm_sequence`` (``gru_sequence``) runs a cell over a whole (B, T, C)
-sequence in one ``torch.lstm`` (``torch.gru``) call, and
+sequence, without a ``dtype`` in one ``torch.lstm`` (``torch.gru``)
+call, and
 ``flip_sequences`` reverses each sequence inside its own length as
 flax's ``nn.RNN(reverse=True, keep_order=True,
 seq_lengths=...)`` does: with both, a bidirectional layer computes flax's
 values at every position, padded ones included, with no host copy of the
 lengths (it may be captured in a CUDA graph).
+
+Both cells take flax's ``dtype`` (``nn/precision.py``).  With
+``torch.bfloat16`` a step is flax's cell: the input and recurrent
+products (and their biases) in bf16, the gates in bf16
+(``precision.sigmoid``) and the carry in whatever dtype the caller keeps
+it (flax's ``nn.RNN`` keeps a float32 carry; Tacotron2's decoder its own
+bf16 one), so that the state update follows the carry's promotion.
+``lstm_sequence`` and ``gru_sequence`` then run flax's scan: every
+step's input products in one GEMM, the steps one by one from a float32
+carry, the weights rounded once for the whole scan (``cast_once``).
+Without a ``dtype`` they run the fused kernel (cuDNN on the card).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from .precision import cast, cast_once, dense, sigmoid
 
 __all__ = ["LSTMCell", "GRUCell", "lstm_sequence", "gru_sequence",
            "flip_sequences"]
@@ -50,12 +64,42 @@ class LSTMCell(nn.LSTMCell):
     """``forward(x, (h, c)) -> (h', c')``; gates i, f, g, o; no input-side
     bias."""
 
-    def __init__(self, input_size: int, hidden_size: int):
+    def __init__(self, input_size: int, hidden_size: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(input_size, hidden_size, bias=True)
         del self.bias_ih
         self.register_buffer("bias_ih", torch.zeros(4 * hidden_size),
                              persistent=False)
         _tag_gates(4, self.weight_ih, self.weight_hh, self.bias_hh)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor,
+                state: Tuple[torch.Tensor, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.dtype is None:
+            return super().forward(x, state)
+        return self.step(self.input_gates(x), state)
+
+    def input_gates(self, x: torch.Tensor) -> torch.Tensor:
+        """The input side of the gates, x W_ih^T (..., 4H), in the compute
+        dtype: what a step needs of its input, for a caller that projects
+        every step's input at once."""
+        return dense(x, self.weight_ih, None, self.dtype)
+
+    def step(self, gates_in: torch.Tensor,
+             state: Tuple[torch.Tensor, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """flax's ``OptimizedLSTMCell`` at ``dtype`` from the input side of
+        the gates (``input_gates``): (h', c')."""
+        h, c = state
+        gates = gates_in + dense(h, self.weight_hh, self.bias_hh, self.dtype)
+        # one sigmoid over all four gates (g's share unused): elementwise,
+        # so each of i, f, o is what its own sigmoid gives, in a third of
+        # the launches
+        i, f, _, o = sigmoid(gates).chunk(4, dim=-1)
+        g = torch.tanh(gates[..., 2 * self.hidden_size:3 * self.hidden_size])
+        c = f * c + i * g
+        return o * torch.tanh(c), c
 
     def zero_state(self, batch: int, like: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -68,9 +112,11 @@ class GRUCell(nn.Module):
     """``forward(x, h) -> h'``; gates r, z, n; flax's biases (see the
     module's doc)."""
 
-    def __init__(self, input_size: int, hidden_size: int):
+    def __init__(self, input_size: int, hidden_size: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.input_size, self.hidden_size = input_size, hidden_size
+        self.dtype = dtype
         h = hidden_size
         self.weight_ih = nn.Parameter(torch.empty(3 * h, input_size))
         self.weight_hh = nn.Parameter(torch.empty(3 * h, h))
@@ -86,17 +132,52 @@ class GRUCell(nn.Module):
                           self.bias_hn])
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        return torch.gru_cell(x, h, self.weight_ih, self.weight_hh,
-                              self.bias_ih, self.bias_hh)
+        if self.dtype is None:
+            return torch.gru_cell(x, h.to(x.dtype), *_flat_weights(self))
+        return self.step(self.input_gates(x), h)
+
+    def input_gates(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's ``ir/iz/in`` layers at once, with their biases: (..., 3H)
+        in the compute dtype."""
+        return dense(x, self.weight_ih, self.bias_ih, self.dtype)
+
+    def step(self, gates_in: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """flax's ``GRUCell`` at ``dtype`` from the input side of the
+        gates (``input_gates``): h'."""
+        gh = dense(h, self.weight_hh, None, self.dtype)
+        two = 2 * self.hidden_size
+        r, z = sigmoid(gates_in[..., :two] + gh[..., :two]).chunk(2, dim=-1)
+        hn = gh[..., two:] + cast(self.bias_hn, gh.dtype)
+        n = torch.tanh(gates_in[..., two:] + r * hn)
+        return (1.0 - z) * n + z * h
+
+
+def _flat_weights(cell: nn.Module):
+    """The cell's weights as the fused kernels take them."""
+    return (cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh)
+
+
+def _scan(cell: nn.Module, x: torch.Tensor, state):
+    """flax's ``nn.RNN`` scan of ``cell`` (at its ``dtype``) from
+    ``state`` over (B, T, C): the outputs, (B, T, H)."""
+    gates_in = cell.input_gates(x)
+    outs = []
+    with cast_once():
+        for t in range(x.shape[1]):
+            state = cell.step(gates_in[:, t], state)
+            outs.append(state[0] if isinstance(state, tuple) else state)
+    return torch.stack(outs, dim=1)
 
 
 def gru_sequence(cell: GRUCell, x: torch.Tensor) -> torch.Tensor:
     """(B, T, C) -> (B, T, H): ``cell`` from the zero state over every
     position of ``x`` (flax's ``nn.RNN`` outputs)."""
-    h0 = torch.zeros((1, x.shape[0], cell.hidden_size), dtype=x.dtype,
-                     device=x.device)
-    out, _ = torch.gru(x, h0, (cell.weight_ih, cell.weight_hh,
-                               cell.bias_ih, cell.bias_hh),
+    w = cell.weight_ih
+    h0 = torch.zeros((x.shape[0], cell.hidden_size), dtype=w.dtype,
+                     device=w.device)
+    if cell.dtype is not None:
+        return _scan(cell, x, h0)
+    out, _ = torch.gru(x.to(w.dtype), h0[None], _flat_weights(cell),
                        True, 1, 0.0, torch.is_grad_enabled(), False, True)
     return out
 
@@ -109,10 +190,12 @@ def lstm_sequence(cell: LSTMCell, x: torch.Tensor) -> torch.Tensor:
     if x.shape[-1] != cell.weight_ih.shape[1]:
         raise ValueError(f"the LSTM takes {cell.weight_ih.shape[1]} "
                          f"channels, the input has {x.shape[-1]}")
-    h0, c0 = cell.zero_state(x.shape[0], x)
+    state = cell.zero_state(x.shape[0], cell.weight_ih)
+    if cell.dtype is not None:
+        return _scan(cell, x, state)
+    h0, c0 = state
     out, _, _ = torch.lstm(
-        x, (h0[None], c0[None]),
-        (cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh),
+        x.to(cell.weight_ih.dtype), (h0[None], c0[None]), _flat_weights(cell),
         True, 1, 0.0, torch.is_grad_enabled(), False, True)
     return out
 

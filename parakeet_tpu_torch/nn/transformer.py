@@ -4,8 +4,15 @@
 Layout is (B, T, C) throughout, as in the JAX package.  Submodule names
 follow the flax parameter tree (``self_attn.q``, ``MultiLayerConv_0.Conv_0``,
 ``layer_{i}``, ...) so that ``bridge.load_flax_params`` finds every weight
-by its path.  The compute dtype is the parameters' dtype
-(``module.to(torch.bfloat16)``).
+by its path.
+
+Every module takes flax's ``dtype`` (``nn/precision.py``): with
+``torch.bfloat16`` the parameters stay float32 and the products run in
+bf16 at the JAX modules' cast points, while LayerNorm's statistics, the
+dense attention's scores, softmax and context sums stay float32
+(``preferred_element_type=float32``: ``precision.bmm_f32``, the
+float32-output bf16 GEMM on the card); the flash core takes the bf16
+heads.  ``None`` computes in the parameters' dtype.
 
 As in flax, every forward takes ``deterministic`` (default True: no
 dropout) and, when it is False, the ``torch.Generator`` that the dropout
@@ -29,6 +36,7 @@ from ..ops.positional import sinusoid_position_encoding
 from .conv import SameConv1d
 from .dropout import Dropout
 from .flash import AUTO_FLASH_MIN_T
+from .precision import Dense, Embedding, LayerNorm, bmm_f32
 
 __all__ = ["PositionalEncoding", "ScaledPositionalEncoding",
            "MultiHeadAttention", "PositionwiseFeedForward", "MultiLayerConv",
@@ -39,8 +47,8 @@ _NEG_INF = -1e9
 _LN_EPS = 1e-6          # flax LayerNorm's default epsilon
 
 
-def _layer_norm(d: int) -> nn.LayerNorm:
-    return nn.LayerNorm(d, eps=_LN_EPS)
+def _layer_norm(d: int, dtype: Optional[torch.dtype]) -> LayerNorm:
+    return LayerNorm(d, _LN_EPS, dtype)
 
 
 class PositionalEncoding(nn.Module):
@@ -48,10 +56,12 @@ class PositionalEncoding(nn.Module):
     alpha (no sqrt(d) then); then dropout."""
 
     def __init__(self, d_model: int, dropout_rate: float = 0.1,
-                 scaled: bool = False, init_alpha: float = 1.0):
+                 scaled: bool = False, init_alpha: float = 1.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_model = d_model
         self.scaled = scaled
+        self.dtype = dtype
         self.dropout = Dropout(dropout_rate)
         if scaled:
             self.alpha = nn.Parameter(torch.full((1,), float(init_alpha)))
@@ -61,22 +71,29 @@ class PositionalEncoding(nn.Module):
                 pe: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``pe``: the (1, T, d) rows of the table, when the caller holds
         them (a decode loop slices one table made before the loop);
-        otherwise they are made here from ``start_pos``."""
+        otherwise they are made here from ``start_pos``, in ``dtype`` as
+        the JAX module makes them."""
+        dt = self.dtype or x.dtype
         if pe is None:
             pe = sinusoid_position_encoding(
                 x.shape[1], self.d_model, start_pos=start_pos,
-                dtype=x.dtype, device=x.device)[None]
+                dtype=dt, device=x.device,
+                in_dtype=self.dtype is not None)[None]
         if self.scaled:
-            x = x + self.alpha.to(x.dtype) * pe
-        else:
+            x = x + self.alpha.to(dt) * pe
+        elif self.dtype is None:
             x = x * math.sqrt(self.d_model) + pe
+        else:       # sqrt(d) rounded to the dtype, as jnp.sqrt computes it
+            x = x * torch.sqrt(torch.tensor(float(self.d_model),
+                                            dtype=dt)).item() + pe
         return self.dropout(x, deterministic=deterministic, rng=rng)
 
 
 def ScaledPositionalEncoding(d_model: int, dropout_rate: float = 0.1,
-                             init_alpha: float = 1.0):
+                             init_alpha: float = 1.0,
+                             dtype: Optional[torch.dtype] = None):
     return PositionalEncoding(d_model, dropout_rate, scaled=True,
-                              init_alpha=init_alpha)
+                              init_alpha=init_alpha, dtype=dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -104,15 +121,15 @@ class MultiHeadAttention(nn.Module):
     """
 
     def __init__(self, n_heads: int, d_model: int, dropout_rate: float = 0.0,
-                 attn_core=None):
+                 attn_core=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_heads, self.d_model = n_heads, d_model
         self.dropout_rate = dropout_rate
         self.attn_core = attn_core
-        self.q = nn.Linear(d_model, d_model)
-        self.k = nn.Linear(d_model, d_model)
-        self.v = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.q = Dense(d_model, d_model, dtype=dtype)
+        self.k = Dense(d_model, d_model, dtype=dtype)
+        self.v = Dense(d_model, d_model, dtype=dtype)
+        self.out = Dense(d_model, d_model, dtype=dtype)
         self.attn_dropout = Dropout(dropout_rate)
 
     def project_kv(self, key, value):
@@ -151,20 +168,24 @@ class MultiHeadAttention(nn.Module):
             else:
                 core_out = core(q, k, v, mask)
                 if core_out is not None:
-                    out = self.out(core_out.to(query.dtype).reshape(
+                    out = self.out(core_out.to(q.dtype).reshape(
                         b, tq, self.d_model))
                     # a core keeps no weights, as in the JAX package
                     return (out, None) if return_weights else out
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        scores = scores / math.sqrt(dk)
+        tk = k.shape[1]
+        scores = bmm_f32(q.transpose(1, 2).reshape(b * h, tq, dk),
+                         k.permute(0, 2, 3, 1).reshape(b * h, dk, tk)
+                         ).view(b, h, tq, tk) / math.sqrt(dk)
         if mask is not None:
             if mask.ndim == 3:
                 mask = mask[:, None]                # (B, 1, Tq, Tk)
             scores = torch.where(mask, scores, _NEG_INF)
-        attn = torch.softmax(scores, dim=-1).to(query.dtype)
+        attn = torch.softmax(scores, dim=-1).to(q.dtype)
         attn = self.attn_dropout(attn, deterministic=deterministic, rng=rng)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), v.float())
-        out = self.out(out.to(query.dtype).reshape(b, tq, self.d_model))
+        out = bmm_f32(attn.reshape(b * h, tq, tk),
+                      v.transpose(1, 2).reshape(b * h, tk, dk)
+                      ).view(b, h, tq, dk).transpose(1, 2)
+        out = self.out(out.to(q.dtype).reshape(b, tq, self.d_model))
         return (out, attn) if return_weights else out
 
 
@@ -172,10 +193,11 @@ class PositionwiseFeedForward(nn.Module):
     """linear -> relu -> dropout -> linear."""
 
     def __init__(self, hidden_units: int, d_model: int,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.Dense_0 = nn.Linear(d_model, hidden_units)
-        self.Dense_1 = nn.Linear(hidden_units, d_model)
+        self.Dense_0 = Dense(d_model, hidden_units, dtype=dtype)
+        self.Dense_1 = Dense(hidden_units, d_model, dtype=dtype)
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x, *, deterministic: bool = True, rng=None):
@@ -189,15 +211,18 @@ class MultiLayerConv(nn.Module):
     ``second_linear``)."""
 
     def __init__(self, hidden_units: int, d_model: int, kernel_size: int = 1,
-                 dropout_rate: float = 0.1, second_linear: bool = False):
+                 dropout_rate: float = 0.1, second_linear: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.Conv_0 = SameConv1d(d_model, hidden_units, kernel_size)
+        self.Conv_0 = SameConv1d(d_model, hidden_units, kernel_size,
+                                 dtype=dtype)
         self.second_linear = second_linear
         self.dropout = Dropout(dropout_rate)
         if second_linear:
-            self.Dense_0 = nn.Linear(hidden_units, d_model)
+            self.Dense_0 = Dense(hidden_units, d_model, dtype=dtype)
         else:
-            self.Conv_1 = SameConv1d(hidden_units, d_model, kernel_size)
+            self.Conv_1 = SameConv1d(hidden_units, d_model, kernel_size,
+                                     dtype=dtype)
 
     def forward(self, x, *, deterministic: bool = True, rng=None):
         h = self.dropout(F.relu(self.Conv_0(x)), deterministic=deterministic,
@@ -206,17 +231,18 @@ class MultiLayerConv(nn.Module):
 
 
 def _make_positionwise(layer_type: str, units: int, d_model: int,
-                       kernel_size: int, dropout: float):
+                       kernel_size: int, dropout: float, dtype):
     """(flax auto-name, module) of the positionwise block."""
     if layer_type == "linear":
         return ("PositionwiseFeedForward_0",
-                PositionwiseFeedForward(units, d_model, dropout))
+                PositionwiseFeedForward(units, d_model, dropout, dtype))
     if layer_type == "conv1d":
         return "MultiLayerConv_0", MultiLayerConv(units, d_model, kernel_size,
-                                                  dropout)
+                                                  dropout, dtype=dtype)
     if layer_type == "conv1d-linear":
         return "MultiLayerConv_0", MultiLayerConv(units, d_model, kernel_size,
-                                                  dropout, second_linear=True)
+                                                  dropout, second_linear=True,
+                                                  dtype=dtype)
     raise ValueError(f"unknown positionwise layer type {layer_type!r}")
 
 
@@ -230,19 +256,21 @@ class EncoderLayer(nn.Module):
                  dropout_rate: float = 0.1, attn_dropout_rate: float = 0.0,
                  normalize_before: bool = True, concat_after: bool = False,
                  positionwise_layer_type: str = "linear",
-                 positionwise_conv_kernel_size: int = 1, attn_core=None):
+                 positionwise_conv_kernel_size: int = 1, attn_core=None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.normalize_before = normalize_before
-        self.norm1 = _layer_norm(d_model)
-        self.norm2 = _layer_norm(d_model)
+        self.norm1 = _layer_norm(d_model, dtype)
+        self.norm2 = _layer_norm(d_model, dtype)
         self.self_attn = MultiHeadAttention(n_heads, d_model,
-                                            attn_dropout_rate, attn_core)
+                                            attn_dropout_rate, attn_core,
+                                            dtype)
         self.concat_after = concat_after
         if concat_after:
-            self.concat_proj = nn.Linear(2 * d_model, d_model)
+            self.concat_proj = Dense(2 * d_model, d_model, dtype=dtype)
         self.ff_name, ff = _make_positionwise(
             positionwise_layer_type, units, d_model,
-            positionwise_conv_kernel_size, dropout_rate)
+            positionwise_conv_kernel_size, dropout_rate, dtype)
         self.add_module(self.ff_name, ff)
         self.dropout = Dropout(dropout_rate)
 
@@ -294,28 +322,29 @@ class TransformerEncoder(nn.Module):
                  positionwise_layer_type: str = "conv1d",
                  positionwise_conv_kernel_size: int = 1,
                  padding_idx: int = 0, attn_core=None,
-                 input_dim: Optional[int] = None):
+                 input_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.input_layer = input_layer
         self.padding_idx = padding_idx
         self.normalize_before = normalize_before
         self.num_layers = num_layers
         if input_layer == "embed":
-            self.embed = nn.Embedding(vocab_size, d_model)
+            self.embed = Embedding(vocab_size, d_model, dtype=dtype)
         elif input_layer == "linear":
-            self.embed = nn.Linear(input_dim or d_model, d_model)
+            self.embed = Dense(input_dim or d_model, d_model, dtype=dtype)
         elif input_layer is not None:
             raise ValueError(f"unknown input_layer {input_layer!r}")
         self.pos_enc = PositionalEncoding(d_model, positional_dropout_rate,
                                           scaled=use_scaled_pos_enc,
-                                          init_alpha=init_alpha)
+                                          init_alpha=init_alpha, dtype=dtype)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(
                 d_model, n_heads, units, dropout_rate, attn_dropout_rate,
                 normalize_before, concat_after, positionwise_layer_type,
-                positionwise_conv_kernel_size, attn_core))
+                positionwise_conv_kernel_size, attn_core, dtype))
         if normalize_before:
-            self.after_norm = _layer_norm(d_model)
+            self.after_norm = _layer_norm(d_model, dtype)
 
     def forward(self, xs, mask=None, *, deterministic: bool = True,
                 rng=None, return_attns: bool = False):
@@ -379,23 +408,26 @@ class DecoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, units: int,
                  dropout_rate: float = 0.1, attn_dropout_rate: float = 0.0,
                  src_attn_dropout_rate: Optional[float] = None,
-                 normalize_before: bool = True, concat_after: bool = False):
+                 normalize_before: bool = True, concat_after: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.normalize_before = normalize_before
-        self.norm1 = _layer_norm(d_model)
-        self.norm2 = _layer_norm(d_model)
-        self.norm3 = _layer_norm(d_model)
+        self.norm1 = _layer_norm(d_model, dtype)
+        self.norm2 = _layer_norm(d_model, dtype)
+        self.norm3 = _layer_norm(d_model, dtype)
         self.self_attn = MultiHeadAttention(n_heads, d_model,
-                                            attn_dropout_rate)
+                                            attn_dropout_rate, dtype=dtype)
         self.src_attn = MultiHeadAttention(
             n_heads, d_model, attn_dropout_rate
-            if src_attn_dropout_rate is None else src_attn_dropout_rate)
-        self.ff = PositionwiseFeedForward(units, d_model, dropout_rate)
+            if src_attn_dropout_rate is None else src_attn_dropout_rate,
+            dtype=dtype)
+        self.ff = PositionwiseFeedForward(units, d_model, dropout_rate,
+                                          dtype)
         self.dropout = Dropout(dropout_rate)
         self.concat_after = concat_after
         if concat_after:
-            self.concat_proj1 = nn.Linear(2 * d_model, d_model)
-            self.concat_proj2 = nn.Linear(2 * d_model, d_model)
+            self.concat_proj1 = Dense(2 * d_model, d_model, dtype=dtype)
+            self.concat_proj2 = Dense(2 * d_model, d_model, dtype=dtype)
 
     def cross_kv(self, memory):
         """This layer's projected cross-attention (K, V) over ``memory``,
@@ -455,10 +487,13 @@ class TransformerDecoder(nn.Module):
                  use_scaled_pos_enc: bool = True, init_alpha: float = 1.0,
                  normalize_before: bool = True, concat_after: bool = False,
                  input_layer: Optional[str] = None,
-                 input_dim: Optional[int] = None):
+                 input_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         if input_layer == "linear":
-            self.input_proj = nn.Linear(input_dim or d_model, d_model)
+            self.input_proj = Dense(input_dim or d_model, d_model,
+                                    dtype=dtype)
         elif input_layer is not None:
             raise ValueError(f"unknown input_layer {input_layer!r}")
         self.input_layer = input_layer
@@ -467,13 +502,14 @@ class TransformerDecoder(nn.Module):
         self.normalize_before = normalize_before
         self.pos_enc = PositionalEncoding(d_model, positional_dropout_rate,
                                           scaled=use_scaled_pos_enc,
-                                          init_alpha=init_alpha)
+                                          init_alpha=init_alpha, dtype=dtype)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(
                 d_model, n_heads, units, dropout_rate, attn_dropout_rate,
-                src_attn_dropout_rate, normalize_before, concat_after))
+                src_attn_dropout_rate, normalize_before, concat_after,
+                dtype))
         if normalize_before:
-            self.after_norm = _layer_norm(d_model)
+            self.after_norm = _layer_norm(d_model, dtype)
 
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
@@ -485,7 +521,9 @@ class TransformerDecoder(nn.Module):
 
     def new_caches(self, batch: int, t_max: int, dtype, device):
         """One empty ``KVCache`` a layer for a decode of ``t_max``
-        steps."""
+        steps, in the compute dtype (``dtype`` when the decoder has
+        none)."""
+        dtype = self.dtype or dtype
         dk = self.d_model // self.n_heads
         return [KVCache(batch, t_max, self.n_heads, dk, dtype, device)
                 for _ in range(self.num_layers)]

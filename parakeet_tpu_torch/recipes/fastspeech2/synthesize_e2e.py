@@ -79,7 +79,7 @@ def build_vocoder(config, checkpoint, device) -> PWGGenerator:
     a checkpoint's weights, on ``device``."""
     cfg = Config.from_yaml(config)
     voc = PWGGenerator(**inference_model_kwargs(
-        cfg.get("generator_params", {}), compute_dtype=True))
+        cfg.get("generator_params", {})))
     load_checkpoint_params(voc, checkpoint)
     return voc.to(device).eval().requires_grad_(False)
 

@@ -12,12 +12,15 @@ initializers from the seed, trains with Adam and no clip on the card, and
 a snapshot of the train state in the JAX package's format (the bridge's
 ``train_state_arrays``) goes into a ring of 5 every ``--save-interval``
 iterations.  The loop is the JAX recipe's plain one: no evaluation and no
-resume.
+resume.  ``--dtype bfloat16`` trains with flax's mixed precision
+(``nn/precision.py``; the JAX module's ``dtype=``, which its recipe does
+not expose).
 
 Usage:
   python -m parakeet_tpu_torch.recipes.ge2e.train --data-root dump/mels \\
       --output-dir exp/ge2e [--speakers-per-batch 64] \\
-      [--utterances-per-speaker 10] [--frames 160] [--device cpu]
+      [--utterances-per-speaker 10] [--frames 160] \\
+      [--dtype float32|bfloat16] [--device cpu]
 """
 import argparse
 import random
@@ -30,8 +33,8 @@ from ...bridge import train_state_arrays
 from ...models import (LSTMSpeakerEncoder, init_ge2e_train_state,
                        make_ge2e_train_step)
 from ...nn.initializer import init_flax_defaults_
-from ...training import (SnapshotRing, build_optimizer, save_pytree,
-                         seed_everything)
+from ...training import (SnapshotRing, build_optimizer,
+                         resolve_model_kwargs, save_pytree, seed_everything)
 from ...utils.device import add_device_arg, set_device
 
 __all__ = ["main", "MultiSpeakerSampler"]
@@ -94,6 +97,9 @@ def main(argv=None):
     parser.add_argument("--max-iteration", type=int, default=1560000)
     parser.add_argument("--save-interval", type=int, default=10000)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dtype", default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="compute dtype (bfloat16: float32 weights)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
     device = set_device(args.device)
@@ -103,7 +109,8 @@ def main(argv=None):
                                   args.utterances_per_speaker, args.frames,
                                   args.seed)
     sampler.batch()                 # the JAX recipe's initialising batch
-    model = LSTMSpeakerEncoder(n_mels=args.n_mels)
+    model = LSTMSpeakerEncoder(n_mels=args.n_mels, **resolve_model_kwargs(
+        {"dtype": args.dtype}))
     init_flax_defaults_(model, torch.Generator().manual_seed(args.seed))
     model.to(device)
     optimizer = build_optimizer(model.parameters(), "adam",

@@ -85,16 +85,14 @@ def main(argv=None) -> Trainer:
     seed = cfg.get("seed", 0)
     rng = seed_everything(seed, device=device)
 
-    gen_kwargs = resolve_model_kwargs(cfg.get("generator_params", {}),
-                                      compute_dtype=True)
+    gen_kwargs = resolve_model_kwargs(cfg.get("generator_params", {}))
     acw = gen_kwargs.get("aux_context_window", 2)
     train_dl = build_dataloader(args.train_metadata, cfg, True, acw, seed)
     dev_dl = build_dataloader(args.dev_metadata, cfg, False, acw, seed)
 
     generator = PWGGenerator(**gen_kwargs)
     discriminator = PWGDiscriminator(
-        **resolve_model_kwargs(cfg.get("discriminator_params", {}),
-                               compute_dtype=True))
+        **resolve_model_kwargs(cfg.get("discriminator_params", {})))
     weights = torch.Generator().manual_seed(seed)
     init_pwg_params_(generator, weights)
     init_pwg_params_(discriminator, weights)

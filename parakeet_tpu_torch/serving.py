@@ -128,6 +128,8 @@ class TTSEngine:
         # a grid point run eagerly
         self._programs: Dict[Tuple[int, int], Optional[CapturedProgram]] = {}
         self._pool = None
+        # the weights rounded to the compute dtype, shared by every graph
+        self._casts: dict = {}
 
     # ---- bucket arithmetic ------------------------------------------
 
@@ -199,7 +201,8 @@ class TTSEngine:
                                           max_frames)
             return audio.float(), frames
 
-        prog = CapturedProgram(fn, inputs, pool=self._pool)
+        prog = CapturedProgram(fn, inputs, pool=self._pool,
+                               casts=self._casts)
         self._pool = prog.pool()
         return prog
 

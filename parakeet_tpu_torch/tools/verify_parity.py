@@ -91,7 +91,7 @@ def run_speedyspeech(args, golden, device):
 def run_pwgan(args, golden, device):
     cfg = Config.from_yaml(args.config)
     gen = _model(PWGGenerator, args, device, **inference_model_kwargs(
-        cfg.get("generator_params", {}), compute_dtype=True))
+        cfg.get("generator_params", {})))
     noise = golden.get("noise")
     if noise is None:
         raise SystemExit(

@@ -130,17 +130,15 @@ def default_training_config() -> Config:
     })
 
 
-def resolve_model_kwargs(cfg: dict, *, compute_dtype: bool = False) -> dict:
+def resolve_model_kwargs(cfg: dict) -> dict:
     """Model-section kwargs ready for the port's ``Model(**kwargs)``.
 
     ``stack_impl`` and ``impl`` take the JAX names ('pallas', 'xla',
     'auto') or the port's ('fused', 'eager', 'auto').  ``dtype`` naming
-    float32 is dropped (the modules compute in their parameters' dtype).
-    With ``compute_dtype`` (the Parallel WaveGAN modules, which take a
-    compute dtype as flax's ``dtype=``) 'bfloat16' becomes
-    ``torch.bfloat16``: mixed precision, float32 parameters.  Any other
-    dtype raises ``NotImplementedError``: the other families train in
-    float32 only (ROADMAP.md, queue 1, item 21).
+    float32 is dropped (the modules compute in their parameters' dtype);
+    'bfloat16' becomes ``torch.bfloat16``, flax's ``dtype=``: mixed
+    precision on float32 parameters, which every family takes.  Any other
+    dtype raises ``NotImplementedError``.
     """
     kwargs = dict(cfg)
     for key in ("stack_impl", "impl"):
@@ -152,27 +150,21 @@ def resolve_model_kwargs(cfg: dict, *, compute_dtype: bool = False) -> dict:
             kwargs[key] = _IMPL_NAMES[name]
     if "dtype" in kwargs:
         name = str(kwargs.pop("dtype")).lower()
-        if compute_dtype and name in _BFLOAT16_NAMES:
+        if name in _BFLOAT16_NAMES:
             import torch
             kwargs["dtype"] = torch.bfloat16
         elif name not in _FLOAT32_NAMES:
             raise NotImplementedError(
-                f"model dtype {name!r}: "
-                + ("the Parallel WaveGAN modules take float32 or bfloat16"
-                   if compute_dtype else
-                   "this family trains in float32 only; the Parallel "
-                   "WaveGAN modules alone take a compute dtype (ROADMAP.md, "
-                   "queue 1, item 10), and mixed precision of the other "
-                   "families is open as item 21"))
+                f"model dtype {name!r}: the port's models take float32 or "
+                "bfloat16")
     return kwargs
 
 
-def inference_model_kwargs(cfg: dict, *, compute_dtype: bool = False
-                           ) -> dict:
+def inference_model_kwargs(cfg: dict) -> dict:
     """Model-section kwargs with training-only keys stripped: ``init_type``
     configures the train-time initialization (the reference consumes it
     before model construction, fastspeech2.py:114) and is no constructor
     field."""
-    kwargs = resolve_model_kwargs(cfg, compute_dtype=compute_dtype)
+    kwargs = resolve_model_kwargs(cfg)
     kwargs.pop("init_type", None)
     return kwargs

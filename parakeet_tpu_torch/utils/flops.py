@@ -64,6 +64,17 @@ def mfu_stats(flops_per_call: Optional[float], seconds_per_call: float,
             "peak_tflops": None if peak is None else peak / 1e12}
 
 
+def _bmm_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """``torch.bmm``'s FLOPs, also of its ``out_dtype`` overload (the
+    float32-output bf16 GEMM of ``nn/precision.py``, whose extra argument
+    PyTorch's own formula does not take)."""
+    b, m, k = a_shape
+    return 2 * b * m * k * b_shape[-1]
+
+
+_BMM_DTYPE = {torch.ops.aten.bmm: _bmm_flop}
+
+
 @contextlib.contextmanager
 def _without_kernels(*modules):
     """Every residual stack on its eager loop and every attention on the
@@ -95,7 +106,8 @@ def fs2_pwg_synthesis_flops(fs2, pwg, text: torch.Tensor,
     device.  Counts matrix products and convolutions only; XLA's count
     also takes elementwise work."""
     with torch.no_grad(), _without_kernels(fs2, pwg), \
-            FlopCounterMode(display=False) as counter:
+            FlopCounterMode(display=False,
+                            custom_mapping=_BMM_DTYPE) as counter:
         out = fs2.inference(text, text_lengths, max_frames=max_frames,
                             min_duration=min_duration)
         pwg(noise, edge_pad(out["after_outs"], pwg.aux_context_window))

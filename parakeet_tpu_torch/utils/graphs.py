@@ -12,9 +12,11 @@ read with ``torch.profiler`` (``benchmarks.common.profiled_kernels``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
+
+from .casts import cast_once
 
 __all__ = ["CapturedProgram"]
 
@@ -46,19 +48,27 @@ class CapturedProgram:
     outside every pool: they hold one replay's results until this
     program's next replay, whatever other graphs of the pool replay in
     between.  ``replays`` counts the replays.
+
+    A module with a compute ``dtype`` (``nn/precision.py``) rounds its
+    float32 weights to it in the warm-up runs, inside ``cast_once(casts)``,
+    and the graph reads those copies: a replay rounds no weight, and reads
+    the weights as they were at the capture.  ``casts`` (a dict; None for
+    one of the program's own) may be shared by programs of one model.
     """
 
     def __init__(self, fn: Callable, inputs: Dict[str, torch.Tensor], *,
-                 pool=None):
+                 pool=None, casts: Optional[dict] = None):
         devices = {t.device for t in inputs.values()}
         if len(devices) != 1 or next(iter(devices)).type != "cuda":
             raise ValueError(f"CapturedProgram needs its inputs on one CUDA "
                              f"device, got {sorted(map(str, devices))}")
         device = next(iter(devices))
         self.inputs = inputs
+        self.casts = {} if casts is None else casts
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side), torch.no_grad():
+        with torch.cuda.stream(side), torch.no_grad(), \
+                cast_once(self.casts):
             for _ in range(WARMUP_RUNS):
                 out = fn(**inputs)
         torch.cuda.current_stream(device).wait_stream(side)
@@ -66,7 +76,8 @@ class CapturedProgram:
         self._buffers = tuple(torch.empty_like(t) for t in _flat(out))
         del out
         self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph, pool=pool):
+        with torch.no_grad(), cast_once(self.casts), \
+                torch.cuda.graph(self.graph, pool=pool):
             for buf, t in zip(self._buffers, _flat(fn(**inputs))):
                 buf.copy_(t)
         self.replays = 0

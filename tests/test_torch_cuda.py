@@ -708,15 +708,15 @@ def _serving_models(cuda):
     am = FastSpeech2(idim=40, odim=80, adim=64, aheads=2, elayers=2,
                      eunits=128, dlayers=2, dunits=128, postnet_chans=32,
                      duration_predictor_chans=32, pitch_predictor_chans=32,
-                     energy_predictor_chans=32)
-    voc = PWGGenerator(layers=6, stacks=2, upsample_scales=(4, 5))
+                     energy_predictor_chans=32, dtype=torch.bfloat16)
+    voc = PWGGenerator(layers=6, stacks=2, upsample_scales=(4, 5),
+                       dtype=torch.bfloat16)
     seeded_init_(am, gen)
     seeded_init_(voc, gen)
     with torch.no_grad():
         am.duration_predictor.stack.linear.weight.mul_(0.25)
         am.duration_predictor.stack.linear.bias.fill_(1.1)
-    return (am.to(cuda, torch.bfloat16).eval(),
-            voc.to(cuda, torch.bfloat16).eval())
+    return am.to(cuda).eval(), voc.to(cuda).eval()
 
 
 def test_graph_engine_matches_the_eager_engine_bitwise(cuda):

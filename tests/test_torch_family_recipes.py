@@ -182,6 +182,11 @@ def test_family_rtf_bench_on_cpu(tiny, capsys):
         assert r["launches"] == {"K1": 0} and r["graph_ms"] is None
         assert r["capture_s"] is None
         assert 0 <= r["frame_lengths"][0] <= 12
+    # ``--frames`` sets the capacity (TransformerTTS at r=2 in 4 steps)
+    (short,) = e2e_family_rtf.main(["--device", "cpu", "--iters", "1",
+                                    "--dtype", "float32", "--families",
+                                    "transformer_tts_r2", "--frames", "8"])
+    assert short["samples"] == 8 * 256
     with pytest.raises(ValueError, match="unknown family"):
         e2e_family_rtf.main(["--device", "cpu", "--families",
                              "transformer_tts_r3"])
@@ -229,7 +234,7 @@ def test_family_program_is_the_models_composed(tiny):
 def test_train_am_bench_on_cpu(tiny, capsys):
     """Every leg on the CPU at 2 x 8 tokens x 24 frames (WaveFlow: 8
     clips of 6 frames), with and without the deterministic setting (given
-    back after); bf16 raises."""
+    back after), and in bf16 (flax's mixed precision)."""
     for det in ([], ["--deterministic"]):
         records = train_am.main(["--device", "cpu", "--iters", "1",
                                  "--batch-size", "2", "--text-len", "8",
@@ -244,8 +249,11 @@ def test_train_am_bench_on_cpu(tiny, capsys):
     assert len(capsys.readouterr().out.splitlines()) == 8
     with pytest.raises(ValueError, match="unknown family"):
         train_am.main(["--device", "cpu", "--models", "ge2e"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_am.main(["--device", "cpu", "--dtype", "bfloat16"])
+    bf16 = train_am.main(["--device", "cpu", "--iters", "1",
+                          "--batch-size", "2", "--text-len", "8",
+                          "--frames", "24", "--dtype", "bfloat16"])
+    assert all(r["dtype"] == "bfloat16" and r["value"] > 0 for r in bf16)
+    assert len(capsys.readouterr().out.splitlines()) == 4
     assert np.isfinite(records[0]["ms_per_step"])
 
 

@@ -489,5 +489,7 @@ def test_ge2e_train_bench_on_cpu(monkeypatch, capsys):
         6, 8, n_mels=8, num_layers=2, hidden_size=16, output_size=16)
     assert rec["mfu_pct"] is None and math.isfinite(rec["loss"])
     assert rec["dtype"] == "float32" and rec["tf32"] is False
-    with pytest.raises(NotImplementedError, match="float32"):
-        bench.main(["--dtype", "bfloat16", "--device", "cpu"])
+    bf16 = bench.main(["--iters", "2", "--speakers", "3", "--utts", "2",
+                       "--frames", "8", "--n-mels", "8", "--device", "cpu",
+                       "--dtype", "bfloat16"])
+    assert bf16["dtype"] == "bfloat16" and math.isfinite(bf16["loss"])

@@ -330,15 +330,19 @@ def test_log_mel_spectrogram_matches_jax(base):
 # ------------------------------------------------ mixed precision (bf16)
 
 def test_resolve_model_kwargs_takes_bfloat16_for_pwg_only():
-    assert resolve_model_kwargs({"dtype": "bfloat16"},
-                                compute_dtype=True) == {
+    """'bfloat16' is the PWG modules' compute dtype, as every family's
+    (the flag that once held it to them is gone); float32 is dropped and
+    any other dtype raises."""
+    assert resolve_model_kwargs({"dtype": "bfloat16"}) == {
         "dtype": torch.bfloat16}
-    assert resolve_model_kwargs({"dtype": "float32", "layers": 3},
-                                compute_dtype=True) == {"layers": 3}
+    assert resolve_model_kwargs({"dtype": "float32", "layers": 3}) == {
+        "layers": 3}
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
-        resolve_model_kwargs({"dtype": "float16"}, compute_dtype=True)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        resolve_model_kwargs({"dtype": "bfloat16"})
+        resolve_model_kwargs({"dtype": "float16"})
+    kw = resolve_model_kwargs({"dtype": "bf16", **GAN_DISC})
+    disc = tpwg.PWGDiscriminator(**kw)
+    assert disc.dtype == torch.bfloat16
+    assert {p.dtype for p in disc.parameters()} == {torch.float32}
 
 
 GAN_GEN = dict(layers=4, stacks=2, residual_channels=16, gate_channels=32,
@@ -414,8 +418,7 @@ def test_mixed_bf16_gan_step_matches_jax(monkeypatch):
                       jnp.asarray(noise), jnp.asarray(mel))
     jgrad_d = _exact(jax.grad(d_loss), dvars["params"], fake_new)
 
-    kw = resolve_model_kwargs({"dtype": "bfloat16", "stack_impl": "xla"},
-                              compute_dtype=True)
+    kw = resolve_model_kwargs({"dtype": "bfloat16", "stack_impl": "xla"})
     tg = tpwg.PWGGenerator(**kw, **GAN_GEN)
     td = tpwg.PWGDiscriminator(dtype=kw["dtype"], **GAN_DISC)
     load_flax_params(tg, gflat)

@@ -106,12 +106,18 @@ def test_model_kwargs_map_the_jax_impl_names(jax_name, port_name):
 
 
 def test_model_kwargs_take_float32_and_refuse_other_dtypes():
+    """float32 is dropped, bfloat16 is flax's compute dtype (as in the JAX
+    package), any other dtype raises."""
     assert resolve_model_kwargs({"layers": 3, "dtype": "float32"}) == {
         "layers": 3}
     assert jconfig.resolve_model_kwargs({"dtype": "float32"})["dtype"] \
         == jnp.float32
-    for dtype in ("bfloat16", "fp16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert resolve_model_kwargs({"dtype": "bfloat16"})["dtype"] \
+        == torch.bfloat16
+    assert jconfig.resolve_model_kwargs({"dtype": "bfloat16"})["dtype"] \
+        == jnp.bfloat16
+    for dtype in ("fp16", "float16"):
+        with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
             resolve_model_kwargs({"dtype": dtype})
     assert inference_model_kwargs({"init_type": "xavier_uniform",
                                    "impl": "xla"}) == {"impl": "eager"}
