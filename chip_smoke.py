@@ -152,9 +152,9 @@ Phases, one line each (the checks raise; nothing is caught):
 15. TransformerTTS: its recipe's CLI with recipes/transformer_tts/conf/
    default.yaml (full widths, batch 16: 1 epoch of 2 steps, resumed to 2,
    against 2 straight); its ``transformer_tts_r1`` and ``_r2`` legs of
-   ``e2e_family_rtf`` at 500 frames (500 and 250 decoder steps -> PWG
+   ``e2e_family_rtf`` at 250 frames (250 and 125 decoder steps -> PWG
    x256) as one CUDA graph each, bitwise eager, K1 x 30 in a replay, and
-   K1 at T=128,000; then ``benchmarks/ar_decode.py`` (Tacotron2, TransformerTTS
+   K1 at T=64,000; then ``benchmarks/ar_decode.py`` (Tacotron2, TransformerTTS
    r=1 and r=2; 200 steps, each graph bitwise eager);
 16. WaveFlow: its recipe's CLI with recipes/waveflow/conf/default.yaml
    (iteration-based: 2 iterations resumed to 4 against 4 straight);
@@ -264,6 +264,19 @@ Phases, one line each (the checks raise; nothing is caught):
    plain versions and timed.  Phase 4's e2e program is also timed
    against its build before this one (the same weights rounded to bf16)
    in turns.
+24. the main path through the entry points a user runs: the PWGAN
+   twin's ``run.sh`` (``parakeet_tpu_torch/recipes/pwgan/run.sh``, stages
+   0-3: preprocess, normalize, train, synthesize) and then the
+   FastSpeech2 twin's (stages 0-3, synthesize_e2e with the PWGAN run's
+   checkpoint), each stage a bash run with DEVICE=cuda whose ``python``
+   processes report the kernels' launch counts, on a seeded formant
+   corpus of 264 utterances (``recipes/corpus.py``) at the YAMLs' widths
+   (``RUN_SH_CUTS``: the step counts, PWGAN's discriminator start and
+   intervals, FastSpeech2's flash attention): K1 30 times a line in both
+   synthesis stages, K2a, K2b, K3a and K3b in PWGAN's training, K4a-K4c
+   in FastSpeech2's; each synthesis stage again in this process with
+   K1's plain version, the twin's wavs held to it; the seconds of each
+   stage with the card's name and power limit.
 
 The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
@@ -287,7 +300,10 @@ phase 5's numbers, the same shapes; and K4a-K4c again as
 numbers of its two shapes together, the encoder's and the decoder's
 call on its largest batch; K4a-K4c again as ``*_bf16_fs2_step`` with
 the launches of phase 23's bf16 FastSpeech2 step and the numbers of its
-two shapes together), error, times, bound
+two shapes together; and as ``*_run_sh`` the launches of phase 24's
+twins, K1 at ``pwgan/synthesize.py``'s 1,024 frames x 300, K2a-K3b with
+phase 5's numbers at the training shape the recipe runs, K4a-K4c at
+the FastSpeech2 run's train batch), error, times, bound
 (the larger of its bytes over the H100's memory rate and its operations
 over its peak for the operands' type, from this run's shapes; K4's
 float32 products at the 3xTF32 rate, a third of the TF32 peak) and, where
@@ -310,6 +326,7 @@ import pathlib
 import re
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -560,7 +577,7 @@ FAMILY_STEPS_PER_EPOCH = 2
 # frames x the hop)
 FAMILY_ITERS = 1
 FAMILY_K1_T = {"speedyspeech": 300000, "tacotron2": 256000,
-               "transformer_tts_r1": 128000, "transformer_tts_r2": 128000}
+               "transformer_tts_r1": 64000, "transformer_tts_r2": 64000}
 # the per-family training bench at the JAX bench's shapes (B 32, 96
 # tokens, 640 frames): PyTorch's defaults, then the recipes'
 # deterministic setting (Tacotron2's step takes seconds: 1 iteration
@@ -570,15 +587,16 @@ AM_BENCH_WARMUP = 1
 # phase 15: the TransformerTTS recipe at its YAML's widths and batch 16 on
 # a seeded dump (32 train utterances: two steps an epoch; 8 dev: one eval
 # batch) of 200-400 frames (a parallel teacher-forced decoder: as many
-# steps as frames) and 40-90 tokens; its two programs at 500 frames (500
-# and 250 decoder steps; an eager r=1 call at 1,000 took 10-16 s in bf16)
-# timed over 1 call without a warm one
+# steps as frames) and 40-90 tokens; its two programs at 250 frames (250
+# and 125 decoder steps; an eager r=1 call at 1,000 took 10-16 s in bf16,
+# and at 500 the two captures took 30 s) timed over 1 call without a
+# warm one
 TT_RECIPE_CONF = "recipes/transformer_tts/conf/default.yaml"
 TT_RECIPE_SPLITS = {"train": 32, "dev": 8}
 TT_RECIPE_FRAMES, TT_RECIPE_PHONES = (200, 400), (40, 90)
 TT_RECIPE_EPOCHS, TT_RECIPE_RESUME_EPOCHS = 1, 2
 TT_FAMILY_ITERS = 1
-TT_FAMILY_FRAMES = 500
+TT_FAMILY_FRAMES = 250
 # ar_decode's loops at 200 steps, timed over 1 call without a warm one
 # (at its default 500 the three captures alone took 33 s)
 AR_DECODE_ITERS = 1
@@ -786,6 +804,26 @@ MP_TOP_GEMMS = 3
 LAMB_SHAPES = [(1536, 384), (384, 1536), (384, 384), (384,), (80, 384),
                (1536,)]
 LAMB_STEPS, LAYERS_REPS = 10, 10
+# phase 24: the run.sh twins of PWGAN and FastSpeech2 (stages 0-3 each)
+# as subprocesses with DEVICE=cuda on a seeded formant corpus of
+# RUN_SH_UTTS utterances of RUN_SH_SYLLABLES syllables (1.2-2 s: longer
+# than PWGAN's 25,500-sample clip and its context): the 200 dev and test
+# utterances the scripts' preprocess keeps and one FastSpeech2 batch of
+# 64 to train on.  Each twin's CONF is its recipe YAML with only the keys
+# of RUN_SH_CUTS changed: the step counts, PWGAN's discriminator start (so
+# that K3 launches within the steps), PWGAN's eval and snapshot
+# intervals (keys its YAML leaves to the CLI's defaults, 1,000 and
+# 10,000), and FastSpeech2's flash attention with the attention dropout
+# at 0, as the YAML's comment prescribes for it (so that K4 launches)
+RUN_SH_UTTS = 264
+RUN_SH_SYLLABLES = (7, 9)
+RUN_SH_CUTS = {
+    "pwgan": {"train_max_steps": 4,
+              "updater.discriminator_train_start_steps": 2,
+              "eval_interval_steps": 4, "save_interval_steps": 4},
+    "fastspeech2": {"max_epoch": 2, "model.attn_impl": "flash",
+                    "model.transformer_enc_attn_dropout_rate": 0.0,
+                    "model.transformer_dec_attn_dropout_rate": 0.0}}
 # NVIDIA's data sheet for the H100 SXM (dense, 700 W): HBM bytes/s and
 # FLOP/s by operand type (float32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -4400,12 +4438,12 @@ def _card_and_cpu(make, seed):
     return card_mod.cuda(), cpu
 
 
-def _layers_k4(model, lengths):
+def _layers_k4(model, lengths, tag="layers"):
     """Phase 22 (b): K4a, K4b and K4c on the recipe run's own shapes, its
     train batch with the most frames: the encoder's self-attention over
     its phones and the decoder's over its frames (``_k4_case``, float32,
-    fresh inputs); returns their records, the two shapes' times summed and
-    the launches still 0."""
+    fresh inputs); returns their records (named ``*_dk192_<tag>``), the
+    two shapes' times summed and the launches still 0."""
     batch = max(lengths, key=lambda x: x["speech"].shape[1])
     r = model.reduction_factor
     frames = (batch["speech_lengths"] - batch["speech_lengths"] % r) // r
@@ -4423,7 +4461,7 @@ def _layers_k4(model, lengths):
     if shapes[0][3] != RECIPE_DK or shapes[1][3] != RECIPE_DK:
         raise AssertionError(f"layers recipe: attention shapes {shapes}, "
                              f"expected dk {RECIPE_DK}")
-    return _k4_records(cases, f"_dk{RECIPE_DK}_layers"), shapes
+    return _k4_records(cases, f"_dk{RECIPE_DK}_{tag}"), shapes
 
 
 def phase_layers():
@@ -4812,6 +4850,272 @@ def phase_mixed_precision():
             for k in ("K4a", "K4b", "K4c")]
 
 
+def run_sh_conf(family, out):
+    """``recipes/<family>/conf/default.yaml`` with RUN_SH_CUTS[family]
+    set, line by line (a key's line replaced, or added under its section):
+    returns the copy's path."""
+    lines = pathlib.Path(f"recipes/{family}/conf/default.yaml").read_text(
+    ).splitlines()
+    for key, value in RUN_SH_CUTS[family].items():
+        *section, leaf = key.split(".")
+        text = f"{leaf}: {value}"
+        if section:
+            head = lines.index(f"{section[0]}:")
+            end = next((i for i in range(head + 1, len(lines))
+                        if lines[i] and not lines[i].startswith(" ")),
+                       len(lines))
+            hits = [i for i in range(head + 1, end)
+                    if lines[i].startswith(f"  {leaf}:")]
+            if hits:
+                lines[hits[0]] = f"  {text}"
+            else:
+                lines.insert(head + 1, f"  {text}")
+        else:
+            hits = [i for i, ln in enumerate(lines)
+                    if ln.startswith(f"{leaf}:")]
+            if hits:
+                lines[hits[0]] = text
+            else:
+                lines.append(text)
+    out = pathlib.Path(out)
+    out.write_text("\n".join(lines) + "\n")
+    return out
+
+
+# the program that stands for ``python`` on the twins' PATH: the real
+# interpreter running ``-m MODULE`` as python would, which at exit writes
+# the launch counts of the kernels' wrappers in that process to
+# $CHIP_SMOKE_LAUNCHES/<pid>.json
+_RUN_SH_PYTHON = """#!{exe}
+import atexit, json, os, runpy, sys
+if sys.argv[1:2] != ["-m"]:
+    os.execv({exe!r}, [{exe!r}, *sys.argv[1:]])
+module = sys.argv[2]
+sys.argv = [module, *sys.argv[3:]]
+sys.path.insert(0, os.getcwd())
+COUNTERS = {counters!r}
+
+
+def dump():
+    counts = {{}}
+    for key, (mod, fn) in COUNTERS.items():
+        counts[key] = getattr(getattr(sys.modules.get(mod), fn, None),
+                              "launches", 0)
+    path = os.path.join(os.environ["CHIP_SMOKE_LAUNCHES"],
+                        f"{{os.getpid()}}.json")
+    with open(path, "w") as f:
+        json.dump({{"module": module, "launches": counts}}, f)
+
+
+atexit.register(dump)
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def _run_sh_stage(family, stage, env, out, log):
+    """``bash parakeet_tpu_torch/recipes/<family>/run.sh stage stage`` in
+    ``out`` with ``env``: its seconds and the launches its processes
+    counted, by kernel.  A non-zero exit raises with the end of its
+    output."""
+    import os
+    import shutil
+    counts = out / "launches"
+    shutil.rmtree(counts, ignore_errors=True)
+    counts.mkdir()
+    script = pathlib.Path(f"parakeet_tpu_torch/recipes/{family}/run.sh")
+    tic = time.perf_counter()
+    with open(log, "a") as f:
+        proc = subprocess.run(
+            ["bash", str(script.resolve()), str(stage), str(stage)],
+            cwd=out, stdout=f, stderr=subprocess.STDOUT, timeout=900,
+            env={**os.environ, **{k: str(v) for k, v in env.items()},
+                 "CHIP_SMOKE_LAUNCHES": str(counts),
+                 "PATH": f"{out / 'bin'}:{os.environ['PATH']}"})
+    seconds = time.perf_counter() - tic
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"{family} run.sh stage {stage}: exit {proc.returncode}\n"
+            + "\n".join(pathlib.Path(log).read_text().splitlines()[-40:]))
+    total = {}
+    for path in sorted(counts.glob("*.json")):
+        for k, n in json.loads(path.read_text())["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return seconds, total
+
+
+def _run_sh_against_plain(what, wav_dir, plain, hop):
+    """Each wav the twin wrote under ``wav_dir`` (16-bit PCM) against the
+    in-process plain-K1 run's ``plain`` lines within K1_REL_TOL of the
+    line's range; returns the largest error as a share of the range."""
+    from parakeet_tpu_torch.audio import load_wav
+    files = sorted(pathlib.Path(wav_dir).glob("*.wav"))
+    if [p.stem for p in files] != sorted(r["utt_id"] for r in plain):
+        raise AssertionError(f"{what}: wavs {[p.stem for p in files]}")
+    worst = 0.0
+    for r in plain:
+        got, _ = load_wav(pathlib.Path(wav_dir) / f"{r['utt_id']}.wav")
+        ref = np.asarray(r["wav"], np.float32).reshape(-1)
+        scale = max(1.0, float(np.abs(ref).max()))
+        err = (float(np.abs(got - ref).max()) if got.shape == ref.shape
+               else math.inf)
+        if not (np.isfinite(got).all() and got.size == r["frames"] * hop
+                and err <= K1_REL_TOL * scale and np.abs(got).max() > 0):
+            raise AssertionError(f"{what} {r['utt_id']}: {got.shape} "
+                                 f"against {ref.shape}, error {err}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def phase_run_sh(records):
+    """Phase 24: the main path through the entry points a user runs: the
+    PWGAN twin's ``run.sh`` (stages 0-3: preprocess, normalize, train,
+    synthesize) and then the FastSpeech2 twin's (stages 0-3: preprocess,
+    normalize, train, synthesize_e2e with the PWGAN run's checkpoint), as
+    subprocesses with DEVICE=cuda on a seeded formant corpus at the
+    YAMLs' widths (RUN_SH_CUTS).  K1 must launch in both synthesis stages
+    (30 a line), K2a, K2b, K3a and K3b (or K3c, by the YAML's vjp_mode) in
+    PWGAN's training and K4a-K4c in FastSpeech2's.  Each last stage runs
+    again in this process with K1's plain version, its wavs held to the
+    twin's.  Returns the kernel records with this phase's launches: K1 at
+    PWGAN's synthesis shape, K4 at FastSpeech2's train batch (both
+    measured here), K2a-K3c with ``records``' numbers (phase 5's, at the
+    training shape the recipe runs)."""
+    import shutil
+    from parakeet_tpu_torch.benchmarks.common import card
+    from parakeet_tpu_torch.recipes import corpus
+    from parakeet_tpu_torch.recipes.fastspeech2 import \
+        synthesize_e2e as fs2_e2e
+    from parakeet_tpu_torch.recipes.fastspeech2 import train as fs2_train
+    from parakeet_tpu_torch.recipes.pwgan import synthesize as pwg_syn
+    from parakeet_tpu_torch.training import Config
+    import gc
+    name, limit = card(torch.device("cuda"))
+    t_phase = time.perf_counter()
+    # the twins' processes share the card with this one: hand back what
+    # the earlier phases left in the caching allocator
+    held = torch.cuda.memory_reserved()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"run.sh: this process's reserved memory {held / 2 ** 30:.1f} -> "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.1f} GiB before the "
+          "twins run")
+    out = (pathlib.Path("build") / "chip_smoke_run_sh").resolve()
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "bin").mkdir(parents=True)
+    counters = {k: (f.__module__, f.__name__) for k, f in
+                {**_train_counters(), **_k4_counters()}.items()}
+    shim = out / "bin" / "python"
+    shim.write_text(_RUN_SH_PYTHON.format(exe=sys.executable,
+                                          counters=counters))
+    shim.chmod(0o755)
+    corpus.write_baker_corpus(out / "corpus", RUN_SH_UTTS, seed=SEED + 60,
+                              syllables=RUN_SH_SYLLABLES)
+    text = corpus.write_sentences(out / "sentences.txt", corpus.SENTENCES)
+    conf = {f: run_sh_conf(f, out / f"{f}.yaml") for f in RUN_SH_CUTS}
+    pwg_cfg, fs2_cfg = (Config.from_yaml(conf[f]) for f in
+                        ("pwgan", "fastspeech2"))
+    layers = pwg_cfg.get("generator_params", {}).get("layers")
+    hop = pwg_cfg.n_shift
+    vjp = pwg_cfg.get("discriminator_params", {}).get("vjp_mode", "save")
+    k3 = "K3b" if vjp == "save" else "K3c"
+    log = out / "run_sh.log"
+    env = {"ROOTDIR": out / "corpus" / "wavs", "DEVICE": "cuda",
+           "TEXT": text}
+    runs = {"pwgan": {**env, "CONF": conf["pwgan"], "DUMP": out / "pwg_dump",
+                      "EXP": out / "pwg_exp"},
+            "fastspeech2": {**env, "CONF": conf["fastspeech2"],
+                            "DURFILE": out / "corpus" / "durations.txt",
+                            "DUMP": out / "fs2_dump",
+                            "EXP": out / "fs2_exp",
+                            "PWG_CONF": conf["pwgan"]}}
+    seconds, launches, totals = {}, {}, {}
+    for k in counters:
+        totals[k] = 0
+    for family in ("pwgan", "fastspeech2"):
+        if family == "fastspeech2":
+            runs[family]["PWG_CKPT"] = max(
+                (out / "pwg_exp" / "checkpoints").glob("*.npz"),
+                key=lambda p: p.stat().st_mtime)
+        for stage in range(4):
+            sec, total = _run_sh_stage(family, stage, runs[family], out,
+                                       log)
+            seconds[(family, stage)] = sec
+            launches[(family, stage)] = {k: n for k, n in total.items()
+                                         if n}
+            for k, n in total.items():
+                totals[k] += n
+    print(f"run.sh ({name}, {limit}; {RUN_SH_UTTS} formant utterances, "
+          f"host clock, each stage a bash run of its own): " + "; ".join(
+              f"{f} stage {st} {sec:.1f} s" + (
+                  f" ({', '.join(f'{k} x {n}' for k, n in launches[(f, st)].items())})"
+                  if launches[(f, st)] else "")
+              for (f, st), sec in seconds.items())
+          + f"; {sum(seconds.values()):.1f} s in all")
+    pwg_train, fs2_train_l = launches[("pwgan", 2)], launches[
+        ("fastspeech2", 2)]
+    want = ["K2a", "K2b", "K3a", k3]
+    if any(pwg_train.get(k, 0) == 0 for k in want) or any(
+            fs2_train_l.get(k, 0) == 0 for k in ("K4a", "K4b", "K4c")):
+        raise AssertionError(f"run.sh: training launched {pwg_train} "
+                             f"(PWGAN) and {fs2_train_l} (FastSpeech2)")
+    # the last stages again in this process with K1's plain version
+    pwg_ckpt = runs["fastspeech2"]["PWG_CKPT"]
+    dev = out / "pwg_dump" / "dev" / "norm" / "metadata.jsonl"
+    n_dev = len(dev.read_text().splitlines())
+    plain_pwg = _with_plain_k1(pwg_syn.main, [
+        "--config", str(conf["pwgan"]), "--checkpoint", str(pwg_ckpt),
+        "--test-metadata", str(dev), "--output-dir", str(out / "plain_pwg"),
+        "--device", "cuda"])["lines"]
+    fs2_ckpt = max((out / "fs2_exp" / "checkpoints").glob("*.npz"),
+                   key=lambda p: p.stat().st_mtime)
+    fs2_dump = out / "fs2_dump"
+    plain_fs2 = _with_plain_k1(fs2_e2e.main, [
+        "--fastspeech2-config", str(conf["fastspeech2"]),
+        "--fastspeech2-checkpoint", str(fs2_ckpt), "--fastspeech2-stat",
+        str(fs2_dump / "speech_stats.npy"), "--pwg-config",
+        str(conf["pwgan"]), "--pwg-checkpoint", str(pwg_ckpt),
+        "--phones-dict", str(fs2_dump / "phone_id_map.txt"), "--text",
+        str(text), "--output-dir", str(out / "plain_fs2"), "--device",
+        "cuda"])["lines"]
+    k1_syn = (launches[("pwgan", 3)].get("K1", 0),
+              launches[("fastspeech2", 3)].get("K1", 0))
+    if (n_dev != 100 or len(plain_fs2) != len(corpus.SENTENCES)
+            or k1_syn != (layers * n_dev, layers * len(plain_fs2))):
+        raise AssertionError(f"run.sh: {n_dev} dev utterances, "
+                             f"{len(plain_fs2)} sentences, K1 x {k1_syn} "
+                             "in the synthesis stages")
+    worst = (_run_sh_against_plain("pwgan stage 3", out / "pwg_exp" /
+                                   "wavs", plain_pwg, hop),
+             _run_sh_against_plain("fastspeech2 stage 3", out / "fs2_exp" /
+                                   "wavs", plain_fs2, hop))
+    frames = [r["frames"] for r in plain_fs2]
+    print(f"run.sh: pwgan stage 3's {n_dev} wavs and fastspeech2 stage "
+          f"3's {len(plain_fs2)} ({min(frames)}-{max(frames)} frames) "
+          f"against K1's plain version in this process within "
+          f"{worst[0]:.3g} and {worst[1]:.3g} of their range (tol "
+          f"{K1_REL_TOL:.3g}); K1 x {k1_syn[0]} and x {k1_syn[1]} there")
+    # the records: K1 at pwgan/synthesize.py's shape (1,024 frames), K4 at
+    # FastSpeech2's train batch, K2a-K3c as phase 5 measured them
+    gen = torch.Generator().manual_seed(SEED + 61)
+    k1_rec = k1_check(gen, 1, 1024 * hop, name="pwg_residual_stack_run_sh")
+    k1_rec["launches"] = totals["K1"]
+    model = fs2_train.build_model(fs2_cfg, len((fs2_dump / "phone_id_map.txt")
+                                               .read_text().splitlines()),
+                                  ODIM)
+    loader = fs2_train.build_dataloader(
+        fs2_dump / "norm" / "train" / "metadata.jsonl", fs2_cfg, False,
+        False)
+    batch = {k: torch.as_tensor(v) for k, v in next(iter(loader)).items()}
+    k4_records, _ = _layers_k4(model, [batch], tag="run_sh")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"run.sh: phase {time.perf_counter() - t_phase:.1f} s")
+    return [k1_rec, *[dict(records[k], name=f"{records[k]['name']}_run_sh",
+                           launches=totals[k])
+                      for k in ("K2a", "K2b", "K3a", k3)],
+            *[dict(k4_records[f"{k}_dk{RECIPE_DK}_run_sh"],
+                   launches=totals[k]) for k in ("K4a", "K4b", "K4c")]]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -4869,10 +5173,12 @@ def main():
                                        "K3b": k3b})
     k_layers = timed(phase_layers)
     k_mixed = timed(phase_mixed_precision)
+    k_run_sh = timed(phase_run_sh, {"K2a": k2a, "K2b": k2b, "K3a": k3a,
+                                    "K3b": k3b, "K3c": k3c})
     print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
                                   *k4.values(), k1_ss, k1_t2, *k1_tt,
                                   k1_text, *k1_corpus, *k_conv,
-                                  *k_layers, *k_mixed]}))
+                                  *k_layers, *k_mixed, *k_run_sh]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,6 +11,11 @@ missing, ``audio/features.py::Pitch``), writes ``.npy`` features,
 phone/speaker id maps.  ``--num-cpu N`` processes utterances in N worker
 processes.  Host code; nothing runs on the card.
 
+A YAML without ``f0min``/``f0max`` (Tacotron2's and TransformerTTS's,
+whose ``run.sh`` runs this stage) takes FastSpeech2's 80 and 400 Hz,
+where the JAX CLI raises on the missing keys: those models read no
+pitch.
+
 Usage:
   python -m parakeet_tpu_torch.recipes.fastspeech2.preprocess \\
       --rootdir wavs/ --duration-file durations.txt --dumpdir dump \\
@@ -30,7 +35,9 @@ from ...data.preprocess import (build_phone_id_map, build_spk_id_map,
 from ...training import Config
 from ..common import add_split_args, run_jobs, write_splits
 
-__all__ = ["main", "process_utterance"]
+__all__ = ["main", "process_utterance", "F0_RANGE"]
+
+F0_RANGE = (80, 400)        # recipes/fastspeech2/conf/*.yaml's f0min, f0max
 
 
 def process_utterance(utt, wav_path, phones, durations, speaker, cfg,
@@ -40,7 +47,8 @@ def process_utterance(utt, wav_path, phones, durations, speaker, cfg,
     wav, _ = load_wav(wav_path, sr=cfg.fs)
     mel_extractor, pitch_extractor, energy_extractor = cached_extractors(
         cfg.fs, cfg.n_fft, cfg.n_shift, cfg.win_length, cfg.fmin,
-        cfg.fmax, cfg.n_mels, cfg.f0min, cfg.f0max)
+        cfg.fmax, cfg.n_mels, cfg.get("f0min", F0_RANGE[0]),
+        cfg.get("f0max", F0_RANGE[1]))
     mel = mel_extractor.get_log_mel_fbank(wav)          # (T, n_mels)
     sent = {utt: [phones, list(durations), speaker]}
     if not reconcile_durations(sent, utt, mel.shape[0]):

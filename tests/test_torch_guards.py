@@ -167,7 +167,18 @@ def _load_chip_smoke():
     return mod
 
 
-def test_chip_smoke_configs_are_the_recipes():
+def _flat(tree, prefix=""):
+    """{"a.b": leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def test_chip_smoke_configs_are_the_recipes(tmp_path, monkeypatch):
     smoke = _load_chip_smoke()
     fs2 = yaml.safe_load(
         (REPO / "recipes/fastspeech2/conf/default.yaml").read_text())
@@ -206,6 +217,31 @@ def test_chip_smoke_configs_are_the_recipes():
     opts = dict(zip(smoke.WF_RECIPE_OPTS[::2], smoke.WF_RECIPE_OPTS[1::2]))
     assert smoke.WF_RECIPE_ITERS == 2 == int(opts["save_interval"])
     assert smoke.WF_RECIPE_RESUME_ITERS % int(opts["valid_interval"]) == 0
+    # phase 24: the run.sh twins' CONF, each the recipe's YAML with the
+    # listed keys alone changed: the step counts, PWGAN's discriminator
+    # start and its eval and snapshot intervals (keys its YAML leaves to
+    # the CLI), FastSpeech2's flash core with the attention dropout its
+    # YAML's comment prescribes for it
+    assert {f: set(c) for f, c in smoke.RUN_SH_CUTS.items()} == {
+        "pwgan": {"train_max_steps",
+                  "updater.discriminator_train_start_steps",
+                  "eval_interval_steps", "save_interval_steps"},
+        "fastspeech2": {"max_epoch", "model.attn_impl",
+                        "model.transformer_enc_attn_dropout_rate",
+                        "model.transformer_dec_attn_dropout_rate"}}
+    monkeypatch.chdir(REPO)
+    for family, cuts in smoke.RUN_SH_CUTS.items():
+        want = _flat(yaml.safe_load((REPO / "recipes" / family / "conf" /
+                                     "default.yaml").read_text()))
+        got = _flat(yaml.safe_load(smoke.run_sh_conf(
+            family, tmp_path / f"{family}.yaml").read_text()))
+        assert got == {**want, **cuts}
+        assert all(want.get(k) != v for k, v in cuts.items())
+    pwg_cuts = smoke.RUN_SH_CUTS["pwgan"]
+    assert 0 < pwg_cuts["updater.discriminator_train_start_steps"] < \
+        pwg_cuts["train_max_steps"] == pwg_cuts["save_interval_steps"]
+    # the default splits (100 dev, 100 test) and one FastSpeech2 batch
+    assert smoke.RUN_SH_UTTS == 200 + fs2["batch_size"]
 
 
 def test_chip_smoke_training_slice_is_the_pwgan_recipe():
