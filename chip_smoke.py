@@ -76,13 +76,15 @@ Phases, one line each (the checks raise; nothing is caught):
    FastSpeech2 training step (B=16, H=4, dk=96: the encoder's T=64, key
    lengths 48-64, and the decoder's T=1024, key lengths 700-1024) and at
    both of the FastSpeech2 recipe's (B=16, H=2, dk=192: the encoder's
-   T=128, key lengths 96-128, and the decoder's T=1024, 700-1024): max
-   abs errors against stated tolerances (K4a against its plain version
-   both as one softmax and blocked at the kernel's own key tile,
-   ``K4A_BLOCK_K``), outputs and gradients bit-identical from run to run,
-   median times of each kernel, of its plain version, of forward +
-   backward, and of PyTorch's scaled_dot_product_attention forward,
-   backward and both, in float32 and bf16;
+   T=128, key lengths 96-128, and the decoder's T=1024, 700-1024), and
+   at the decoder's at adim 512 over 2 heads (B=16, H=2, dk=256, T=1024,
+   700-1024: the DP = 256 instances): max abs errors against stated
+   tolerances (K4a against its plain version both as one softmax and
+   blocked at the kernel's own key tile, ``k4a_block_k``), outputs and
+   gradients bit-identical from run to run, median times of each
+   kernel, of its plain version, of forward + backward, and of PyTorch's
+   scaled_dot_product_attention forward, backward and both, in float32
+   and bf16;
 8. the FastSpeech2 training slice: two port ``Trainer``s run four steps
    each of the FastSpeech2 model of benchmarks/flash_sweep.py (adim 384,
    4 heads, 4 + 4 layers, float32, Adam 1e-4) at its 1024-frame point
@@ -124,7 +126,18 @@ Phases, one line each (the checks raise; nothing is caught):
    finite; step 0 of a 'dense' run from the same weights must agree with
    flash's within the FastSpeech2 phase's tolerances; aishell3.yaml with
    ``--speaker-dict`` (the concat integration) trains an epoch of 2
-   steps;
+   steps; default.yaml with ``--opts model.adim 512 model.aheads 2``
+   (dk 256, flash, the attention dropout at 0) trains an epoch of 2 steps
+   over the Chinese frontend's phone map, and the synthesis CLI
+   (``recipes.fastspeech2.synthesize_e2e``) on its snapshot, through a
+   YAML of the same ``--opts``, speaks two lines vocoded by a PWG of
+   seeded weights: every wav finite with the frames' samples, K1 x 30 a
+   line, K4a (and no K4b or K4c) in the CLI, the AM graph bitwise its
+   eager program, each mel within a stated tolerance of the same
+   weights' program with 'dense'; then K4a-K4c at that run's own shapes
+   (its train batch with the most frames: the encoder's and the
+   decoder's self-attention) in float32 and bf16 against their plain
+   versions, timed;
 12. the FastSpeech2 training bench (``parakeet_tpu_torch.benchmarks.
    train_fastspeech2``) at its defaults, 'dense' and 'flash' in turns: its
    ``fastspeech2_train_avg_ips`` for both;
@@ -152,10 +165,10 @@ Phases, one line each (the checks raise; nothing is caught):
 15. TransformerTTS: its recipe's CLI with recipes/transformer_tts/conf/
    default.yaml (full widths, batch 16: 1 epoch of 2 steps, resumed to 2,
    against 2 straight); its ``transformer_tts_r1`` and ``_r2`` legs of
-   ``e2e_family_rtf`` at 250 frames (250 and 125 decoder steps -> PWG
+   ``e2e_family_rtf`` at 128 frames (128 and 64 decoder steps -> PWG
    x256) as one CUDA graph each, bitwise eager, K1 x 30 in a replay, and
-   K1 at T=64,000; then ``benchmarks/ar_decode.py`` (Tacotron2, TransformerTTS
-   r=1 and r=2; 200 steps, each graph bitwise eager);
+   K1 at T=32,768; then ``benchmarks/ar_decode.py`` (Tacotron2,
+   TransformerTTS r=1 and r=2; 200 steps, each graph bitwise eager);
 16. WaveFlow: its recipe's CLI with recipes/waveflow/conf/default.yaml
    (iteration-based: 2 iterations resumed to 4 against 4 straight);
    ``benchmarks/waveflow_rtf.py`` (344 frames) in float32 and bf16, each
@@ -304,7 +317,8 @@ The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
 K4a-K4c: FastSpeech2 training at dk 96, and as ``*_dk192`` the
 FastSpeech2 recipe's three flash runs, train steps and eval batches at
-dk 192; K4b is one launch a call at both widths; K1 again as
+dk 192, and as ``*_dk256`` its run at adim 512 over 2 heads and that
+run's synthesis; K4b is one launch a call at every width; K1 again as
 ``pwg_residual_stack_speedyspeech``, ``_tacotron2``,
 ``_transformer_tts_r1`` and ``_transformer_tts_r2``: the family
 programs' runs, eager calls and capture, with its error and times at
@@ -484,11 +498,13 @@ FS2_STEPS = 4
 # decoder's over frames, at flash_sweep.py's dk 96 and at the recipes' dk
 # 192 (adim 384 over 2 heads): B=16, the encoder at 128 tokens (96-128
 # valid) and the decoder at 1024 frames (700-1024 valid), the recipe
-# phase's buckets
+# phase's buckets; and the decoder's at dk 256 (adim 512 over 2 heads, the
+# DP = 256 instances)
 FS2_HEADS = FS2_TRAIN_CONFIG["aheads"]
 FS2_DK = FS2_TRAIN_CONFIG["adim"] // FS2_HEADS
 RECIPE_HEADS = FS2_CONFIG["aheads"]
 RECIPE_DK = FS2_CONFIG["adim"] // RECIPE_HEADS
+FS2_D256_DK = 256                   # adim 512 over 2 heads
 K4_SHAPES = ((2, 200, 2, 32, (200, 131), True, None),
              (FS2_B, FS2_TOKENS, FS2_HEADS, FS2_DK, FS2_MIN_TOKENS, False,
               None),
@@ -496,7 +512,8 @@ K4_SHAPES = ((2, 200, 2, 32, (200, 131), True, None),
               ""),
              (16, 128, RECIPE_HEADS, RECIPE_DK, 96, False, None),
              (16, 1024, RECIPE_HEADS, RECIPE_DK, 700, False,
-              f"_dk{RECIPE_DK}"))
+              f"_dk{RECIPE_DK}"),
+             (16, 1024, 2, FS2_D256_DK, 700, False, f"_dk{FS2_D256_DK}"))
 # K4 against its plain versions, relative to each output's range.  float32:
 # the kernels' 3xTF32 products keep ~22 bits and every sum runs in
 # another order than cuBLAS's; the gradients sum T = 1024 terms whose
@@ -576,9 +593,19 @@ FS2_RECIPE_ATTN_OPTS = ["model.transformer_enc_attn_dropout_rate", "0.0",
                         "model.transformer_dec_attn_dropout_rate", "0.0"]
 FS2_RECIPE_EPOCHS, FS2_RECIPE_RESUME_EPOCHS = 2, 3
 FS2_RECIPE_STEPS_PER_EPOCH = 2
+# the same recipe at adim 512 over 2 heads (dk 256: K4's DP = 256
+# instances), default.yaml with these --opts beside FS2_RECIPE_ATTN_OPTS:
+# one epoch on the same dump (2 steps, an eval batch, a snapshot) over the
+# Chinese frontend's phone map; then the synthesis CLI on that snapshot
+# (a YAML of the same --opts) with a PWG of seeded weights, the first
+# FS2_D256_LINES lines of TTW_CASES, and its acoustic model with 'dense'
+# on the same weights and lines
+FS2_D256_OPTS = ["model.adim", "512", "model.aheads", "2"]
+FS2_D256_LINES = 2
 # the FastSpeech2 training bench at its defaults (B 32, 96 tokens, 640
-# frames, 4 heads), dense against flash in turns
-FS2_BENCH_ITERS = 20
+# frames, 4 heads), dense against flash in turns (10 iterations, cut from
+# 20 to keep the script within its time limit)
+FS2_BENCH_ITERS = 10
 # phases 13 and 14: the SpeedySpeech and Tacotron2 recipes through their
 # CLIs at their YAMLs' full widths and batch 32 on seeded synthetic dumps
 # (64 train utterances: two steps an epoch; 20 and 16 dev: one eval batch
@@ -601,7 +628,7 @@ FAMILY_STEPS_PER_EPOCH = 2
 # frames x the hop)
 FAMILY_ITERS = 1
 FAMILY_K1_T = {"speedyspeech": 300000, "tacotron2": 256000,
-               "transformer_tts_r1": 64000, "transformer_tts_r2": 64000}
+               "transformer_tts_r1": 32768, "transformer_tts_r2": 32768}
 # the per-family training bench at the JAX bench's shapes (B 32, 96
 # tokens, 640 frames): PyTorch's defaults, then the recipes'
 # deterministic setting (Tacotron2's step takes seconds: 1 iteration
@@ -611,16 +638,17 @@ AM_BENCH_WARMUP = 1
 # phase 15: the TransformerTTS recipe at its YAML's widths and batch 16 on
 # a seeded dump (32 train utterances: two steps an epoch; 8 dev: one eval
 # batch) of 200-400 frames (a parallel teacher-forced decoder: as many
-# steps as frames) and 40-90 tokens; its two programs at 250 frames (250
-# and 125 decoder steps; an eager r=1 call at 1,000 took 10-16 s in bf16,
-# and at 500 the two captures took 30 s) timed over 1 call without a
-# warm one
+# steps as frames) and 40-90 tokens; its two programs at 128 frames (128
+# and 64 decoder steps; an eager r=1 call at 1,000 took 10-16 s in bf16,
+# at 500 the two captures took 30 s, and at 250 the phase 80-90 s, so
+# cut to keep the script within its time limit) timed over 1 call
+# without a warm one
 TT_RECIPE_CONF = "recipes/transformer_tts/conf/default.yaml"
 TT_RECIPE_SPLITS = {"train": 32, "dev": 8}
 TT_RECIPE_FRAMES, TT_RECIPE_PHONES = (200, 400), (40, 90)
 TT_RECIPE_EPOCHS, TT_RECIPE_RESUME_EPOCHS = 1, 2
 TT_FAMILY_ITERS = 1
-TT_FAMILY_FRAMES = 250
+TT_FAMILY_FRAMES = 128
 # ar_decode's loops at 200 steps, timed over 1 call without a warm one
 # (at its default 500 the three captures alone took 33 s)
 AR_DECODE_ITERS = 1
@@ -2018,7 +2046,7 @@ def phase_k4a_graphs():
             o2, lse2 = k4.flash_attention_forward(*args, sm_scale=scale)
             ref_o, ref_lse = k4.flash_attention_reference(*args,
                                                           sm_scale=scale)
-            block_k = k4.K4A_BLOCK_K[dtype]
+            block_k = k4.k4a_block_k(dtype, FS2_DK)
             blk_o, blk_lse = k4.flash_attention_reference(
                 *args, sm_scale=scale, block_k=block_k)
             torch.cuda.synchronize()
@@ -2069,7 +2097,7 @@ def _k4_case(gen, q_valid, kv_valid, h, dk, dtype):
     o, lse = k4.flash_attention_forward(*args, sm_scale=scale)
     o2, lse2 = k4.flash_attention_forward(*args, sm_scale=scale)
     ref_o, ref_lse = k4.flash_attention_reference(*args, sm_scale=scale)
-    block_k = k4.K4A_BLOCK_K[dtype]
+    block_k = k4.k4a_block_k(dtype, dk)
     blk_o, blk_lse = k4.flash_attention_reference(
         *args, sm_scale=scale, block_k=block_k)
     di = (o.float() * do.float()).sum(-1)
@@ -2163,7 +2191,7 @@ def _k4_case(gen, q_valid, kv_valid, h, dk, dtype):
             "K4c": (held_c, *times[2:], work["K4c"], lib_b)}
 
 
-def _k4_records(cases, suffix, dtype=torch.float32):
+def _k4_records(cases, suffix, dtype=torch.float32, source="flash_attn.cu"):
     """The kernels line's K4 records from ``_k4_case`` results: each
     kernel's worst error, its times summed over ``cases`` and its bound
     from their bytes and operations together."""
@@ -2173,7 +2201,7 @@ def _k4_records(cases, suffix, dtype=torch.float32):
         n_bytes = sum(r[3][0] for r in runs)
         flops = sum(r[3][1] for r in runs)
         out[key + suffix] = _record(
-            name + suffix, "flash_attn.cu", "parakeet_tpu/nn/flash.py:88",
+            name + suffix, source, "parakeet_tpu/nn/flash.py:88",
             [h for r in runs for h in r[0]], sum(r[1] for r in runs),
             sum(r[2] for r in runs),
             bound(n_bytes, flops, dtype, K4_PEAK_FLOPS[dtype]),
@@ -2186,6 +2214,7 @@ def phase_k4():
     at ``K4_SHAPES`` (``_k4_case``); returns their records, keyed 'K4a'
     ... plus the shape's suffix (the times of the shapes that give
     records, float32)."""
+    from parakeet_tpu_torch.ops.kernels.flash_attn import k4_padded_dim
     gen = torch.Generator().manual_seed(SEED + 7)
     records = {}
     for b, t, h, dk, lengths, mask_rows, suffix in K4_SHAPES:
@@ -2198,7 +2227,9 @@ def phase_k4():
         for dtype in (torch.float32, torch.bfloat16):
             case = _k4_case(gen, q_valid, kv_valid, h, dk, dtype)
             if dtype == torch.float32 and suffix is not None:
-                records.update(_k4_records([case], suffix))
+                records.update(_k4_records(
+                    [case], suffix, source="flash_attn_d256.cu"
+                    if k4_padded_dim(dk) == 256 else "flash_attn.cu"))
     return records
 
 
@@ -2486,13 +2517,17 @@ def phase_fs2_recipe(records):
     FS2_RECIPE_RESUME_EPOCHS that resumes from the newest snapshot, a
     straight run to compare it with, one epoch with 'dense' from the same
     weights (its step 0 against flash's), and aishell3.yaml with
-    ``--speaker-dict`` (the concat integration) for one epoch.  Sets the
-    dk 192 K4 records' launches from the three flash runs of
-    default.yaml."""
+    ``--speaker-dict`` (the concat integration) for one epoch; then
+    default.yaml at adim 512 over 2 heads (``FS2_D256_OPTS``, dk 256) for
+    one epoch and the synthesis CLI on its snapshot (``fs2_d256_synthesis``).
+    Sets the dk 192 K4 records' launches from the three flash runs of
+    default.yaml, and the dk 256 records' from the adim 512 run and its
+    synthesis."""
     import shutil
     from parakeet_tpu_torch.recipes.fastspeech2 import train
     from parakeet_tpu_torch.recipes.fastspeech2.dump import \
         write_synthetic_dump
+    from parakeet_tpu_torch.recipes.synthesis import write_id_maps
     out = pathlib.Path("build") / "chip_smoke_fs2_recipe"
     shutil.rmtree(out, ignore_errors=True)
     md = write_synthetic_dump(out / "dump", seed=SEED + 13,
@@ -2525,6 +2560,8 @@ def phase_fs2_recipe(records):
                                       for k, f in counters.items()}}
                 if kind == "train":
                     entry["loss"] = float(result[1]["loss"])
+                    entry["lengths"] = {k: batch[k].cpu() for k in (
+                        "text", "text_lengths", "speech", "speech_lengths")}
                     entry["q_grad"] = torch.cat([
                         getattr(model.decoder, f"layer_{j}").self_attn.q
                         .weight.grad.flatten()
@@ -2535,18 +2572,18 @@ def phase_fs2_recipe(records):
         return factory
 
     def run(name, directory, epochs, want, conf=FS2_RECIPE_CONF,
-            impl="flash", speakers=False):
+            impl="flash", speakers=False, opts=(), phones=md["phones"]):
         """Train to ``epochs`` in ``directory``; check the steps it took,
         each step's and eval batch's K4 launches and finite metrics."""
         log.clear()
         argv = ["--config", conf, "--train-metadata", str(md["train"]),
                 "--dev-metadata", str(md["dev"]), "--output-dir",
-                str(out / directory), "--phones-dict", str(md["phones"])]
+                str(out / directory), "--phones-dict", str(phones)]
         if speakers:
             argv += ["--speaker-dict", str(md["speakers"])]
         trainer = train.main(argv + [
             "--opts", "model.attn_impl", impl, *FS2_RECIPE_ATTN_OPTS,
-            "max_epoch", str(epochs)])
+            *opts, "max_epoch", str(epochs)])
         steps = [e["step"] for e in log if e["kind"] == "train"]
         if steps != list(want):
             raise AssertionError(f"fs2 recipe {name} run took steps {steps},"
@@ -2592,9 +2629,32 @@ def phase_fs2_recipe(records):
         _, dense_log, _ = run("dense", "dense", 1, range(spe), impl="dense")
         _, _, spk_model = run("aishell3", "aishell3", 1, range(spe),
                               conf=FS2_RECIPE_SPK_CONF, speakers=True)
+        # adim 512 over 2 heads: K4 at DP = 256, from counts set to 0 here
+        # to after its synthesis
+        t_d256 = time.perf_counter()
+        zh = write_id_maps(out / "zh", "zh")
+        for f in counters.values():
+            f.launches = 0
+        _, d256_log, d256_model = run("adim 512", "d256", 1, range(spe),
+                                      opts=FS2_D256_OPTS,
+                                      phones=zh["phones"])
     finally:
         train.make_fs2_train_step = make_train
         train.make_fs2_eval_step = make_eval
+    train_256 = {k: f.launches for k, f in counters.items()}
+    synth_256 = fs2_d256_synthesis(
+        out, zh, out / "d256" / "checkpoints" / f"snapshot_iter_{spe}.npz")
+    # the CLI's launches, not those of the checks after it
+    totals_256 = {k: train_256[k] + synth_256[k] for k in counters}
+    # K4 at that run's own shapes, in both types (these launches count
+    # for nothing)
+    for dtype in (torch.float32, torch.bfloat16):
+        _layers_k4(d256_model, [e["lengths"] for e in d256_log
+                                if e["kind"] == "train"],
+                   "fs2_d256", FS2_D256_DK, dtype)
+    print(f"fs2 recipe at adim 512 over 2 heads (dk {FS2_D256_DK}): K4 "
+          f"launches {totals_256} (training {train_256}, synthesis "
+          f"{synth_256}); {time.perf_counter() - t_d256:.1f} s")
     # the resumed run against the straight one: the same batches, dropout
     # masks and weights at step 4, and every kernel's sums in a fixed
     # order, so the last step's and the evaluation's metrics agree bitwise
@@ -2623,10 +2683,103 @@ def phase_fs2_recipe(records):
           f"{FS2_LOSS_REL_TOL * abs(dense0['loss']):.3g}), decoder q-weight "
           f"gradient relative L2 {rel_l2:.4g} (tol {FS2_GRAD_REL_L2:.4g}); "
           f"K4 launches over the three flash runs {totals}")
-    suffix = f"_dk{RECIPE_DK}"
     for name in counters:
-        records[name + suffix]["launches"] = totals[name]
+        records[f"{name}_dk{RECIPE_DK}"]["launches"] = totals[name]
+        records[f"{name}_dk{FS2_D256_DK}"]["launches"] = totals_256[name]
     shutil.rmtree(out, ignore_errors=True)
+
+
+def fs2_d256_synthesis(out, zh, snapshot):
+    """The FastSpeech2 synthesis CLI (``synthesize_e2e.py``) on the adim 512
+    run's ``snapshot``: its YAML is default.yaml with that run's ``--opts``
+    ('flash', dk 256), a PWG of seeded weights vocodes (K1), the first
+    FS2_D256_LINES lines of TTW_CASES through the Chinese frontend's map
+    ``zh``.  Checks each line's wav (finite, the frames' samples), K1's
+    launches, the AM graph bitwise its eager program, and each line's mel
+    against the same weights' acoustic program with 'dense' (eager) within
+    FS2_INFER_REL_TOL of its range on the predicted frames.  Returns K4's
+    launches in the CLI (K4a only: no gradient), read before those
+    checks."""
+    from parakeet_tpu_torch.bridge import flax_arrays
+    from parakeet_tpu_torch.models import PWGGenerator
+    from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
+    from parakeet_tpu_torch.recipes.fastspeech2 import \
+        synthesize_e2e as fs2_e2e
+    from parakeet_tpu_torch.training import Config, save_pytree
+    counters = _k4_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    opts = ["model.attn_impl", "flash", *FS2_RECIPE_ATTN_OPTS,
+            *FS2_D256_OPTS]
+    confs = {impl: out / f"fs2_d256_{impl}.yaml" for impl in ("flash",
+                                                               "dense")}
+    for impl, path in confs.items():
+        Config.from_yaml(FS2_RECIPE_CONF).merge_opts(
+            opts[:1] + [impl] + opts[2:]).dump(path)
+    pwg = PWGGenerator(**PWG_CONFIG)
+    seeded_init_(pwg, torch.Generator().manual_seed(SEED + 25))
+    save_pytree(out / "pwg.npz", flax_arrays(pwg))
+    cases = [ln.split("|")[0] for ln in pathlib.Path(
+        TTW_CASES).read_text(encoding="utf-8").splitlines()
+             if ln and not ln.startswith("#")][:FS2_D256_LINES]
+    (out / "d256.txt").write_text("".join(
+        f"zh_{i:04d} {c}\n" for i, c in enumerate(cases)), encoding="utf-8")
+    k1.fused_residual_stack.launches = 0
+    got = fs2_e2e.main([
+        "--fastspeech2-config", str(confs["flash"]),
+        "--fastspeech2-checkpoint", str(snapshot), "--pwg-config",
+        RECIPE_CONF, "--pwg-checkpoint", str(out / "pwg.npz"),
+        "--phones-dict", str(zh["phones"]), "--text", str(out / "d256.txt"),
+        "--min-duration", str(TTW_MIN_DURATION), "--output-dir",
+        str(out / "d256_wavs")])
+    k1_n = k1.fused_residual_stack.launches
+    launches = {k: f.launches - before[k] for k, f in counters.items()}
+    lines, hop = got["lines"], math.prod(PWG_CONFIG["upsample_scales"])
+    if not (len(lines) == FS2_D256_LINES
+            and k1_n == PWG_CONFIG["layers"] * FS2_D256_LINES
+            and launches["K4a"] > 0 and launches["K4b"] == 0
+            and launches["K4c"] == 0):
+        raise AssertionError(f"fs2 synthesis at dk {FS2_D256_DK}: "
+                             f"{len(lines)} lines, K1 x {k1_n}, K4 "
+                             f"{launches}")
+    am, _ = fs2_e2e.build_acoustic_model(confs["dense"], snapshot,
+                                         zh["phones"], None,
+                                         torch.device("cuda"))
+    dense = fs2_e2e.acoustic_program(am, 128, 1024, TTW_MIN_DURATION,
+                                     torch.device("cuda"), graph=False)
+    program = got["program"]
+    errs = []
+    for r in lines:
+        if not (0 < r["frames"] <= 1024 and r["samples"] == r["frames"] * hop
+                and np.isfinite(r["wav"]).all()):
+            raise AssertionError(f"fs2 synthesis at dk {FS2_D256_DK} "
+                                 f"{r['utt_id']}: {r['frames']} frames, "
+                                 f"{r['samples']} samples")
+        program.load(r["ids"])
+        eager, graph = program.eager(), program.program()
+        if not all(torch.equal(a, b) for a, b in zip(graph, eager)):
+            raise AssertionError(f"fs2 synthesis at dk {FS2_D256_DK}: the "
+                                 "AM graph is not its eager program")
+        mel, n = dense(r["ids"])
+        if int(n[0]) != r["frames"]:
+            raise AssertionError(f"fs2 synthesis at dk {FS2_D256_DK} "
+                                 f"{r['utt_id']}: 'dense' predicts "
+                                 f"{int(n[0])} frames, 'flash' "
+                                 f"{r['frames']}")
+        f = r["frames"]
+        err, tol = _hold(f"fs2 synthesis at dk {FS2_D256_DK} {r['utt_id']}"
+                         " mel, flash against dense", eager[0][0, :f],
+                         mel[0, :f], FS2_INFER_REL_TOL)
+        errs.append(err / tol * FS2_INFER_REL_TOL)
+    print(f"fs2 synthesis at dk {FS2_D256_DK} (synthesize_e2e.py on the "
+          f"adim 512 snapshot, PWG of seeded weights): " + "; ".join(
+              f"{r['utt_id']} {len(r['ids'])} phones, {r['frames']} frames: "
+              f"AM {1e3 * r['am_s']:.2f} ms, vocoder "
+              f"{1e3 * r['vocoder_s']:.2f} ms" for r in lines)
+          + f"; capture {got['capture_s']:.2f} s; K1 x {k1_n}; K4 "
+          f"{launches}; the graph bitwise its eager program; mel against "
+          f"'dense' within {max(errs):.3g} of its range (tol "
+          f"{FS2_INFER_REL_TOL:.3g})")
+    return launches
 
 
 def phase_fs2_bench():
@@ -4462,12 +4615,14 @@ def _card_and_cpu(make, seed):
     return card_mod.cuda(), cpu
 
 
-def _layers_k4(model, lengths, tag="layers"):
+def _layers_k4(model, lengths, tag="layers", dk=RECIPE_DK,
+               dtype=torch.float32):
     """Phase 22 (b): K4a, K4b and K4c on the recipe run's own shapes, its
     train batch with the most frames: the encoder's self-attention over
-    its phones and the decoder's over its frames (``_k4_case``, float32,
-    fresh inputs); returns their records (named ``*_dk192_<tag>``), the
-    two shapes' times summed and the launches still 0."""
+    its phones and the decoder's over its frames (``_k4_case``, in
+    ``dtype``, fresh inputs); returns their records (named
+    ``*_dk<dk>_<tag>``), the two shapes' times summed and the launches
+    still 0."""
     batch = max(lengths, key=lambda x: x["speech"].shape[1])
     r = model.reduction_factor
     frames = (batch["speech_lengths"] - batch["speech_lengths"] % r) // r
@@ -4477,15 +4632,16 @@ def _layers_k4(model, lengths, tag="layers"):
     cases, shapes = [], []
     for stack, t, n in runs:
         attn = stack.layer_0.self_attn
-        heads, dk = attn.n_heads, attn.d_model // attn.n_heads
+        heads = attn.n_heads
         kv_valid = (torch.arange(t)[None] < n[:, None]).to(torch.int32)
         cases.append(_k4_case(gen, torch.ones_like(kv_valid).cuda(),
-                              kv_valid.cuda(), heads, dk, torch.float32))
-        shapes.append((len(n), t, heads, dk))
-    if shapes[0][3] != RECIPE_DK or shapes[1][3] != RECIPE_DK:
-        raise AssertionError(f"layers recipe: attention shapes {shapes}, "
-                             f"expected dk {RECIPE_DK}")
-    return _k4_records(cases, f"_dk{RECIPE_DK}_{tag}"), shapes
+                              kv_valid.cuda(), heads,
+                              attn.d_model // heads, dtype))
+        shapes.append((len(n), t, heads, attn.d_model // heads))
+    if shapes[0][3] != dk or shapes[1][3] != dk:
+        raise AssertionError(f"{tag} recipe: attention shapes {shapes}, "
+                             f"expected dk {dk}")
+    return _k4_records(cases, f"_dk{dk}_{tag}", dtype), shapes
 
 
 def phase_layers():

@@ -17,10 +17,11 @@ the same way: two warm-up calls, then ``--steps`` calls each in turns.
 Run from the root of the repository on a machine with a CUDA device:
 
     python3 fs2_sweep.py [--frames 512 1024 2048 4096 8192] [--steps 6] \
-        [--aheads 4] [--engine]
+        [--adim 384] [--aheads 4] [--engine]
 
 ``--aheads 2`` runs the model at the FastSpeech2 recipes' head width
-(adim 384 over 2 heads, dk 192) instead of flash_sweep.py's 4 (dk 96).
+(adim 384 over 2 heads, dk 192) instead of flash_sweep.py's 4 (dk 96);
+``--adim 512 --aheads 2`` at dk 256 (the other widths as they are).
 
 It prints the card and the kernel build (chip_smoke.py's first phase),
 then one JSON line per point: median ms per step and frame tokens per
@@ -92,7 +93,8 @@ def sweep_point(n_frames, tokens, steps, config):
             if i >= WARMUP:
                 ms[impl].append(t)
     row = {"frames": n_frames, "batch_size": b, "text_tokens": n_tokens,
-           "aheads": config["aheads"], "steps": steps}
+           "adim": config["adim"], "aheads": config["aheads"],
+           "steps": steps}
     for impl in impls:
         med = statistics.median(ms[impl])
         row[f"{impl}_ms"] = med
@@ -168,8 +170,11 @@ def main():
                         help="frame tokens a step (batch = tokens / frames)")
     parser.add_argument("--steps", type=int, default=6,
                         help="timed steps per core and point")
+    parser.add_argument("--adim", type=int, default=384,
+                        help="attention width (512 with --aheads 2: dk "
+                             "256)")
     parser.add_argument("--aheads", type=int, default=4,
-                        help="attention heads of adim 384 (2: the "
+                        help="attention heads of adim (2 at adim 384: the "
                              "recipes' dk 192)")
     parser.add_argument("--engine", action="store_true", default=False,
                         help="also time the serving engine's 128-token "
@@ -181,7 +186,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke.phase_card()
-    config = dict(smoke.FS2_TRAIN_CONFIG, aheads=args.aheads)
+    config = dict(smoke.FS2_TRAIN_CONFIG, adim=args.adim,
+                  aheads=args.aheads)
     for n_frames in args.frames:
         print(json.dumps(sweep_point(n_frames, args.tokens, args.steps,
                                      config)), flush=True)

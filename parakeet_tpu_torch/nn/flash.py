@@ -60,7 +60,12 @@ def auto_flash_head_dim(dk: int) -> bool:
     1024, 1.028 at 2048, 1.069 at 4096 and 1.085 at 8192, so flash wins
     the train step at no length, though it wins no-grad inference
     (0.910-0.987) and the serving engine's 128-token chunk in bf16 as a
-    graph (0.990 at batch 1, 0.962 at batch 4) (PERF.md, section 6)."""
+    graph (0.990 at batch 1, 0.962 at batch 4) (PERF.md, section 6).
+    At 256 (adim 512 over 2 heads) likewise, on the same card and power
+    limit (``NVIDIA H100 80GB HBM3, 700.00 W``) with ``fs2_sweep.py
+    --adim 512 --aheads 2 --frames 512 1024 2048 4096``: the train step's
+    ratio is 1.048 at 512 frames, 1.064 at 1024, 1.094 at 2048 and 1.180
+    at 4096; no-grad inference 0.988, 0.960, 0.939 and 0.834."""
     return flash_head_dim_supported(dk) and dk <= 128
 
 
@@ -96,7 +101,7 @@ def make_flash_attn_core(*, seq_block=None):
         if not flash_head_dim_supported(dk):
             raise NotImplementedError(
                 f"flash attention (kernel K4) takes head widths that are "
-                f"multiples of 16 in [16, 128], and 192; got dk={dk} "
+                f"multiples of 16 in [16, 256]; got dk={dk} "
                 "(d_model / n_heads); use the dense core")
         q_valid, kv_valid = _validity(mask, b, tq, tk, q.device)
 

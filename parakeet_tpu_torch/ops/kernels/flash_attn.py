@@ -7,8 +7,10 @@ Counterpart of the Pallas TPU flash-attention kernel that
 (B, H, T, D), contiguous, all float32 or all bfloat16; the masks are
 per-row validities ``q_valid`` (B, Tq) and ``kv_valid`` (B, Tk), and the
 pair (i, j) is allowed iff ``q_valid[i] == kv_valid[j]`` (jax's segment
-ids).  D is a multiple of 16 in [16, 128], or 192 (the FastSpeech2
-recipes' adim 384 over 2 heads).
+ids).  D is a multiple of 16 in [16, 256]: the kernels have instances at
+padded widths 32, 64, 96, 128, 192 (the FastSpeech2 recipes' adim 384
+over 2 heads) and 256 (adim 512 over 2 heads), and a width between two
+of them runs at the wider one with zero columns (``k4_padded_dim``).
 
 On CUDA tensors the wrappers launch the kernels of
 ``parakeet_tpu_torch/csrc/flash_attn.cu`` (``flash_attention_forward``,
@@ -28,8 +30,8 @@ versions below, which state the kernels' arithmetic:
   type; ``lse = m + log(l)`` (float32) is saved per row, where jax saves m
   and l broadcast to 128 lanes (a Mosaic layout).  K4a makes one pass over
   the keys, so it rounds p at each key tile's running max instead:
-  ``flash_attention_reference(..., block_k=K4A_BLOCK_K[dtype])`` states
-  that (the same function; in bf16 p rounds at other points);
+  ``flash_attention_reference(..., block_k=k4a_block_k(dtype, D))``
+  states that (the same function; in bf16 p rounds at other points);
 - backward, with ``di = sum(o * do)`` in float32 (a plain reduction, as
   jax computes it in XLA outside its kernels) and ``p = exp(s - lse)``
   (jax: ``exp(s - m) * (1 / l)``, equal up to float32 rounding):
@@ -41,12 +43,14 @@ The three kernels are written for the H100 with ``mma.sync`` fragments
 (the source's header has the details): each block owns 64 rows and
 walks the other sequence in tiles double-buffered by ``cp.async`` (32
 rows in float32; 64 in bf16, but 32 in the backward passes at D above
-96), and the scores, p, dp and ds never leave registers.  K4a owns
-query rows and makes one pass over the keys with the online softmax (at
-D = 192 with Q resident in shared memory); K4c owns query rows and
-streams key tiles; K4b owns key rows and streams query tiles (at D = 192
+96 and in K4a at D = 256; 16 in the float32 backward passes at D = 256),
+and the scores, p, dp and ds never leave registers.  K4a owns query rows
+and makes one pass over the keys with the online softmax (at D = 192 and
+256 with Q resident in shared memory); K4c owns query rows and streams
+key tiles; K4b owns key rows and streams query tiles (at D = 192 and 256
 two blocks of one launch share each 64 keys, one forming dV and one dK,
-so that each holds one accumulator).  The backward passes use the
+so that each holds one accumulator).  ``k4_smem_bytes`` counts a block's
+shared memory as the kernels' geometry does.  The backward passes use the
 final lse, so they round where the plain versions do, and they have no
 atomics: two runs give bit-identical gradients.  The kernels sum in
 another order (and float32 products run as 3xTF32 splits), so they agree
@@ -68,20 +72,61 @@ __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_dkv", "flash_attention_dq",
            "flash_attention_reference", "flash_attention_dkv_reference",
            "flash_attention_dq_reference", "flash_head_dim_supported",
-           "K4A_BLOCK_K", "MASK_VALUE"]
+           "k4_padded_dim", "k4a_block_k", "k4_smem_bytes", "MASK_VALUE",
+           "SMEM_LIMIT"]
 
 # jax's DEFAULT_MASK_VALUE (-0.7 * float32 max, in float64) as float32
 MASK_VALUE = float(np.float32(-0.7 * float(np.finfo(np.float32).max)))
 _F32, _BF16 = torch.float32, torch.bfloat16
-# K4a's key-tile width by dtype (FwdGeo::BN in csrc/flash_attn.cu): the
-# one-pass kernel rounds p at each tile's running max, which
-# ``flash_attention_reference(..., block_k=K4A_BLOCK_K[dtype])`` states
-K4A_BLOCK_K = {_F32: 32, _BF16: 64}
+# dynamic shared memory a block may have on the H100 (227 KB)
+SMEM_LIMIT = 232448
 
 
 def flash_head_dim_supported(dk: int) -> bool:
-    """Head widths K4 takes: multiples of 16 in [16, 128], and 192."""
-    return dk == 192 or (dk % 16 == 0 and 16 <= dk <= 128)
+    """Head widths K4 takes: multiples of 16 in [16, 256]."""
+    return dk % 16 == 0 and 16 <= dk <= 256
+
+
+def k4_padded_dim(dk: int) -> int:
+    """The width of the kernel instance that runs head width ``dk`` (one
+    ``flash_head_dim_supported`` takes), padded with zero columns: a
+    multiple of 32 up to 128, then 192 or 256 (csrc/flash_attn.cu's
+    ``padded_dim``)."""
+    if dk <= 128:
+        return -(-dk // 32) * 32
+    return 192 if dk <= 192 else 256
+
+
+def k4a_block_k(dtype: torch.dtype, dk: int) -> int:
+    """K4a's key tile at head width ``dk`` (``FwdGeo::BN`` in
+    csrc/flash_attn.cuh): 32 keys in float32, 64 in bf16 but 32 at the
+    DP = 256 instances.  The one-pass kernel rounds p at each tile's
+    running max, which ``flash_attention_reference(...,
+    block_k=k4a_block_k(dtype, dk))`` states."""
+    return 32 if dtype == _F32 or k4_padded_dim(dk) == 256 else 64
+
+
+def k4_smem_bytes(kernel: str, dtype: torch.dtype, dk: int) -> int:
+    """Dynamic shared memory of a block of ``kernel`` ('K4a', 'K4b' or
+    'K4c') at head width ``dk``, as csrc/flash_attn.cuh's ``FwdGeo`` and
+    ``BwdGeo`` count it (and ``flash_attn_smem`` returns it): rows of
+    pitch DP + 16 bytes; K4a Q resident above DP = 128, two stages of a K
+    and a V tile and the tile's kv_valid; K4b and K4c two resident strips
+    of 64 rows and two stages of two tiles and 3 (K4b) or 1 (K4c) vectors
+    of 32-bit values."""
+    dp = k4_padded_dim(dk)
+    size = 4 if dtype == _F32 else 2
+    pitch = (dp + 16 // size) * size
+    if kernel == "K4a":
+        bn = k4a_block_k(dtype, dk)
+        resident = 64 * pitch if dp > 128 else 0
+        return resident + 2 * (2 * bn * pitch + 4 * bn)
+    if dtype == _F32:
+        bn = 16 if dp > 192 else 32
+    else:
+        bn = 32 if dp > 96 else 64
+    nvec = {"K4b": 3, "K4c": 1}[kernel]
+    return 2 * 64 * pitch + 2 * (2 * bn * pitch + 4 * nvec * bn)
 
 
 def _scores(q, k, q_valid, kv_valid, sm_scale):
@@ -98,7 +143,7 @@ def flash_attention_reference(q, k, v, q_valid, kv_valid, *, sm_scale,
 
     ``block_k=None`` takes the softmax at the row's final max.  With an
     int it walks the keys in tiles of ``block_k`` (the last one ragged) as
-    the kernel does at ``block_k = K4A_BLOCK_K[dtype]``: a running max m
+    the kernel does at ``block_k = k4a_block_k(dtype, D)``: a running max m
     and sum l per row, ``p = T(exp(s - m_new))`` at the tile's running
     max, the float32 accumulator rescaled by ``exp(m_old - m_new)`` before
     it gains ``p . v``, ``l`` summed from the unrounded p, and ``1 / l``
@@ -176,7 +221,7 @@ def _check(what, q, k, v, q_valid, kv_valid, extra=(), rows=()):
     if not flash_head_dim_supported(d):
         raise NotImplementedError(
             f"{what} (kernel K4) takes head widths that are multiples of "
-            f"16 in [16, 128], and 192, got {d}")
+            f"16 in [16, 256], got {d}")
     shapes = {"k": (k, (b, h, tk, d)), "v": (v, (b, h, tk, d))}
     shapes.update({name: (t, (b, h, tq, d)) for name, t in extra})
     for name, (t, shape) in shapes.items():

@@ -537,11 +537,19 @@ def _k4_inputs(cuda, b, h, tq, tk, d, dtype, key_lengths, mask_rows, seed):
     # with Q resident in shared memory, K4b split over two blocks a key
     # tile; masked query rows, then Tq != Tk
     (2, 2, 300, 300, 192, (300, 17), True),
-    (2, 2, 130, 211, 192, (211, 100), False)])
+    (2, 2, 130, 211, 192, (211, 100), False),
+    # adim 512 over 2 heads: the DP = 256 instances (K4a's bf16 key tile
+    # 32, the float32 backward passes' tiles 16 rows), a ragged length
+    # past several tiles with masked query rows, then Tq != Tk
+    (2, 2, 333, 333, 256, (333, 250), True),
+    (2, 2, 130, 211, 256, (211, 100), False),
+    # D = 240, padded to DP = 256 with zero columns
+    (2, 2, 300, 300, 240, (300, 17), True),
+    (2, 2, 130, 211, 240, (211, 100), False)])
 def test_k4_matches_plain_versions(cuda, dtype, b, h, tq, tk, d,
                                    key_lengths, mask_rows):
     """K4a against the plain version unblocked and blocked at its own key
-    tile (K4A_BLOCK_K), o and lse bit-identical on a second run; K4b and
+    tile (k4a_block_k), o and lse bit-identical on a second run; K4b and
     K4c against theirs."""
     from parakeet_tpu_torch.ops.kernels import flash_attn as k4
     q, k, v, qv, kv, do = _k4_inputs(cuda, b, h, tq, tk, d, dtype,
@@ -564,7 +572,7 @@ def test_k4_matches_plain_versions(cuda, dtype, b, h, tq, tk, d,
         assert err <= tol * want.abs().max().item(), (what, err)
 
     assert o.dtype == dtype and lse.dtype == torch.float32
-    for block_k in (None, k4.K4A_BLOCK_K[dtype]):
+    for block_k in (None, k4.k4a_block_k(dtype, d)):
         want_o, want_lse = k4.flash_attention_reference(
             *args, sm_scale=scale, block_k=block_k)
         hold(o, want_o, f"o, block_k={block_k}")
@@ -612,15 +620,19 @@ def test_k4_autograd_matches_autograd_of_the_plain_version(cuda):
 
 
 def test_k4_rejects_what_it_does_not_take(cuda):
+    """Head widths past 256 (jax's kernel takes 384 and 512) and widths
+    that are not multiples of 16 raise, in the wrapper and in the core;
+    float16 and tensors on two devices too."""
     from parakeet_tpu_torch.nn.flash import make_flash_attn_core
     from parakeet_tpu_torch.ops.kernels import flash_attn as k4
-    q, k, v, qv, kv, _ = _k4_inputs(cuda, 1, 1, 64, 64, 256, torch.float32,
-                                    (64,), False, 0)
-    with pytest.raises(NotImplementedError, match="K4"):
-        k4.flash_attention_forward(q, k, v, qv, kv, sm_scale=1.0)
-    x = torch.zeros((1, 64, 1, 256), device=cuda)
-    with pytest.raises(NotImplementedError, match="K4"):
-        make_flash_attn_core()(x, x, x)
+    for d in (272, 384, 200):
+        q, k, v, qv, kv, _ = _k4_inputs(cuda, 1, 1, 64, 64, d,
+                                        torch.float32, (64,), False, 0)
+        with pytest.raises(NotImplementedError, match="K4"):
+            k4.flash_attention_forward(q, k, v, qv, kv, sm_scale=1.0)
+        x = torch.zeros((1, 64, 1, d), device=cuda)
+        with pytest.raises(NotImplementedError, match="K4"):
+            make_flash_attn_core()(x, x, x)
     half = torch.zeros((1, 1, 64, 32), device=cuda, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="K4"):
         k4.flash_attention_forward(half, half, half, qv, kv, sm_scale=1.0)
@@ -628,6 +640,26 @@ def test_k4_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="every tensor"):
         k4.flash_attention_forward(q32, q32, q32, qv.cpu(), kv,
                                    sm_scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_shared_memory_matches_the_kernels(cuda, dtype):
+    """The launcher's ``k4_smem_bytes`` is the kernels' own count
+    (``flash_attn_smem``: 0 K4a, 1 K4b, 2 K4c), within the card's 227 KB,
+    at every head width K4 takes; widths it refuses give -1."""
+    import ctypes
+
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    from parakeet_tpu_torch.ops.kernels._build import load_library
+    fn = load_library().cdll.flash_attn_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    bf16 = int(dtype == torch.bfloat16)
+    for d in range(16, 257, 16):
+        for i, name in enumerate(("K4a", "K4b", "K4c")):
+            want = k4.k4_smem_bytes(name, dtype, d)
+            assert fn(i, bf16, d) == want <= k4.SMEM_LIMIT, (name, d)
+    assert fn(0, bf16, 272) == fn(0, bf16, 200) == fn(3, bf16, 64) == -1
 
 
 # ---- captured programs: K1 and K4a inside a CUDA graph, the engine's grid

@@ -152,12 +152,12 @@ def test_plain_k4a_unblocked_is_the_one_shot_softmax(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plain_k4a_blocked_matches_unblocked(dtype):
-    """The kernel's statement, keys in tiles of K4A_BLOCK_K and of a width
+    """The kernel's statement, keys in tiles of k4a_block_k and of a width
     that leaves a ragged last tile (203 = 3 * 64 + 11), within K4_REL_TOL
     of the unblocked one on every row."""
     args = _k4_case(dtype)
     want_o, want_lse = k4.flash_attention_reference(*args, sm_scale=0.3)
-    for block_k in (k4.K4A_BLOCK_K[dtype], 64 if dtype == torch.float32
+    for block_k in (k4.k4a_block_k(dtype, 32), 64 if dtype == torch.float32
                     else 48):
         o, lse = k4.flash_attention_reference(*args, sm_scale=0.3,
                                               block_k=block_k)
@@ -170,7 +170,7 @@ def test_plain_k4a_blocked_matches_unblocked(dtype):
 
 
 def test_plain_k4a_blocked_matches_pallas_flash_kernel():
-    """The blocked float32 statement at K4A_BLOCK_K against jax's Pallas
+    """The blocked float32 statement at k4a_block_k against jax's Pallas
     kernel in interpret mode, as test_plain_k4_matches_pallas_flash_kernel
     runs it (T=200, seq_block=128, key lengths (200, 131)), at 1e-5."""
     b, t, h, dk = 2, 200, 2, 32
@@ -182,20 +182,20 @@ def test_plain_k4a_blocked_matches_pallas_flash_kernel():
     heads = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
     got, _ = k4.flash_attention_reference(
         *heads, q_valid, kv_valid, sm_scale=dk ** -0.5,
-        block_k=k4.K4A_BLOCK_K[torch.float32])
+        block_k=k4.k4a_block_k(torch.float32, dk))
     assert np.abs(got.transpose(1, 2).numpy() - np.asarray(want)).max() < 1e-5
 
 
 def test_auto_core_runs_dense_at_head_widths_k4_does_not_take(monkeypatch):
-    """dk = 256 (adim 512, 2 heads), a width K4 does not take, at T = 1024:
-    'auto' runs the dense path, bit for bit, and never reaches K4; 'flash'
-    raises there."""
-    h, d, t = 2, 512, 1024
+    """dk = 384 (adim 768, 2 heads), a width K4 does not take (jax's kernel
+    does), at T = 1024: 'auto' runs the dense path, bit for bit, and never
+    reaches K4; 'flash' raises there."""
+    h, d, t = 2, 768, 1024
     core = tflash.make_auto_attn_core()
     dense, auto = _mha_pair(h, d, core, 15, rate=0.1)
 
     def no_k4(*args, **kwargs):
-        raise AssertionError("K4 reached at dk = 256")
+        raise AssertionError("K4 reached at dk = 384")
 
     monkeypatch.setattr(tflash, "flash_attention", no_k4)
     x = torch.from_numpy(_np(16, 1, t, d))

@@ -5,7 +5,7 @@ graphs' lengths and the training step's) and each type, prints one JSON
 line: the max abs error of K4a's o, K4b's dk/dv and K4c's dq against the
 same function in float64, beside the error of their plain float32
 versions (``flash_attention_reference`` and the two backward references,
-blocked at ``K4A_BLOCK_K`` for o as well) against it, the kernels'
+blocked at ``k4a_block_k`` for o as well) against it, the kernels'
 error against the plain versions, each output's range and the range of
 v.  It shows whether the kernels' distance from their plain versions
 grows with the length as float32 rounding does, or faster.
@@ -69,7 +69,7 @@ def main():
             o, lse = k4.flash_attention_forward(*args, sm_scale=scale)
             ref_o, _ = k4.flash_attention_reference(*args, sm_scale=scale)
             blk_o, _ = k4.flash_attention_reference(
-                *args, sm_scale=scale, block_k=k4.K4A_BLOCK_K[dtype])
+                *args, sm_scale=scale, block_k=k4.k4a_block_k(dtype, DK))
             di = (o.float() * do.float()).sum(-1)
             bwd = args + (do, lse, di)
             dq = k4.flash_attention_dq(*bwd, sm_scale=scale)
