@@ -14,7 +14,9 @@ Phases, one line each (the checks raise; nothing is caught):
    T=268,800, 30 layers, the widths of recipes/pwgan/conf/default.yaml):
    max abs error against a stated tolerance, bit-identity on a second
    run, median times, and the bytes a call must move with one layer per
-   launch, its rate and share of the card's 3.35 TB/s;
+   launch, its rate and share of the card's 3.35 TB/s; then the same at
+   residual width 128 (gate 256, skip 128: two launches a layer), at the
+   small and the main shape;
 3. the serving slice: a port ``TTSEngine`` on bf16 FastSpeech2 and
    PWGGenerator at the recipes' widths with weights drawn from a fixed
    ``torch.Generator`` seed answers six requests (one over the largest
@@ -47,7 +49,9 @@ Phases, one line each (the checks raise; nothing is caught):
    forward, backward from the saved layer inputs, backward that rebuilds
    them from the layer-0 output) against their plain PyTorch versions, at
    a small shape and at the training shape (B=8, T=25,500: the PWGAN
-   recipe's batch_size and batch_max_steps): max abs errors against
+   recipe's batch_size and batch_max_steps), at the recipe's residual
+   width 64 and again at 128 (K2b's passes split over the grid's y):
+   max abs errors against
    stated tolerances, outputs and gradients bit-identical from run to
    run (K2a's bytes, rate and share as K1's), K3a without saving
    bitwise K3a with saving on the logits, K3c's dh
@@ -108,7 +112,13 @@ Phases, one line each (the checks raise; nothing is caught):
    last metrics must equal the resumed run's bitwise.  Every step must
    launch the expected kernels (K3c, never K3b; K3a never saving), every
    train and eval metric must be finite, and each run must leave its 2
-   newest snapshots and their ledger;
+   newest snapshots and their ledger; then the recipe at ``--opts
+   generator_params.residual_channels 128 generator_params.gate_channels
+   256 generator_params.skip_channels 128`` (CR128_OPTS) for 3 steps,
+   the discriminator (the YAML's 'save') from step 1, each step's
+   launches checked (K2a and K1 two a layer, K2b, K3a, K3b), and
+   ``pwgan/synthesize.py`` on its snapshot over 2 dev lines (K1 60 times a
+   line, each wav held to K1's plain version's);
 10. the training bench (``parakeet_tpu_torch.benchmarks.train_pwgan``) at
    batch 6 with ``--disc-vjp save`` and ``recompute`` in turns: its
    ``pwgan_train_avg_ips`` for both;
@@ -145,8 +155,8 @@ Phases, one line each (the checks raise; nothing is caught):
    recipes.speedyspeech.train.main``, on the card) with recipes/
    speedyspeech/conf/default.yaml at full widths and batch 32 on a seeded
    synthetic dump under build/ (64 train utterances, two steps an epoch;
-   300-600 frames): 2 epochs, a second run to 3 that must resume at
-   iteration 4 and run steps 4-5 only, and a straight 3-epoch run whose
+   300-600 frames): 1 epoch, a second run to 2 that must resume at
+   iteration 2 and run steps 2-3 only, and a straight 2-epoch run whose
    last train and eval metrics must equal the resumed run's bitwise, every
    metric finite, ms a step printed; then ``benchmarks/e2e_family_rtf.py``'s
    SpeedySpeech leg (96 phones -> 1,000 frames -> PWG x300, bf16) as one
@@ -154,28 +164,27 @@ Phases, one line each (the checks raise; nothing is caught):
    its RTF and ms a call; and K1 against its plain version at the
    program's shape (B=1, T=300,000);
 14. Tacotron2: the same through its recipe's CLI with recipes/tacotron2/
-   conf/default.yaml (full widths, batch 32, 120-200 frames: 1 epoch of 2
+   conf/default.yaml (full widths, batch 32, 60-100 frames: 1 epoch of 2
    steps, resumed to 2, against 2 straight); its leg of
    ``e2e_family_rtf`` (1,000 decoder steps -> PWG x256) as one CUDA graph,
    bitwise eager, K1 x 30 in a replay, and K1 at T=256,000; then the
    per-family training bench (``benchmarks/train_am.py``) at the JAX
-   bench's shapes for both families, with PyTorch's defaults and under
-   the recipes' deterministic setting: each ``<family>_train_avg_ips``
-   and ms a step;
+   bench's shapes for both families, with PyTorch's defaults: each
+   ``<family>_train_avg_ips`` and ms a step;
 15. TransformerTTS: its recipe's CLI with recipes/transformer_tts/conf/
    default.yaml (full widths, batch 16: 1 epoch of 2 steps, resumed to 2,
    against 2 straight); its ``transformer_tts_r1`` and ``_r2`` legs of
    ``e2e_family_rtf`` at 128 frames (128 and 64 decoder steps -> PWG
    x256) as one CUDA graph each, bitwise eager, K1 x 30 in a replay, and
    K1 at T=32,768; then ``benchmarks/ar_decode.py`` (Tacotron2,
-   TransformerTTS r=1 and r=2; 200 steps, each graph bitwise eager);
+   TransformerTTS r=1 and r=2; 100 steps, each graph bitwise eager);
 16. WaveFlow: its recipe's CLI with recipes/waveflow/conf/default.yaml
    (iteration-based: 2 iterations resumed to 4 against 4 straight);
    ``benchmarks/waveflow_rtf.py`` (344 frames) in float32 and bf16, each
    one CUDA graph bitwise eager, bf16 against float32 in relative L2;
    the bf16 sampler's products against float64 products at their shapes
    (float32 sums); then the training bench's TransformerTTS and WaveFlow
-   legs, with PyTorch's defaults and deterministic;
+   legs, with PyTorch's defaults;
 17. GE2E at the JAX bench's widths (64 speakers x 10 utterances x 160
    frames x 40 mels, 3 x 256 LSTM, a 256-wide embedding): one train step
    on the card against the port's CPU step from the same weights and
@@ -192,8 +201,8 @@ Phases, one line each (the checks raise; nothing is caught):
    CUDA graph bitwise its eager program, WaveFlow eager, each wav finite
    with frames x 256 samples, the reference's embedding against the
    CPU's, the parts' times and the RTF; then the aishell3 recipe's CLI
-   at its YAML's widths and batch 32 (1 epoch of 2 steps, resumed to 2,
-   against 2 straight, bitwise);
+   at its YAML's widths and batch 32 (60-100 frames; 1 epoch of 2 steps,
+   resumed to 2, against 2 straight, bitwise);
 19. text in, a waveform out through the port's CLIs at the recipe YAMLs'
    widths with random-weight snapshots it writes (the phone maps from the
    frontends' phone sets): four sentences of recipes/text_frontend/data/
@@ -288,7 +297,8 @@ Phases, one line each (the checks raise; nothing is caught):
    intervals, FastSpeech2's flash attention): K1 30 times a line in both
    synthesis stages, K2a, K2b, K3a and K3b in PWGAN's training, K4a-K4c
    in FastSpeech2's; each synthesis stage again in this process with
-   K1's plain version, the twin's wavs held to it; the seconds of each
+   K1's plain version (PWGAN's on its first RUN_SH_PLAIN_LINES dev
+   lines), the twin's wavs held to it; the seconds of each
    stage with the card's name and power limit.
 25. the parallel layer: one spawn of two ranks on the one card
    (``parallel/launch.py``; gloo, since NCCL refuses two ranks on one
@@ -336,10 +346,14 @@ phase 5's numbers, the same shapes; and K4a-K4c again as
 numbers of its two shapes together, the encoder's and the decoder's
 call on its largest batch; K4a-K4c again as ``*_bf16_fs2_step`` with
 the launches of phase 23's bf16 FastSpeech2 step and the numbers of its
-two shapes together; and as ``*_run_sh`` the launches of phase 24's
+two shapes together; as ``*_run_sh`` the launches of phase 24's
 twins, K1 at ``pwgan/synthesize.py``'s 1,024 frames x 300, K2a-K3b with
 phase 5's numbers at the training shape the recipe runs, K4a-K4c at
-the FastSpeech2 run's train batch), error, times, bound
+the FastSpeech2 run's train batch; and K1, K2a and K2b again as
+``*_cr128``: residual width 128's instances with phase 2's and 5's
+numbers at the main and the training shape and the launches of phase
+9's width-128 run, K1 over its steps, evaluation and synthesis), error,
+times, bound
 (the larger of its bytes over the H100's memory rate and its operations
 over its peak for the operands' type, from this run's shapes; K4's
 float32 products at the 3xTF32 rate, a third of the TF32 peak) and, where
@@ -575,6 +589,20 @@ RECIPE_OPTS = ["discriminator_params.vjp_mode", "recompute",
                "eval_interval_steps", str(RECIPE_INTERVAL),
                "num_snapshots", str(RECIPE_SNAPSHOTS)]
 RECIPE_STEPS, RECIPE_RESUME_STEPS = 4, 6
+# the recipe at residual width 128 (gate 256, skip 128), which JAX's fused
+# stack takes beside 32 and 64 and no YAML uses: its CLI with CR128_OPTS on
+# phase 9's dump for RECIPE_CR128_STEPS steps, the discriminator (the
+# YAML's 'save', so K3a and K3b) from step RECIPE_CR128_DISC_START, one
+# evaluation and snapshot at the end; then pwgan/synthesize.py on the
+# snapshot over RECIPE_CR128_LINES dev lines
+CR128 = 128
+CR128_OPTS = ["generator_params.residual_channels", str(CR128),
+              "generator_params.gate_channels", str(2 * CR128),
+              "generator_params.skip_channels", str(CR128)]
+RECIPE_CR128_STEPS, RECIPE_CR128_DISC_START, RECIPE_CR128_LINES = 3, 1, 2
+# the sources of K1/K2a and of K2b by residual width
+K1_SOURCE = {64: "pwg_stack.cu", CR128: "pwg_stack_cr128.cu"}
+K2B_SOURCE = {64: "pwg_stack_bwd.cu", CR128: "pwg_stack_bwd_cr128.cu"}
 # the training bench: save against recompute, in turns, at batch 6
 BENCH_BATCH, BENCH_ITERS = 6, 10
 # the FastSpeech2 recipe through its CLI: recipes/fastspeech2/conf/
@@ -612,14 +640,15 @@ FS2_BENCH_ITERS = 10
 # each, the partial one the loader keeps); SpeedySpeech at Baker-like
 # 300-600 frames and 40-90 phones, Tacotron2 at 120-200 frames (as many
 # decoder steps a step) and 30-60 tokens, few steps, so that the phase
-# fits beside the earlier ones
+# fits beside the earlier ones (at 120-200 frames Tacotron2's host-bound
+# steps took 1.7-2.9 s, SpeedySpeech's 1.8-2.5 s)
 SS_RECIPE_CONF = "recipes/speedyspeech/conf/default.yaml"
 SS_RECIPE_SPLITS = {"train": 64, "dev": 20}
 SS_RECIPE_FRAMES, SS_RECIPE_PHONES = (300, 600), (40, 90)
-SS_RECIPE_EPOCHS, SS_RECIPE_RESUME_EPOCHS = 2, 3
+SS_RECIPE_EPOCHS, SS_RECIPE_RESUME_EPOCHS = 1, 2
 T2_RECIPE_CONF = "recipes/tacotron2/conf/default.yaml"
 T2_RECIPE_SPLITS = {"train": 64, "dev": 16}
-T2_RECIPE_FRAMES, T2_RECIPE_PHONES = (120, 200), (30, 60)
+T2_RECIPE_FRAMES, T2_RECIPE_PHONES = (60, 100), (30, 60)
 T2_RECIPE_EPOCHS, T2_RECIPE_RESUME_EPOCHS = 1, 2
 FAMILY_STEPS_PER_EPOCH = 2
 # the family programs of benchmarks/e2e_family_rtf.py, timed over one
@@ -630,9 +659,11 @@ FAMILY_ITERS = 1
 FAMILY_K1_T = {"speedyspeech": 300000, "tacotron2": 256000,
                "transformer_tts_r1": 32768, "transformer_tts_r2": 32768}
 # the per-family training bench at the JAX bench's shapes (B 32, 96
-# tokens, 640 frames): PyTorch's defaults, then the recipes'
-# deterministic setting (Tacotron2's step takes seconds: 1 iteration
-# after 1 + 1 warm ones)
+# tokens, 640 frames) with PyTorch's defaults (Tacotron2's step takes
+# seconds: 1 iteration after 1 warm one); the recipes' deterministic
+# setting runs in every recipe phase's CLI steps, and its cost a step is
+# tools/family_step_determinism.py's to measure (the bench's
+# deterministic legs take ~21 s of steps)
 AM_BENCH_ITERS = 1
 AM_BENCH_WARMUP = 1
 # phase 15: the TransformerTTS recipe at its YAML's widths and batch 16 on
@@ -649,10 +680,10 @@ TT_RECIPE_FRAMES, TT_RECIPE_PHONES = (200, 400), (40, 90)
 TT_RECIPE_EPOCHS, TT_RECIPE_RESUME_EPOCHS = 1, 2
 TT_FAMILY_ITERS = 1
 TT_FAMILY_FRAMES = 128
-# ar_decode's loops at 200 steps, timed over 1 call without a warm one
-# (at its default 500 the three captures alone took 33 s)
+# ar_decode's loops at 100 steps, timed over 1 call without a warm one
+# (at its default 500 the three captures alone took 33 s, at 200 12.9 s)
 AR_DECODE_ITERS = 1
-AR_DECODE_STEPS = 200
+AR_DECODE_STEPS = 100
 # phase 16: the WaveFlow recipe at its YAML's widths and batch on a seeded
 # dump of 16 train utterances (two iterations an epoch) and 8 dev (one
 # eval batch) of 80-160 frames (longer than the 65-frame clips), with an
@@ -695,7 +726,8 @@ GE2E_LOSS_RTOL, GE2E_GRAD_REL_L2, GE2E_SURE, GE2E_MOVE_TOL = (
 # sentences of pinyin through the CLI at its defaults (text padded to 128,
 # 1,000 decoder steps), then the aishell3 recipe at its YAML's widths and
 # batch 32 on a seeded dump (64 train utterances: two steps an epoch; 16
-# dev) of 120-200 frames and 30-60 phones: 1 epoch resumed to 2 against 2
+# dev) of 60-100 frames and 30-60 phones (at 120-200 its host-bound steps
+# took 2.0-2.9 s): 1 epoch resumed to 2 against 2
 VC_RECIPE_CONF = "recipes/tacotron2_aishell3/conf/default.yaml"
 VC_SENTENCES = (
     "vc_0001 jin1 tian1 tian1 qi4 hen3 hao3 wo3 men5 yi4 qi3 qu4 gong1 "
@@ -708,7 +740,7 @@ VC_REF_PHONES = [("sil", 0.1), ("a", 0.3), ("i", 0.25), ("s", 0.15),
                  ("u", 0.3), ("e", 0.25), ("sh", 0.15), ("o", 0.3),
                  ("sil", 0.1)]
 VC_RECIPE_SPLITS = {"train": 64, "dev": 16}
-VC_RECIPE_FRAMES, VC_RECIPE_PHONES = (120, 200), (30, 60)
+VC_RECIPE_FRAMES, VC_RECIPE_PHONES = (60, 100), (30, 60)
 VC_RECIPE_EPOCHS, VC_RECIPE_RESUME_EPOCHS = 1, 2
 # phase 19: text in, a waveform out, through the port's CLIs at the recipe
 # YAMLs' widths with random weights written as snapshots: the first four
@@ -868,6 +900,10 @@ LAMB_STEPS, LAYERS_REPS = 10, 10
 # 10,000), and FastSpeech2's flash attention with the attention dropout
 # at 0, as the YAML's comment prescribes for it (so that K4 launches)
 RUN_SH_UTTS = 264
+# the PWGAN twin's synthesis stage vocodes the 100 dev lines (K1 30 times
+# each); the first RUN_SH_PLAIN_LINES are vocoded again in this process
+# with K1's plain version and held to the twin's (all 100 take ~10 s)
+RUN_SH_PLAIN_LINES = 10
 RUN_SH_SYLLABLES = (7, 9)
 RUN_SH_CUTS = {
     "pwgan": {"train_max_steps": 4,
@@ -883,17 +919,32 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # K4 runs its float32 products on the tensor cores as 3xTF32, three TF32
 # products (495 TFLOP/s) for each: 165 TFLOP/s of float32 products
 K4_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
-# operations per row and layer of the recipe's residual stack (residual
-# 64, gate 128, skip 64, aux 80): the forward's gate products (three taps
-# and the aux 1x1) and skip/residual products; the backward recomputes
-# the gate and runs the transposed and weight products of both
-_C, _G, _S, _A = 64, 128, 64, ODIM
-STACK_FWD_FLOPS = 2 * (3 * _C * _G + _A * _G + _G // 2 * (_C + _S))
-STACK_BWD_FLOPS = (2 * (3 * _C * _G + _A * _G)
-                   + 2 * 2 * (_G // 2 * (_C + _S) + 3 * _C * _G + _A * _G))
-# per row of the discriminator's layers 1..9: eight 64 -> 64 k=3 convs and
-# the 64 -> 1 output conv; its backward transposes them (dx) and forms dW;
-# K3c also re-runs layers 1..8
+
+
+def stack_fwd_flops(cr, ca=ODIM):
+    """Operations per row and layer of a residual stack of residual width
+    ``cr`` (gate 2cr, skip cr: the recipe's 64, 128, 64) and ``ca`` aux
+    channels: the gate products (three taps and the aux 1x1) and the
+    skip/residual products."""
+    g = 2 * cr
+    return 2 * (3 * cr * g + ca * g + g // 2 * (cr + cr))
+
+
+def stack_bwd_flops(cr, ca=ODIM):
+    """The backward's: it recomputes the gate and runs the transposed and
+    weight products of both."""
+    g = 2 * cr
+    return (2 * (3 * cr * g + ca * g)
+            + 2 * 2 * (g // 2 * (cr + cr) + 3 * cr * g + ca * g))
+
+
+# at the recipe's widths (residual 64, aux 80)
+STACK_FWD_FLOPS = stack_fwd_flops(64)
+STACK_BWD_FLOPS = stack_bwd_flops(64)
+# per row of the discriminator's layers 1..9 (64 channels): eight 64 -> 64
+# k=3 convs and the 64 -> 1 output conv; its backward transposes them (dx)
+# and forms dW; K3c also re-runs layers 1..8
+_C = DISC_CONFIG["conv_channels"]
 DISC_FWD_FLOPS = 8 * 2 * 3 * _C * _C + 2 * 3 * _C
 DISC_BWD_FLOPS = 2 * DISC_FWD_FLOPS
 DISC_RC_FLOPS = 8 * 2 * 3 * _C * _C + DISC_BWD_FLOPS
@@ -941,7 +992,8 @@ def phase_card():
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path}; spills: "
           + (" | ".join(spills) or "none"))
-    for tag, prefix in (("K1/K2a", "pwg_layer_"), ("K2b", "k2b_"),
+    for tag, prefix in (("K1/K2a", ("pwg_layer_", "pwg_gate_", "pwg_out_")),
+                        ("K2b", "k2b_"),
                         ("K3", "disc_"), ("K4", "flash_")):
         print(f"ptxas, {tag}: " + ", ".join(
             f"{name} {regs} ({st + ld})" for name, regs, st, ld in entries
@@ -992,11 +1044,12 @@ def ptxas_entries(log):
     return entries
 
 
-def layer_traffic(k1, b, t, ms, layers, stacks, save):
-    """The bytes K1 (or K2a, ``save``) must move with one layer per launch
-    (``k1_layer_bytes``), the rate of a call that took ``ms`` and its
-    share of the card's 3.35 TB/s."""
-    moved = k1.k1_layer_bytes(b, t, 64, ODIM, layers, stacks, save)
+def layer_traffic(k1, b, t, ms, layers, stacks, save, cr=64):
+    """The bytes K1 (or K2a, ``save``) at residual width ``cr`` must move
+    with one layer per launch (``k1_layer_bytes``; two launches a layer at
+    cr 128), the rate of a call that took ``ms`` and its share of the
+    card's 3.35 TB/s."""
+    moved = k1.k1_layer_bytes(b, t, cr, ODIM, layers, stacks, save)
     floor_ms = 1e3 * moved / PEAK_BYTES_PER_S
     return (f"{moved / 1e9:.4f} GB with one layer per launch "
             f"(k1_layer_bytes), {moved / ms / 1e6:.0f} GB/s, "
@@ -1036,13 +1089,20 @@ def in_turns(ours, theirs, reps, timer=cuda_ms):
     return [a, d], [b, c]
 
 
-def k1_stack(gen):
-    """The recipe's residual stack on the card with seeded weights: (stack,
-    its fused weights, the stack arguments, layers)."""
+def stack_widths(cr):
+    """The recipe's residual stack's arguments at residual width ``cr``
+    (gate 2cr, skip cr; the YAML's 64 or the 128 of CR128_OPTS)."""
+    return dict(layers=PWG_CONFIG["layers"], stacks=PWG_CONFIG["stacks"],
+                residual_channels=cr, gate_channels=2 * cr,
+                skip_channels=cr, aux_channels=ODIM)
+
+
+def k1_stack(gen, cr=64):
+    """The recipe's residual stack (at residual width ``cr``) on the card
+    with seeded weights: (stack, its fused weights, the stack arguments,
+    layers)."""
     from parakeet_tpu_torch.models.parallel_wavegan import ResidualStack
-    stack = ResidualStack(**{k: PWG_CONFIG[k] for k in (
-        "layers", "stacks", "residual_channels", "gate_channels",
-        "skip_channels")}, aux_channels=ODIM)
+    stack = ResidualStack(**stack_widths(cr))
     seeded_init_(stack, gen)
     stack = stack.cuda()
     kw = dict(dilations=stack.dilations(), stacks=stack.stacks)
@@ -1050,19 +1110,22 @@ def k1_stack(gen):
 
 
 @torch.no_grad()     # the plain version at LONG_T would save 30 layers
-def k1_check(gen, b, t, parent=None, name="pwg_residual_stack", stack=None):
+def k1_check(gen, b, t, parent=None, name="pwg_residual_stack", stack=None,
+             cr=64):
     """K1 against its plain version at (B, T) on seeded inputs (and the
-    weights of ``stack``, a ResidualStack on the card, when given): max
-    abs error against the tolerance, bit-identity on a second run, median
-    times; with ``parent`` (the parent checkout's pwg_stack module), also
-    the parent's kernel, in turns.  Returns the kernel record."""
+    weights of ``stack``, a ResidualStack on the card, when given; else
+    the recipe's stack at residual width ``cr``): max abs error against
+    the tolerance, bit-identity on a second run, median times; with
+    ``parent`` (the parent checkout's pwg_stack module), also the parent's
+    kernel, in turns.  Returns the kernel record."""
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
     if stack is None:
-        stack, weights, kw, layers = k1_stack(gen)
+        stack, weights, kw, layers = k1_stack(gen, cr)
     else:
         kw = dict(dilations=stack.dilations(), stacks=stack.stacks)
         weights, layers = stack.fused_weights(), stack.layers
-    x = torch.randn((b, t, 64), generator=gen).cuda()
+    cr = stack.residual_channels
+    x = torch.randn((b, t, cr), generator=gen).cuda()
     c = torch.randn((b, t, ODIM), generator=gen).cuda()
     got_x, got_s = k1.fused_residual_stack(x, c, weights, **kw)
     ref_x, ref_s = k1.fused_residual_stack_reference(x, c, weights, **kw)
@@ -1083,11 +1146,11 @@ def k1_check(gen, b, t, parent=None, name="pwg_residual_stack", stack=None):
     ms = cuda_ms(run, 20)
     plain_ms = cuda_ms(
         lambda: k1.fused_residual_stack_reference(x, c, weights, **kw), 5)
-    print(f"K1 B={b} T={t} ({layers} layers): " + ", ".join(
+    print(f"K1 B={b} T={t} ({layers} layers, residual {cr}): " + ", ".join(
         f"{n} max_abs_err {e:.6g} (tol {tl:.6g})" for n, e, tl in errs)
         + f"; bit-identical on a second run; kernel {ms:.4f} ms "
         f"({ms / layers:.4f} a layer), plain {plain_ms:.4f} ms (median); "
-        + layer_traffic(k1, b, t, ms, layers, stack.stacks, False))
+        + layer_traffic(k1, b, t, ms, layers, stack.stacks, False, cr))
     if parent is not None:
         theirs, ours = in_turns(run, lambda: parent.fused_residual_stack(
             x, c, weights, **kw), 20)
@@ -1097,9 +1160,9 @@ def k1_check(gen, b, t, parent=None, name="pwg_residual_stack", stack=None):
               + layer_traffic(k1, b, t, statistics.mean(theirs), layers,
                               stack.stacks, False))
     limit = bound(nbytes(x, c, *weights.values(), got_x, got_s),
-                  b * t * layers * STACK_FWD_FLOPS, torch.bfloat16)
+                  b * t * layers * stack_fwd_flops(cr), torch.bfloat16)
     return {"name": name, "route": "cuda",
-            "source": "parakeet_tpu_torch/csrc/pwg_stack.cu",
+            "source": f"parakeet_tpu_torch/csrc/{K1_SOURCE[cr]}",
             "replaces": "parakeet_tpu/ops/pallas/pwg_stack.py:84",
             "launches": 0, "max_abs_err": max(e for _, e, _ in errs),
             "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None}
@@ -1107,13 +1170,17 @@ def k1_check(gen, b, t, parent=None, name="pwg_residual_stack", stack=None):
 
 def phase_k1(parent=None):
     """K1 against its plain version at a small shape, at longform's and at
-    the main shape; returns the main shape's kernel record.  With
+    the main shape, then at residual width 128 at the small and the main
+    shape; returns the main shape's kernel records (64, 128).  With
     ``parent`` (the parent checkout's pwg_stack module), also times the
     parent's kernel at the main shape, in turns."""
     gen = torch.Generator().manual_seed(SEED + 1)
     for b, t in (SMALL, (1, LONG_T)):
         k1_check(gen, b, t)
-    return k1_check(gen, 1, MAIN_T, parent)
+    rec = k1_check(gen, 1, MAIN_T, parent)
+    k1_check(gen, *SMALL, cr=CR128)
+    return rec, k1_check(gen, 1, MAIN_T, name="pwg_residual_stack_cr128",
+                         cr=CR128)
 
 
 def build_engine(graphs, text_buckets=TEXT_BUCKETS,
@@ -1503,14 +1570,14 @@ def _record(name, source, replaces, errs, ms, plain_ms, limit,
 def k2b_passes(k2, saved, c16, wg16, wso16, dxo, dsk, dil):
     """Each K2b pass's median time over one group (CUDA events around its
     launches), the bytes it must move (from the shapes) and the rate."""
-    b, t = dxo.shape[:2]
+    b, t, cr = dxo.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ms = k2.time_group_backward_passes(saved, c16, wg16, wso16, dxo, dsk,
                                        dilations=dil)
-    moved = k2.k2b_pass_bytes(b, t, dxo.shape[-1], c16.shape[-1], len(dil),
-                              k2.k2b_chunks(b * t, sms)[0])
-    print(f"K2b passes B={b} T={t} (median ms over the group, bytes "
-          "reckoned from the shapes, GB/s): " + ", ".join(
+    moved = k2.k2b_pass_bytes(b, t, cr, c16.shape[-1], len(dil),
+                              k2.k2b_chunks(b * t, k2.k2b_parts(cr, sms))[0])
+    print(f"K2b passes B={b} T={t} residual {cr} (median ms over the group, "
+          "bytes reckoned from the shapes, GB/s): " + ", ".join(
               f"{k} {ms[k]:.4f} ms {moved[k] / 1e6:.1f} MB "
               f"{moved[k] / ms[k] / 1e6:.0f} GB/s" for k in ms)
           + f"; sum {sum(ms.values()):.4f} ms, {sum(moved.values()) / 1e6:.1f}"
@@ -1519,26 +1586,35 @@ def k2b_passes(k2, saved, c16, wg16, wso16, dxo, dsk, dil):
 
 def phase_k2(parent=None):
     """K2a and K2b against their plain versions on one group of ten
-    layers of the recipe's stack; returns their records.  With ``parent``
-    (as ``phase_k1``), also times the parent's K2a, in turns."""
+    layers of the recipe's stack, at its residual width 64 and at 128;
+    returns their records (K2a, K2b at 64, K2a, K2b at 128).  With
+    ``parent`` (as ``phase_k1``), also times the parent's K2a at 64, in
+    turns."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    return (*k2_check(gen, 64, parent),
+            *k2_check(gen, CR128, None, "_cr128"))
+
+
+def k2_check(gen, cr, parent, suffix=""):
+    """phase_k2 at residual width ``cr``: K2a and K2b at the small and the
+    training shape, held to their plain versions and to a second run,
+    timed, K2b pass by pass; returns their records at the training
+    shape."""
     from parakeet_tpu_torch.models.parallel_wavegan import ResidualStack
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
     from parakeet_tpu_torch.ops.kernels import pwg_stack_train as k2
-    gen = torch.Generator().manual_seed(SEED + 3)
-    stack = ResidualStack(**{k: PWG_CONFIG[k] for k in (
-        "layers", "stacks", "residual_channels", "gate_channels",
-        "skip_channels")}, aux_channels=ODIM)
+    stack = ResidualStack(**stack_widths(cr))
     seeded_init_(stack, gen)
     stack = stack.cuda()
     per = PWG_CONFIG["layers"] // PWG_CONFIG["stacks"]
     dil = stack.dilations()[:per]
     with torch.no_grad():
-        wg, wso, bso = k1.pack_stack_weights(stack.fused_weights(), 64, ODIM)
+        wg, wso, bso = k1.pack_stack_weights(stack.fused_weights(), cr, ODIM)
     wg16 = wg[:per].to(torch.bfloat16).contiguous()
     wso16 = wso[:per].to(torch.bfloat16).contiguous()
     bso = bso[:per].contiguous()
     for b, t in (SMALL, (TRAIN_B, TRAIN_T)):
-        x = torch.randn((b, t, 64), generator=gen).cuda()
+        x = torch.randn((b, t, cr), generator=gen).cuda()
         c16 = torch.randn((b, t, ODIM), generator=gen).cuda().to(
             torch.bfloat16)
         fwd = (lambda: k1.fused_group_forward_save(
@@ -1548,12 +1624,13 @@ def phase_k2(parent=None):
                                          dilations=dil)
         again_a = fwd()
         torch.cuda.synchronize()
-        held_a = [(n, _hold(f"K2a {n} B={b} T={t}", g, r, K2_REL_TOL))
+        held_a = [(n, _hold(f"K2a {n} B={b} T={t} residual {cr}", g, r,
+                            K2_REL_TOL))
                   for n, g, r in zip(("x_next", "skip", "saved"), got, ref)]
         if not all(torch.equal(u, v) for u, v in zip(got, again_a)):
             raise AssertionError("K2a: two runs gave different results")
-        dxo = torch.randn((b, t, 64), generator=gen).cuda()
-        dsk = torch.randn((b, t, 64), generator=gen).cuda()
+        dxo = torch.randn((b, t, cr), generator=gen).cuda()
+        dsk = torch.randn((b, t, cr), generator=gen).cuda()
         bwd = (lambda: k2.fused_group_backward(
             got[2], c16, wg16, wso16, dxo, dsk, dilations=dil))
         got_b = bwd()
@@ -1562,7 +1639,8 @@ def phase_k2(parent=None):
         again = bwd()
         torch.cuda.synchronize()
         names = ("dx", "dc", "dwg", "dwso", "dbso")
-        held_b = [(n, _hold(f"K2b {n} B={b} T={t}", g, r, K2_REL_TOL))
+        held_b = [(n, _hold(f"K2b {n} B={b} T={t} residual {cr}", g, r,
+                            K2_REL_TOL))
                   for n, g, r in zip(names, got_b, ref_b)]
         if not all(torch.equal(u, v) for u, v in zip(got_b, again)):
             raise AssertionError("K2b: two runs gave different gradients")
@@ -1572,11 +1650,11 @@ def phase_k2(parent=None):
         ms_b, plain_b = cuda_ms(bwd, 10), cuda_ms(
             lambda: k2.group_backward_reference(got[2], c16, wg16, wso16,
                                                 dxo, dsk, dilations=dil), 3)
-        print(f"K2a B={b} T={t} (one group of {per} layers): "
+        print(f"K2a B={b} T={t} residual {cr} (one group of {per} layers): "
               f"{_report('K2a', held_a)}; bit-identical on a second run; "
               f"kernel {ms_a:.4f} ms ({ms_a / per:.4f} a layer), plain "
               f"{plain_a:.4f} ms (median); "
-              + layer_traffic(k1, b, t, ms_a, per, 1, True))
+              + layer_traffic(k1, b, t, ms_a, per, 1, True, cr))
         if parent is not None and b == TRAIN_B:
             theirs, ours = in_turns(fwd, lambda: parent.fused_group_forward_save(
                 x, c16, wg16, wso16, bso, dilations=dil), 10)
@@ -1585,19 +1663,19 @@ def phase_k2(parent=None):
                   f"{theirs[1]:.4f} ms; parent "
                   + layer_traffic(k1, b, t, statistics.mean(theirs), per, 1,
                                   True))
-        print(f"K2b B={b} T={t}: {_report('K2b', held_b)}; bit-identical "
-              f"on a second run; kernel {ms_b:.4f} ms, plain {plain_b:.4f} "
-              f"ms (median)")
+        print(f"K2b B={b} T={t} residual {cr}: {_report('K2b', held_b)}; "
+              f"bit-identical on a second run; kernel {ms_b:.4f} ms, plain "
+              f"{plain_b:.4f} ms (median)")
         k2b_passes(k2, got[2], c16, wg16, wso16, dxo, dsk, dil)
     row_layers = b * t * per
     limit_a = bound(nbytes(x, c16, wg16, wso16, bso, *got),
-                    row_layers * STACK_FWD_FLOPS, torch.bfloat16)
+                    row_layers * stack_fwd_flops(cr), torch.bfloat16)
     limit_b = bound(nbytes(got[2], c16, wg16, wso16, dxo, dsk, *got_b),
-                    row_layers * STACK_BWD_FLOPS, torch.bfloat16)
-    return (_record("pwg_residual_stack_fwd_save", "pwg_stack.cu",
+                    row_layers * stack_bwd_flops(cr), torch.bfloat16)
+    return (_record(f"pwg_residual_stack_fwd_save{suffix}", K1_SOURCE[cr],
                     "parakeet_tpu/ops/pallas/pwg_stack.py:93", held_a, ms_a,
                     plain_a, limit_a),
-            _record("pwg_residual_stack_bwd", "pwg_stack_bwd.cu",
+            _record(f"pwg_residual_stack_bwd{suffix}", K2B_SOURCE[cr],
                     "parakeet_tpu/ops/pallas/pwg_stack_train.py:76", held_b,
                     ms_b, plain_b, limit_b))
 
@@ -1806,14 +1884,16 @@ def _train_counters():
             "K3c": k3.fused_disc_backward_recompute}
 
 
-def expected_launches(disc_on, vjp_mode="save"):
-    """Kernel launches of one train step at the recipe's widths.
+def expected_launches(disc_on, vjp_mode="save", cr=64):
+    """Kernel launches of one train step at the recipe's widths (residual
+    ``cr``).
 
-    Generator update: K2a once per layer; K2b per group a prep, gate, dw
+    Generator update: K2a once per layer (twice at cr 128,
+    ``k1_layer_launches``); K2b per group a prep, gate, dw
     and dx per layer, and one reduction (``k2b_launches``).  GAN steps
     add the discriminator on the fake (K3a), its input gradient only (the
     discriminator's weights are constants there), the regeneration of the
-    fake without a gradient (K1, once per layer), and the discriminator
+    fake without a gradient (K1, as K2a per layer), and the discriminator
     update: K3a on real and fake, each with the gradients of h and the
     weights.  With ``vjp_mode='save'`` K3a saves and K3b runs for the
     input gradient and for each update (``k3b_launches``: a pass per
@@ -1823,13 +1903,14 @@ def expected_launches(disc_on, vjp_mode="save"):
     """
     from parakeet_tpu_torch.ops.kernels.pwg_disc import (k3b_launches,
                                                         k3c_launches)
+    from parakeet_tpu_torch.ops.kernels.pwg_stack import k1_layer_launches
     from parakeet_tpu_torch.ops.kernels.pwg_stack_train import k2b_launches
     layers, stacks = PWG_CONFIG["layers"], PWG_CONFIG["stacks"]
-    n = {"K1": 0, "K2a": layers,
+    n = {"K1": 0, "K2a": layers * k1_layer_launches(cr),
          "K2b": stacks * k2b_launches(layers // stacks), "K3a": 0,
          "K3b": 0, "K3c": 0}
     if disc_on:
-        n.update(K1=layers, K3a=1 + 2)
+        n.update(K1=layers * k1_layer_launches(cr), K3a=1 + 2)
         fn = k3b_launches if vjp_mode == "save" else k3c_launches
         n["K3b" if vjp_mode == "save" else "K3c"] = (
             fn(True, False) + 2 * fn(True, True))
@@ -2191,10 +2272,20 @@ def _k4_case(gen, q_valid, kv_valid, h, dk, dtype):
             "K4c": (held_c, *times[2:], work["K4c"], lib_b)}
 
 
-def _k4_records(cases, suffix, dtype=torch.float32, source="flash_attn.cu"):
-    """The kernels line's K4 records from ``_k4_case`` results: each
-    kernel's worst error, its times summed over ``cases`` and its bound
-    from their bytes and operations together."""
+def k4_source(dk, dtype):
+    """The source of K4's instance at head width ``dk`` in ``dtype``."""
+    from parakeet_tpu_torch.ops.kernels.flash_attn import k4_padded_dim
+    if k4_padded_dim(dk) == 256:
+        return "flash_attn_d256.cu"
+    return ("flash_attn_bf16.cu" if dtype == torch.bfloat16
+            else "flash_attn.cu")
+
+
+def _k4_records(cases, suffix, dtype=torch.float32, dk=RECIPE_DK):
+    """The kernels line's K4 records from ``_k4_case`` results at head
+    width ``dk``: each kernel's worst error, its times summed over
+    ``cases`` and its bound from their bytes and operations together."""
+    source = k4_source(dk, dtype)
     out = {}
     for key, name in K4_NAMES.items():
         runs = [c[key] for c in cases]
@@ -2214,7 +2305,6 @@ def phase_k4():
     at ``K4_SHAPES`` (``_k4_case``); returns their records, keyed 'K4a'
     ... plus the shape's suffix (the times of the shapes that give
     records, float32)."""
-    from parakeet_tpu_torch.ops.kernels.flash_attn import k4_padded_dim
     gen = torch.Generator().manual_seed(SEED + 7)
     records = {}
     for b, t, h, dk, lengths, mask_rows, suffix in K4_SHAPES:
@@ -2227,9 +2317,7 @@ def phase_k4():
         for dtype in (torch.float32, torch.bfloat16):
             case = _k4_case(gen, q_valid, kv_valid, h, dk, dtype)
             if dtype == torch.float32 and suffix is not None:
-                records.update(_k4_records(
-                    [case], suffix, source="flash_attn_d256.cu"
-                    if k4_padded_dim(dk) == 256 else "flash_attn.cu"))
+                records.update(_k4_records([case], suffix, dk=dk))
     return records
 
 
@@ -2401,12 +2489,13 @@ def phase_fs2_train(records, profile_dir=None):
                      name="fs2_step", what="FastSpeech2 step (flash)")
 
 
-def phase_recipe(record):
+def phase_recipe(record, cr128_records):
     """The PWGAN recipe through its CLI, ``--device cuda`` by default:
     RECIPE_STEPS steps from an empty directory, a second run to
     RECIPE_RESUME_STEPS that resumes from the newest snapshot, and a
     straight run to RECIPE_RESUME_STEPS to compare it with.  Sets K3c's
-    launches in ``record``."""
+    launches in ``record``.  Then the recipe at residual width 128
+    (``recipe_cr128``), which sets the launches of ``cr128_records``."""
     import shutil
     from parakeet_tpu_torch.recipes.pwgan import train
     from parakeet_tpu_torch.recipes.pwgan.dump import write_synthetic_dump
@@ -2435,7 +2524,9 @@ def phase_recipe(record):
             return state, metrics
         return timed_step
 
-    def run(name, directory, want):
+    def run(name, directory, want, opts=RECIPE_OPTS,
+            disc_start=RECIPE_DISC_START, vjp_mode="recompute", cr=64,
+            interval=RECIPE_INTERVAL, snapshots=RECIPE_SNAPSHOTS):
         """Train to want[-1] + 1 steps in ``directory`` and check the run:
         the steps it took, each step's launches, finite train and eval
         metrics, the snapshots left and the ledger."""
@@ -2444,15 +2535,15 @@ def phase_recipe(record):
         trainer = train.main([
             "--config", RECIPE_CONF, "--train-metadata", str(md["train"]),
             "--dev-metadata", str(md["dev"]), "--output-dir",
-            str(out / directory), "--opts", *RECIPE_OPTS,
+            str(out / directory), "--opts", *opts,
             "train_max_steps", str(last)])
         if [s["step"] for s in log] != list(want):
             raise AssertionError(f"recipe {name} run took steps "
                                  f"{[s['step'] for s in log]}, not "
                                  f"{list(want)}")
         for s in log:
-            expect = expected_launches(s["step"] >= RECIPE_DISC_START,
-                                       "recompute")
+            expect = expected_launches(s["step"] >= disc_start, vjp_mode,
+                                       cr)
             if s["launches"] != expect:
                 raise AssertionError(f"recipe {name} step {s['step']}: "
                                      f"launches {s['launches']}, expected "
@@ -2463,8 +2554,7 @@ def phase_recipe(record):
             raise AssertionError(f"recipe {name}: metrics {obs}")
         ckpt = trainer.out / "checkpoints"
         files = sorted(p.name for p in ckpt.iterdir())
-        keep = [last - RECIPE_INTERVAL * i
-                for i in reversed(range(RECIPE_SNAPSHOTS))]
+        keep = [last - interval * i for i in reversed(range(snapshots))]
         if files != ["records.jsonl"] + [f"snapshot_iter_{i}.npz"
                                          for i in keep]:
             raise AssertionError(f"recipe {name}: checkpoints {files}")
@@ -2508,6 +2598,69 @@ def phase_recipe(record):
           f"run's bitwise; launches over the three runs {totals}, K3a "
           f"saving {saves} times")
     record["launches"] = totals["K3c"]
+    train.make_pwg_train_step = timed_step_factory
+    try:
+        recipe_cr128(out, md, run, counters, cr128_records)
+    finally:
+        train.make_pwg_train_step = make
+
+
+def recipe_cr128(out, md, run, counters, records):
+    """The recipe's CLI at residual width 128 (CR128_OPTS): RECIPE_CR128_
+    STEPS steps with the discriminator ('save') from RECIPE_CR128_DISC_
+    START, every step's launches checked (``run`` of ``phase_recipe``:
+    K2a and K1 twice a layer); then ``pwgan/synthesize.py`` on its
+    snapshot, through a YAML of the same ``--opts``, over the first
+    RECIPE_CR128_LINES dev lines: each wav finite with frames x 300
+    samples, K1 twice a layer a line, and within K1_REL_TOL of the wav
+    that K1's plain version gives.  Sets the launches of the width-128
+    records: K1 over the run (its GAN steps, evaluation and synthesis),
+    K2a and K2b over its steps."""
+    from parakeet_tpu_torch.ops.kernels.pwg_stack import k1_layer_launches
+    from parakeet_tpu_torch.recipes.pwgan import synthesize as pwg_syn
+    from parakeet_tpu_torch.training import Config
+    for f in counters.values():
+        f.launches = 0
+    steps = RECIPE_CR128_STEPS
+    opts = [*CR128_OPTS, "updater.discriminator_train_start_steps",
+            str(RECIPE_CR128_DISC_START), "save_interval_steps", str(steps),
+            "eval_interval_steps", str(steps), "num_snapshots", "1"]
+    tic = time.perf_counter()
+    run("cr128", "cr128", range(steps), opts, RECIPE_CR128_DISC_START,
+        "save", CR128, steps, 1)
+    train_s = time.perf_counter() - tic
+    trained = {k: f.launches for k, f in counters.items()}
+    if any(trained[k] == 0 for k in ("K1", "K2a", "K2b", "K3a", "K3b")):
+        raise AssertionError(f"recipe cr128: launches {trained}")
+    conf = out / "cr128.yaml"
+    Config.from_yaml(RECIPE_CONF).merge_opts(CR128_OPTS).dump(conf)
+    dev = out / "cr128_dev.jsonl"
+    dev.write_text("".join(pathlib.Path(md["dev"]).read_text().splitlines(
+        True)[:RECIPE_CR128_LINES]))
+    argv = ["--config", str(conf), "--checkpoint",
+            str(out / "cr128" / "checkpoints" / f"snapshot_iter_{steps}.npz"),
+            "--test-metadata", str(dev)]
+    k1 = counters["K1"]
+    before = k1.launches
+    got = pwg_syn.main(argv + ["--output-dir", str(out / "cr128_wavs")])
+    syn = k1.launches - before
+    plain = _with_plain_k1(pwg_syn.main, argv + [
+        "--output-dir", str(out / "cr128_plain")])
+    worst = _k1_against_plain("recipe cr128 synthesize.py", got["lines"],
+                              plain["lines"], 300)
+    want = PWG_CONFIG["layers"] * k1_layer_launches(CR128) * len(got["lines"])
+    if len(got["lines"]) != RECIPE_CR128_LINES or syn != want:
+        raise AssertionError(f"recipe cr128 synthesize.py: "
+                             f"{len(got['lines'])} lines, K1 x {syn}")
+    print(f"recipe cr128 ({' '.join(CR128_OPTS)}): {steps} steps in "
+          f"{train_s:.1f} s with launches {trained}; pwgan/synthesize.py on "
+          f"its snapshot: " + "; ".join(
+              f"{r['utt_id']} {r['frames']} frames, vocoder "
+              f"{1e3 * r['vocoder_s']:.2f} ms" for r in got["lines"])
+          + f"; K1 x {syn}; wavs within {worst:.3g} of their range of K1's "
+          f"plain version's (tol {K1_REL_TOL:.3g})")
+    for key, rec in records.items():
+        rec["launches"] = k1.launches if key == "K1" else trained[key]
 
 
 def phase_fs2_recipe(records):
@@ -3108,15 +3261,11 @@ def phase_tacotron2():
 
 def phase_am_bench(models):
     """The per-family training bench at the JAX bench's shapes, each of
-    ``models`` with PyTorch's defaults, then under the recipes'
-    deterministic setting."""
+    ``models`` with PyTorch's defaults."""
     from parakeet_tpu_torch.benchmarks import train_am
-    recs = []
-    for det in (False, True):
-        recs += train_am.main(["--models", *models, "--iters",
-                               str(AM_BENCH_ITERS), "--warmup",
-                               str(AM_BENCH_WARMUP)]
-                              + (["--deterministic"] if det else []))
+    recs = train_am.main(["--models", *models, "--iters",
+                          str(AM_BENCH_ITERS), "--warmup",
+                          str(AM_BENCH_WARMUP)])
     if not all(r["value"] > 0 for r in recs):
         raise AssertionError(f"train_am: {recs}")
     print(f"train_am ({recs[0]['device']}, {recs[0]['power_limit']}; B "
@@ -4641,7 +4790,7 @@ def _layers_k4(model, lengths, tag="layers", dk=RECIPE_DK,
     if shapes[0][3] != dk or shapes[1][3] != dk:
         raise AssertionError(f"{tag} recipe: attention shapes {shapes}, "
                              f"expected dk {dk}")
-    return _k4_records(cases, f"_dk{dk}_{tag}", dtype), shapes
+    return _k4_records(cases, f"_dk{dk}_{tag}", dtype, dk), shapes
 
 
 def phase_layers():
@@ -5123,14 +5272,15 @@ def _run_sh_stage(family, stage, env, out, log):
     return seconds, total
 
 
-def _run_sh_against_plain(what, wav_dir, plain, hop):
-    """Each wav the twin wrote under ``wav_dir`` (16-bit PCM) against the
-    in-process plain-K1 run's ``plain`` lines within K1_REL_TOL of the
-    line's range; returns the largest error as a share of the range."""
+def _run_sh_against_plain(what, wav_dir, plain, hop, n_wavs):
+    """The twin's ``n_wavs`` wavs under ``wav_dir`` (16-bit PCM): those of
+    the in-process plain-K1 run's ``plain`` lines against them within
+    K1_REL_TOL of the line's range; returns the largest error as a share
+    of the range."""
     from parakeet_tpu_torch.audio import load_wav
-    files = sorted(pathlib.Path(wav_dir).glob("*.wav"))
-    if [p.stem for p in files] != sorted(r["utt_id"] for r in plain):
-        raise AssertionError(f"{what}: wavs {[p.stem for p in files]}")
+    files = {p.stem for p in pathlib.Path(wav_dir).glob("*.wav")}
+    if len(files) != n_wavs or not {r["utt_id"] for r in plain} <= files:
+        raise AssertionError(f"{what}: wavs {sorted(files)}")
     worst = 0.0
     for r in plain:
         got, _ = load_wav(pathlib.Path(wav_dir) / f"{r['utt_id']}.wav")
@@ -5155,9 +5305,10 @@ def phase_run_sh(records):
     YAMLs' widths (RUN_SH_CUTS).  K1 must launch in both synthesis stages
     (30 a line), K2a, K2b, K3a and K3b (or K3c, by the YAML's vjp_mode) in
     PWGAN's training and K4a-K4c in FastSpeech2's.  Each last stage runs
-    again in this process with K1's plain version, its wavs held to the
-    twin's.  Returns the kernel records with this phase's launches: K1 at
-    PWGAN's synthesis shape, K4 at FastSpeech2's train batch (both
+    again in this process with K1's plain version (PWGAN's on its first
+    RUN_SH_PLAIN_LINES dev lines), its wavs held to the twin's.  Returns
+    the kernel records with this phase's launches: K1 at PWGAN's
+    synthesis shape, K4 at FastSpeech2's train batch (both
     measured here), K2a-K3c with ``records``' numbers (phase 5's, at the
     training shape the recipe runs)."""
     import shutil
@@ -5242,10 +5393,13 @@ def phase_run_sh(records):
     pwg_ckpt = runs["fastspeech2"]["PWG_CKPT"]
     dev = out / "pwg_dump" / "dev" / "norm" / "metadata.jsonl"
     n_dev = len(dev.read_text().splitlines())
+    dev_part = out / "plain_dev.jsonl"
+    dev_part.write_text("".join(dev.read_text().splitlines(True)
+                                [:RUN_SH_PLAIN_LINES]))
     plain_pwg = _with_plain_k1(pwg_syn.main, [
         "--config", str(conf["pwgan"]), "--checkpoint", str(pwg_ckpt),
-        "--test-metadata", str(dev), "--output-dir", str(out / "plain_pwg"),
-        "--device", "cuda"])["lines"]
+        "--test-metadata", str(dev_part), "--output-dir",
+        str(out / "plain_pwg"), "--device", "cuda"])["lines"]
     fs2_ckpt = max((out / "fs2_exp" / "checkpoints").glob("*.npz"),
                    key=lambda p: p.stat().st_mtime)
     fs2_dump = out / "fs2_dump"
@@ -5265,12 +5419,13 @@ def phase_run_sh(records):
                              f"{len(plain_fs2)} sentences, K1 x {k1_syn} "
                              "in the synthesis stages")
     worst = (_run_sh_against_plain("pwgan stage 3", out / "pwg_exp" /
-                                   "wavs", plain_pwg, hop),
+                                   "wavs", plain_pwg, hop, n_dev),
              _run_sh_against_plain("fastspeech2 stage 3", out / "fs2_exp" /
-                                   "wavs", plain_fs2, hop))
+                                   "wavs", plain_fs2, hop, len(plain_fs2)))
     frames = [r["frames"] for r in plain_fs2]
-    print(f"run.sh: pwgan stage 3's {n_dev} wavs and fastspeech2 stage "
-          f"3's {len(plain_fs2)} ({min(frames)}-{max(frames)} frames) "
+    print(f"run.sh: pwgan stage 3's first {len(plain_pwg)} of {n_dev} wavs "
+          f"and fastspeech2 stage 3's {len(plain_fs2)} ({min(frames)}-"
+          f"{max(frames)} frames) "
           f"against K1's plain version in this process within "
           f"{worst[0]:.3g} and {worst[1]:.3g} of their range (tol "
           f"{K1_REL_TOL:.3g}); K1 x {k1_syn[0]} and x {k1_syn[1]} there")
@@ -5833,20 +5988,22 @@ def main():
 
     timed(phase_card)
     parent = None if args.parent is None else load_parent(args.parent)
-    k1 = timed(phase_slice, timed(phase_k1, parent))
+    k1, k1_cr128 = timed(phase_k1, parent)
+    timed(phase_slice, k1)
     timed(phase_serving_graphs)
     timed(phase_e2e)
     timed(phase_stream)
     timed(phase_longform)
     timed(phase_k4a_graphs)
-    k2a, k2b = timed(phase_k2, parent)
+    k2a, k2b, k2a_cr128, k2b_cr128 = timed(phase_k2, parent)
     k3a, k3b, k3c = timed(phase_k3, None if parent is None
                           else parent_module("pwg_disc"))
     timed(phase_train, {"K2a": k2a, "K2b": k2b, "K3a": k3a, "K3b": k3b},
           args.profile)
     k4 = timed(phase_k4)
     timed(phase_fs2_train, k4, args.profile)
-    timed(phase_recipe, k3c)
+    timed(phase_recipe, k3c, {"K1": k1_cr128, "K2a": k2a_cr128,
+                              "K2b": k2b_cr128})
     timed(phase_bench)
     timed(phase_fs2_recipe, k4)
     timed(phase_fs2_bench)
@@ -5865,7 +6022,8 @@ def main():
     k_run_sh = timed(phase_run_sh, {"K2a": k2a, "K2b": k2b, "K3a": k3a,
                                     "K3b": k3b, "K3c": k3c})
     timed(phase_parallel)
-    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k3c,
+    print(json.dumps({"kernels": [k1, k2a, k2b, k1_cr128, k2a_cr128,
+                                  k2b_cr128, k3a, k3b, k3c,
                                   *k4.values(), k1_ss, k1_t2, *k1_tt,
                                   k1_text, *k1_corpus, *k_conv,
                                   *k_layers, *k_mixed, *k_run_sh]}))

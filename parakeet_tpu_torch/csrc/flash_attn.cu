@@ -118,7 +118,8 @@
 // 2.43 (K4b) and 1.33 ms (K4c) against bounds of 0.18, 0.36 and 0.27 ms
 // (chip_smoke.py).  These instances build in their own source,
 // flash_attn_d256.cu, beside flash_attn.cu's, so that nvcc compiles them
-// in parallel with the others.
+// in parallel with the others; so do the bf16 instances of DP 32-192
+// (flash_attn_bf16.cu), which took half of this source's build.
 //
 // Left for later: wgmma with TMA and warp specialisation, skipping tiles
 // that lie wholly outside a sequence, D above 256 (jax's kernel also
@@ -140,29 +141,21 @@ bool bad_args(int B, int H, int Tq, int Tk, int D) {
          D % 16 != 0 || D > 256 || static_cast<long long>(B) * H > 65535;
 }
 
-// Call F<T, DP>(...) for the element type (bf16 or float32) and D's
-// padded width, or F256(is_bf16, ...) at DP = 256 (flash_attn_d256.cu).
-#define PTK_FLASH_DISPATCH(F, F256, is_bf16, D, ...)                  \
+// Call F<float, DP>(...) for D's padded width, FB(DP, ...) for bf16
+// (flash_attn_bf16.cu), or F256(is_bf16, ...) at DP = 256
+// (flash_attn_d256.cu).
+#define PTK_FLASH_DISPATCH(F, FB, F256, is_bf16, D, ...)              \
   do {                                                                \
     const int dp_ = padded_dim(D);                                    \
     if (dp_ == 256)                                                   \
       return static_cast<int>(F256(is_bf16 != 0, __VA_ARGS__));       \
-    if (is_bf16) {                                                    \
-      switch (dp_) {                                                  \
-        case 32: return static_cast<int>(F<bf16, 32>(__VA_ARGS__));   \
-        case 64: return static_cast<int>(F<bf16, 64>(__VA_ARGS__));   \
-        case 96: return static_cast<int>(F<bf16, 96>(__VA_ARGS__));   \
-        case 128: return static_cast<int>(F<bf16, 128>(__VA_ARGS__)); \
-        case 192: return static_cast<int>(F<bf16, 192>(__VA_ARGS__)); \
-      }                                                               \
-    } else {                                                          \
-      switch (dp_) {                                                  \
-        case 32: return static_cast<int>(F<float, 32>(__VA_ARGS__));  \
-        case 64: return static_cast<int>(F<float, 64>(__VA_ARGS__));  \
-        case 96: return static_cast<int>(F<float, 96>(__VA_ARGS__));  \
-        case 128: return static_cast<int>(F<float, 128>(__VA_ARGS__));\
-        case 192: return static_cast<int>(F<float, 192>(__VA_ARGS__));\
-      }                                                               \
+    if (is_bf16) return static_cast<int>(FB(dp_, __VA_ARGS__));       \
+    switch (dp_) {                                                    \
+      case 32: return static_cast<int>(F<float, 32>(__VA_ARGS__));    \
+      case 64: return static_cast<int>(F<float, 64>(__VA_ARGS__));    \
+      case 96: return static_cast<int>(F<float, 96>(__VA_ARGS__));    \
+      case 128: return static_cast<int>(F<float, 128>(__VA_ARGS__));  \
+      case 192: return static_cast<int>(F<float, 192>(__VA_ARGS__));  \
     }                                                                 \
     return -1;                                                        \
   } while (0)
@@ -198,8 +191,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   using namespace ptk;
   if (bad_args(B, H, Tq, Tk, D)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTK_FLASH_DISPATCH(fwd, fwd_d256, is_bf16, D, q, k, v, q_valid, kv_valid,
-                     o, lse, B, H, Tq, Tk, D, scale, s);
+  PTK_FLASH_DISPATCH(fwd, fwd_bf16, fwd_d256, is_bf16, D, q, k, v, q_valid,
+                     kv_valid, o, lse, B, H, Tq, Tk, D, scale, s);
 }
 
 // K4b: dk and dv.
@@ -213,8 +206,9 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
   using namespace ptk;
   if (bad_args(B, H, Tq, Tk, D)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTK_FLASH_DISPATCH(dkv, dkv_d256, is_bf16, D, q, k, v, q_valid, kv_valid,
-                     dout, lse, di, dk, dv, B, H, Tq, Tk, D, scale, s);
+  PTK_FLASH_DISPATCH(dkv, dkv_bf16, dkv_d256, is_bf16, D, q, k, v, q_valid,
+                     kv_valid, dout, lse, di, dk, dv, B, H, Tq, Tk, D,
+                     scale, s);
 }
 
 // K4c: dq.
@@ -227,7 +221,7 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   using namespace ptk;
   if (bad_args(B, H, Tq, Tk, D)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTK_FLASH_DISPATCH(ptk::dq, dq_d256, is_bf16, D, q, k, v, q_valid,
+  PTK_FLASH_DISPATCH(ptk::dq, dq_bf16, dq_d256, is_bf16, D, q, k, v, q_valid,
                      kv_valid, dout, lse, di, dq, B, H, Tq, Tk, D, scale, s);
 }
 

@@ -1,10 +1,11 @@
 // Kernel K4's device code and launchers: flash_fwd_kernel (K4a),
 // flash_dkv_kernel (K4b) and flash_dq_kernel (K4c), their geometry and
 // the host functions fwd, dkv and dq that launch one instance.  The design
-// and its figures are in flash_attn.cu's header comment.  Two sources
+// and its figures are in flash_attn.cu's header comment.  Three sources
 // include this file, so that nvcc builds their instances in parallel:
-// flash_attn.cu (DP 32 to 192, and the C interface) and flash_attn_d256.cu
-// (DP 256).  Everything is in an unnamed namespace, as in common.cuh.
+// flash_attn.cu (float32 at DP 32 to 192, and the C interface),
+// flash_attn_bf16.cu (bf16 at DP 32 to 192) and flash_attn_d256.cu (DP
+// 256).  Everything is in an unnamed namespace, as in common.cuh.
 #pragma once
 
 #include "common.cuh"
@@ -810,6 +811,21 @@ cudaError_t dkv_d256(bool bf16, const void* q, const void* k,
                      void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
                      float scale, cudaStream_t s);
 cudaError_t dq_d256(bool bf16, const void* q, const void* k, const void* v,
+                    const void* qv, const void* kv, const void* dout,
+                    const void* lse, const void* di, void* dq_, int B, int H,
+                    int Tq, int Tk, int D, float scale, cudaStream_t s);
+// The bf16 instances at DP 32, 64, 96, 128 and 192 (dp), defined in
+// flash_attn_bf16.cu and called by flash_attn.cu's dispatch.
+cudaError_t fwd_bf16(int dp, const void* q, const void* k, const void* v,
+                     const void* qv, const void* kv, void* o, void* lse,
+                     int B, int H, int Tq, int Tk, int D, float scale,
+                     cudaStream_t s);
+cudaError_t dkv_bf16(int dp, const void* q, const void* k, const void* v,
+                     const void* qv, const void* kv, const void* dout,
+                     const void* lse, const void* di, void* dk, void* dv,
+                     int B, int H, int Tq, int Tk, int D, float scale,
+                     cudaStream_t s);
+cudaError_t dq_bf16(int dp, const void* q, const void* k, const void* v,
                     const void* qv, const void* kv, const void* dout,
                     const void* lse, const void* di, void* dq_, int B, int H,
                     int Tq, int Tk, int D, float scale, cudaStream_t s);

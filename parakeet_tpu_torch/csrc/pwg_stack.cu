@@ -402,7 +402,8 @@ cudaError_t launch_cr(const void* x_in, void* x_out_f32, void* x_out_bf16,
 // wg: (KP, 2CR) bf16 with KP = 3CR + round_up(CA + 1, 16); wso: (CR, 2CR)
 // bf16; bso: (2CR) f32; skip: (B, T, CR) f32, written (skip_init) or
 // accumulated; saved: null (K1) or (B, T, CR) bf16, the layer's input rows
-// (K2a).  CR is 32 or 64.  Returns a cudaError_t value, or -1 for arguments
+// (K2a).  CR is 32 or 64 (at 128 a layer is pwg_stack_cr128.cu's two
+// launches).  Returns a cudaError_t value, or -1 for arguments
 // the kernel does not take.
 extern "C" int pwg_stack_layer(const void* x_in, void* x_out_f32,
                                void* x_out_bf16, const void* c,

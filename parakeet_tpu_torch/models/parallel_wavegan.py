@@ -318,8 +318,11 @@ class ResidualStack(nn.Module):
     ``ops/kernels/pwg_stack_train.py``: the CUDA kernels on CUDA tensors,
     their plain versions on CPU tensors); or 'auto' (K1 on CUDA tensors
     when the configuration is supported and no gradient is needed, eager
-    otherwise).  A causal stack (``use_causal_conv``) or one without aux
-    channels is never fused: 'auto' runs it eager and 'fused' raises.
+    otherwise).  The fused kernels take residual widths 32, 64 and 128
+    (gate twice that, skip equal to it, aux 1-127: ``fused_stack_
+    supported``, as JAX's); at 128 each layer is two launches.  A causal
+    stack (``use_causal_conv``), one without aux channels or one at other
+    widths is never fused: 'auto' runs it eager and 'fused' raises.
 
     In training (``deterministic=False``) the eager loop drops each
     layer's conv input at rate ``dropout``, the keep-mask drawn from

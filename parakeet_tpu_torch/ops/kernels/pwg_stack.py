@@ -10,8 +10,11 @@ Counterpart of ``parakeet_tpu/ops/pallas/pwg_stack.py``:
   one group of layers, float32 in and out, that also returns each layer's
   input rows as bf16 for the backward (``pwg_stack_train.py``).
 
-On CUDA tensors both launch the hand-written kernel in
-``parakeet_tpu_torch/csrc/pwg_stack.cu``, one launch per layer, or raise;
+On CUDA tensors both launch the hand-written kernels or raise: at residual
+widths 32 and 64 ``parakeet_tpu_torch/csrc/pwg_stack.cu``, one launch per
+layer; at 128 ``csrc/pwg_stack_cr128.cu``, two (``k1_layer_launches``): a
+gate kernel split over two blocks by halves of the gate's column pairs,
+which writes h, and an output kernel, whose weights fit beside it no more.
 ``fused_residual_stack.launches`` and ``fused_group_forward_save.launches``
 count those launches.  On CPU tensors they run ``group_forward_reference``,
 the plain PyTorch statement of the same arithmetic.
@@ -25,8 +28,9 @@ casts stay ordinary operators in front of it, and an exported program
 runs K1 through the operator.  Loading such a program needs this module
 imported first (it registers the operator).  The launcher's geometry is
 stated as plain functions: ``k1_warps`` and ``k1_smem_bytes`` (a block's
-warps and shared memory) and ``k1_layer_bytes`` (the bytes its launches
-must move).
+warps and shared memory; at 128 the gate launch's, and
+``K1_OUT_SMEM`` the output launch's) and ``k1_layer_bytes`` (the bytes its
+launches must move).
 
 Rounding points, copied from the TPU kernel: x and c enter as bf16;
 inside a group of layers x is carried in float32; every matmul operand
@@ -51,13 +55,20 @@ __all__ = ["fused_residual_stack", "fused_residual_stack_reference",
            "fused_group_forward_save", "group_forward_reference",
            "fused_stack_supported", "pack_stack_weights", "check_tensor",
            "kernel_call", "aux_rows", "k1_warps", "k1_smem_bytes",
-           "k1_layer_bytes", "SMEM_LIMIT", "pwg_residual_stack", "K1_OP"]
+           "k1_layer_bytes", "k1_layer_launches", "K1_OUT_SMEM",
+           "SMEM_LIMIT", "pwg_residual_stack", "K1_OP"]
 
 _SQRT_HALF = math.sqrt(0.5)
 _F32, _BF16 = torch.float32, torch.bfloat16
 # the most dynamic shared memory a block may have on the H100 (227 KB)
 SMEM_LIMIT = 232_448
 K1_MAX_WARPS = 8        # pwg_stack.cu's MAX_WARPS
+# the residual width whose layers are two launches (pwg_stack_cr128.cu)
+K1_SPLIT_WIDTH = 128
+# shared memory of pwg_stack_cr128.cu's output launch: wso in bf16 rows of
+# 2cr + 8, bso, and eight warps' stages of 16 rows of h (rows of cr + 8)
+K1_OUT_SMEM = (2 * K1_SPLIT_WIDTH * (2 * K1_SPLIT_WIDTH + 8)
+               + 4 * 2 * K1_SPLIT_WIDTH + 8 * 16 * 2 * (K1_SPLIT_WIDTH + 8))
 
 
 def fused_stack_supported(residual_channels: int, gate_channels: int,
@@ -73,8 +84,9 @@ def fused_stack_supported(residual_channels: int, gate_channels: int,
         return False
     if residual_channels != skip_channels:
         return False
-    # the kernel's instances; at 128 the weights outgrow shared memory
-    return residual_channels in (32, 64)
+    # the kernels' instances: one launch a layer at 32 and 64, two at 128
+    # (pwg_stack_cr128.cu), where a layer's weights outgrow one block
+    return residual_channels in (32, 64, K1_SPLIT_WIDTH)
 
 
 def _aux_width(ca: int) -> int:
@@ -145,15 +157,28 @@ def aux_rows(c16: torch.Tensor, kp: int, cr: int):
 
 def _k1_smem(cr: int, ca: int, warps: int) -> int:
     aw = _aux_width(ca)
+    if cr == K1_SPLIT_WIDTH:
+        # the gate launch: its half of wg's columns; a stage of 16 bf16
+        # rows of the whole gate operand
+        kp = 3 * cr + aw
+        return 2 * kp * (cr + 8) + warps * 16 * 2 * (kp + 8)
     weights = 2 * (3 * cr + aw + cr) * (2 * cr + 8) + 4 * 2 * cr
     stage = 16 * (4 * (3 * cr + 8) + 2 * (aw + 8))
     return weights + warps * stage
 
 
+def k1_layer_launches(cr: int) -> int:
+    """Kernel launches a layer of K1 or K2a: one, or two at cr 128 (the
+    gate launch, then the output launch)."""
+    return 2 if cr == K1_SPLIT_WIDTH else 1
+
+
 def k1_warps(cr: int, ca: int) -> int:
     """Warps of a K1/K2a block, as pwg_stack.cu's ``Geometry::warps``
     picks them: 8, or as many 16-row stages as fit beside the weights (7
-    at cr 64 with ca >= 96).  Each warp walks its own tiles of 16 rows."""
+    at cr 64 with ca >= 96).  Each warp walks its own tiles of 16 rows.
+    At cr 128 the gate launch's (pwg_stack_cr128.cu's ``GateGeometry``: 6
+    at ca 80); its output launch has 8."""
     return max(w for w in range(1, K1_MAX_WARPS + 1)
                if w == 1 or _k1_smem(cr, ca, w) <= SMEM_LIMIT)
 
@@ -162,7 +187,10 @@ def k1_smem_bytes(cr: int, ca: int) -> int:
     """Dynamic shared memory of a K1/K2a block, as pwg_stack.cu's
     ``Geometry`` counts it: wg and wso in bf16 rows of 2cr + 8 and bso in
     float32, resident; a stage a warp of 16 rows of float32 taps (rows of
-    3cr + 8) and bf16 [c | 1 | 0] columns (rows of its width + 8)."""
+    3cr + 8) and bf16 [c | 1 | 0] columns (rows of its width + 8).  At cr
+    128 the gate launch's: its half of wg in rows of cr + 8 and a stage a
+    warp of 16 rows of the bf16 gate operand [taps | c | 1 | 0] (rows of
+    KP + 8); the output launch's is ``K1_OUT_SMEM``."""
     return _k1_smem(cr, ca, k1_warps(cr, ca))
 
 
@@ -172,19 +200,27 @@ def k1_layer_bytes(b: int, t: int, cr: int, ca: int, layers: int,
     move, counted from the shapes with one layer per launch: each layer
     reads x in float32 once (its shifted taps are the same rows), c as
     the kernel reads it (``aux_rows``) and the skip sum, and writes the
-    skip sum and x_next.  ``save``: ``stacks`` calls of
-    ``fused_group_forward_save`` (K2a), each of which starts its skip sum
-    (no read in its first layer), writes each layer's bf16 input rows and
-    ends in float32; else one ``fused_residual_stack`` call (K1), which
-    starts the skip sum once and writes its last x in bf16.  The weights
-    (read once a block, from L2) are left out."""
+    skip sum and x_next.  At cr 128 a layer's two launches read x's taps
+    in bf16 (written by the previous layer, or the caller), write and read
+    h in bf16, read x in float32 in the output launch and write x_next in
+    bf16 too (in K2a as the next layer's saved rows).  ``save``:
+    ``stacks`` calls of ``fused_group_forward_save`` (K2a), each of which
+    starts its skip sum (no read in its first layer), writes each layer's
+    bf16 input rows and ends in float32; else one ``fused_residual_stack``
+    call (K1), which starts the skip sum once and writes its last x in
+    bf16.  The weights (read once a block, from L2) are left out."""
     rows = b * t
     cw = ca if ca % 8 == 0 else _aux_width(ca)
     per_layer = cr * 4 + cw * 2 + 2 * cr * 4 + cr * 4 + (cr * 2 if save
                                                           else 0)
+    if cr == K1_SPLIT_WIDTH:
+        per_layer += -cr * 2 + 2 * cr * 2 + cr * 4 + (0 if save else cr * 2)
     starts = stacks if save else 1
     last_bf16 = 0 if save else cr * 2
-    return rows * (layers * per_layer - starts * cr * 4 - last_bf16)
+    # at cr 128 the last layer of a call writes no bf16 copy of x_next
+    last_copy = starts * cr * 2 if cr == K1_SPLIT_WIDTH else 0
+    return rows * (layers * per_layer - starts * cr * 4 - last_bf16
+                   - last_copy)
 
 
 def group_forward_reference(x, c, wg, wso, bso, *, dilations: Sequence[int],
@@ -277,6 +313,8 @@ def check_tensor(name: str, a: torch.Tensor, shape, dtype, device) -> None:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAYER_ARGS = (_P,) * 9 + (_I,) * 9 + (_P,)
+_GATE_ARGS = (_P,) * 4 + (_I,) * 7 + (_P,)     # pwg_stack_layer_gate
+_OUT_ARGS = (_P,) * 8 + (_I,) * 5 + (_P,)      # pwg_stack_layer_out
 
 
 def _check_stack_args(x, c, n, stacks, what):
@@ -294,35 +332,78 @@ def _check_stack_args(x, c, n, stacks, what):
 
 
 def _run_layers(x_cur, c16, wg16, wso16, bso, dilations, *, per, out,
-                saved, counter):
-    """One launch per layer from float32 x_cur (overwritten: the layers
-    ping-pong between it and a buffer of their own); the last layer writes
-    ``out`` (bf16 to end the stack, float32 to end a group)."""
+                saved, counter, x16=None):
+    """One launch per layer (two at cr 128: ``_run_split_layer``) from
+    float32 x_cur (overwritten: the layers ping-pong between it and a
+    buffer of their own); the last layer writes ``out`` (bf16 to end the
+    stack, float32 to end a group).  At cr 128 the gate launches read
+    each layer's input in bf16: the first layer's from ``x16`` (K1) or,
+    with ``saved`` (K2a), from ``saved[0]``, which this fills with x_cur;
+    the output launches write the next layer's (into ``saved[i + 1]``, or
+    in place in a buffer of their own)."""
     b, t, cr = x_cur.shape
     ca = c16.shape[-1]
     kp = wg16.shape[1]
     c_op, cw = aux_rows(c16, kp, cr)
     x_nxt = torch.empty_like(x_cur)
     skip = torch.empty((b, t, cr), dtype=_F32, device=x_cur.device)
-    fn = kernel_call("pwg_stack_layer", _LAYER_ARGS)
+    split = cr == K1_SPLIT_WIDTH
+    if split:
+        h = torch.empty((b, t, cr), dtype=_BF16, device=x_cur.device)
+        if saved is not None:
+            saved[0].copy_(x_cur)       # bf16 values: exact
+            xb = saved[0]
+        else:
+            xb, xb_next = x16, torch.empty_like(h)
+    else:
+        fn = kernel_call("pwg_stack_layer", _LAYER_ARGS)
     stream = torch.cuda.current_stream(x_cur.device).cuda_stream
     n = len(dilations)
     for i, d in enumerate(dilations):
         last = i == n - 1
         dst = out if last else x_nxt
         bf16_out = dst.dtype == _BF16
-        err = fn(x_cur.data_ptr(), None if bf16_out else dst.data_ptr(),
-                 dst.data_ptr() if bf16_out else None, c_op.data_ptr(),
-                 wg16[i].data_ptr(), wso16[i].data_ptr(), bso[i].data_ptr(),
-                 skip.data_ptr(),
-                 None if saved is None else saved[i].data_ptr(),
-                 b, t, cr, ca, cw, kp, int(d), int(i == 0),
-                 int((i + 1) % per == 0), stream)
-        check_launch(f"pwg_stack_layer (layer {i})", err)
-        counter.launches += 1
+        x_f32 = None if bf16_out else dst.data_ptr()
+        x_bf16 = dst.data_ptr() if bf16_out else None
+        starts, ends = int(i == 0), int((i + 1) % per == 0)
+        if split:
+            xb_out = None if last else (
+                saved[i + 1] if saved is not None else xb_next)
+            _run_split_layer(x_cur, xb, c_op, wg16[i], h, x_f32, x_bf16,
+                             xb_out, wso16[i], bso[i], skip, b, t, cr, ca,
+                             cw, kp, int(d), starts, ends, stream, i, counter)
+            xb = xb_out
+        else:
+            err = fn(x_cur.data_ptr(), x_f32, x_bf16, c_op.data_ptr(),
+                     wg16[i].data_ptr(), wso16[i].data_ptr(),
+                     bso[i].data_ptr(), skip.data_ptr(),
+                     None if saved is None else saved[i].data_ptr(), b, t,
+                     cr, ca, cw, kp, int(d), starts, ends, stream)
+            check_launch(f"pwg_stack_layer (layer {i})", err)
+            counter.launches += 1
         if not last:
             x_cur, x_nxt = x_nxt, x_cur
     return skip
+
+
+def _run_split_layer(x_cur, xb, c_op, wg, h, x_f32, x_bf16, xb_out, wso,
+                     bso, skip, b, t, cr, ca, cw, kp, d, starts, ends, stream,
+                     i, counter):
+    """A layer at cr 128 (pwg_stack_cr128.cu): the gate launch reads the
+    layer's bf16 input ``xb`` and writes h, the output launch reads h and
+    x_cur and writes x_next (and in bf16 into ``xb_out`` unless None); each
+    adds one to ``counter``."""
+    err = kernel_call("pwg_stack_layer_gate", _GATE_ARGS)(
+        xb.data_ptr(), c_op.data_ptr(), wg.data_ptr(), h.data_ptr(), b, t,
+        cr, ca, cw, kp, d, stream)
+    check_launch(f"pwg_stack_layer_gate (layer {i})", err)
+    counter.launches += 1
+    err = kernel_call("pwg_stack_layer_out", _OUT_ARGS)(
+        h.data_ptr(), x_cur.data_ptr(), x_f32, x_bf16,
+        None if xb_out is None else xb_out.data_ptr(), wso.data_ptr(),
+        bso.data_ptr(), skip.data_ptr(), b, t, cr, starts, ends, stream)
+    check_launch(f"pwg_stack_layer_out (layer {i})", err)
+    counter.launches += 1
 
 
 K1_OP = "parakeet_tpu_torch::pwg_residual_stack"
@@ -340,7 +421,8 @@ def pwg_residual_stack(x: torch.Tensor, c: torch.Tensor, wg: torch.Tensor,
     cr) and c (B, T, ca) bf16, wg (L, KP, 2cr) and wso (L, cr, 2cr) bf16
     and bso (L, 2cr) float32 as ``pack_stack_weights`` packs them.
     Returns (x_final bf16, skip_sum float32), (B, T, cr) each; advances
-    ``fused_residual_stack.launches`` once a layer."""
+    ``fused_residual_stack.launches`` once a launch (``k1_layer_launches``
+    a layer)."""
     b, t, cr = x.shape
     n = len(dilations)
     dev = x.device
@@ -355,7 +437,7 @@ def pwg_residual_stack(x: torch.Tensor, c: torch.Tensor, wg: torch.Tensor,
         out = torch.empty((b, t, cr), dtype=_BF16, device=dev)
         skip = _run_layers(x_cur, c, wg, wso, bso, dilations,
                            per=n // stacks, out=out, saved=None,
-                           counter=fused_residual_stack)
+                           counter=fused_residual_stack, x16=x)
     return out, skip
 
 
@@ -396,7 +478,7 @@ def fused_residual_stack(x, c, weights, *, dilations: Sequence[int],
     return _fused_residual_stack_cuda(x, c, weights, dilations, stacks)
 
 
-fused_residual_stack.launches = 0   # kernel launches, one per layer
+fused_residual_stack.launches = 0   # kernel launches (k1_layer_launches)
 
 
 def fused_group_forward_save(x, c16, wg16, wso16, bso, *,
@@ -434,4 +516,4 @@ def fused_group_forward_save(x, c16, wg16, wso16, bso, *,
     return out, skip, saved
 
 
-fused_group_forward_save.launches = 0   # kernel launches, one per layer
+fused_group_forward_save.launches = 0   # launches (k1_layer_launches)

@@ -12,9 +12,11 @@ gradient, ``ResidualStack`` runs K1 instead.
 On CUDA tensors the backward launches the kernels of
 ``parakeet_tpu_torch/csrc/pwg_stack_bwd.cu`` (``k2b_launches``: a prep
 pass, then gate, dw and dx per layer, and one reduction per group;
-``fused_group_backward.launches`` counts them) or raises; on CPU tensors
-it runs ``group_backward_reference``, the plain statement of the same
-arithmetic.  The gradient is the exact transpose of
+``fused_group_backward.launches`` counts them; the residual width 128's
+instances build in ``csrc/pwg_stack_bwd_cr128.cu``, their passes split
+over the grid's y by column blocks, ``k2b_splits``) or raises; on CPU
+tensors it runs ``group_backward_reference``, the plain statement of the
+same arithmetic.  The gradient is the exact transpose of
 the bf16 forward, as on the TPU: dx, dh, da, db and dc stay float32 and
 only the products' operands dso and dg are rounded to bf16.  The bf16
 rounding of x at a group's entry and exit passes the gradient through.
@@ -36,8 +38,8 @@ from .pwg_stack import (SMEM_LIMIT, _aux_width, _bf, _check_stack_args,
 
 __all__ = ["fused_residual_stack_train", "fused_group_backward",
            "group_backward_reference", "k2b_launches", "k2b_chunks",
-           "k2b_smem_bytes", "k2b_pass_bytes", "aux_rows", "SMEM_LIMIT",
-           "time_group_backward_passes"]
+           "k2b_parts", "k2b_splits", "k2b_smem_bytes", "k2b_pass_bytes",
+           "aux_rows", "SMEM_LIMIT", "time_group_backward_passes"]
 
 _SQRT_HALF = math.sqrt(0.5)
 _F32, _BF16 = torch.float32, torch.bfloat16
@@ -104,6 +106,25 @@ K2B_TILE_ROWS, K2B_THREADS = 64, 256
 _STAGES = {"gate": 2, "dw": 3, "dx": 2}
 
 
+def k2b_splits(cr: int):
+    """pwg_stack_bwd.cuh's split of each pass at residual width ``cr``:
+    {pass: (blocks a chunk along the grid's y, rows a tile, stages)}.  At
+    32 and 64 a chunk is one block of 64-row tiles; at 128 the gate takes
+    the column pairs j in two halves and the dx pass dx's columns in two,
+    both in tiles of 32 rows with one stage, and dw dg's columns in four."""
+    if cr > 64:
+        return {"gate": (2, 32, 1), "dw": (4, K2B_TILE_ROWS, 3),
+                "dx": (2, 32, 1)}
+    return {k: (1, K2B_TILE_ROWS, n) for k, n in _STAGES.items()}
+
+
+def k2b_parts(cr: int, sms: int) -> int:
+    """Chunks a K2b call cuts its rows into on a card of ``sms`` SMs: one a
+    block (one an SM), and at cr 128, whose gate and dx passes run two
+    blocks a chunk, one for each two SMs."""
+    return max(1, sms // k2b_splits(cr)["gate"][0])
+
+
 def k2b_launches(layers: int, need_weights: bool = True) -> int:
     """Kernel launches of K2b for one group of ``layers`` layers: the
     prep, then gate and dx per layer, with the weight gradients dw per
@@ -121,17 +142,22 @@ def k2b_chunks(rows: int, sms: int):
 
 def k2b_smem_bytes(cr: int, ca: int):
     """Dynamic shared memory of each K2b kernel a block (the prep kernel's
-    4 KB are static), as pwg_stack_bwd.cu computes it (``gate_elems``,
-    ``dw_elems``, ``dx_elems``): the weights stay resident, the streamed
-    row tiles have their stages.  Rows are padded by 8 elements."""
+    4 KB are static), as pwg_stack_bwd.cuh computes it (``gate_elems``,
+    ``dw_elems``, ``dx_elems``): the weights a block needs stay resident
+    (at cr 128 its column block's, ``k2b_splits``), the streamed row tiles
+    have their stages.  Rows are padded by 8 elements."""
     kp = 3 * cr + _aux_width(ca)
     cap = -(-ca // 16) * 16
-    tm = K2B_TILE_ROWS
-    gate = ((kp + cr) * (2 * cr + 8) + _STAGES["gate"] * tm * (kp + cr + 16)
-            + 2 * tm * (cr + 8))
-    dw = _STAGES["dw"] * tm * (kp + 8 + 2 * cr + 8)
-    dx = (6 * cr * (cr + 8) + 2 * cr * (cap + 8)
-          + _STAGES["dx"] * 3 * tm * (2 * cr + 8))
+    sp = k2b_splits(cr)
+    z, tm, st = sp["gate"]
+    jw = cr // z                          # the block's column pairs j
+    gate = (kp * (2 * jw + 8) + jw * (2 * cr + 8) + st * tm * (kp + cr + 16)
+            + tm * (cr + 8) + tm * (jw + 8))
+    z, tm, st = sp["dw"]
+    dw = st * tm * (kp + 8 + 2 * cr // z + 8)
+    z, tm, st = sp["dx"]
+    dx = (6 * cr * (cr // z + 8) + 2 * cr * (cap + 8)
+          + st * 3 * tm * (2 * cr + 8))
     return {"prep": 16 * K2B_THREADS, "gate": 2 * gate, "dw": 2 * dw,
             "dx": 2 * dx}
 
@@ -194,7 +220,7 @@ def _group_backward_cuda(saved, c16, wg16, wso16, dx_out, dskip, dilations,
         wdc = torch.zeros((n, 2 * cr, cap), dtype=_BF16, device=dev)
         wdc[:, :, :ca] = wg16[:, 3 * cr:3 * cr + ca].transpose(1, 2)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        nparts, chunk = k2b_chunks(b * t, sms)
+        nparts, chunk = k2b_chunks(b * t, k2b_parts(cr, sms))
         dsk16 = torch.empty((b, t, cr), dtype=_BF16, device=dev)
         dg = torch.empty((b, t, 2 * cr), dtype=_BF16, device=dev)
         # two fresh buffers for the dx of successive layers: the caller's

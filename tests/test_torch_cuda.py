@@ -44,7 +44,8 @@ REL_TOL = 2 ** -5
 
 
 @pytest.mark.parametrize("cr,ca,b,t", [(64, 80, 2, 1000), (32, 20, 1, 333),
-                                       (64, 13, 3, 129)])
+                                       (64, 13, 3, 129), (128, 80, 2, 1000),
+                                       (128, 20, 1, 333)])
 def test_k1_matches_plain_version(cuda, cr, ca, b, t):
     stack, gen = _stack(cr, ca, layers=6, stacks=2, seed=cr + ca)
     stack = stack.to(cuda)
@@ -55,7 +56,8 @@ def test_k1_matches_plain_version(cuda, cr, ca, b, t):
     n0 = pwg_stack.fused_residual_stack.launches
     got_x, got_s = pwg_stack.fused_residual_stack(x, c, w, **kw)
     torch.cuda.synchronize()
-    assert pwg_stack.fused_residual_stack.launches - n0 == 6
+    assert pwg_stack.fused_residual_stack.launches - n0 == (
+        6 * pwg_stack.k1_layer_launches(cr))
     want_x, want_s = pwg_stack.fused_residual_stack_reference(x, c, w, **kw)
     assert got_x.dtype == torch.bfloat16 and got_s.dtype == torch.float32
     for got, want in ((got_x.float(), want_x.float()), (got_s, want_s)):
@@ -118,7 +120,11 @@ def _k2_inputs(cuda, cr, ca, b, t, seed, layers=6, stacks=2):
     # aux widths that are not multiples of 8, with many tiles a chunk
     (32, 20, 2, 9001, 10, 1), (64, 13, 2, 8999, 6, 2),
     # the recipe's widths, ten layers, chunks of many tiles
-    (64, 80, 4, 20000, 10, 1)])
+    (64, 80, 4, 20000, 10, 1),
+    # residual width 128 (the passes split over the grid's y): the YAMLs'
+    # aux width, one not a multiple of 8 and the widest, ten layers
+    (128, 80, 2, 1000, 6, 2), (128, 13, 2, 8999, 6, 2),
+    (128, 127, 1, 4133, 6, 2), (128, 80, 4, 20000, 10, 1)])
 def test_k2_matches_plain_versions(cuda, cr, ca, b, t, layers, stacks):
     from parakeet_tpu_torch.ops.kernels import pwg_stack as k1
     from parakeet_tpu_torch.ops.kernels import pwg_stack_train as k2
@@ -126,7 +132,8 @@ def test_k2_matches_plain_versions(cuda, cr, ca, b, t, layers, stacks):
         cuda, cr, ca, b, t, cr + ca + 7, layers, stacks)
     n0 = k1.fused_group_forward_save.launches
     got = k1.fused_group_forward_save(x, c16, wg, wso, bso, dilations=dil)
-    assert k1.fused_group_forward_save.launches - n0 == len(dil)
+    assert k1.fused_group_forward_save.launches - n0 == (
+        len(dil) * k1.k1_layer_launches(cr))
     want = k1.group_forward_reference(x, c16, wg, wso, bso, dilations=dil)
     for name, g, w in zip(("x_next", "skip", "saved"), got, want):
         _hold(g, w, name)
@@ -165,7 +172,9 @@ def test_k2_matches_plain_versions(cuda, cr, ca, b, t, layers, stacks):
     (64, 80, 3, 7, 10, 1), (64, 80, 2, 37, 10, 1), (64, 80, 1, 300, 10, 1),
     (64, 80, 3, 1001, 6, 2), (32, 13, 2, 999, 6, 2),
     (64, 13, 3, 777, 10, 1), (64, 100, 2, 1500, 6, 2),
-    (64, 127, 3, 65, 10, 1), (64, 80, 4, 20000, 30, 3)])
+    (64, 127, 3, 65, 10, 1), (64, 80, 4, 20000, 30, 3),
+    (128, 80, 3, 7, 10, 1), (128, 80, 1, 300, 10, 1), (128, 13, 2, 999, 6, 2),
+    (128, 127, 3, 65, 10, 1), (128, 80, 4, 20000, 30, 3)])
 def test_k1_k2a_edges_match_plain_versions(cuda, cr, ca, b, t, layers,
                                            stacks):
     stack, gen = _stack(cr, ca, layers, stacks, seed=cr + ca + t)
@@ -176,7 +185,8 @@ def test_k1_k2a_edges_match_plain_versions(cuda, cr, ca, b, t, layers,
     w = stack.fused_weights()
     n0 = pwg_stack.fused_residual_stack.launches
     got = pwg_stack.fused_residual_stack(x, c, w, **kw)
-    assert pwg_stack.fused_residual_stack.launches - n0 == layers
+    assert pwg_stack.fused_residual_stack.launches - n0 == (
+        layers * pwg_stack.k1_layer_launches(cr))
     again = pwg_stack.fused_residual_stack(x, c, w, **kw)
     want = pwg_stack.fused_residual_stack_reference(x, c, w, **kw)
     for name, g, a, r in zip(("x", "skip"), got, again, want):
@@ -188,7 +198,8 @@ def test_k1_k2a_edges_match_plain_versions(cuda, cr, ca, b, t, layers,
     n0 = pwg_stack.fused_group_forward_save.launches
     got = pwg_stack.fused_group_forward_save(x, c16, wg, wso, bso,
                                              dilations=dil)
-    assert pwg_stack.fused_group_forward_save.launches - n0 == len(dil)
+    assert pwg_stack.fused_group_forward_save.launches - n0 == (
+        len(dil) * pwg_stack.k1_layer_launches(cr))
     again = pwg_stack.fused_group_forward_save(x, c16, wg, wso, bso,
                                                dilations=dil)
     want = pwg_stack.group_forward_reference(x, c16, wg, wso, bso,
@@ -198,24 +209,31 @@ def test_k1_k2a_edges_match_plain_versions(cuda, cr, ca, b, t, layers,
         assert torch.equal(g, a), f"K2a {name} differs between two runs"
 
 
-@pytest.mark.parametrize("cr", [32, 64])
+@pytest.mark.parametrize("cr", [32, 64, 128])
 def test_k1_shared_memory_matches_the_kernel(cuda, cr):
     """The launcher's ``k1_smem_bytes`` is the kernel's own count
-    (``pwg_stack_smem``), within the card's 227 KB, at aux widths from the
-    narrowest to the widest, across the switch to seven warps a block."""
+    (``pwg_stack_smem``; at cr 128 the gate launch's and the output
+    launch's, ``pwg_stack_split_smem``), within the card's 227 KB, at aux
+    widths from the narrowest to the widest, across the switch to seven
+    warps a block."""
     import ctypes
 
     from parakeet_tpu_torch.ops.kernels._build import load_library
-    fn = load_library().cdll.pwg_stack_smem
+    lib = load_library().cdll
+    fn = lib.pwg_stack_smem if cr < 128 else lib.pwg_stack_split_smem
     fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_longlong
     for ca in (1, 13, 20, 80, 95, 96, 127):
         kp = 3 * cr + -(-(ca + 1) // 16) * 16
         want = pwg_stack.k1_smem_bytes(cr, ca)
-        assert fn(cr, kp) == want <= pwg_stack.SMEM_LIMIT, ca
+        if cr < 128:
+            assert fn(cr, kp) == want <= pwg_stack.SMEM_LIMIT, ca
+        else:
+            assert fn(0, kp) == want <= pwg_stack.SMEM_LIMIT, ca
+            assert fn(1, kp) == pwg_stack.K1_OUT_SMEM, ca
 
 
-@pytest.mark.parametrize("cr", [32, 64])
+@pytest.mark.parametrize("cr", [32, 64, 128])
 def test_k2b_shared_memory_matches_the_kernels(cuda, cr):
     """The launcher's ``k2b_smem_bytes`` is the kernels' own count
     (``pwg_stack_bwd_smem``), within the card's 227 KB, at every aux width

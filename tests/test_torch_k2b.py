@@ -19,7 +19,7 @@ ROWS = [204_000, 2 * 1000, 333, 3 * 129, 3 * 700, 4133, 2 * 9001, 80_000,
 
 
 @pytest.mark.parametrize("rows", ROWS)
-@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("sms", [132, 114, 66, 57])
 def test_k2b_chunks_hold_every_row_once(rows, sms):
     """Every row lies in exactly one chunk, no chunk is empty, there are
     at most as many chunks as SMs (one block each), and the tiles of
@@ -40,7 +40,7 @@ def test_k2b_chunks_hold_every_row_once(rows, sms):
     assert (owner >= 0).all()
 
 
-@pytest.mark.parametrize("cr", [32, 64])
+@pytest.mark.parametrize("cr", [32, 64, 128])
 @pytest.mark.parametrize("ca", [13, 20, 80, 127])
 def test_k2b_shared_memory_fits_a_block(cr, ca):
     """Every K2b kernel fits the H100's 227 KB of shared memory a block at
@@ -66,6 +66,29 @@ def test_k2b_shared_memory_at_the_recipe_widths():
         "dx": 2 * (384 * 72 + 128 * 88 + 2 * 3 * 64 * 136)}
     assert k2.k2b_smem_bytes(64, 80)["gate"] == 208_384
     assert not k1.fused_stack_supported(64, 128, 64, 3, 30, 3, 128)
+
+
+def test_k2b_shared_memory_at_residual_width_128():
+    """pwg_stack_bwd.cuh's split at cr 128, ca 80 (KP 480, CAP 80), worked
+    out by hand: the gate block holds its half of wg's column pairs (rows
+    of 136) and wso's 64 rows j (264), one stage of the 32-row operand
+    (488) and dsk16 (136), dres (136) and its half of h (72); dw three
+    stages of the 64-row operand and its quarter of dg (72); dx its half
+    of [W1; W0; W2]^T (768 rows of 72), Wa^T (256 of 88) and one stage of
+    three 32-row dg tiles (264).  A call cuts its rows into a chunk for
+    each two SMs, as the gate and dx passes run two blocks a chunk."""
+    assert k2.k2b_smem_bytes(128, 80) == {
+        "prep": 4096,
+        "gate": 2 * (480 * 136 + 64 * 264 + 32 * (488 + 136) + 32 * 136
+                     + 32 * 72),
+        "dw": 2 * 3 * 64 * (488 + 72),
+        "dx": 2 * (768 * 72 + 256 * 88 + 3 * 32 * 264)}
+    assert k2.k2b_smem_bytes(128, 80)["gate"] == 217_600
+    assert k2.k2b_splits(128) == {"gate": (2, 32, 1), "dw": (4, 64, 3),
+                                  "dx": (2, 32, 1)}
+    assert k2.k2b_splits(64) == {"gate": (1, 64, 2), "dw": (1, 64, 3),
+                                 "dx": (1, 64, 2)}
+    assert (k2.k2b_parts(128, 132), k2.k2b_parts(64, 132)) == (66, 132)
 
 
 def _chip_smoke():

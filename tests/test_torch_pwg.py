@@ -103,10 +103,11 @@ def test_pwg_modules_match_jax(name):
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 
-def _stacks(t, seed):
+def _stacks(t, seed, stack=STACK):
     """(flat, jax variables, x, c) for a JAX and a port ResidualStack."""
-    x, c = _np(seed, 2, t, 32), _np(seed + 1, 2, t, 20)
-    flat, variables = _init(jpwg.ResidualStack(impl="xla", **STACK), seed,
+    x = _np(seed, 2, t, stack["residual_channels"])
+    c = _np(seed + 1, 2, t, stack["aux_channels"])
+    flat, variables = _init(jpwg.ResidualStack(impl="xla", **stack), seed,
                             jnp.asarray(x), jnp.asarray(c))
     return flat, variables, x, c
 
@@ -134,20 +135,27 @@ def test_eager_stack_matches_jax_xla():
 K1_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 
 
-@pytest.mark.parametrize("t", [300, 700])
-def test_k1_reference_matches_pallas_interpret(t, monkeypatch):
+@pytest.mark.parametrize("t,cr", [pytest.param(300, 32, id="300"),
+                                  pytest.param(700, 32, id="700"),
+                                  pytest.param(700, 128, id="700-cr128")])
+def test_k1_reference_matches_pallas_interpret(t, cr, monkeypatch):
     """t=700 shrinks the Pallas block so that T spans several blocks and
     the carried left tails and right halo come into play, as in
-    tests/test_pwg_pallas_stack.py::test_pallas_stack_cross_block_tails."""
+    tests/test_pwg_pallas_stack.py::test_pallas_stack_cross_block_tails;
+    at residual width 128 (gate 256, skip 128) too, with the YAMLs' 80 aux
+    channels."""
     if t > 300:
         from parakeet_tpu.ops.pallas import pwg_stack
         monkeypatch.setattr(pwg_stack, "_BLOCK", 256)
         monkeypatch.setattr(pwg_stack, "_HALO", 64)
         monkeypatch.setattr(pwg_stack, "_SLACK", 32)
-    flat, variables, x, c = _stacks(t, 6)
-    want_x, want_s = jpwg.ResidualStack(impl="pallas", **STACK).apply(
+    cfg = STACK if cr == 32 else dict(
+        STACK, residual_channels=cr, gate_channels=2 * cr, skip_channels=cr,
+        aux_channels=80)
+    flat, variables, x, c = _stacks(t, 6, cfg)
+    want_x, want_s = jpwg.ResidualStack(impl="pallas", **cfg).apply(
         variables, jnp.asarray(x), jnp.asarray(c))
-    port = tpwg.ResidualStack(impl="fused", **STACK)
+    port = tpwg.ResidualStack(impl="fused", **cfg)
     load_flax_params(port, flat)
     tstack.fused_residual_stack.launches = 0
     got_x, got_s = port(torch.from_numpy(x), torch.from_numpy(c))
@@ -178,6 +186,12 @@ def test_k1_reference_matches_eager_stack_to_bf16():
 def test_fused_stack_supported_and_wrapper_devices():
     assert tpwg.ResidualStack(**STACK).supported
     assert not tstack.fused_stack_supported(48, 96, 48, 3, 6, 3, 20)
+    # the widths JAX's fused stack takes: 32, 64 and 128
+    assert tstack.fused_stack_supported(128, 256, 128, 3, 30, 3, 80)
+    assert not tstack.fused_stack_supported(256, 512, 256, 3, 30, 3, 80)
+    assert tpwg.ResidualStack(impl="fused", residual_channels=128,
+                              gate_channels=256, skip_channels=128,
+                              aux_channels=80).supported
     assert not tstack.fused_stack_supported(32, 64, 32, 3, 6, 3, None)
     with pytest.raises(ValueError, match="unsupported"):
         tpwg.ResidualStack(impl="fused", **dict(STACK, aux_channels=None))

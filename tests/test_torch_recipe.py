@@ -392,6 +392,50 @@ def test_recipe_resumes_bitwise(tmp_path, monkeypatch):
     assert (tmp_path / "straight" / "config.yaml").exists()
 
 
+def test_recipe_trains_the_fused_stack_at_residual_width_128(tmp_path,
+                                                            monkeypatch):
+    """The recipe at ``--opts generator_params.residual_channels 128
+    generator_params.gate_channels 256 generator_params.skip_channels
+    128``, which JAX's fused stack takes (layers and clip cut by
+    TINY_OPTS): the YAML's stack_impl builds a 'fused' ResidualStack at
+    that width, step 0 trains it through the K2 route, step 1 (the
+    discriminator from step 1) is a GAN step that also regenerates the
+    fake through K1 (their plain versions on the CPU), and the losses are
+    finite."""
+    calls = {"fused_residual_stack_train": 0, "fused_residual_stack": 0}
+    for name in calls:
+        real = getattr(tpwg, name)
+
+        def counted(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(tpwg, name, counted)
+    md = write_synthetic_dump(tmp_path / "dump", seed=0,
+                              splits={"train": 4, "dev": 2},
+                              frames=(40, 50), n_shift=6)
+    opts = TINY_OPTS + [
+        "generator_params.residual_channels", "128",
+        "generator_params.gate_channels", "256",
+        "generator_params.skip_channels", "128",
+        "updater.discriminator_train_start_steps", "1",
+        "save_interval_steps", "2", "eval_interval_steps", "2",
+        "train_max_steps", "2"]
+    trainer = trecipe.main(["--config", CONF,
+                            "--train-metadata", str(md["train"]),
+                            "--dev-metadata", str(md["dev"]),
+                            "--output-dir", str(tmp_path / "cr128"),
+                            "--device", "cpu", "--opts", *opts])
+    stack = trainer.updater.train_state.modules["generator"].stack
+    assert (stack.impl, stack.residual_channels, stack.skip_channels) == (
+        "fused", 128, 128)
+    assert stack.conv_kernel.shape == (4, 3, 128, 256)
+    assert calls["fused_residual_stack_train"] == 2
+    assert calls["fused_residual_stack"] >= 1
+    obs = {k: float(v) for k, v in trainer.observation.items()}
+    assert {"train/discriminator_loss", "eval/generator_loss"} <= obs.keys()
+    assert all(np.isfinite(v) for v in obs.values())
+
+
 def test_recipe_refuses_the_card_it_does_not_have():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")

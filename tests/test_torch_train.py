@@ -119,26 +119,35 @@ DILS = tuple(2 ** (i % (LAYERS // STACKS)) for i in range(LAYERS))
 K2_TOL = 2 ** -6
 
 
-def _stack_weights(seed, scale=0.3):
+def _stack_weights(seed, scale=0.3, cr=CR, ca=CA):
     rng = np.random.default_rng(seed)
 
     def n(*s):
         return (rng.standard_normal(s) * scale).astype(np.float32)
-    return dict(conv=n(LAYERS, 3, CR, 2 * CR), conv_b=n(LAYERS, 2 * CR),
-                aux=n(LAYERS, CA, 2 * CR), skip=n(LAYERS, CR, CR),
-                out=n(LAYERS, CR, CR), skip_b=n(LAYERS, CR),
-                out_b=n(LAYERS, CR))
+    return dict(conv=n(LAYERS, 3, cr, 2 * cr), conv_b=n(LAYERS, 2 * cr),
+                aux=n(LAYERS, ca, 2 * cr), skip=n(LAYERS, cr, cr),
+                out=n(LAYERS, cr, cr), skip_b=n(LAYERS, cr),
+                out_b=n(LAYERS, cr))
 
 
-def test_k2_reference_matches_pallas_train_stack(monkeypatch):
+@pytest.mark.parametrize("cr,ca", [pytest.param(CR, CA, id="32"),
+                                   pytest.param(128, 80, id="128")])
+def test_k2_reference_matches_pallas_train_stack(monkeypatch, cr, ca):
+    """The plain K2a/K2b against the Pallas train stack, at residual width
+    32 and at 128 (gate 256, skip 128) with the YAMLs' 80 aux channels.
+    The weights' scale falls with the gate's fan-in (3cr + ca: 116 and
+    464), so that the gate's pre-activations spread alike at both widths
+    (std ~3.2); at 0.3 and width 128 (std ~6.5) the saturated gates
+    amplify each flipped bf16 rounding layer after layer."""
     monkeypatch.setattr(jstack, "_BLOCK", 256)
     monkeypatch.setattr(jstack, "_HALO", 64)
     monkeypatch.setattr(jstack, "_SLACK", 32)
     monkeypatch.setattr(jstack_train, "_BWD_BLOCK", 128)
     b, t = 2, 300
-    x, c = _np(3, b, t, CR), _np(4, b, t, CA)
-    w = _stack_weights(5)
-    wx, ws = _np(6, b, t, CR), _np(7, b, t, CR)
+    x, c = _np(3, b, t, cr), _np(4, b, t, ca)
+    w = _stack_weights(5, 0.3 * math.sqrt((3 * CR + CA) / (3 * cr + ca)),
+                       cr, ca)
+    wx, ws = _np(6, b, t, cr), _np(7, b, t, cr)
     (want_x, want_s), vjp = jax.vjp(
         lambda x, c, w: jstack_train.fused_residual_stack_train(
             x, c, w, dilations=DILS, stacks=STACKS),
