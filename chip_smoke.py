@@ -82,7 +82,9 @@ Phases, one line each (the checks raise; nothing is caught):
    both of the FastSpeech2 recipe's (B=16, H=2, dk=192: the encoder's
    T=128, key lengths 96-128, and the decoder's T=1024, 700-1024), and
    at the decoder's at adim 512 over 2 heads (B=16, H=2, dk=256, T=1024,
-   700-1024: the DP = 256 instances): max abs errors against stated
+   700-1024: the DP = 256 instances) and at adim 384 and 512 over one
+   head (B=16, H=1, dk=384 and 512, T=1024, 700-1024: the wide
+   instances): max abs errors against stated
    tolerances (K4a against its plain version both as one softmax and
    blocked at the kernel's own key tile, ``k4a_block_k``), outputs and
    gradients bit-identical from run to run, median times of each
@@ -100,7 +102,11 @@ Phases, one line each (the checks raise; nothing is caught):
    decoder layers) and never in the dense run, and step 0 must agree
    between the two within stated tolerances.  It prints ms per step for
    both; then ``inference(max_frames=1024)`` of the trained flash model
-   (K4a under no_grad) must agree with a dense copy of it;
+   (K4a under no_grad) must agree with a dense copy of it; then the same
+   model at adim 512 over one head (dk 512, the wide instances) takes
+   two float32 steps with 'flash' and two with 'dense' from the same
+   weights: K4a, K4b and K4c 8 times a flash step, and each step's loss
+   held to the dense one's;
 9. the PWGAN recipe through its CLI (``parakeet_tpu_torch.recipes.pwgan.
    train.main``, on the card by default) with recipes/pwgan/conf/
    default.yaml at full widths and ``discriminator_params.vjp_mode
@@ -137,15 +143,16 @@ Phases, one line each (the checks raise; nothing is caught):
    flash's within the FastSpeech2 phase's tolerances; aishell3.yaml with
    ``--speaker-dict`` (the concat integration) trains an epoch of 2
    steps; default.yaml with ``--opts model.adim 512 model.aheads 2``
-   (dk 256, flash, the attention dropout at 0) trains an epoch of 2 steps
-   over the Chinese frontend's phone map, and the synthesis CLI
-   (``recipes.fastspeech2.synthesize_e2e``) on its snapshot, through a
+   (dk 256) and with ``--opts model.aheads 1`` (dk 384; flash, the
+   attention dropout at 0) each trains an epoch of 2 steps over the
+   Chinese frontend's phone map, and the synthesis CLI
+   (``recipes.fastspeech2.synthesize_e2e``) on each snapshot, through a
    YAML of the same ``--opts``, speaks two lines vocoded by a PWG of
    seeded weights: every wav finite with the frames' samples, K1 x 30 a
    line, K4a (and no K4b or K4c) in the CLI, the AM graph bitwise its
    eager program, each mel within a stated tolerance of the same
-   weights' program with 'dense'; then K4a-K4c at that run's own shapes
-   (its train batch with the most frames: the encoder's and the
+   weights' program with 'dense'; then K4a-K4c at the dk 256 run's own
+   shapes (its train batch with the most frames: the encoder's and the
    decoder's self-attention) in float32 and bf16 against their plain
    versions, timed;
 12. the FastSpeech2 training bench (``parakeet_tpu_torch.benchmarks.
@@ -294,7 +301,8 @@ Phases, one line each (the checks raise; nothing is caught):
    processes report the kernels' launch counts, on a seeded formant
    corpus of 264 utterances (``recipes/corpus.py``) at the YAMLs' widths
    (``RUN_SH_CUTS``: the step counts, PWGAN's discriminator start and
-   intervals, FastSpeech2's flash attention): K1 30 times a line in both
+   intervals, FastSpeech2's flash attention; ``RUN_SH_SWAP``: its
+   preprocess in one process): K1 30 times a line in both
    synthesis stages, K2a, K2b, K3a and K3b in PWGAN's training, K4a-K4c
    in FastSpeech2's; each synthesis stage again in this process with
    K1's plain version (PWGAN's on its first RUN_SH_PLAIN_LINES dev
@@ -327,8 +335,10 @@ The line before the last is a JSON object with each kernel's launches on
 its path (K1: serving; K2a-K3b: PWGAN training; K3c: the recipe's runs;
 K4a-K4c: FastSpeech2 training at dk 96, and as ``*_dk192`` the
 FastSpeech2 recipe's three flash runs, train steps and eval batches at
-dk 192, and as ``*_dk256`` its run at adim 512 over 2 heads and that
-run's synthesis; K4b is one launch a call at every width; K1 again as
+dk 192, as ``*_dk256`` its run at adim 512 over 2 heads and that run's
+synthesis, as ``*_dk384`` its run at adim 384 over one head and that
+run's synthesis, and as ``*_dk512`` phase 8's flash steps at adim 512
+over one head; K4b is one launch a call at every width; K1 again as
 ``pwg_residual_stack_speedyspeech``, ``_tacotron2``,
 ``_transformer_tts_r1`` and ``_transformer_tts_r2``: the family
 programs' runs, eager calls and capture, with its error and times at
@@ -513,12 +523,14 @@ FS2_STEPS = 4
 # 192 (adim 384 over 2 heads): B=16, the encoder at 128 tokens (96-128
 # valid) and the decoder at 1024 frames (700-1024 valid), the recipe
 # phase's buckets; and the decoder's at dk 256 (adim 512 over 2 heads, the
-# DP = 256 instances)
+# DP = 256 instances), dk 384 and dk 512 (adim 384 and 512 over one head,
+# the wide instances)
 FS2_HEADS = FS2_TRAIN_CONFIG["aheads"]
 FS2_DK = FS2_TRAIN_CONFIG["adim"] // FS2_HEADS
 RECIPE_HEADS = FS2_CONFIG["aheads"]
 RECIPE_DK = FS2_CONFIG["adim"] // RECIPE_HEADS
 FS2_D256_DK = 256                   # adim 512 over 2 heads
+FS2_D384_DK, FS2_D512_DK = 384, 512  # adim 384 and 512 over one head
 K4_SHAPES = ((2, 200, 2, 32, (200, 131), True, None),
              (FS2_B, FS2_TOKENS, FS2_HEADS, FS2_DK, FS2_MIN_TOKENS, False,
               None),
@@ -527,7 +539,9 @@ K4_SHAPES = ((2, 200, 2, 32, (200, 131), True, None),
              (16, 128, RECIPE_HEADS, RECIPE_DK, 96, False, None),
              (16, 1024, RECIPE_HEADS, RECIPE_DK, 700, False,
               f"_dk{RECIPE_DK}"),
-             (16, 1024, 2, FS2_D256_DK, 700, False, f"_dk{FS2_D256_DK}"))
+             (16, 1024, 2, FS2_D256_DK, 700, False, f"_dk{FS2_D256_DK}"),
+             (16, 1024, 1, FS2_D384_DK, 700, False, f"_dk{FS2_D384_DK}"),
+             (16, 1024, 1, FS2_D512_DK, 700, False, f"_dk{FS2_D512_DK}"))
 # K4 against its plain versions, relative to each output's range.  float32:
 # the kernels' 3xTF32 products keep ~22 bits and every sum runs in
 # another order than cuBLAS's; the gradients sum T = 1024 terms whose
@@ -622,14 +636,20 @@ FS2_RECIPE_ATTN_OPTS = ["model.transformer_enc_attn_dropout_rate", "0.0",
 FS2_RECIPE_EPOCHS, FS2_RECIPE_RESUME_EPOCHS = 2, 3
 FS2_RECIPE_STEPS_PER_EPOCH = 2
 # the same recipe at adim 512 over 2 heads (dk 256: K4's DP = 256
-# instances), default.yaml with these --opts beside FS2_RECIPE_ATTN_OPTS:
-# one epoch on the same dump (2 steps, an eval batch, a snapshot) over the
-# Chinese frontend's phone map; then the synthesis CLI on that snapshot
+# instances) and at adim 384 over one head (dk 384: the wide instances),
+# default.yaml with these --opts beside FS2_RECIPE_ATTN_OPTS: one epoch
+# each on the same dump (2 steps, an eval batch, a snapshot) over the
+# Chinese frontend's phone map; then the synthesis CLI on each snapshot
 # (a YAML of the same --opts) with a PWG of seeded weights, the first
-# FS2_D256_LINES lines of TTW_CASES, and its acoustic model with 'dense'
+# FS2_WIDE_LINES lines of TTW_CASES, and its acoustic model with 'dense'
 # on the same weights and lines
-FS2_D256_OPTS = ["model.adim", "512", "model.aheads", "2"]
-FS2_D256_LINES = 2
+FS2_WIDE_OPTS = {FS2_D256_DK: ["model.adim", "512", "model.aheads", "2"],
+                 FS2_D384_DK: ["model.aheads", "1"]}
+FS2_WIDE_LINES = 2
+# dk 512 (adim 512 over one head: the wide instances at DP 512): the
+# FastSpeech2 step of FS2_TRAIN_CONFIG at that width, FS2_D512_STEPS
+# float32 steps with 'flash' and with 'dense' from the same weights
+FS2_D512_STEPS = 2
 # the FastSpeech2 training bench at its defaults (B 32, 96 tokens, 640
 # frames, 4 heads), dense against flash in turns (10 iterations, cut from
 # 20 to keep the script within its time limit)
@@ -905,6 +925,12 @@ RUN_SH_UTTS = 264
 # with K1's plain version and held to the twin's (all 100 take ~10 s)
 RUN_SH_PLAIN_LINES = 10
 RUN_SH_SYLLABLES = (7, 9)
+# the twins' flags that the ``python`` on their PATH replaces, as the
+# CPU tests' interpreter does: the FastSpeech2 twin's preprocess runs in
+# one process instead of its 8 spawned workers, each of which imports
+# torch before its first utterance (most of that stage's ~60 s for 264
+# utterances of ~0.05 s each)
+RUN_SH_SWAP = {"--num-cpu": "1"}
 RUN_SH_CUTS = {
     "pwgan": {"train_max_steps": 4,
               "updater.discriminator_train_start_steps": 2,
@@ -2158,6 +2184,16 @@ K4_NAMES = {"K4a": "flash_attention_fwd", "K4b": "flash_attention_bwd_dkv",
             "K4c": "flash_attention_bwd_dq"}
 
 
+def sdpa_backend(q, k, v, mask, scale):
+    """The backend PyTorch's dispatcher picks for
+    ``scaled_dot_product_attention`` on these inputs, by name."""
+    from torch.nn.attention import SDPBackend
+    choice = int(torch._fused_sdp_choice(q, k, v, mask, 0.0, False,
+                                         scale=scale))
+    return next((n for n in dir(SDPBackend) if n.isupper()
+                 and int(getattr(SDPBackend, n)) == choice), str(choice))
+
+
 def _k4_case(gen, q_valid, kv_valid, h, dk, dtype):
     """K4a, K4b and K4c against their plain versions (K4a also against its
     blocked plain version at its own key tile) on fresh inputs from
@@ -2249,6 +2285,7 @@ def _k4_case(gen, q_valid, kv_valid, h, dk, dtype):
     work = {"K4a": (nbytes(*args, o, lse), 4 * dk * pairs),
             "K4b": (nbytes(*bwd_args, dk_, dv), 8 * dk * pairs),
             "K4c": (nbytes(*bwd_args, dq), 6 * dk * pairs)}
+    backend = sdpa_backend(q, k, v, mask, scale)
     print(f"K4 {tag}: {_report('K4', held_a + held_b + held_c)}; "
           f"o and lse bit-identical on a second run, gradients too;"
           f" bounds (by, products at {peak / 1e12:.0f} TFLOP/s) "
@@ -2260,7 +2297,8 @@ def _k4_case(gen, q_valid, kv_valid, h, dk, dtype):
           f" ms; K4c (dq) {times[2]:.4f} ms, plain {times[3]:.4f} "
           f"ms; forward + "
           f"backward kernels {ms_fb:.4f} ms, plain {plain_fb:.4f} "
-          f"ms; scaled_dot_product_attention forward {lib_f:.4f} "
+          f"ms; scaled_dot_product_attention ({backend}) forward "
+          f"{lib_f:.4f} "
           f"ms, backward {lib_b:.4f} ms, forward + backward "
           f"{lib_fb:.4f} ms (median); K4b + K4c "
           f"{times[0] + times[2]:.4f} ms against SDPA's backward "
@@ -2275,6 +2313,8 @@ def _k4_case(gen, q_valid, kv_valid, h, dk, dtype):
 def k4_source(dk, dtype):
     """The source of K4's instance at head width ``dk`` in ``dtype``."""
     from parakeet_tpu_torch.ops.kernels.flash_attn import k4_padded_dim
+    if k4_padded_dim(dk) > 256:
+        return "flash_attn_wide.cu"
     if k4_padded_dim(dk) == 256:
         return "flash_attn_d256.cu"
     return ("flash_attn_bf16.cu" if dtype == torch.bfloat16
@@ -2489,6 +2529,63 @@ def phase_fs2_train(records, profile_dir=None):
                      name="fs2_step", what="FastSpeech2 step (flash)")
 
 
+def phase_fs2_d512(records):
+    """dk 512 (adim 512 over one head, the wide instances at DP 512): the
+    FastSpeech2 step of FS2_TRAIN_CONFIG at that width, FS2_D512_STEPS
+    float32 steps with 'flash' and with 'dense' from the same seeded
+    weights, batches and dropout generator.  Each flash step launches K4a,
+    K4b and K4c once a layer (the dense one none), and each step's loss is
+    held to the dense one's within FS2_LOSS_REL_TOL.  Sets the dk 512
+    records' launches from the flash run."""
+    from parakeet_tpu_torch.models import (FastSpeech2, init_fs2_train_state,
+                                           make_fs2_train_step)
+    from parakeet_tpu_torch.training import build_optimizer, seed_everything
+    config = dict(FS2_TRAIN_CONFIG, adim=FS2_D512_DK, aheads=1)
+    counters = _k4_counters()
+    per_step = config["elayers"] + config["dlayers"]
+    runs = {}
+    for impl in ("flash", "dense"):
+        gen = torch.Generator().manual_seed(SEED + 8)
+        model = FastSpeech2(IDIM, ODIM, attn_impl=impl, **config)
+        seeded_init_(model, gen)
+        model = model.cuda()
+        batches = fs2_batches(gen, steps=FS2_D512_STEPS)
+        opt = build_optimizer(model.parameters(), "adam", FS2_LR)
+        state = init_fs2_train_state(
+            model, opt, seed_everything(SEED + 9, device="cuda"))
+        step = make_fs2_train_step(model, opt)
+        log = []
+        for batch in batches:
+            before = {k: f.launches for k, f in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            log.append({"ms": 1e3 * (time.perf_counter() - t0),
+                        "loss": loss,
+                        "launches": {k: f.launches - before[k]
+                                     for k, f in counters.items()}})
+            want = dict.fromkeys(counters, per_step if impl == "flash" else 0)
+            if log[-1]["launches"] != want or not math.isfinite(loss):
+                raise AssertionError(f"fs2 at dk {FS2_D512_DK} ({impl}) step "
+                                     f"{len(log) - 1}: {log[-1]}")
+        runs[impl] = log
+    for i, (f, d) in enumerate(zip(runs["flash"], runs["dense"])):
+        err = abs(f["loss"] - d["loss"])
+        if not err <= FS2_LOSS_REL_TOL * abs(d["loss"]):
+            raise AssertionError(f"fs2 at dk {FS2_D512_DK} step {i} loss "
+                                 f"{f['loss']} (flash) against {d['loss']} "
+                                 "(dense)")
+        print(f"fs2 train at dk {FS2_D512_DK} (adim 512 over one head) step "
+              f"{i}: flash {f['ms']:.2f} ms, dense {d['ms']:.2f} ms; loss "
+              f"{f['loss']:.7g} vs {d['loss']:.7g} (|diff| {err:.3g}, tol "
+              f"{FS2_LOSS_REL_TOL * abs(d['loss']):.3g}); launches "
+              f"{f['launches']}")
+    for name in counters:
+        records[f"{name}_dk{FS2_D512_DK}"]["launches"] = sum(
+            e["launches"][name] for e in runs["flash"])
+
+
 def phase_recipe(record, cr128_records):
     """The PWGAN recipe through its CLI, ``--device cuda`` by default:
     RECIPE_STEPS steps from an empty directory, a second run to
@@ -2671,11 +2768,11 @@ def phase_fs2_recipe(records):
     straight run to compare it with, one epoch with 'dense' from the same
     weights (its step 0 against flash's), and aishell3.yaml with
     ``--speaker-dict`` (the concat integration) for one epoch; then
-    default.yaml at adim 512 over 2 heads (``FS2_D256_OPTS``, dk 256) for
-    one epoch and the synthesis CLI on its snapshot (``fs2_d256_synthesis``).
-    Sets the dk 192 K4 records' launches from the three flash runs of
-    default.yaml, and the dk 256 records' from the adim 512 run and its
-    synthesis."""
+    default.yaml at adim 512 over 2 heads (dk 256) and at adim 384 over
+    one head (dk 384; ``FS2_WIDE_OPTS``) for one epoch each and the
+    synthesis CLI on each snapshot (``fs2_width_synthesis``).  Sets the dk
+    192 K4 records' launches from the three flash runs of default.yaml,
+    and the dk 256 and 384 records' from their run and its synthesis."""
     import shutil
     from parakeet_tpu_torch.recipes.fastspeech2 import train
     from parakeet_tpu_torch.recipes.fastspeech2.dump import \
@@ -2782,32 +2879,41 @@ def phase_fs2_recipe(records):
         _, dense_log, _ = run("dense", "dense", 1, range(spe), impl="dense")
         _, _, spk_model = run("aishell3", "aishell3", 1, range(spe),
                               conf=FS2_RECIPE_SPK_CONF, speakers=True)
-        # adim 512 over 2 heads: K4 at DP = 256, from counts set to 0 here
-        # to after its synthesis
-        t_d256 = time.perf_counter()
+        # adim 512 over 2 heads (K4 at DP = 256) and adim 384 over one
+        # head (the wide instances): each from counts set to 0 here to
+        # after its synthesis
+        t_wide = time.perf_counter()
         zh = write_id_maps(out / "zh", "zh")
-        for f in counters.values():
-            f.launches = 0
-        _, d256_log, d256_model = run("adim 512", "d256", 1, range(spe),
-                                      opts=FS2_D256_OPTS,
-                                      phones=zh["phones"])
+        wide = {}
+        for dk, opts in FS2_WIDE_OPTS.items():
+            for f in counters.values():
+                f.launches = 0
+            _, wide_log, wide_model = run(f"dk {dk}", f"d{dk}", 1,
+                                          range(spe), opts=opts,
+                                          phones=zh["phones"])
+            wide[dk] = ({k: f.launches for k, f in counters.items()},
+                        wide_log, wide_model)
     finally:
         train.make_fs2_train_step = make_train
         train.make_fs2_eval_step = make_eval
-    train_256 = {k: f.launches for k, f in counters.items()}
-    synth_256 = fs2_d256_synthesis(
-        out, zh, out / "d256" / "checkpoints" / f"snapshot_iter_{spe}.npz")
-    # the CLI's launches, not those of the checks after it
-    totals_256 = {k: train_256[k] + synth_256[k] for k in counters}
-    # K4 at that run's own shapes, in both types (these launches count
-    # for nothing)
+    totals_wide = {}
+    for dk, (trained, wide_log, wide_model) in wide.items():
+        snapshot = out / f"d{dk}" / "checkpoints" / f"snapshot_iter_{spe}.npz"
+        synth = fs2_width_synthesis(out, zh, snapshot, dk)
+        # the CLI's launches, not those of the checks after it
+        totals_wide[dk] = {k: trained[k] + synth[k] for k in counters}
+        print(f"fs2 recipe at dk {dk} ({' '.join(FS2_WIDE_OPTS[dk])}): K4 "
+              f"launches {totals_wide[dk]} (training {trained}, synthesis "
+              f"{synth})")
+    # K4 at the adim 512 run's own shapes, in both types (these launches
+    # count for nothing)
+    _, d256_log, d256_model = wide[FS2_D256_DK]
     for dtype in (torch.float32, torch.bfloat16):
         _layers_k4(d256_model, [e["lengths"] for e in d256_log
                                 if e["kind"] == "train"],
                    "fs2_d256", FS2_D256_DK, dtype)
-    print(f"fs2 recipe at adim 512 over 2 heads (dk {FS2_D256_DK}): K4 "
-          f"launches {totals_256} (training {train_256}, synthesis "
-          f"{synth_256}); {time.perf_counter() - t_d256:.1f} s")
+    print(f"fs2 recipe at dk {', '.join(map(str, wide))}: "
+          f"{time.perf_counter() - t_wide:.1f} s")
     # the resumed run against the straight one: the same batches, dropout
     # masks and weights at step 4, and every kernel's sums in a fixed
     # order, so the last step's and the evaluation's metrics agree bitwise
@@ -2838,16 +2944,18 @@ def phase_fs2_recipe(records):
           f"K4 launches over the three flash runs {totals}")
     for name in counters:
         records[f"{name}_dk{RECIPE_DK}"]["launches"] = totals[name]
-        records[f"{name}_dk{FS2_D256_DK}"]["launches"] = totals_256[name]
+        for dk, n in totals_wide.items():
+            records[f"{name}_dk{dk}"]["launches"] = n[name]
     shutil.rmtree(out, ignore_errors=True)
 
 
-def fs2_d256_synthesis(out, zh, snapshot):
-    """The FastSpeech2 synthesis CLI (``synthesize_e2e.py``) on the adim 512
-    run's ``snapshot``: its YAML is default.yaml with that run's ``--opts``
-    ('flash', dk 256), a PWG of seeded weights vocodes (K1), the first
-    FS2_D256_LINES lines of TTW_CASES through the Chinese frontend's map
-    ``zh``.  Checks each line's wav (finite, the frames' samples), K1's
+def fs2_width_synthesis(out, zh, snapshot, dk):
+    """The FastSpeech2 synthesis CLI (``synthesize_e2e.py``) on the dk
+    ``dk`` run's ``snapshot``: its YAML is default.yaml with that run's
+    ``--opts`` ('flash', ``FS2_WIDE_OPTS[dk]``), a PWG of seeded weights
+    vocodes (K1), the first FS2_WIDE_LINES lines of TTW_CASES through the
+    Chinese frontend's map ``zh``.  Checks each line's wav (finite, the
+    frames' samples), K1's
     launches, the AM graph bitwise its eager program, and each line's mel
     against the same weights' acoustic program with 'dense' (eager) within
     FS2_INFER_REL_TOL of its range on the predicted frames.  Returns K4's
@@ -2862,9 +2970,9 @@ def fs2_d256_synthesis(out, zh, snapshot):
     counters = _k4_counters()
     before = {k: f.launches for k, f in counters.items()}
     opts = ["model.attn_impl", "flash", *FS2_RECIPE_ATTN_OPTS,
-            *FS2_D256_OPTS]
-    confs = {impl: out / f"fs2_d256_{impl}.yaml" for impl in ("flash",
-                                                               "dense")}
+            *FS2_WIDE_OPTS[dk]]
+    confs = {impl: out / f"fs2_d{dk}_{impl}.yaml" for impl in ("flash",
+                                                                "dense")}
     for impl, path in confs.items():
         Config.from_yaml(FS2_RECIPE_CONF).merge_opts(
             opts[:1] + [impl] + opts[2:]).dump(path)
@@ -2873,25 +2981,25 @@ def fs2_d256_synthesis(out, zh, snapshot):
     save_pytree(out / "pwg.npz", flax_arrays(pwg))
     cases = [ln.split("|")[0] for ln in pathlib.Path(
         TTW_CASES).read_text(encoding="utf-8").splitlines()
-             if ln and not ln.startswith("#")][:FS2_D256_LINES]
-    (out / "d256.txt").write_text("".join(
+             if ln and not ln.startswith("#")][:FS2_WIDE_LINES]
+    (out / f"d{dk}.txt").write_text("".join(
         f"zh_{i:04d} {c}\n" for i, c in enumerate(cases)), encoding="utf-8")
     k1.fused_residual_stack.launches = 0
     got = fs2_e2e.main([
         "--fastspeech2-config", str(confs["flash"]),
         "--fastspeech2-checkpoint", str(snapshot), "--pwg-config",
         RECIPE_CONF, "--pwg-checkpoint", str(out / "pwg.npz"),
-        "--phones-dict", str(zh["phones"]), "--text", str(out / "d256.txt"),
-        "--min-duration", str(TTW_MIN_DURATION), "--output-dir",
-        str(out / "d256_wavs")])
+        "--phones-dict", str(zh["phones"]), "--text",
+        str(out / f"d{dk}.txt"), "--min-duration", str(TTW_MIN_DURATION),
+        "--output-dir", str(out / f"d{dk}_wavs")])
     k1_n = k1.fused_residual_stack.launches
     launches = {k: f.launches - before[k] for k, f in counters.items()}
     lines, hop = got["lines"], math.prod(PWG_CONFIG["upsample_scales"])
-    if not (len(lines) == FS2_D256_LINES
-            and k1_n == PWG_CONFIG["layers"] * FS2_D256_LINES
+    if not (len(lines) == FS2_WIDE_LINES
+            and k1_n == PWG_CONFIG["layers"] * FS2_WIDE_LINES
             and launches["K4a"] > 0 and launches["K4b"] == 0
             and launches["K4c"] == 0):
-        raise AssertionError(f"fs2 synthesis at dk {FS2_D256_DK}: "
+        raise AssertionError(f"fs2 synthesis at dk {dk}: "
                              f"{len(lines)} lines, K1 x {k1_n}, K4 "
                              f"{launches}")
     am, _ = fs2_e2e.build_acoustic_model(confs["dense"], snapshot,
@@ -2904,27 +3012,27 @@ def fs2_d256_synthesis(out, zh, snapshot):
     for r in lines:
         if not (0 < r["frames"] <= 1024 and r["samples"] == r["frames"] * hop
                 and np.isfinite(r["wav"]).all()):
-            raise AssertionError(f"fs2 synthesis at dk {FS2_D256_DK} "
+            raise AssertionError(f"fs2 synthesis at dk {dk} "
                                  f"{r['utt_id']}: {r['frames']} frames, "
                                  f"{r['samples']} samples")
         program.load(r["ids"])
         eager, graph = program.eager(), program.program()
         if not all(torch.equal(a, b) for a, b in zip(graph, eager)):
-            raise AssertionError(f"fs2 synthesis at dk {FS2_D256_DK}: the "
+            raise AssertionError(f"fs2 synthesis at dk {dk}: the "
                                  "AM graph is not its eager program")
         mel, n = dense(r["ids"])
         if int(n[0]) != r["frames"]:
-            raise AssertionError(f"fs2 synthesis at dk {FS2_D256_DK} "
+            raise AssertionError(f"fs2 synthesis at dk {dk} "
                                  f"{r['utt_id']}: 'dense' predicts "
                                  f"{int(n[0])} frames, 'flash' "
                                  f"{r['frames']}")
         f = r["frames"]
-        err, tol = _hold(f"fs2 synthesis at dk {FS2_D256_DK} {r['utt_id']}"
+        err, tol = _hold(f"fs2 synthesis at dk {dk} {r['utt_id']}"
                          " mel, flash against dense", eager[0][0, :f],
                          mel[0, :f], FS2_INFER_REL_TOL)
         errs.append(err / tol * FS2_INFER_REL_TOL)
-    print(f"fs2 synthesis at dk {FS2_D256_DK} (synthesize_e2e.py on the "
-          f"adim 512 snapshot, PWG of seeded weights): " + "; ".join(
+    print(f"fs2 synthesis at dk {dk} (synthesize_e2e.py on the "
+          f"snapshot, PWG of seeded weights): " + "; ".join(
               f"{r['utt_id']} {len(r['ids'])} phones, {r['frames']} frames: "
               f"AM {1e3 * r['am_s']:.2f} ms, vocoder "
               f"{1e3 * r['vocoder_s']:.2f} ms" for r in lines)
@@ -5212,15 +5320,20 @@ def run_sh_conf(family, out):
 
 
 # the program that stands for ``python`` on the twins' PATH: the real
-# interpreter running ``-m MODULE`` as python would, which at exit writes
-# the launch counts of the kernels' wrappers in that process to
-# $CHIP_SMOKE_LAUNCHES/<pid>.json
+# interpreter running ``-m MODULE`` as python would, with the values of
+# the flags in SWAP replaced, which at exit writes the launch counts of
+# the kernels' wrappers in that process to $CHIP_SMOKE_LAUNCHES/<pid>.json
 _RUN_SH_PYTHON = """#!{exe}
 import atexit, json, os, runpy, sys
 if sys.argv[1:2] != ["-m"]:
     os.execv({exe!r}, [{exe!r}, *sys.argv[1:]])
 module = sys.argv[2]
-sys.argv = [module, *sys.argv[3:]]
+SWAP = {swap!r}
+args = sys.argv[3:]
+for i in range(len(args) - 1):
+    if args[i] in SWAP:
+        args[i + 1] = SWAP[args[i]]
+sys.argv = [module, *args]
 sys.path.insert(0, os.getcwd())
 COUNTERS = {counters!r}
 
@@ -5337,7 +5450,8 @@ def phase_run_sh(records):
                 {**_train_counters(), **_k4_counters()}.items()}
     shim = out / "bin" / "python"
     shim.write_text(_RUN_SH_PYTHON.format(exe=sys.executable,
-                                          counters=counters))
+                                          counters=counters,
+                                          swap=RUN_SH_SWAP))
     shim.chmod(0o755)
     corpus.write_baker_corpus(out / "corpus", RUN_SH_UTTS, seed=SEED + 60,
                               syllables=RUN_SH_SYLLABLES)
@@ -6002,6 +6116,7 @@ def main():
           args.profile)
     k4 = timed(phase_k4)
     timed(phase_fs2_train, k4, args.profile)
+    timed(phase_fs2_d512, k4)
     timed(phase_recipe, k3c, {"K1": k1_cr128, "K2a": k2a_cr128,
                               "K2b": k2b_cr128})
     timed(phase_bench)

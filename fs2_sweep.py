@@ -21,7 +21,8 @@ Run from the root of the repository on a machine with a CUDA device:
 
 ``--aheads 2`` runs the model at the FastSpeech2 recipes' head width
 (adim 384 over 2 heads, dk 192) instead of flash_sweep.py's 4 (dk 96);
-``--adim 512 --aheads 2`` at dk 256 (the other widths as they are).
+``--adim 512 --aheads 2`` at dk 256, ``--aheads 1`` at dk 384 and
+``--adim 512 --aheads 1`` at dk 512 (the other widths as they are).
 
 It prints the card and the kernel build (chip_smoke.py's first phase),
 then one JSON line per point: median ms per step and frame tokens per
@@ -175,7 +176,7 @@ def main():
                              "256)")
     parser.add_argument("--aheads", type=int, default=4,
                         help="attention heads of adim (2 at adim 384: the "
-                             "recipes' dk 192)")
+                             "recipes' dk 192; 1: dk 384)")
     parser.add_argument("--engine", action="store_true", default=False,
                         help="also time the serving engine's 128-token "
                              "chunk, dense against flash")

@@ -121,32 +121,77 @@
 // in parallel with the others; so do the bf16 instances of DP 32-192
 // (flash_attn_bf16.cu), which took half of this source's build.
 //
+// D above 256 (jax's kernel takes every multiple of 128; here every
+// multiple of 16 in (256, 640]) takes three more kernels, the "wide" ones
+// (flash_fwd_wide_kernel, flash_dkv_wide_kernel, flash_dq_wide_kernel,
+// one instance a type, built in flash_attn_wide.cu).  At DP = 384 the two
+// float32 resident strips of K4b and K4c alone would take 198,656 B and a
+// thread would hold 192 accumulators, so the wide kernels keep nothing
+// resident and split the output's columns over the grid's z:
+//   - a block owns 64 rows and one chunk of DC = 256 columns of O, dQ, or
+//     dK or dV (K4b: z = 2 * chunk + 0 for dV, + 1 for dK), 128
+//     accumulators a thread as at DP = 256; z has ceil(D / 256) chunks;
+//   - it forms each tile's scores (K4c and K4b's dK blocks also dP) over
+//     all of D in "chunk steps" of W columns (64 in float32, 128 in bf16:
+//     256 bytes a row), each of which stages those columns of the block's
+//     64 rows and of the tile's rows (32 keys in K4a, 16 rows in K4b and
+//     K4c, whose two score tiles beside 128 accumulators spill at 32) of
+//     every operand of the scores;
+//     then one "out step" stages the tile's DC columns of the product's
+//     streamed operand (V, K, dO or Q) and the tile's vectors, and the
+//     step runs the softmax (or p, ds) and the product as at DP <= 256.
+//     Each step is one stage of a two-stage cp.async ring, so the next
+//     step's columns load while this one computes;
+//   - every chunk of one row block repeats the same sums in the same order
+//     over the same tiles, so its blocks reach the same scores, m, l and
+//     lse bit for bit (the z = 0 block writes lse); the backward passes
+//     use the final lse and have no atomics, as at DP <= 256.
+// The price: each chunk recomputes the scores (K4a 2 T^2 D a chunk, K4c
+// 4, K4b 2 in dV blocks and 4 in dK blocks, beside the product's 2 over
+// its DC columns), and the block's own rows are re-read from L2 at every
+// tile (64 rows against the tile's 32 or 16).  Shared memory a block,
+// from the geometry (WideStage; ops/kernels/flash_attn.py::k4_smem_bytes
+// mirrors it), at every wide D: K4a 66,816 B in float32 and 52,480 in
+// bf16, K4b 87,424 and K4c 87,168 in both: two blocks an SM.  ptxas
+// (sm_90a), registers a thread, no spill in any: K4a 238 in float32 and
+// 241 in bf16, K4b 244 and 245, K4c 250 and 248 (at 32 rows a tile K4b's
+// float32 instance spilled 188 bytes and K4c's 68 and 32).  On the H100
+// at B=16, T=1024, H=1 in float32 they take about 1.05 (K4a), 3.77 (K4b)
+// and 2.29 ms (K4c) at D = 384 and 1.25, 4.92 and 3.16 ms at 512,
+// against FLOP bounds of 0.14-0.36 ms (chip_smoke.py): bound by the L2
+// traffic of the re-read rows and by the recomputed scores.
+//
 // Left for later: wgmma with TMA and warp specialisation, skipping tiles
-// that lie wholly outside a sequence, D above 256 (jax's kernel also
-// takes 384 and 512: at DP = 384 the two float32 resident strips of K4b
-// and K4c alone take 198,656 B, and a thread would hold 192
-// accumulators).
+// that lie wholly outside a sequence, two warpgroups sharing a tile's
+// scores above DP = 256 instead of recomputing them a chunk, D above 640.
 #include "flash_attn.cuh"
 
 namespace ptk {
 namespace {
 
+constexpr int kMaxD = 640;              // the widest head K4 takes
+
 // D rounded up to the instance that takes it: to 32 up to 128, then 192
-// or 256 (zero columns pad it)
-int padded_dim(int D) { return D <= 128 ? (D + 31) / 32 * 32
-                                        : D <= 192 ? 192 : 256; }
+// or 256, then to 128 (zero columns pad it; the wide instances take any
+// D and zero-fill their chunks past it)
+int padded_dim(int D) {
+  return D <= 128 ? (D + 31) / 32 * 32
+                  : D <= 192 ? 192 : D <= 256 ? 256 : (D + 127) / 128 * 128;
+}
 
 bool bad_args(int B, int H, int Tq, int Tk, int D) {
   return B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D < 16 ||
-         D % 16 != 0 || D > 256 || static_cast<long long>(B) * H > 65535;
+         D % 16 != 0 || D > kMaxD || static_cast<long long>(B) * H > 65535;
 }
 
 // Call F<float, DP>(...) for D's padded width, FB(DP, ...) for bf16
-// (flash_attn_bf16.cu), or F256(is_bf16, ...) at DP = 256
-// (flash_attn_d256.cu).
-#define PTK_FLASH_DISPATCH(F, FB, F256, is_bf16, D, ...)              \
+// (flash_attn_bf16.cu), F256(is_bf16, ...) at DP = 256
+// (flash_attn_d256.cu), or FW(is_bf16, ...) above it (flash_attn_wide.cu).
+#define PTK_FLASH_DISPATCH(F, FB, F256, FW, is_bf16, D, ...)          \
   do {                                                                \
     const int dp_ = padded_dim(D);                                    \
+    if (dp_ > 256)                                                    \
+      return static_cast<int>(FW(is_bf16 != 0, __VA_ARGS__));         \
     if (dp_ == 256)                                                   \
       return static_cast<int>(F256(is_bf16 != 0, __VA_ARGS__));       \
     if (is_bf16) return static_cast<int>(FB(dp_, __VA_ARGS__));       \
@@ -172,13 +217,24 @@ long long smem_of(int kernel) {
   return -1;
 }
 
+// ... and of the wide instances (any D above 256)
+template <typename T>
+long long smem_wide(int kernel) {
+  switch (kernel) {
+    case 0: return static_cast<long long>(WideStage<T, 32, 1, 1>::kSmem);
+    case 1: return static_cast<long long>(WideStage<T, 16, 2, 3>::kSmem);
+    case 2: return static_cast<long long>(WideStage<T, 16, 2, 1>::kSmem);
+  }
+  return -1;
+}
+
 }  // namespace
 }  // namespace ptk
 
 // Tensors are contiguous: q, o, do (B, H, Tq, D); k, v (B, H, Tk, D);
 // q_valid (B, Tq) and kv_valid (B, Tk) int32; lse and di (B, H, Tq)
 // float32; all of q's type (bf16 when is_bf16, else float32) but lse, di
-// and the validities.  D is a multiple of 16 in [16, 256].
+// and the validities.  D is a multiple of 16 in [16, 640].
 // Returns 0, -1 for arguments the kernels do not take, or a CUDA error
 // code.
 
@@ -191,8 +247,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   using namespace ptk;
   if (bad_args(B, H, Tq, Tk, D)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTK_FLASH_DISPATCH(fwd, fwd_bf16, fwd_d256, is_bf16, D, q, k, v, q_valid,
-                     kv_valid, o, lse, B, H, Tq, Tk, D, scale, s);
+  PTK_FLASH_DISPATCH(fwd, fwd_bf16, fwd_d256, fwd_wide, is_bf16, D, q, k, v,
+                     q_valid, kv_valid, o, lse, B, H, Tq, Tk, D, scale, s);
 }
 
 // K4b: dk and dv.
@@ -206,9 +262,9 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
   using namespace ptk;
   if (bad_args(B, H, Tq, Tk, D)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTK_FLASH_DISPATCH(dkv, dkv_bf16, dkv_d256, is_bf16, D, q, k, v, q_valid,
-                     kv_valid, dout, lse, di, dk, dv, B, H, Tq, Tk, D,
-                     scale, s);
+  PTK_FLASH_DISPATCH(dkv, dkv_bf16, dkv_d256, dkv_wide, is_bf16, D, q, k, v,
+                     q_valid, kv_valid, dout, lse, di, dk, dv, B, H, Tq, Tk,
+                     D, scale, s);
 }
 
 // K4c: dq.
@@ -221,8 +277,9 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   using namespace ptk;
   if (bad_args(B, H, Tq, Tk, D)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PTK_FLASH_DISPATCH(ptk::dq, dq_bf16, dq_d256, is_bf16, D, q, k, v, q_valid,
-                     kv_valid, dout, lse, di, dq, B, H, Tq, Tk, D, scale, s);
+  PTK_FLASH_DISPATCH(ptk::dq, dq_bf16, dq_d256, dq_wide, is_bf16, D, q, k, v,
+                     q_valid, kv_valid, dout, lse, di, dq, B, H, Tq, Tk, D,
+                     scale, s);
 }
 
 // Dynamic shared memory bytes of a block of K4a (kernel 0), K4b (1) or
@@ -232,6 +289,8 @@ extern "C" long long flash_attn_smem(int kernel, int is_bf16, int D) {
   using namespace ptk;
   if (bad_args(1, 1, 1, 1, D)) return -1;
   const int dp = padded_dim(D);
+  if (dp > 256) return is_bf16 ? smem_wide<bf16>(kernel)
+                               : smem_wide<float>(kernel);
   switch (dp * 2 + (is_bf16 != 0)) {
 #define PTK_FLASH_SMEM(DP)                                      \
     case 2 * DP: return smem_of<float, DP>(kernel);             \

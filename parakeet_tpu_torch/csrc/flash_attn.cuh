@@ -4,8 +4,9 @@
 // and its figures are in flash_attn.cu's header comment.  Three sources
 // include this file, so that nvcc builds their instances in parallel:
 // flash_attn.cu (float32 at DP 32 to 192, and the C interface),
-// flash_attn_bf16.cu (bf16 at DP 32 to 192) and flash_attn_d256.cu (DP
-// 256).  Everything is in an unnamed namespace, as in common.cuh.
+// flash_attn_bf16.cu (bf16 at DP 32 to 192), flash_attn_d256.cu (DP 256)
+// and flash_attn_wide.cu (D above 256).  Everything is in an unnamed
+// namespace, as in common.cuh.
 #pragma once
 
 #include "common.cuh"
@@ -64,16 +65,21 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// acc = A . B^T for one warp: A the warp's 16 rows of a resident matrix,
-// B the BN rows of a streamed tile, both of pitch LD in shared memory;
-// acc[j] holds columns 8j + 2t, 8j + 2t + 1 of rows g and g + 8.
-template <typename T, int DP, int BN, int LD>
-__device__ __forceinline__ void tile_abt(float (&acc)[BN / 8][4],
-                                         const T* a, const T* b) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
+  for (int j = 0; j < N; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// acc += A . B^T over DP columns for one warp: A the warp's 16 rows of a
+// resident matrix, B the BN rows of a streamed tile, both of pitch LD in
+// shared memory; acc[j] holds columns 8j + 2t, 8j + 2t + 1 of rows g and
+// g + 8.
+template <typename T, int DP, int BN, int LD>
+__device__ __forceinline__ void tile_abt_add(float (&acc)[BN / 8][4],
+                                             const T* a, const T* b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if constexpr (std::is_same<T, bf16>::value) {
 #pragma unroll
     for (int c2 = 0; c2 < DP / 32; ++c2) {
@@ -109,6 +115,14 @@ __device__ __forceinline__ void tile_abt(float (&acc)[BN / 8][4],
       }
     }
   }
+}
+
+// acc = A . B^T (tile_abt_add from zero)
+template <typename T, int DP, int BN, int LD>
+__device__ __forceinline__ void tile_abt(float (&acc)[BN / 8][4],
+                                         const T* a, const T* b) {
+  zero_acc(acc);
+  tile_abt_add<T, DP, BN, LD>(acc, a, b);
 }
 
 // acc += T(x) . B for one warp: x (16 rows by BN, laid out as tile_abt
@@ -158,17 +172,18 @@ __device__ __forceinline__ void tile_xb(float (&acc)[DP / 8][4],
 }
 
 // Write a warp's accumulator strip (the thread's rows row0 and row0 + 8,
-// columns 8n + 2t and 8n + 2t + 1) as T to out rows below tlen and
-// columns below D.
+// columns 8n + 2t and 8n + 2t + 1) as T to out (a row every D values)
+// rows below tlen and columns below cols.
 template <typename T, int ND>
 __device__ __forceinline__ void store_acc(T* __restrict__ out,
                                           const float (&acc)[ND][4],
-                                          int row0, int tlen, int D) {
+                                          int row0, int tlen, int D,
+                                          int cols) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const int col = n * 8 + 2 * t;
-    if (col >= D) continue;
+    if (col >= cols) continue;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -214,20 +229,119 @@ struct FwdGeo {
   static_assert(kSmem <= 232448, "a block has at most 227 KB");
 };
 
-// cp.async rows [row0, row0 + nrows) of a (tlen, D) row-major matrix into
-// shared rows of pitch LD; zero past tlen and in columns [D, DP)
+// cp.async columns [c0, c0 + DP) of rows [row0, row0 + nrows) of a (tlen,
+// D) row-major matrix into shared rows of pitch LD; zero past tlen and in
+// columns from D on
 template <typename T, int DP, int LD>
 __device__ __forceinline__ void load_rows_async(T* dst,
                                                 const T* __restrict__ src,
                                                 int row0, int nrows,
-                                                int tlen, int D) {
+                                                int tlen, int D,
+                                                int c0 = 0) {
   constexpr int EV = 16 / sizeof(T);
   constexpr int VPR = DP / EV;
   for (int i = threadIdx.x; i < nrows * VPR; i += THREADS) {
     const int r = i / VPR, c = (i % VPR) * EV;
-    const bool ok = row0 + r < tlen && c < D;
+    const bool ok = row0 + r < tlen && c0 + c < D;
     cp_async16(dst + r * LD + c,
-               ok ? src + static_cast<size_t>(row0 + r) * D + c : src, ok);
+               ok ? src + static_cast<size_t>(row0 + r) * D + c0 + c : src,
+               ok);
+  }
+}
+
+// cp.async the N 32-bit values src[i0 .. i0 + N) to dst; zero from len on
+template <int N>
+__device__ __forceinline__ void load_vec_async(void* dst, const void* src,
+                                               int i0, int len) {
+  for (int i = threadIdx.x; i < N; i += THREADS) {
+    const bool ok = i0 + i < len;
+    cp_async4(static_cast<uint32_t*>(dst) + i,
+              static_cast<const uint32_t*>(src) + (ok ? i0 + i : 0), ok);
+  }
+}
+
+// K4a's step over one tile of scores (sacc, keys k0 + 8j + 2t (+1) of the
+// thread's rows g and g + 8, kv_valid of the tile in kvs): the logits,
+// the running max m and sum l, p = exp(s - m_new) in place of s, and O
+// rescaled by alpha = exp(m_old - m_new)
+template <int NT, int ND>
+__device__ __forceinline__ void online_softmax(float (&sacc)[NT][4],
+                                               float (&oacc)[ND][4],
+                                               const int* kvs, int k0,
+                                               int Tk, float scale, int qv0,
+                                               int qv1, float (&m_run)[2],
+                                               float (&l_run)[2]) {
+  const int t = threadIdx.x & 3;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = j * 8 + 2 * t;
+    const int2 kv2 = *reinterpret_cast<const int2*>(kvs + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = c + (e & 1);
+      const int kvv = (e & 1) ? kv2.y : kv2.x;
+      const float sv =
+          k0 + col < Tk ? logit(sacc[j][e], scale, e < 2 ? qv0 : qv1, kvv)
+                        : -CUDART_INF_F;
+      sacc[j][e] = sv;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+    }
+  }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);   // finite: a key is in
+    alpha[r] = __expf(m_run[r] - m_new);          // 0 at the first tile
+    m_run[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = __expf(sacc[j][e] - m_run[e >> 1]);   // -inf -> 0
+      sacc[j][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l_run[r] = l_run[r] * alpha[r] + sum[r];
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    oacc[n][0] *= alpha[0];
+    oacc[n][1] *= alpha[0];
+    oacc[n][2] *= alpha[1];
+    oacc[n][3] *= alpha[1];
+  }
+}
+
+// K4a's end: lse = m + log l of the thread's rows (written when `write`),
+// and O scaled by 1 / l (1 where l == 0)
+template <int ND>
+__device__ __forceinline__ void finish_rows(float (&oacc)[ND][4],
+                                            const float (&m_run)[2],
+                                            const float (&l_run)[2],
+                                            float* lse_bh, int row0, int Tq,
+                                            bool write) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    inv[r] = l_run[r] == 0.f ? 1.f : 1.f / l_run[r];
+    const int row = row0 + 8 * r;
+    if (write && (threadIdx.x & 3) == 0 && row < Tq)
+      lse_bh[row] = m_run[r] + logf(l_run[r]);
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    oacc[n][0] *= inv[0];
+    oacc[n][1] *= inv[0];
+    oacc[n][2] *= inv[1];
+    oacc[n][3] *= inv[1];
   }
 }
 
@@ -372,53 +486,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // logits, the tile's row max, then p = exp(s - m_new) in place
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + 2 * t;
-      const int2 kv2 = *reinterpret_cast<const int2*>(kvs + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c + (e & 1);
-        const int kvv = (e & 1) ? kv2.y : kv2.x;
-        const float sv =
-            k0 + col < Tk ? logit(sacc[j][e], scale, e < 2 ? qv0 : qv1, kvv)
-                          : -CUDART_INF_F;
-        sacc[j][e] = sv;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);   // finite: a key is in
-      alpha[r] = __expf(m_run[r] - m_new);          // 0 at the first tile
-      m_run[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(sacc[j][e] - m_run[e >> 1]);   // -inf -> 0
-        sacc[j][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      oacc[n][0] *= alpha[0];
-      oacc[n][1] *= alpha[0];
-      oacc[n][2] *= alpha[1];
-      oacc[n][3] *= alpha[1];
-    }
-
+    online_softmax(sacc, oacc, kvs, k0, Tk, scale, qv0, qv1, m_run, l_run);
     tile_xb<T, DP, BN, LD>(oacc, sacc, vs);     // O += T(P) V
     __syncthreads();                     // every warp is done with stage s
     if (it + G::STAGES < ntiles) issue_tile(it + G::STAGES, s);
@@ -427,22 +495,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
 
   // o = acc * (1 / l), straight from the accumulators
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    inv[r] = l_run[r] == 0.f ? 1.f : 1.f / l_run[r];
-    const int row = row0 + 8 * r;
-    if (t == 0 && row < Tq)
-      lse[static_cast<size_t>(bh) * Tq + row] = m_run[r] + logf(l_run[r]);
-  }
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    oacc[n][0] *= inv[0];
-    oacc[n][1] *= inv[0];
-    oacc[n][2] *= inv[1];
-    oacc[n][3] *= inv[1];
-  }
-  store_acc<T>(o + qoff, oacc, row0, Tq, D);
+  finish_rows(oacc, m_run, l_run, lse + static_cast<size_t>(bh) * Tq, row0,
+              Tq, true);
+  store_acc<T>(o + qoff, oacc, row0, Tq, D, D);
 }
 
 // ------------------------------------------------------------ K4b, K4c
@@ -479,6 +534,35 @@ struct BwdGeo {
 };
 
 // ------------------------------------------------------------------ K4c
+// p = exp(s - lse), then ds = ((dp - di) * p) * scale in place of s (key
+// columns k0 + 8j + 2t (+1), kv_valid of the tile in kvs; the thread's
+// rows' lse, di, q_valid and whether they are below Tq in registers)
+template <int NT>
+__device__ __forceinline__ void dq_ds(float (&sacc)[NT][4],
+                                      const float (&dpacc)[NT][4],
+                                      const int* kvs, int k0, int Tk,
+                                      float scale, const bool (&in)[2],
+                                      const int (&qv)[2],
+                                      const float (&lse_r)[2],
+                                      const float (&di_r)[2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = j * 8 + 2 * t;
+    const int2 kv2 = *reinterpret_cast<const int2*>(kvs + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, odd = e & 1;
+      const float p =
+          in[r] && k0 + c + odd < Tk
+              ? __expf(logit(sacc[j][e], scale, qv[r],
+                             odd ? kv2.y : kv2.x) - lse_r[r])
+              : 0.f;
+      sacc[j][e] = ((dpacc[j][e] - di_r[r]) * p) * scale;
+    }
+  }
+}
+
 template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -502,7 +586,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;       // fragment row, quad lane
+  const int g = lane >> 2;                     // fragment row
   const int bh = blockIdx.y, b = bh / H;
   const int q0 = blockIdx.x * BM;
   const size_t qoff = static_cast<size_t>(bh) * Tq * D;
@@ -558,49 +642,68 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float sacc[NT][4], dpacc[NT][4];
     tile_abt<T, DP, BN, LD>(sacc, qw, ktile(s));
     tile_abt<T, DP, BN, LD>(dpacc, dow, vtile(s));
-    // p = exp(s - lse), then ds = ((dp - di) * p) * scale in place of s
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + 2 * t;
-      const int2 kv2 = *reinterpret_cast<const int2*>(kvs + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, odd = e & 1;
-        const float p =
-            in[r] && k0 + c + odd < Tk
-                ? __expf(logit(sacc[j][e], scale, qv[r],
-                               odd ? kv2.y : kv2.x) - lse_r[r])
-                : 0.f;
-        sacc[j][e] = ((dpacc[j][e] - di_r[r]) * p) * scale;
-      }
-    }
+    dq_ds(sacc, dpacc, kvs, k0, Tk, scale, in, qv, lse_r, di_r);
     tile_xb<T, DP, BN, LD>(dqacc, sacc, ktile(s));   // dQ += T(dS) K
     __syncthreads();                     // every warp is done with stage s
     if (it + G::STAGES < ntiles) issue_tile(it + G::STAGES, s);
     cp_async_commit();
   }
   cp_async_wait<0>();
-  store_acc<T>(dq + qoff, dqacc, row0, Tq, D);
+  store_acc<T>(dq + qoff, dqacc, row0, Tq, D, D);
 }
 
 // ------------------------------------------------------------------ K4b
-// ds^T = ((dp^T - di) * p^T) * scale in place of p^T (x), with dP^T =
-// V dO^T from the warp's resident V rows and the tile's dO; di of the
-// tile's queries from the stage
-template <typename T, int DP, int BN, int LD>
-__device__ __forceinline__ void ds_in_place(float (&x)[BN / 8][4],
-                                            const T* vw, const T* dos,
-                                            const float* dis, float scale) {
+// p^T = exp(s^T - lse) in place of s^T: column c is query i0 + c (q_valid
+// and lse of the tile's queries from the stage); the thread's keys'
+// kv_valid and whether they are below Tk in registers
+template <int NT>
+__device__ __forceinline__ void dkv_p(float (&sacc)[NT][4], const int* qvs,
+                                      const float* lses, int i0, int Tq,
+                                      float scale, const bool (&in)[2],
+                                      const int (&kv)[2]) {
   const int t = threadIdx.x & 3;
-  float dpacc[BN / 8][4];
-  tile_abt<T, DP, BN, LD>(dpacc, vw, dos);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < NT; ++j) {
+    const int c = j * 8 + 2 * t;
+    const int2 qv2 = *reinterpret_cast<const int2*>(qvs + c);
+    const float2 l2 = *reinterpret_cast<const float2*>(lses + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, odd = e & 1;
+      sacc[j][e] = in[r] && i0 + c + odd < Tq
+                       ? __expf(logit(sacc[j][e], scale,
+                                      odd ? qv2.y : qv2.x, kv[r]) -
+                                (odd ? l2.y : l2.x))
+                       : 0.f;
+    }
+  }
+}
+
+// ds^T = ((dp^T - di) * p^T) * scale in place of p^T (x); di of the
+// tile's queries from the stage
+template <int NT>
+__device__ __forceinline__ void ds_from_dp(float (&x)[NT][4],
+                                           const float (&dpacc)[NT][4],
+                                           const float* dis, float scale) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
     const float2 d2 = *reinterpret_cast<const float2*>(dis + j * 8 + 2 * t);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       x[j][e] = ((dpacc[j][e] - ((e & 1) ? d2.y : d2.x)) * x[j][e]) * scale;
   }
+}
+
+// ds_from_dp with dP^T = V dO^T from the warp's resident V rows and the
+// tile's dO
+template <typename T, int DP, int BN, int LD>
+__device__ __forceinline__ void ds_in_place(float (&x)[BN / 8][4],
+                                            const T* vw, const T* dos,
+                                            const float* dis, float scale) {
+  float dpacc[BN / 8][4];
+  tile_abt<T, DP, BN, LD>(dpacc, vw, dos);
+  ds_from_dp(x, dpacc, dis, scale);
 }
 
 // SPLIT (DP = 192 and 256): dK's and dV's accumulators together, 192 or
@@ -634,7 +737,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                         i * BN * sizeof(float); };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;       // fragment row, quad lane
+  const int g = lane >> 2;                     // fragment row
   const int bh = blockIdx.y, b = bh / H;
   const int k0 = blockIdx.x * BM;
   const size_t qoff = static_cast<size_t>(bh) * Tq * D;
@@ -700,21 +803,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // p^T = exp(s^T - lse) in place: column c is query i0 + c
     float sacc[NT][4];
     tile_abt<T, DP, BN, LD>(sacc, kw, qtile(s));
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + 2 * t;
-      const int2 qv2 = *reinterpret_cast<const int2*>(qvs + c);
-      const float2 l2 = *reinterpret_cast<const float2*>(lses + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, odd = e & 1;
-        sacc[j][e] = in[r] && i0 + c + odd < Tq
-                         ? __expf(logit(sacc[j][e], scale,
-                                        odd ? qv2.y : qv2.x, kv[r]) -
-                                  (odd ? l2.y : l2.x))
-                         : 0.f;
-      }
-    }
+    dkv_p(sacc, qvs, lses, i0, Tq, scale, in, kv);
     if constexpr (SPLIT) {
       if (dv_block) {
         tile_xb<T, DP, BN, LD>(acc, sacc, dotile(s));   // dV += T(P^T) dO
@@ -732,8 +821,333 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
   }
   cp_async_wait<0>();
-  store_acc<T>((dv_block ? dv : dk) + koff, acc, krow0, Tk, D);
-  if constexpr (!SPLIT) store_acc<T>(dv + koff, dvacc, krow0, Tk, D);
+  store_acc<T>((dv_block ? dv : dk) + koff, acc, krow0, Tk, D, D);
+  if constexpr (!SPLIT) store_acc<T>(dv + koff, dvacc, krow0, Tk, D, D);
+}
+
+// ------------------------------------------------------------ wide D
+// Above DP = 256 (head widths in (256, 640]) neither a 64-row strip of
+// the block's own rows nor a thread's accumulators over all of D fit, so
+// the wide kernels keep nothing resident and split the output's columns:
+// - the grid's z gives each block one chunk of DC = 256 columns of O, dQ,
+//   or dK or dV (K4b: z = 2 * chunk + {0 dV, 1 dK}), 128 accumulators a
+//   thread as at DP = 256;
+// - every block forms its tile's scores (and dP) over all of D, in chunk
+//   steps of W columns (64 float32 or 128 bf16: 256 bytes a row), each of
+//   which stages the block's 64 rows and the tile's BN rows of those
+//   columns of the operands; the tile's out step then stages the DC
+//   columns of the product's streamed operand and the tile's vectors.  A
+//   ring of two stages, one per step, double-buffers them all.  The
+//   backward kernels stream 16 rows a tile (their two score tiles and 128
+//   accumulators spill at 32, as DP = 256's float32 ones did).
+// Each chunk of one row block repeats the same sums in the same order, so
+// they reach the same scores, m, l and lse bit for bit; z = 0 writes lse.
+constexpr int kWideDC = 256;                    // output columns a block
+
+template <typename T, int BN_>
+struct WideGeo {
+  static constexpr int BN = BN_;                // streamed rows a tile
+  static constexpr int W = 256 / sizeof(T);     // columns a chunk step
+  static constexpr int DC = kWideDC;            // output columns a block
+  static constexpr int LDW = W + 16 / sizeof(T);
+  static constexpr int LDC = DC + 16 / sizeof(T);
+  static constexpr size_t kA = size_t(BM) * LDW * sizeof(T);   // own rows
+  static constexpr size_t kB = size_t(BN) * LDW * sizeof(T);   // tile rows
+  static constexpr size_t kOut = size_t(BN) * LDC * sizeof(T);
+};
+
+// A stage: NOPS operands of the block's rows, then NOPS of the tile's, in
+// a chunk step, or the out operand's tile in an out step; then NVEC
+// vectors of BN 32-bit values (the out step's)
+template <typename T, int BN, int NOPS, int NVEC>
+struct WideStage {
+  using G = WideGeo<T, BN>;
+  static constexpr size_t kMain = NOPS * (G::kA + G::kB) > G::kOut
+                                      ? NOPS * (G::kA + G::kB)
+                                      : G::kOut;
+  static constexpr size_t kStage = kMain + NVEC * G::BN * sizeof(float);
+  static constexpr size_t kSmem = 2 * kStage;
+  static_assert(G::kA % 16 == 0 && G::kB % 16 == 0 && kMain % 16 == 0 &&
+                    kStage % 16 == 0,
+                "tiles stay 16-byte aligned");
+  static_assert(kSmem <= 232448, "a block has at most 227 KB");
+};
+
+template <typename T>
+__device__ __forceinline__ const T* at(const unsigned char* p, size_t off) {
+  return reinterpret_cast<const T*>(p + off);
+}
+
+// K4a, wide: keys stream; chunk step c stages Q's and the tile's K's
+// columns [cW, cW + W), the out step the tile's V columns [c0, c0 + DC)
+// and kv_valid
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ qvalid,
+                      const int* __restrict__ kvalid, T* __restrict__ o,
+                      float* __restrict__ lse, int H, int Tq, int Tk, int D,
+                      float scale) {
+  using G = WideGeo<T, 32>;
+  using S = WideStage<T, 32, 1, 1>;
+  constexpr int BN = G::BN, W = G::W, DC = G::DC, NT = BN / 8, ND = DC / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int bh = blockIdx.y, b = bh / H;
+  const int q0 = blockIdx.x * BM, c0 = blockIdx.z * DC;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D;
+  const size_t koff = static_cast<size_t>(bh) * Tk * D;
+  const int* kvb = kvalid + static_cast<size_t>(b) * Tk;
+  const int nc = (D + W - 1) / W, steps = (Tk + BN - 1) / BN * (nc + 1);
+
+  auto issue = [&](int step, int s) {
+    T* st = reinterpret_cast<T*>(smem + s * S::kStage);
+    const int k0 = step / (nc + 1) * BN, c = step % (nc + 1);
+    if (c < nc) {
+      load_rows_async<T, W, G::LDW>(st, q + qoff, q0, BM, Tq, D, c * W);
+      load_rows_async<T, W, G::LDW>(st + BM * G::LDW, k + koff, k0, BN, Tk,
+                                    D, c * W);
+    } else {
+      load_rows_async<T, DC, G::LDC>(st, v + koff, k0, BN, Tk, D, c0);
+      load_vec_async<BN>(smem + s * S::kStage + S::kMain, kvb, k0, Tk);
+    }
+  };
+  // one commit group per step (possibly empty), so that wait_group<1> at
+  // the top of step i means step i's data has landed
+  issue(0, 0);
+  cp_async_commit();
+  if (steps > 1) issue(1, 1);
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + g;   // and row0 + 8
+  const int qv0 = row0 < Tq ? qvalid[static_cast<size_t>(b) * Tq + row0] : 0;
+  const int qv1 =
+      row0 + 8 < Tq ? qvalid[static_cast<size_t>(b) * Tq + row0 + 8] : 0;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};
+  float oacc[ND][4], sacc[NT][4];
+  zero_acc(oacc);
+  for (int it = 0, c = 0, k0 = 0; it < steps; ++it) {
+    cp_async_wait<1>();
+    __syncthreads();                     // step it is in stage it % 2
+    const unsigned char* st = smem + (it & 1) * S::kStage;
+    if (c < nc) {                        // S += Q_c K_c^T
+      if (c == 0) zero_acc(sacc);
+      tile_abt_add<T, W, BN, G::LDW>(sacc, at<T>(st, 0) + warp * 16 * G::LDW,
+                                     at<T>(st, G::kA));
+    } else {                             // O += T(P) V_z
+      online_softmax(sacc, oacc, at<int>(st, S::kMain), k0, Tk, scale, qv0,
+                     qv1, m_run, l_run);
+      tile_xb<T, DC, BN, G::LDC>(oacc, sacc, at<T>(st, 0));
+    }
+    __syncthreads();                     // every warp is done with it
+    if (it + 2 < steps) issue(it + 2, it & 1);
+    cp_async_commit();
+    if (++c > nc) {
+      c = 0;
+      k0 += BN;
+    }
+  }
+  cp_async_wait<0>();
+  finish_rows(oacc, m_run, l_run, lse + static_cast<size_t>(bh) * Tq, row0,
+              Tq, blockIdx.z == 0);
+  store_acc<T>(o + qoff + c0, oacc, row0, Tq, D, D - c0);
+}
+
+// K4c, wide: keys stream; chunk step c stages Q's and dO's (the block's
+// rows) and the tile's K's and V's columns [cW, cW + W), the out step the
+// tile's K columns [c0, c0 + DC) and kv_valid
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ qvalid,
+                     const int* __restrict__ kvalid,
+                     const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ di, T* __restrict__ dq,
+                     int H, int Tq, int Tk, int D, float scale) {
+  using G = WideGeo<T, 16>;
+  using S = WideStage<T, 16, 2, 1>;
+  constexpr int BN = G::BN, W = G::W, DC = G::DC, NT = BN / 8, ND = DC / 8;
+  constexpr int LDW = G::LDW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int bh = blockIdx.y, b = bh / H;
+  const int q0 = blockIdx.x * BM, c0 = blockIdx.z * DC;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D;
+  const size_t koff = static_cast<size_t>(bh) * Tk * D;
+  const int* kvb = kvalid + static_cast<size_t>(b) * Tk;
+  const int nc = (D + W - 1) / W, steps = (Tk + BN - 1) / BN * (nc + 1);
+
+  auto issue = [&](int step, int s) {
+    T* st = reinterpret_cast<T*>(smem + s * S::kStage);
+    const int k0 = step / (nc + 1) * BN, c = step % (nc + 1);
+    if (c < nc) {
+      load_rows_async<T, W, LDW>(st, q + qoff, q0, BM, Tq, D, c * W);
+      load_rows_async<T, W, LDW>(st + BM * LDW, dout + qoff, q0, BM, Tq, D,
+                                 c * W);
+      load_rows_async<T, W, LDW>(st + 2 * BM * LDW, k + koff, k0, BN, Tk, D,
+                                 c * W);
+      load_rows_async<T, W, LDW>(st + (2 * BM + BN) * LDW, v + koff, k0, BN,
+                                 Tk, D, c * W);
+    } else {
+      load_rows_async<T, DC, G::LDC>(st, k + koff, k0, BN, Tk, D, c0);
+      load_vec_async<BN>(smem + s * S::kStage + S::kMain, kvb, k0, Tk);
+    }
+  };
+  issue(0, 0);
+  cp_async_commit();
+  if (steps > 1) issue(1, 1);
+  cp_async_commit();
+
+  // the statistics of the thread's rows row0 and row0 + 8
+  const int row0 = q0 + warp * 16 + g;
+  bool in[2];
+  int qv[2];
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    in[r] = row < Tq;
+    const size_t i = static_cast<size_t>(bh) * Tq + row;
+    qv[r] = in[r] ? qvalid[static_cast<size_t>(b) * Tq + row] : 0;
+    lse_r[r] = in[r] ? lse[i] : 0.f;
+    di_r[r] = in[r] ? di[i] : 0.f;
+  }
+  float dqacc[ND][4], sacc[NT][4], dpacc[NT][4];
+  zero_acc(dqacc);
+  for (int it = 0, c = 0, k0 = 0; it < steps; ++it) {
+    cp_async_wait<1>();
+    __syncthreads();                     // step it is in stage it % 2
+    const unsigned char* st = smem + (it & 1) * S::kStage;
+    if (c < nc) {                        // S += Q_c K_c^T, dP += dO_c V_c^T
+      if (c == 0) {
+        zero_acc(sacc);
+        zero_acc(dpacc);
+      }
+      const T* rows = at<T>(st, 0) + warp * 16 * LDW;
+      tile_abt_add<T, W, BN, LDW>(sacc, rows, at<T>(st, 2 * G::kA));
+      tile_abt_add<T, W, BN, LDW>(dpacc, rows + BM * LDW,
+                                  at<T>(st, 2 * G::kA + G::kB));
+    } else {                             // dQ += T(dS) K_z
+      dq_ds(sacc, dpacc, at<int>(st, S::kMain), k0, Tk, scale, in, qv, lse_r,
+            di_r);
+      tile_xb<T, DC, BN, G::LDC>(dqacc, sacc, at<T>(st, 0));
+    }
+    __syncthreads();                     // every warp is done with it
+    if (it + 2 < steps) issue(it + 2, it & 1);
+    cp_async_commit();
+    if (++c > nc) {
+      c = 0;
+      k0 += BN;
+    }
+  }
+  cp_async_wait<0>();
+  store_acc<T>(dq + qoff + c0, dqacc, row0, Tq, D, D - c0);
+}
+
+// K4b, wide: queries stream; chunk step c stages K's and (dK blocks) V's
+// columns [cW, cW + W) of the block's keys and the tile's Q's and (dK) dO's,
+// the out step the tile's dO (dV blocks) or Q (dK) columns [c0, c0 + DC)
+// and q_valid | lse | di of its queries
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const int* __restrict__ qvalid,
+                      const int* __restrict__ kvalid,
+                      const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di, T* __restrict__ dk,
+                      T* __restrict__ dv, int H, int Tq, int Tk, int D,
+                      float scale) {
+  using G = WideGeo<T, 16>;
+  using S = WideStage<T, 16, 2, 3>;
+  constexpr int BN = G::BN, W = G::W, DC = G::DC, NT = BN / 8, ND = DC / 8;
+  constexpr int LDW = G::LDW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int bh = blockIdx.y, b = bh / H;
+  const int kb0 = blockIdx.x * BM, c0 = (blockIdx.z >> 1) * DC;
+  const bool dv_block = (blockIdx.z & 1) == 0;
+  const size_t qoff = static_cast<size_t>(bh) * Tq * D;
+  const size_t koff = static_cast<size_t>(bh) * Tk * D;
+  const int* qvb = qvalid + static_cast<size_t>(b) * Tq;
+  const float* lseb = lse + static_cast<size_t>(bh) * Tq;
+  const float* dib = di + static_cast<size_t>(bh) * Tq;
+  const int nc = (D + W - 1) / W, steps = (Tq + BN - 1) / BN * (nc + 1);
+  constexpr size_t kVec = BN * sizeof(float);
+
+  auto issue = [&](int step, int s) {
+    unsigned char* base = smem + s * S::kStage;
+    T* st = reinterpret_cast<T*>(base);
+    const int i0 = step / (nc + 1) * BN, c = step % (nc + 1);
+    if (c < nc) {
+      load_rows_async<T, W, LDW>(st, k + koff, kb0, BM, Tk, D, c * W);
+      load_rows_async<T, W, LDW>(st + 2 * BM * LDW, q + qoff, i0, BN, Tq, D,
+                                 c * W);
+      if (!dv_block) {
+        load_rows_async<T, W, LDW>(st + BM * LDW, v + koff, kb0, BM, Tk, D,
+                                   c * W);
+        load_rows_async<T, W, LDW>(st + (2 * BM + BN) * LDW, dout + qoff,
+                                   i0, BN, Tq, D, c * W);
+      }
+    } else {
+      load_rows_async<T, DC, G::LDC>(st, (dv_block ? dout : q) + qoff, i0,
+                                     BN, Tq, D, c0);
+      load_vec_async<BN>(base + S::kMain, qvb, i0, Tq);
+      load_vec_async<BN>(base + S::kMain + kVec, lseb, i0, Tq);
+      load_vec_async<BN>(base + S::kMain + 2 * kVec, dib, i0, Tq);
+    }
+  };
+  issue(0, 0);
+  cp_async_commit();
+  if (steps > 1) issue(1, 1);
+  cp_async_commit();
+
+  // the validity of the thread's keys krow0 and krow0 + 8
+  const int krow0 = kb0 + warp * 16 + g;
+  bool in[2];
+  int kv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = krow0 + 8 * r;
+    in[r] = row < Tk;
+    kv[r] = in[r] ? kvalid[static_cast<size_t>(b) * Tk + row] : 0;
+  }
+  float acc[ND][4], sacc[NT][4], dpacc[NT][4];
+  zero_acc(acc);
+  for (int it = 0, c = 0, i0 = 0; it < steps; ++it) {
+    cp_async_wait<1>();
+    __syncthreads();                     // step it is in stage it % 2
+    const unsigned char* st = smem + (it & 1) * S::kStage;
+    if (c < nc) {             // S^T += K_c Q_c^T (dK: dP^T += V_c dO_c^T)
+      if (c == 0) {
+        zero_acc(sacc);
+        zero_acc(dpacc);
+      }
+      const T* rows = at<T>(st, 0) + warp * 16 * LDW;
+      tile_abt_add<T, W, BN, LDW>(sacc, rows, at<T>(st, 2 * G::kA));
+      if (!dv_block)
+        tile_abt_add<T, W, BN, LDW>(dpacc, rows + BM * LDW,
+                                    at<T>(st, 2 * G::kA + G::kB));
+    } else {             // dV += T(P^T) dO_z, or dK += T(dS^T) Q_z
+      dkv_p(sacc, at<int>(st, S::kMain), at<float>(st, S::kMain + kVec), i0,
+            Tq, scale, in, kv);
+      if (!dv_block)
+        ds_from_dp(sacc, dpacc, at<float>(st, S::kMain + 2 * kVec), scale);
+      tile_xb<T, DC, BN, G::LDC>(acc, sacc, at<T>(st, 0));
+    }
+    __syncthreads();                     // every warp is done with it
+    if (it + 2 < steps) issue(it + 2, it & 1);
+    cp_async_commit();
+    if (++c > nc) {
+      c = 0;
+      i0 += BN;
+    }
+  }
+  cp_async_wait<0>();
+  store_acc<T>((dv_block ? dv : dk) + koff + c0, acc, krow0, Tk, D, D - c0);
 }
 
 // Launch one kernel instance for T and DP; `launch` gets the grid, the
@@ -795,6 +1209,58 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* qv,
   });
 }
 
+// The wide instances (D above 256): one a type, grid z over the output's
+// chunks of DC columns (K4b: two blocks a chunk)
+template <typename T>
+cudaError_t fwd_w(const void* q, const void* k, const void* v,
+                  const void* qv, const void* kv, void* o, void* lse, int B,
+                  int H, int Tq, int Tk, int D, float scale, cudaStream_t s) {
+  const dim3 grid((Tq + BM - 1) / BM, B * H, (D + kWideDC - 1) / kWideDC);
+  auto kernel = flash_fwd_wide_kernel<T>;
+  return run(kernel, WideStage<T, 32, 1, 1>::kSmem, [&](size_t smem) {
+    kernel<<<grid, THREADS, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(qv),
+        static_cast<const int*>(kv), static_cast<T*>(o),
+        static_cast<float*>(lse), H, Tq, Tk, D, scale);
+  });
+}
+
+template <typename T>
+cudaError_t dq_w(const void* q, const void* k, const void* v,
+                 const void* qv, const void* kv, const void* dout,
+                 const void* lse, const void* di, void* dq_, int B, int H,
+                 int Tq, int Tk, int D, float scale, cudaStream_t s) {
+  const dim3 grid((Tq + BM - 1) / BM, B * H, (D + kWideDC - 1) / kWideDC);
+  auto kernel = flash_dq_wide_kernel<T>;
+  return run(kernel, WideStage<T, 16, 2, 1>::kSmem, [&](size_t smem) {
+    kernel<<<grid, THREADS, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(qv),
+        static_cast<const int*>(kv), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<T*>(dq_), H, Tq, Tk, D, scale);
+  });
+}
+
+template <typename T>
+cudaError_t dkv_w(const void* q, const void* k, const void* v,
+                  const void* qv, const void* kv, const void* dout,
+                  const void* lse, const void* di, void* dk, void* dv, int B,
+                  int H, int Tq, int Tk, int D, float scale, cudaStream_t s) {
+  const dim3 grid((Tk + BM - 1) / BM, B * H,
+                  2 * ((D + kWideDC - 1) / kWideDC));
+  auto kernel = flash_dkv_wide_kernel<T>;
+  return run(kernel, WideStage<T, 16, 2, 3>::kSmem, [&](size_t smem) {
+    kernel<<<grid, THREADS, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(qv),
+        static_cast<const int*>(kv), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, D, scale);
+  });
+}
+
 }  // namespace
 
 // The DP = 256 instances of fwd, dkv and dq in float32 (bf16 false) or
@@ -811,6 +1277,21 @@ cudaError_t dkv_d256(bool bf16, const void* q, const void* k,
                      void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
                      float scale, cudaStream_t s);
 cudaError_t dq_d256(bool bf16, const void* q, const void* k, const void* v,
+                    const void* qv, const void* kv, const void* dout,
+                    const void* lse, const void* di, void* dq_, int B, int H,
+                    int Tq, int Tk, int D, float scale, cudaStream_t s);
+// The wide instances (D above 256) in float32 (bf16 false) or bf16,
+// defined in flash_attn_wide.cu and called by flash_attn.cu's dispatch.
+cudaError_t fwd_wide(bool bf16, const void* q, const void* k,
+                     const void* v, const void* qv, const void* kv, void* o,
+                     void* lse, int B, int H, int Tq, int Tk, int D,
+                     float scale, cudaStream_t s);
+cudaError_t dkv_wide(bool bf16, const void* q, const void* k,
+                     const void* v, const void* qv, const void* kv,
+                     const void* dout, const void* lse, const void* di,
+                     void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
+                     float scale, cudaStream_t s);
+cudaError_t dq_wide(bool bf16, const void* q, const void* k, const void* v,
                     const void* qv, const void* kv, const void* dout,
                     const void* lse, const void* di, void* dq_, int B, int H,
                     int Tq, int Tk, int D, float scale, cudaStream_t s);

@@ -18,7 +18,8 @@ import math
 
 import torch
 
-from ..ops.kernels.flash_attn import flash_attention, flash_head_dim_supported
+from ..ops.kernels.flash_attn import (MAX_HEAD_DIM, flash_attention,
+                                      flash_head_dim_supported)
 
 __all__ = ["make_flash_attn_core", "make_auto_attn_core", "AUTO_FLASH_MIN_T",
            "auto_flash_head_dim", "flash_attention_available"]
@@ -65,7 +66,14 @@ def auto_flash_head_dim(dk: int) -> bool:
     limit (``NVIDIA H100 80GB HBM3, 700.00 W``) with ``fs2_sweep.py
     --adim 512 --aheads 2 --frames 512 1024 2048 4096``: the train step's
     ratio is 1.048 at 512 frames, 1.064 at 1024, 1.094 at 2048 and 1.180
-    at 4096; no-grad inference 0.988, 0.960, 0.939 and 0.834."""
+    at 4096; no-grad inference 0.988, 0.960, 0.939 and 0.834.
+    At 384 and 512 (adim 384 and 512 over one head, the wide instances)
+    likewise, on the same card and power limit (``NVIDIA H100 80GB HBM3,
+    700.00 W``): with ``fs2_sweep.py --aheads 1 --frames 512 1024 2048
+    4096`` the float32 train step's ratio at dk 384 is 1.124, 1.242, 1.383
+    and 1.652, no-grad inference 1.000, 1.067, 1.058 and 1.116; with
+    ``--adim 512 --aheads 1`` at dk 512 1.190, 1.282, 1.480 and 1.819,
+    inference 1.053, 1.050, 1.096 and 1.162.  Flash wins neither there."""
     return flash_head_dim_supported(dk) and dk <= 128
 
 
@@ -101,7 +109,7 @@ def make_flash_attn_core(*, seq_block=None):
         if not flash_head_dim_supported(dk):
             raise NotImplementedError(
                 f"flash attention (kernel K4) takes head widths that are "
-                f"multiples of 16 in [16, 256]; got dk={dk} "
+                f"multiples of 16 in [16, {MAX_HEAD_DIM}]; got dk={dk} "
                 "(d_model / n_heads); use the dense core")
         q_valid, kv_valid = _validity(mask, b, tq, tk, q.device)
 

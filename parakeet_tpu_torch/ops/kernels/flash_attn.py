@@ -7,10 +7,12 @@ Counterpart of the Pallas TPU flash-attention kernel that
 (B, H, T, D), contiguous, all float32 or all bfloat16; the masks are
 per-row validities ``q_valid`` (B, Tq) and ``kv_valid`` (B, Tk), and the
 pair (i, j) is allowed iff ``q_valid[i] == kv_valid[j]`` (jax's segment
-ids).  D is a multiple of 16 in [16, 256]: the kernels have instances at
+ids).  D is a multiple of 16 in [16, 640]: the kernels have instances at
 padded widths 32, 64, 96, 128, 192 (the FastSpeech2 recipes' adim 384
 over 2 heads) and 256 (adim 512 over 2 heads), and a width between two
-of them runs at the wider one with zero columns (``k4_padded_dim``).
+of them runs at the wider one with zero columns (``k4_padded_dim``);
+above 256 (adim 384 over one head, 512 over one) the "wide" instances
+take every width, padded to a multiple of 128.
 
 On CUDA tensors the wrappers launch the kernels of
 ``parakeet_tpu_torch/csrc/flash_attn.cu`` (``flash_attention_forward``,
@@ -49,10 +51,15 @@ and makes one pass over the keys with the online softmax (at D = 192 and
 256 with Q resident in shared memory); K4c owns query rows and streams
 key tiles; K4b owns key rows and streams query tiles (at D = 192 and 256
 two blocks of one launch share each 64 keys, one forming dV and one dK,
-so that each holds one accumulator).  ``k4_smem_bytes`` counts a block's
-shared memory as the kernels' geometry does.  The backward passes use the
-final lse, so they round where the plain versions do, and they have no
-atomics: two runs give bit-identical gradients.  The kernels sum in
+so that each holds one accumulator).  Above D = 256 nothing stays
+resident: a block owns one chunk of 256 output columns (the grid's z),
+forms each tile's scores over all of D in steps of 64 (float32) or 128
+(bf16) columns of every operand (tiles of 32 keys in K4a, 16 rows in
+K4b and K4c), and then the product over its chunk.  ``k4_smem_bytes``
+counts a block's shared memory as the kernels' geometry does.  The
+backward passes use the final lse, so they round where the plain
+versions do, and they have no atomics: two runs give bit-identical
+gradients.  The kernels sum in
 another order (and float32 products run as 3xTF32 splits), so they agree
 with the plain versions to float32 rounding, and to a bf16 rounding of p
 or ds in bf16.  Out-of-range rows are masked by the kernels themselves:
@@ -73,7 +80,7 @@ __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_reference", "flash_attention_dkv_reference",
            "flash_attention_dq_reference", "flash_head_dim_supported",
            "k4_padded_dim", "k4a_block_k", "k4_smem_bytes", "MASK_VALUE",
-           "SMEM_LIMIT"]
+           "MAX_HEAD_DIM", "SMEM_LIMIT"]
 
 # jax's DEFAULT_MASK_VALUE (-0.7 * float32 max, in float64) as float32
 MASK_VALUE = float(np.float32(-0.7 * float(np.finfo(np.float32).max)))
@@ -82,28 +89,36 @@ _F32, _BF16 = torch.float32, torch.bfloat16
 SMEM_LIMIT = 232448
 
 
+# the widest head K4 takes (csrc/flash_attn.cu's kMaxD)
+MAX_HEAD_DIM = 640
+
+
 def flash_head_dim_supported(dk: int) -> bool:
-    """Head widths K4 takes: multiples of 16 in [16, 256]."""
-    return dk % 16 == 0 and 16 <= dk <= 256
+    """Head widths K4 takes: multiples of 16 in [16, 640]."""
+    return dk % 16 == 0 and 16 <= dk <= MAX_HEAD_DIM
 
 
 def k4_padded_dim(dk: int) -> int:
     """The width of the kernel instance that runs head width ``dk`` (one
     ``flash_head_dim_supported`` takes), padded with zero columns: a
-    multiple of 32 up to 128, then 192 or 256 (csrc/flash_attn.cu's
-    ``padded_dim``)."""
+    multiple of 32 up to 128, then 192 or 256, then a multiple of 128
+    (csrc/flash_attn.cu's ``padded_dim``; above 256 one wide instance
+    takes every width)."""
     if dk <= 128:
         return -(-dk // 32) * 32
-    return 192 if dk <= 192 else 256
+    if dk <= 256:
+        return 192 if dk <= 192 else 256
+    return -(-dk // 128) * 128
 
 
 def k4a_block_k(dtype: torch.dtype, dk: int) -> int:
-    """K4a's key tile at head width ``dk`` (``FwdGeo::BN`` in
-    csrc/flash_attn.cuh): 32 keys in float32, 64 in bf16 but 32 at the
-    DP = 256 instances.  The one-pass kernel rounds p at each tile's
-    running max, which ``flash_attention_reference(...,
-    block_k=k4a_block_k(dtype, dk))`` states."""
-    return 32 if dtype == _F32 or k4_padded_dim(dk) == 256 else 64
+    """K4a's key tile at head width ``dk`` (``FwdGeo::BN`` and
+    ``WideGeo::BN`` in csrc/flash_attn.cuh): 32 keys in float32, 64 in
+    bf16 but 32 from the DP = 256 instances on.  The one-pass kernel
+    rounds p at each tile's running max, which
+    ``flash_attention_reference(..., block_k=k4a_block_k(dtype, dk))``
+    states."""
+    return 32 if dtype == _F32 or k4_padded_dim(dk) >= 256 else 64
 
 
 def k4_smem_bytes(kernel: str, dtype: torch.dtype, dk: int) -> int:
@@ -113,9 +128,19 @@ def k4_smem_bytes(kernel: str, dtype: torch.dtype, dk: int) -> int:
     pitch DP + 16 bytes; K4a Q resident above DP = 128, two stages of a K
     and a V tile and the tile's kv_valid; K4b and K4c two resident strips
     of 64 rows and two stages of two tiles and 3 (K4b) or 1 (K4c) vectors
-    of 32-bit values."""
+    of 32-bit values.  Above DP = 256 (``WideStage``, the same at every
+    width): two stages, each the larger of a chunk step's 256-byte rows
+    (64 of each of 1 (K4a) or 2 operands of the block, 32 (K4a) or 16 of
+    each of the tile's) and an out step's tile rows of 256 columns, then
+    the vectors."""
     dp = k4_padded_dim(dk)
     size = 4 if dtype == _F32 else 2
+    nvec = {"K4a": 1, "K4b": 3, "K4c": 1}[kernel]
+    if dp > 256:
+        row = 256 + 16                           # a chunk step's pitch, bytes
+        nops, bn = (1, 32) if kernel == "K4a" else (2, 16)
+        out = bn * (256 + 16 // size) * size
+        return 2 * (max(nops * (64 + bn) * row, out) + 4 * nvec * bn)
     pitch = (dp + 16 // size) * size
     if kernel == "K4a":
         bn = k4a_block_k(dtype, dk)
@@ -125,7 +150,6 @@ def k4_smem_bytes(kernel: str, dtype: torch.dtype, dk: int) -> int:
         bn = 16 if dp > 192 else 32
     else:
         bn = 32 if dp > 96 else 64
-    nvec = {"K4b": 3, "K4c": 1}[kernel]
     return 2 * 64 * pitch + 2 * (2 * bn * pitch + 4 * nvec * bn)
 
 
@@ -221,7 +245,7 @@ def _check(what, q, k, v, q_valid, kv_valid, extra=(), rows=()):
     if not flash_head_dim_supported(d):
         raise NotImplementedError(
             f"{what} (kernel K4) takes head widths that are multiples of "
-            f"16 in [16, 256], got {d}")
+            f"16 in [16, {MAX_HEAD_DIM}], got {d}")
     shapes = {"k": (k, (b, h, tk, d)), "v": (v, (b, h, tk, d))}
     shapes.update({name: (t, (b, h, tq, d)) for name, t in extra})
     for name, (t, shape) in shapes.items():

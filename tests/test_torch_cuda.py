@@ -563,7 +563,19 @@ def _k4_inputs(cuda, b, h, tq, tk, d, dtype, key_lengths, mask_rows, seed):
     (2, 2, 130, 211, 256, (211, 100), False),
     # D = 240, padded to DP = 256 with zero columns
     (2, 2, 300, 300, 240, (300, 17), True),
-    (2, 2, 130, 211, 240, (211, 100), False)])
+    (2, 2, 130, 211, 240, (211, 100), False),
+    # the wide instances: adim 384 over one head (D = 384, two chunks of
+    # 256 columns, the second half zero), adim 512 over one (D = 512), a
+    # ragged length past several tiles with masked query rows, then Tq !=
+    # Tk; D = 320 and 448 (zero columns in a chunk step too) and 640
+    # (three chunks)
+    (2, 1, 333, 333, 384, (333, 250), True),
+    (2, 2, 130, 211, 384, (211, 100), False),
+    (2, 1, 333, 333, 512, (333, 250), True),
+    (2, 2, 130, 211, 512, (211, 100), False),
+    (2, 1, 300, 300, 320, (300, 17), True),
+    (2, 1, 130, 211, 448, (211, 100), False),
+    (1, 2, 200, 200, 640, (200,), False)])
 def test_k4_matches_plain_versions(cuda, dtype, b, h, tq, tk, d,
                                    key_lengths, mask_rows):
     """K4a against the plain version unblocked and blocked at its own key
@@ -638,12 +650,12 @@ def test_k4_autograd_matches_autograd_of_the_plain_version(cuda):
 
 
 def test_k4_rejects_what_it_does_not_take(cuda):
-    """Head widths past 256 (jax's kernel takes 384 and 512) and widths
-    that are not multiples of 16 raise, in the wrapper and in the core;
-    float16 and tensors on two devices too."""
+    """Head widths past 640 (jax's kernel takes 768) and widths that are
+    not multiples of 16 raise, in the wrapper and in the core; float16
+    and tensors on two devices too."""
     from parakeet_tpu_torch.nn.flash import make_flash_attn_core
     from parakeet_tpu_torch.ops.kernels import flash_attn as k4
-    for d in (272, 384, 200):
+    for d in (656, 768, 200):
         q, k, v, qv, kv, _ = _k4_inputs(cuda, 1, 1, 64, 64, d,
                                         torch.float32, (64,), False, 0)
         with pytest.raises(NotImplementedError, match="K4"):
@@ -664,7 +676,8 @@ def test_k4_rejects_what_it_does_not_take(cuda):
 def test_k4_shared_memory_matches_the_kernels(cuda, dtype):
     """The launcher's ``k4_smem_bytes`` is the kernels' own count
     (``flash_attn_smem``: 0 K4a, 1 K4b, 2 K4c), within the card's 227 KB,
-    at every head width K4 takes; widths it refuses give -1."""
+    at every head width K4 takes (DP 384, 512 and 640 too); widths it
+    refuses give -1."""
     import ctypes
 
     from parakeet_tpu_torch.ops.kernels import flash_attn as k4
@@ -673,11 +686,12 @@ def test_k4_shared_memory_matches_the_kernels(cuda, dtype):
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
     bf16 = int(dtype == torch.bfloat16)
-    for d in range(16, 257, 16):
+    for d in range(16, k4.MAX_HEAD_DIM + 1, 16):
         for i, name in enumerate(("K4a", "K4b", "K4c")):
             want = k4.k4_smem_bytes(name, dtype, d)
             assert fn(i, bf16, d) == want <= k4.SMEM_LIMIT, (name, d)
-    assert fn(0, bf16, 272) == fn(0, bf16, 200) == fn(3, bf16, 64) == -1
+    assert fn(0, bf16, 656) == fn(0, bf16, 200) == fn(3, bf16, 64) == -1
+    assert fn(3, bf16, 384) == -1
 
 
 # ---- captured programs: K1 and K4a inside a CUDA graph, the engine's grid

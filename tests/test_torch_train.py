@@ -173,6 +173,74 @@ def test_k2_reference_matches_pallas_train_stack(monkeypatch, cr, ca):
         assert err <= K2_TOL * np.abs(want).max(), f"{name}: {err}"
 
 
+# PWGAN's 30 layers (recipes/pwgan/conf/default.yaml: 3 stacks of
+# dilations 1 ... 512)
+PWG_DILS = tuple(2 ** (i % 10) for i in range(30))
+
+
+@pytest.mark.parametrize("dilation", sorted(set(PWG_DILS)))
+def test_k2_reference_matches_pallas_one_layer_at_width_128(dilation):
+    """At residual width 128 (gate 256, skip 128, 80 aux channels) and the
+    width-32 weight scale of 0.3, where the 30-layer stack parts from the
+    Pallas one by more than K2_TOL, each layer alone agrees: the plain
+    K2a/K2b against the Pallas train stack one layer at a time
+    (``dilations=(d,)``, ``stacks=1``, the JAX package's own block
+    constants, which cover dilation 512), every layer of PWGAN's 30 with
+    this dilation, each from the same bf16-exact input, forward and every
+    gradient within K2_TOL of its range at most and 2^-16 of it on
+    average.  A flipped bf16 rounding moves a few values by an ulp, which
+    the largest error sees but the mean does not (measured: means at most
+    2.3e-6 of the range); a different rounding point moves every value,
+    so the mean sees it (with h not rounded to bf16 in the plain forward,
+    x's and skip's means rise to 1.7e-4 and 2.1e-4 of their ranges, while
+    the largest errors stay within K2_TOL).  So the two round at the same
+    points, and the stack's gap is amplification, layer after layer,
+    through gates that saturate at that scale (their pre-activations' std
+    ~6.5 against ~3.2 at width 32)."""
+    cr, ca, b, t = 128, 80, 2, 300
+    rng = np.random.default_rng(5)
+
+    def n(*shape):
+        return (rng.standard_normal(shape) * 0.3).astype(np.float32)
+    w30 = dict(conv=n(30, 3, cr, 2 * cr), conv_b=n(30, 2 * cr),
+               aux=n(30, ca, 2 * cr), skip=n(30, cr, cr), out=n(30, cr, cr),
+               skip_b=n(30, cr), out_b=n(30, cr))
+    x = torch.from_numpy(_np(3, b, t, cr)).to(torch.bfloat16).float().numpy()
+    c = _np(4, b, t, ca)
+    wx, ws = _np(6, b, t, cr), _np(7, b, t, cr)
+
+    @jax.jit
+    def pallas(x, c, w):
+        out, vjp = jax.vjp(
+            lambda x, c, w: jstack_train.fused_residual_stack_train(
+                x, c, w, dilations=(dilation,), stacks=1), x, c, w)
+        return out, vjp((jnp.asarray(wx), jnp.asarray(ws)))
+
+    layers = [i for i, d in enumerate(PWG_DILS) if d == dilation]
+    for i in layers:
+        w = {k: v[i:i + 1] for k, v in w30.items()}
+        (want_x, want_s), (want_dx, want_dc, want_dw) = pallas(
+            jnp.asarray(x), jnp.asarray(c),
+            {k: jnp.asarray(v) for k, v in w.items()})
+        tx = torch.tensor(x, requires_grad=True)
+        tc = torch.tensor(c, requires_grad=True)
+        tw = {k: torch.tensor(v, requires_grad=True) for k, v in w.items()}
+        got_x, got_s = tk2.fused_residual_stack_train(
+            tx, tc, tw, dilations=(dilation,), stacks=1)
+        ((got_x * torch.from_numpy(wx)).sum()
+         + (got_s * torch.from_numpy(ws)).sum()).backward()
+        pairs = [("x", got_x.detach(), want_x),
+                 ("skip", got_s.detach(), want_s), ("dx", tx.grad, want_dx),
+                 ("dc", tc.grad, want_dc)]
+        pairs += [(f"d{k}", tw[k].grad, want_dw[k]) for k in w]
+        for name, got, want in pairs:
+            want = np.asarray(want, np.float64)
+            err = np.abs(got.numpy() - want)
+            scale = np.abs(want).max()
+            assert err.max() <= K2_TOL * scale, f"layer {i} {name}"
+            assert err.mean() <= 2 ** -16 * scale, f"layer {i} {name} mean"
+
+
 def test_k2a_saves_each_layers_input_as_k1_computes_it():
     """The save forward (K2a) gives K1's outputs and, per layer, the bf16
     input that layer's products read."""
