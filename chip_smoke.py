@@ -8,7 +8,11 @@ the CUDA toolkit:
 Phases, one line each (the checks raise; nothing is caught):
 
 1. the card (``nvidia-smi``: name and power limit) and the build of the
-   port's CUDA kernels from ``parakeet_tpu_torch/csrc``;
+   port's CUDA kernels from ``parakeet_tpu_torch/csrc``, with each
+   kernel's registers and spills by ptxas and, by
+   ``cudaFuncGetAttributes``, the registers and local memory of the wide
+   K4b and K4c (the thread-block clusters above head width 256), which
+   must be 0;
 2. kernel K1 (the fused Parallel WaveGAN residual stack) against its plain
    PyTorch version, at a small shape and at the main shape (B=1,
    T=268,800, 30 layers, the widths of recipes/pwgan/conf/default.yaml):
@@ -84,7 +88,8 @@ Phases, one line each (the checks raise; nothing is caught):
    at the decoder's at adim 512 over 2 heads (B=16, H=2, dk=256, T=1024,
    700-1024: the DP = 256 instances) and at adim 384 and 512 over one
    head (B=16, H=1, dk=384 and 512, T=1024, 700-1024: the wide
-   instances): max abs errors against stated
+   instances), then at dk 768 and 1024 (B=2, H=1, T=256, key lengths 256
+   and 171: the widest heads K4 takes): max abs errors against stated
    tolerances (K4a against its plain version both as one softmax and
    blocked at the kernel's own key tile, ``k4a_block_k``), outputs and
    gradients bit-identical from run to run, median times of each
@@ -524,7 +529,9 @@ FS2_STEPS = 4
 # valid) and the decoder at 1024 frames (700-1024 valid), the recipe
 # phase's buckets; and the decoder's at dk 256 (adim 512 over 2 heads, the
 # DP = 256 instances), dk 384 and dk 512 (adim 384 and 512 over one head,
-# the wide instances)
+# the wide instances); then, unrecorded, the widest heads K4 takes, dk 768
+# and 1024 (the wide K4a with three and four chunks of O, K4b and K4c as
+# clusters of six and eight blocks) at B=2, T=256, one item ragged
 FS2_HEADS = FS2_TRAIN_CONFIG["aheads"]
 FS2_DK = FS2_TRAIN_CONFIG["adim"] // FS2_HEADS
 RECIPE_HEADS = FS2_CONFIG["aheads"]
@@ -541,7 +548,9 @@ K4_SHAPES = ((2, 200, 2, 32, (200, 131), True, None),
               f"_dk{RECIPE_DK}"),
              (16, 1024, 2, FS2_D256_DK, 700, False, f"_dk{FS2_D256_DK}"),
              (16, 1024, 1, FS2_D384_DK, 700, False, f"_dk{FS2_D384_DK}"),
-             (16, 1024, 1, FS2_D512_DK, 700, False, f"_dk{FS2_D512_DK}"))
+             (16, 1024, 1, FS2_D512_DK, 700, False, f"_dk{FS2_D512_DK}"),
+             (2, 256, 1, 768, (256, 171), False, None),
+             (2, 256, 1, 1024, (256, 171), False, None))
 # K4 against its plain versions, relative to each output's range.  float32:
 # the kernels' 3xTF32 products keep ~22 bits and every sum runs in
 # another order than cuBLAS's; the gradients sum T = 1024 terms whose
@@ -1025,6 +1034,15 @@ def phase_card():
             f"{name} {regs} ({st + ld})" for name, regs, st, ld in entries
             if name.startswith(prefix)) + " (registers a thread, spill "
             "bytes)")
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    attrs = [(n, dt, *k4.k4_wide_bwd_attrs(n, dt)) for n in ("K4b", "K4c")
+             for dt in (torch.float32, torch.bfloat16)]
+    print("cudaFuncGetAttributes, K4b and K4c above dk 256 (clusters): "
+          + ", ".join(f"{n} {dt} {regs} registers, {local} bytes local"
+                      for n, dt, regs, local in attrs))
+    spilled = [(n, dt, local) for n, dt, _, local in attrs if local]
+    if spilled:
+        raise AssertionError(f"the wide K4b/K4c use local memory: {spilled}")
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -2310,11 +2328,13 @@ def _k4_case(gen, q_valid, kv_valid, h, dk, dtype):
             "K4c": (held_c, *times[2:], work["K4c"], lib_b)}
 
 
-def k4_source(dk, dtype):
-    """The source of K4's instance at head width ``dk`` in ``dtype``."""
+def k4_source(dk, dtype, kernel="K4a"):
+    """The source of ``kernel``'s instance at head width ``dk`` in
+    ``dtype``."""
     from parakeet_tpu_torch.ops.kernels.flash_attn import k4_padded_dim
     if k4_padded_dim(dk) > 256:
-        return "flash_attn_wide.cu"
+        return ("flash_attn_wide.cu" if kernel == "K4a"
+                else "flash_attn_wide_bwd.cu")
     if k4_padded_dim(dk) == 256:
         return "flash_attn_d256.cu"
     return ("flash_attn_bf16.cu" if dtype == torch.bfloat16
@@ -2325,9 +2345,9 @@ def _k4_records(cases, suffix, dtype=torch.float32, dk=RECIPE_DK):
     """The kernels line's K4 records from ``_k4_case`` results at head
     width ``dk``: each kernel's worst error, its times summed over
     ``cases`` and its bound from their bytes and operations together."""
-    source = k4_source(dk, dtype)
     out = {}
     for key, name in K4_NAMES.items():
+        source = k4_source(dk, dtype, key)
         runs = [c[key] for c in cases]
         n_bytes = sum(r[3][0] for r in runs)
         flops = sum(r[3][1] for r in runs)

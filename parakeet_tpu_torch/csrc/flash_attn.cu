@@ -122,54 +122,107 @@
 // (flash_attn_bf16.cu), which took half of this source's build.
 //
 // D above 256 (jax's kernel takes every multiple of 128; here every
-// multiple of 16 in (256, 640]) takes three more kernels, the "wide" ones
-// (flash_fwd_wide_kernel, flash_dkv_wide_kernel, flash_dq_wide_kernel,
-// one instance a type, built in flash_attn_wide.cu).  At DP = 384 the two
-// float32 resident strips of K4b and K4c alone would take 198,656 B and a
-// thread would hold 192 accumulators, so the wide kernels keep nothing
-// resident and split the output's columns over the grid's z:
-//   - a block owns 64 rows and one chunk of DC = 256 columns of O, dQ, or
-//     dK or dV (K4b: z = 2 * chunk + 0 for dV, + 1 for dK), 128
-//     accumulators a thread as at DP = 256; z has ceil(D / 256) chunks;
-//   - it forms each tile's scores (K4c and K4b's dK blocks also dP) over
-//     all of D in "chunk steps" of W columns (64 in float32, 128 in bf16:
-//     256 bytes a row), each of which stages those columns of the block's
-//     64 rows and of the tile's rows (32 keys in K4a, 16 rows in K4b and
-//     K4c, whose two score tiles beside 128 accumulators spill at 32) of
-//     every operand of the scores;
-//     then one "out step" stages the tile's DC columns of the product's
-//     streamed operand (V, K, dO or Q) and the tile's vectors, and the
-//     step runs the softmax (or p, ds) and the product as at DP <= 256.
-//     Each step is one stage of a two-stage cp.async ring, so the next
-//     step's columns load while this one computes;
+// multiple of 16 in (256, 1024]) takes three more kernels, the "wide"
+// ones, padded to a multiple of 128 (DP 384 to 1024).  At DP = 384 the
+// two float32 strips of 64 rows over all of D would take 198,656 B and a
+// thread would hold 192 accumulators over all of D, so each wide kernel
+// splits the output's columns over several blocks.
+//
+// K4a (flash_fwd_wide_kernel, flash_attn_wide.cu) keeps nothing resident
+// and splits O's columns over the grid's z:
+//   - a block owns 64 query rows and one chunk of DC = 256 columns of O,
+//     128 accumulators a thread as at DP = 256; z has ceil(D / 256)
+//     chunks;
+//   - it forms each tile's scores over all of D in "chunk steps" of W
+//     columns (64 in float32, 128 in bf16: 256 bytes a row), each of
+//     which stages those columns of the block's 64 rows of Q and of the
+//     tile's 32 keys; then one "out step" stages the tile's DC columns of
+//     V and its kv_valid, and the step runs the online softmax and the
+//     product as at DP <= 256.  Each step is one stage of a two-stage
+//     cp.async ring, so the next step's columns load while this one
+//     computes;
 //   - every chunk of one row block repeats the same sums in the same order
 //     over the same tiles, so its blocks reach the same scores, m, l and
-//     lse bit for bit (the z = 0 block writes lse); the backward passes
-//     use the final lse and have no atomics, as at DP <= 256.
-// The price: each chunk recomputes the scores (K4a 2 T^2 D a chunk, K4c
-// 4, K4b 2 in dV blocks and 4 in dK blocks, beside the product's 2 over
-// its DC columns), and the block's own rows are re-read from L2 at every
-// tile (64 rows against the tile's 32 or 16).  Shared memory a block,
-// from the geometry (WideStage; ops/kernels/flash_attn.py::k4_smem_bytes
-// mirrors it), at every wide D: K4a 66,816 B in float32 and 52,480 in
-// bf16, K4b 87,424 and K4c 87,168 in both: two blocks an SM.  ptxas
-// (sm_90a), registers a thread, no spill in any: K4a 238 in float32 and
-// 241 in bf16, K4b 244 and 245, K4c 250 and 248 (at 32 rows a tile K4b's
-// float32 instance spilled 188 bytes and K4c's 68 and 32).  On the H100
-// at B=16, T=1024, H=1 in float32 they take about 1.05 (K4a), 3.77 (K4b)
-// and 2.29 ms (K4c) at D = 384 and 1.25, 4.92 and 3.16 ms at 512,
-// against FLOP bounds of 0.14-0.36 ms (chip_smoke.py): bound by the L2
-// traffic of the re-read rows and by the recomputed scores.
+//     lse bit for bit (the z = 0 block writes lse).
+// Each chunk recomputes the scores (2 T^2 D a chunk beside the product's
+// 2 over its DC columns), and the block's own rows are re-read from L2 at
+// every tile.  66,816 B a block in float32, 52,480 in bf16, at every wide
+// D; 238 and 241 registers a thread (ptxas, sm_90a), no spill.
+//
+// K4b and K4c (flash_dkv_cluster_kernel, flash_dq_cluster_kernel,
+// flash_attn_wide_bwd.cu) form each tile's scores once, across a
+// thread-block cluster (ClusterGeo, sum_ranks in flash_attn.cuh):
+//   - a row block of 64 rows (keys in K4b, queries in K4c) is a cluster
+//     of C = ceil(DP / 256) blocks along the grid's x (2 at DP 384 and
+//     512, 3 at 640 and 768, 4 at 896 and 1024); block c owns a chunk of
+//     DP / C output columns rounded up to 32 (the last the rest: 2 x 192
+//     at DP 384, 2 x 256 at 512, 224 + 224 + 192 at 640);
+//   - a block is 8 warps, two warpgroups over the same 64 rows (16 a
+//     warp).  Its 64 rows of its columns of two operands stay resident in
+//     shared memory for the whole pass, staged once (K4b: K, V; K4c: Q,
+//     dO); tiles of BN rows (16 in float32, 32 in bf16) of its columns of
+//     the other two (K4b: Q, dO; K4c: K, V) and the tile's vectors stream
+//     through a two-stage cp.async ring;
+//   - per tile, warpgroup 0 forms the partial S and warpgroup 1 the partial
+//     dP over the block's columns only (tile_abt, mma.sync as at DP <=
+//     256), and each stores it to a slot in shared memory (one of two, in
+//     turn); after a cluster barrier every warp reads the C blocks' slots
+//     of its rows through distributed shared memory (mapa,
+//     ld.shared::cluster) and adds them in rank order 0 ... C - 1: every
+//     block holds the same S and dP bit for bit, formed once, as if one
+//     block had summed over all of D;
+//   - then p and ds run as at DP <= 256, and K4b's warpgroup 0 forms
+//     dV_c += T(p^T) dO_c and warpgroup 1 dK_c += T(ds^T) Q_c (128
+//     accumulators a thread, as at DP = 256), K4c's warpgroups each half
+//     of dQ_c += T(ds) K_c's columns (64 a thread).  A block waits at a
+//     last cluster barrier before it leaves, so that no slot it owns is
+//     read after it has gone.
+// Work, per head: K4b 8 T^2 D and K4c 6 T^2 D, the function's own (the
+// earlier wide backward, built as K4a is, a chunk of 256 columns a block
+// over the grid's z with every chunk forming the scores again, did K4b 16
+// and K4c 10 at D = 512, 12 and 8 at 384).  Bytes into shared memory:
+// each column of the streamed operands once per row block (T x D x 2
+// values) and the resident rows once; at B = 16, T = 1024, D = 512 in
+// float32 about 1.07 GB for each kernel (the earlier design: ~16 GB for
+// K4b, ~11 GB for K4c, the block's own rows re-staged at every 16-row
+// tile).  Exchanged through the cluster, per row block
+// and tile: (C - 1) remote reads of each block's S part, and of its dP
+// part in K4b's warpgroup 1 and in K4c, 64 x BN x 4 B each: at D = 384
+// and 512 (C = 2) ~0.40 GB for K4b and ~0.54 GB for K4c in float32.
+// Shared memory a block (flash_attn_smem; ops/kernels/flash_attn.py::
+// k4_smem_bytes mirrors it), at every wide D: K4b 216,448 B in float32
+// and 168,704 in bf16, K4c 216,192 and 168,192: one block of 8 warps an
+// SM.  ptxas (sm_90a), registers a thread, no spill: K4b 228 in float32
+// and 252 in bf16, K4c 159 and 168 (cudaFuncGetAttributes reports the
+// same and 0 bytes of local memory; chip_smoke.py checks it).  Float32
+// products stay 3xTF32 on mma.sync, whose fragments come from registers:
+// wgmma reads its B operand (and here A, the resident strip) from shared
+// memory, so the hi and lo halves of both would have to be stored there,
+// twice the strips, which do not fit beside the float32 stages.  No
+// atomics: each block owns its columns and every block holds the same
+// sums, so two runs give bit-identical gradients.
+// On an NVIDIA H100 80GB HBM3 at 700 W, B=16, T=1024, H=1, float32
+// (chip_smoke.py's K4 phase; PERF.md): K4b 2.15-2.19 and K4c 1.74-1.79 ms
+// at D = 384, 2.52-2.62 and 2.06-2.09 at 512, against 3.70-3.88 and
+// 2.27-2.42, 5.05-5.18 and 3.32-3.38 in the earlier design; SDPA's
+// backward takes 2.10-2.15 and 2.65-2.70.  With the exchange cut out of a
+// copy (tools/k4_wide_exchange_cost.py, timing only) they take 1.86 and
+// 1.43 at 384: the block's compute, mma.sync 3xTF32 at about a seventh of
+// its bound with one block of 8 warps an SM, is most of the time, the
+// barrier ~0.15 ms and the loads ~0.13-0.2 the rest.  A cluster of
+// 128-column blocks of 4 warps (3 and 4 blocks at 384 and 512) formed the
+// same sums and was faster at 384 (3.66 ms for both) but slower at 512
+// (5.27), its exchange growing as C(C - 1).
 //
 // Left for later: wgmma with TMA and warp specialisation, skipping tiles
-// that lie wholly outside a sequence, two warpgroups sharing a tile's
-// scores above DP = 256 instead of recomputing them a chunk, D above 640.
+// that lie wholly outside a sequence, a cluster sharing the wide K4a's
+// scores, D above 1024.
 #include "flash_attn.cuh"
 
 namespace ptk {
 namespace {
 
-constexpr int kMaxD = 640;              // the widest head K4 takes
+constexpr int kMaxD = 1024;             // the widest head K4 takes
 
 // D rounded up to the instance that takes it: to 32 up to 128, then 192
 // or 256, then to 128 (zero columns pad it; the wide instances take any
@@ -221,9 +274,9 @@ long long smem_of(int kernel) {
 template <typename T>
 long long smem_wide(int kernel) {
   switch (kernel) {
-    case 0: return static_cast<long long>(WideStage<T, 32, 1, 1>::kSmem);
-    case 1: return static_cast<long long>(WideStage<T, 16, 2, 3>::kSmem);
-    case 2: return static_cast<long long>(WideStage<T, 16, 2, 1>::kSmem);
+    case 0: return static_cast<long long>(WideGeo<T>::kSmem);
+    case 1: return static_cast<long long>(ClusterGeo<T, 3>::kSmem);
+    case 2: return static_cast<long long>(ClusterGeo<T, 1>::kSmem);
   }
   return -1;
 }
@@ -234,7 +287,7 @@ long long smem_wide(int kernel) {
 // Tensors are contiguous: q, o, do (B, H, Tq, D); k, v (B, H, Tk, D);
 // q_valid (B, Tq) and kv_valid (B, Tk) int32; lse and di (B, H, Tq)
 // float32; all of q's type (bf16 when is_bf16, else float32) but lse, di
-// and the validities.  D is a multiple of 16 in [16, 640].
+// and the validities.  D is a multiple of 16 in [16, 1024].
 // Returns 0, -1 for arguments the kernels do not take, or a CUDA error
 // code.
 
@@ -300,4 +353,19 @@ extern "C" long long flash_attn_smem(int kernel, int is_bf16, int D) {
 #undef PTK_FLASH_SMEM
   }
   return -1;
+}
+
+// The registers a thread (regs) and local memory bytes (local, spills
+// included) of the wide K4b (kernel 1) or K4c (2) instance; returns 0 or
+// a CUDA error code (-1 for another kernel).
+extern "C" int flash_attn_wide_bwd_attrs(int kernel, int is_bf16, int* regs,
+                                         long long* local) {
+  using namespace ptk;
+  if (kernel != 1 && kernel != 2) return -1;
+  cudaFuncAttributes attr;
+  const cudaError_t err = wide_bwd_attrs(is_bf16 != 0, kernel, &attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local = static_cast<long long>(attr.localSizeBytes);
+  return 0;
 }

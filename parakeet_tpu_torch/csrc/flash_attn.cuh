@@ -1,12 +1,14 @@
 // Kernel K4's device code and launchers: flash_fwd_kernel (K4a),
 // flash_dkv_kernel (K4b) and flash_dq_kernel (K4c), their geometry and
-// the host functions fwd, dkv and dq that launch one instance.  The design
-// and its figures are in flash_attn.cu's header comment.  Three sources
-// include this file, so that nvcc builds their instances in parallel:
+// the host functions fwd, dkv and dq that launch one instance; the wide
+// K4a (D above 256) and what the wide K4b and K4c share.  The design and
+// its figures are in flash_attn.cu's header comment.  Five sources include
+// this file, so that nvcc builds their instances in parallel:
 // flash_attn.cu (float32 at DP 32 to 192, and the C interface),
-// flash_attn_bf16.cu (bf16 at DP 32 to 192), flash_attn_d256.cu (DP 256)
-// and flash_attn_wide.cu (D above 256).  Everything is in an unnamed
-// namespace, as in common.cuh.
+// flash_attn_bf16.cu (bf16 at DP 32 to 192), flash_attn_d256.cu (DP 256),
+// flash_attn_wide.cu (K4a above 256) and flash_attn_wide_bwd.cu (K4b and
+// K4c above 256).  Everything is in an unnamed namespace, as in
+// common.cuh.
 #pragma once
 
 #include "common.cuh"
@@ -72,17 +74,19 @@ __device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 }
 
-// acc += A . B^T over DP columns for one warp: A the warp's 16 rows of a
-// resident matrix, B the BN rows of a streamed tile, both of pitch LD in
-// shared memory; acc[j] holds columns 8j + 2t, 8j + 2t + 1 of rows g and
-// g + 8.
+// acc += A . B^T over DP columns for one warp (the first `cols` of them,
+// a multiple of 32, where cols < DP): A the warp's 16 rows of a resident
+// matrix, B the BN rows of a streamed tile, both of pitch LD in shared
+// memory; acc[j] holds columns 8j + 2t, 8j + 2t + 1 of rows g and g + 8.
 template <typename T, int DP, int BN, int LD>
 __device__ __forceinline__ void tile_abt_add(float (&acc)[BN / 8][4],
-                                             const T* a, const T* b) {
+                                             const T* a, const T* b,
+                                             int cols = DP) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if constexpr (std::is_same<T, bf16>::value) {
 #pragma unroll
     for (int c2 = 0; c2 < DP / 32; ++c2) {
+      if (c2 * 32 >= cols) break;
       uint32_t a0[4], a1[4];
       ldsm_x4(a0, a + (lane & 15) * LD + c2 * 32 + (lane >> 4) * 8);
       ldsm_x4(a1, a + (lane & 15) * LD + c2 * 32 + 16 + (lane >> 4) * 8);
@@ -100,6 +104,7 @@ __device__ __forceinline__ void tile_abt_add(float (&acc)[BN / 8][4],
     const float* bp = reinterpret_cast<const float*>(b) + g * LD + t;
 #pragma unroll
     for (int kk = 0; kk < DP / 8; ++kk) {
+      if (kk * 8 >= cols) break;
       uint32_t ahi[4], alo[4];
       split_tf32(ap[kk * 8], ahi[0], alo[0]);
       split_tf32(ap[8 * LD + kk * 8], ahi[1], alo[1]);
@@ -120,18 +125,21 @@ __device__ __forceinline__ void tile_abt_add(float (&acc)[BN / 8][4],
 // acc = A . B^T (tile_abt_add from zero)
 template <typename T, int DP, int BN, int LD>
 __device__ __forceinline__ void tile_abt(float (&acc)[BN / 8][4],
-                                         const T* a, const T* b) {
+                                         const T* a, const T* b,
+                                         int cols = DP) {
   zero_acc(acc);
-  tile_abt_add<T, DP, BN, LD>(acc, a, b);
+  tile_abt_add<T, DP, BN, LD>(acc, a, b, cols);
 }
 
 // acc += T(x) . B for one warp: x (16 rows by BN, laid out as tile_abt
 // leaves it) is the A operand straight from registers, B the BN rows of a
-// streamed tile (pitch LD); the product contracts over those rows.
+// streamed tile (pitch LD); the product contracts over those rows.  Only
+// the first `cols` columns of acc (a multiple of 16, where cols < DP)
+// are formed.
 template <typename T, int DP, int BN, int LD>
 __device__ __forceinline__ void tile_xb(float (&acc)[DP / 8][4],
                                         const float (&x)[BN / 8][4],
-                                        const T* b) {
+                                        const T* b, int cols = DP) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if constexpr (std::is_same<T, bf16>::value) {
 #pragma unroll
@@ -142,6 +150,7 @@ __device__ __forceinline__ void tile_xb(float (&acc)[DP / 8][4],
                               pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
 #pragma unroll
       for (int n2 = 0; n2 < DP / 16; ++n2) {
+        if (n2 * 16 >= cols) break;
         uint32_t vb[4];
         ldsm_x4_trans(vb, b + (kk * 16 + (lane & 15)) * LD + n2 * 16 +
                               (lane >> 4) * 8);
@@ -161,6 +170,7 @@ __device__ __forceinline__ void tile_xb(float (&acc)[DP / 8][4],
       split_tf32(x[kk][3], xhi[3], xlo[3]);
 #pragma unroll
       for (int n = 0; n < DP / 8; ++n) {
+        if (n * 8 >= cols) break;
         const float* p = bp + kk * 8 * LD + n * 8;
         uint32_t bhi0, blo0, bhi1, blo1;
         split_tf32(p[0], bhi0, blo0);
@@ -826,27 +836,29 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------ wide D
-// Above DP = 256 (head widths in (256, 640]) neither a 64-row strip of
-// the block's own rows nor a thread's accumulators over all of D fit, so
-// the wide kernels keep nothing resident and split the output's columns:
-// - the grid's z gives each block one chunk of DC = 256 columns of O, dQ,
-//   or dK or dV (K4b: z = 2 * chunk + {0 dV, 1 dK}), 128 accumulators a
-//   thread as at DP = 256;
-// - every block forms its tile's scores (and dP) over all of D, in chunk
-//   steps of W columns (64 float32 or 128 bf16: 256 bytes a row), each of
-//   which stages the block's 64 rows and the tile's BN rows of those
-//   columns of the operands; the tile's out step then stages the DC
-//   columns of the product's streamed operand and the tile's vectors.  A
-//   ring of two stages, one per step, double-buffers them all.  The
-//   backward kernels stream 16 rows a tile (their two score tiles and 128
-//   accumulators spill at 32, as DP = 256's float32 ones did).
+// K4a above DP = 256 (head widths in (256, 1024]): neither a 64-row strip
+// of Q nor a thread's accumulators over all of D fit, so the forward keeps
+// nothing resident and splits O's columns:
+// - the grid's z gives each block one chunk of DC = 256 columns of O, 128
+//   accumulators a thread as at DP = 256;
+// - every block forms its tile's scores over all of D, in chunk steps of
+//   W columns (64 float32 or 128 bf16: 256 bytes a row), each of which
+//   stages the block's 64 rows and the tile's 32 keys of those columns of
+//   Q and K; the tile's out step then stages the DC columns of V and the
+//   tile's kv_valid.  A ring of two stages, one per step, double-buffers
+//   them all.
 // Each chunk of one row block repeats the same sums in the same order, so
 // they reach the same scores, m, l and lse bit for bit; z = 0 writes lse.
+// The backward kernels above DP = 256 (ClusterGeo, below) share a tile's
+// scores across a thread-block cluster instead.
 constexpr int kWideDC = 256;                    // output columns a block
 
-template <typename T, int BN_>
+// A stage holds a chunk step's rows (the block's 64 of Q, then the tile's
+// BN of K) or an out step's (the tile's BN rows of V over DC columns),
+// whichever is larger, then the tile's kv_valid
+template <typename T>
 struct WideGeo {
-  static constexpr int BN = BN_;                // streamed rows a tile
+  static constexpr int BN = 32;                 // keys a tile
   static constexpr int W = 256 / sizeof(T);     // columns a chunk step
   static constexpr int DC = kWideDC;            // output columns a block
   static constexpr int LDW = W + 16 / sizeof(T);
@@ -854,20 +866,10 @@ struct WideGeo {
   static constexpr size_t kA = size_t(BM) * LDW * sizeof(T);   // own rows
   static constexpr size_t kB = size_t(BN) * LDW * sizeof(T);   // tile rows
   static constexpr size_t kOut = size_t(BN) * LDC * sizeof(T);
-};
-
-// A stage: NOPS operands of the block's rows, then NOPS of the tile's, in
-// a chunk step, or the out operand's tile in an out step; then NVEC
-// vectors of BN 32-bit values (the out step's)
-template <typename T, int BN, int NOPS, int NVEC>
-struct WideStage {
-  using G = WideGeo<T, BN>;
-  static constexpr size_t kMain = NOPS * (G::kA + G::kB) > G::kOut
-                                      ? NOPS * (G::kA + G::kB)
-                                      : G::kOut;
-  static constexpr size_t kStage = kMain + NVEC * G::BN * sizeof(float);
+  static constexpr size_t kMain = kA + kB > kOut ? kA + kB : kOut;
+  static constexpr size_t kStage = kMain + BN * sizeof(int);
   static constexpr size_t kSmem = 2 * kStage;
-  static_assert(G::kA % 16 == 0 && G::kB % 16 == 0 && kMain % 16 == 0 &&
+  static_assert(kA % 16 == 0 && kB % 16 == 0 && kMain % 16 == 0 &&
                     kStage % 16 == 0,
                 "tiles stay 16-byte aligned");
   static_assert(kSmem <= 232448, "a block has at most 227 KB");
@@ -876,6 +878,141 @@ struct WideStage {
 template <typename T>
 __device__ __forceinline__ const T* at(const unsigned char* p, size_t off) {
   return reinterpret_cast<const T*>(p + off);
+}
+
+// K4b and K4c above DP = 256 (flash_attn_wide_bwd.cu): a cluster of C =
+// ceil(DP / 256) blocks a row block, block c owning a chunk of at most
+// kWideW = 256 output columns (k4_wide_split in ops/kernels/flash_attn.py
+// mirrors the split), of kClusterWarps = 8 warps in two warpgroups over
+// the row block's 64 rows (16 rows a warp in each).  A block keeps its 64
+// rows of its columns of two operands resident (K4b: K, V; K4c: Q, dO) at
+// a pitch of kWideW + 16 bytes; a ring of two stages holds two streamed
+// tiles of BN rows of its columns (K4b: Q, dO; K4c: K, V; BN 16 in
+// float32, 32 in bf16) and NVEC vectors of BN 32-bit values (K4b:
+// q_valid, lse, di; K4c: kv_valid); two slots (one a tile, in turn) hold
+// the partial S and dP of its columns, 64 by BN float32 each, which the
+// cluster's blocks read from one another.
+constexpr int kWideW = 256;
+constexpr int kClusterWarps = 8;
+constexpr int kClusterThreads = 32 * kClusterWarps;
+constexpr int kMaxCluster = 8;          // the portable cluster size
+
+template <typename T, int NVEC>
+struct ClusterGeo {
+  static constexpr int W = kWideW;
+  static constexpr int BN = std::is_same<T, float>::value ? 16 : 32;
+  static constexpr int LD = W + 16 / sizeof(T);
+  static constexpr size_t kRows = size_t(BM) * LD * sizeof(T);
+  static constexpr size_t kTile = size_t(BN) * LD * sizeof(T);
+  static constexpr size_t kStage = 2 * kTile + NVEC * BN * sizeof(float);
+  static constexpr size_t kSlot = 2 * size_t(BM) * BN * sizeof(float);
+  static constexpr size_t kSmem = 2 * kRows + 2 * kStage + 2 * kSlot;
+  static_assert(kRows % 16 == 0 && kStage % 16 == 0,
+                "tiles and slots stay 16-byte aligned");
+  static_assert(kSmem <= 232448, "a block has at most 227 KB");
+  static_assert(kWideW * kMaxCluster >= 1024, "the widest head fits");
+};
+
+// cp.async columns [c0, c0 + cw) of rows [row0, row0 + nrows) of a (tlen,
+// D) row-major matrix into shared rows of pitch LD, by a block of
+// kClusterThreads; zero past tlen and from column D on (cw a multiple of
+// 16 bytes' values, at most kWideW; the row's vectors past cw are left)
+template <typename T, int LD>
+__device__ __forceinline__ void load_cols_async(T* dst,
+                                                const T* __restrict__ src,
+                                                int row0, int nrows,
+                                                int tlen, int D, int c0,
+                                                int cw) {
+  constexpr int EV = 16 / sizeof(T), VPR = kWideW / EV;
+  for (int i = threadIdx.x; i < nrows * VPR; i += kClusterThreads) {
+    const int r = i / VPR, c = (i % VPR) * EV;
+    if (c >= cw) continue;
+    const bool ok = row0 + r < tlen && c0 + c < D;
+    cp_async16(dst + r * LD + c,
+               ok ? src + static_cast<size_t>(row0 + r) * D + c0 + c : src,
+               ok);
+  }
+}
+
+// The cluster's barrier (every thread of every block arrives, then waits;
+// release and acquire at cluster scope), the address of a shared
+// variable in block `rank`'s shared memory, and a 16-byte load from there.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// A slot holds the partial S (part 0) and dP (part 1) of a tile, each as
+// 4 row warps x NT fragments x 32 lanes of float4 (the accumulator
+// layout): where this lane's fragments of row warp rw's part lie.
+template <int NT>
+__device__ __forceinline__ float4* slot_part(float4* slot, int part,
+                                             int rw) {
+  return slot + (part * 4 + rw) * NT * 32 + (threadIdx.x & 31);
+}
+
+template <int NT>
+__device__ __forceinline__ void store_part(float4* p,
+                                           const float (&a)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    p[j * 32] = make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
+}
+
+// d = v for the first rank, d += v after it
+__device__ __forceinline__ void add_rank(float (&d)[4], float4 v,
+                                         bool first) {
+  d[0] = first ? v.x : d[0] + v.x;
+  d[1] = first ? v.y : d[1] + v.y;
+  d[2] = first ? v.z : d[2] + v.z;
+  d[3] = first ? v.w : d[3] + v.w;
+}
+
+// a = the sum of the part at pa (slot_part's place) over the cluster's
+// `nrank` blocks, added in rank order 0, 1, ..., and with TWO, b the sum
+// of the part at pb likewise (both parts' loads of a rank, 16 bytes a
+// fragment, issued together; without TWO, b and pb are not touched):
+// every block reads the same stored values in the same order, so every
+// block gets the same sums bit for bit.  Called between the
+// cluster_sync after every block stored its parts and the next one; a
+// slot is written again two tiles later, after that next cluster_sync,
+// which no block reaches before it has read this tile's slot.
+template <bool TWO, int NT>
+__device__ __forceinline__ void sum_ranks(float (&a)[NT][4], float4* pa,
+                                          float (&b)[NT][4], float4* pb,
+                                          int nrank) {
+  const uint32_t la = smem_addr(pa), lb = smem_addr(pb);
+  for (int r = 0; r < nrank; ++r) {
+    const uint32_t ra = cluster_addr(la, r);
+    float4 x[NT], y[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) x[j] = ld_cluster(ra + j * 32 * 16);
+    if constexpr (TWO) {
+      const uint32_t rb = cluster_addr(lb, r);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) y[j] = ld_cluster(rb + j * 32 * 16);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      add_rank(a[j], x[j], r == 0);
+      if constexpr (TWO) add_rank(b[j], y[j], r == 0);
+    }
+  }
 }
 
 // K4a, wide: keys stream; chunk step c stages Q's and the tile's K's
@@ -888,8 +1025,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const int* __restrict__ kvalid, T* __restrict__ o,
                       float* __restrict__ lse, int H, int Tq, int Tk, int D,
                       float scale) {
-  using G = WideGeo<T, 32>;
-  using S = WideStage<T, 32, 1, 1>;
+  using G = WideGeo<T>;
   constexpr int BN = G::BN, W = G::W, DC = G::DC, NT = BN / 8, ND = DC / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
@@ -901,7 +1037,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nc = (D + W - 1) / W, steps = (Tk + BN - 1) / BN * (nc + 1);
 
   auto issue = [&](int step, int s) {
-    T* st = reinterpret_cast<T*>(smem + s * S::kStage);
+    T* st = reinterpret_cast<T*>(smem + s * G::kStage);
     const int k0 = step / (nc + 1) * BN, c = step % (nc + 1);
     if (c < nc) {
       load_rows_async<T, W, G::LDW>(st, q + qoff, q0, BM, Tq, D, c * W);
@@ -909,7 +1045,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                     D, c * W);
     } else {
       load_rows_async<T, DC, G::LDC>(st, v + koff, k0, BN, Tk, D, c0);
-      load_vec_async<BN>(smem + s * S::kStage + S::kMain, kvb, k0, Tk);
+      load_vec_async<BN>(smem + s * G::kStage + G::kMain, kvb, k0, Tk);
     }
   };
   // one commit group per step (possibly empty), so that wait_group<1> at
@@ -930,13 +1066,13 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = 0, c = 0, k0 = 0; it < steps; ++it) {
     cp_async_wait<1>();
     __syncthreads();                     // step it is in stage it % 2
-    const unsigned char* st = smem + (it & 1) * S::kStage;
+    const unsigned char* st = smem + (it & 1) * G::kStage;
     if (c < nc) {                        // S += Q_c K_c^T
       if (c == 0) zero_acc(sacc);
       tile_abt_add<T, W, BN, G::LDW>(sacc, at<T>(st, 0) + warp * 16 * G::LDW,
                                      at<T>(st, G::kA));
     } else {                             // O += T(P) V_z
-      online_softmax(sacc, oacc, at<int>(st, S::kMain), k0, Tk, scale, qv0,
+      online_softmax(sacc, oacc, at<int>(st, G::kMain), k0, Tk, scale, qv0,
                      qv1, m_run, l_run);
       tile_xb<T, DC, BN, G::LDC>(oacc, sacc, at<T>(st, 0));
     }
@@ -952,202 +1088,6 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   finish_rows(oacc, m_run, l_run, lse + static_cast<size_t>(bh) * Tq, row0,
               Tq, blockIdx.z == 0);
   store_acc<T>(o + qoff + c0, oacc, row0, Tq, D, D - c0);
-}
-
-// K4c, wide: keys stream; chunk step c stages Q's and dO's (the block's
-// rows) and the tile's K's and V's columns [cW, cW + W), the out step the
-// tile's K columns [c0, c0 + DC) and kv_valid
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ qvalid,
-                     const int* __restrict__ kvalid,
-                     const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dq,
-                     int H, int Tq, int Tk, int D, float scale) {
-  using G = WideGeo<T, 16>;
-  using S = WideStage<T, 16, 2, 1>;
-  constexpr int BN = G::BN, W = G::W, DC = G::DC, NT = BN / 8, ND = DC / 8;
-  constexpr int LDW = G::LDW;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const int bh = blockIdx.y, b = bh / H;
-  const int q0 = blockIdx.x * BM, c0 = blockIdx.z * DC;
-  const size_t qoff = static_cast<size_t>(bh) * Tq * D;
-  const size_t koff = static_cast<size_t>(bh) * Tk * D;
-  const int* kvb = kvalid + static_cast<size_t>(b) * Tk;
-  const int nc = (D + W - 1) / W, steps = (Tk + BN - 1) / BN * (nc + 1);
-
-  auto issue = [&](int step, int s) {
-    T* st = reinterpret_cast<T*>(smem + s * S::kStage);
-    const int k0 = step / (nc + 1) * BN, c = step % (nc + 1);
-    if (c < nc) {
-      load_rows_async<T, W, LDW>(st, q + qoff, q0, BM, Tq, D, c * W);
-      load_rows_async<T, W, LDW>(st + BM * LDW, dout + qoff, q0, BM, Tq, D,
-                                 c * W);
-      load_rows_async<T, W, LDW>(st + 2 * BM * LDW, k + koff, k0, BN, Tk, D,
-                                 c * W);
-      load_rows_async<T, W, LDW>(st + (2 * BM + BN) * LDW, v + koff, k0, BN,
-                                 Tk, D, c * W);
-    } else {
-      load_rows_async<T, DC, G::LDC>(st, k + koff, k0, BN, Tk, D, c0);
-      load_vec_async<BN>(smem + s * S::kStage + S::kMain, kvb, k0, Tk);
-    }
-  };
-  issue(0, 0);
-  cp_async_commit();
-  if (steps > 1) issue(1, 1);
-  cp_async_commit();
-
-  // the statistics of the thread's rows row0 and row0 + 8
-  const int row0 = q0 + warp * 16 + g;
-  bool in[2];
-  int qv[2];
-  float lse_r[2], di_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    in[r] = row < Tq;
-    const size_t i = static_cast<size_t>(bh) * Tq + row;
-    qv[r] = in[r] ? qvalid[static_cast<size_t>(b) * Tq + row] : 0;
-    lse_r[r] = in[r] ? lse[i] : 0.f;
-    di_r[r] = in[r] ? di[i] : 0.f;
-  }
-  float dqacc[ND][4], sacc[NT][4], dpacc[NT][4];
-  zero_acc(dqacc);
-  for (int it = 0, c = 0, k0 = 0; it < steps; ++it) {
-    cp_async_wait<1>();
-    __syncthreads();                     // step it is in stage it % 2
-    const unsigned char* st = smem + (it & 1) * S::kStage;
-    if (c < nc) {                        // S += Q_c K_c^T, dP += dO_c V_c^T
-      if (c == 0) {
-        zero_acc(sacc);
-        zero_acc(dpacc);
-      }
-      const T* rows = at<T>(st, 0) + warp * 16 * LDW;
-      tile_abt_add<T, W, BN, LDW>(sacc, rows, at<T>(st, 2 * G::kA));
-      tile_abt_add<T, W, BN, LDW>(dpacc, rows + BM * LDW,
-                                  at<T>(st, 2 * G::kA + G::kB));
-    } else {                             // dQ += T(dS) K_z
-      dq_ds(sacc, dpacc, at<int>(st, S::kMain), k0, Tk, scale, in, qv, lse_r,
-            di_r);
-      tile_xb<T, DC, BN, G::LDC>(dqacc, sacc, at<T>(st, 0));
-    }
-    __syncthreads();                     // every warp is done with it
-    if (it + 2 < steps) issue(it + 2, it & 1);
-    cp_async_commit();
-    if (++c > nc) {
-      c = 0;
-      k0 += BN;
-    }
-  }
-  cp_async_wait<0>();
-  store_acc<T>(dq + qoff + c0, dqacc, row0, Tq, D, D - c0);
-}
-
-// K4b, wide: queries stream; chunk step c stages K's and (dK blocks) V's
-// columns [cW, cW + W) of the block's keys and the tile's Q's and (dK) dO's,
-// the out step the tile's dO (dV blocks) or Q (dK) columns [c0, c0 + DC)
-// and q_valid | lse | di of its queries
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
-                      const int* __restrict__ qvalid,
-                      const int* __restrict__ kvalid,
-                      const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ di, T* __restrict__ dk,
-                      T* __restrict__ dv, int H, int Tq, int Tk, int D,
-                      float scale) {
-  using G = WideGeo<T, 16>;
-  using S = WideStage<T, 16, 2, 3>;
-  constexpr int BN = G::BN, W = G::W, DC = G::DC, NT = BN / 8, ND = DC / 8;
-  constexpr int LDW = G::LDW;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const int bh = blockIdx.y, b = bh / H;
-  const int kb0 = blockIdx.x * BM, c0 = (blockIdx.z >> 1) * DC;
-  const bool dv_block = (blockIdx.z & 1) == 0;
-  const size_t qoff = static_cast<size_t>(bh) * Tq * D;
-  const size_t koff = static_cast<size_t>(bh) * Tk * D;
-  const int* qvb = qvalid + static_cast<size_t>(b) * Tq;
-  const float* lseb = lse + static_cast<size_t>(bh) * Tq;
-  const float* dib = di + static_cast<size_t>(bh) * Tq;
-  const int nc = (D + W - 1) / W, steps = (Tq + BN - 1) / BN * (nc + 1);
-  constexpr size_t kVec = BN * sizeof(float);
-
-  auto issue = [&](int step, int s) {
-    unsigned char* base = smem + s * S::kStage;
-    T* st = reinterpret_cast<T*>(base);
-    const int i0 = step / (nc + 1) * BN, c = step % (nc + 1);
-    if (c < nc) {
-      load_rows_async<T, W, LDW>(st, k + koff, kb0, BM, Tk, D, c * W);
-      load_rows_async<T, W, LDW>(st + 2 * BM * LDW, q + qoff, i0, BN, Tq, D,
-                                 c * W);
-      if (!dv_block) {
-        load_rows_async<T, W, LDW>(st + BM * LDW, v + koff, kb0, BM, Tk, D,
-                                   c * W);
-        load_rows_async<T, W, LDW>(st + (2 * BM + BN) * LDW, dout + qoff,
-                                   i0, BN, Tq, D, c * W);
-      }
-    } else {
-      load_rows_async<T, DC, G::LDC>(st, (dv_block ? dout : q) + qoff, i0,
-                                     BN, Tq, D, c0);
-      load_vec_async<BN>(base + S::kMain, qvb, i0, Tq);
-      load_vec_async<BN>(base + S::kMain + kVec, lseb, i0, Tq);
-      load_vec_async<BN>(base + S::kMain + 2 * kVec, dib, i0, Tq);
-    }
-  };
-  issue(0, 0);
-  cp_async_commit();
-  if (steps > 1) issue(1, 1);
-  cp_async_commit();
-
-  // the validity of the thread's keys krow0 and krow0 + 8
-  const int krow0 = kb0 + warp * 16 + g;
-  bool in[2];
-  int kv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = krow0 + 8 * r;
-    in[r] = row < Tk;
-    kv[r] = in[r] ? kvalid[static_cast<size_t>(b) * Tk + row] : 0;
-  }
-  float acc[ND][4], sacc[NT][4], dpacc[NT][4];
-  zero_acc(acc);
-  for (int it = 0, c = 0, i0 = 0; it < steps; ++it) {
-    cp_async_wait<1>();
-    __syncthreads();                     // step it is in stage it % 2
-    const unsigned char* st = smem + (it & 1) * S::kStage;
-    if (c < nc) {             // S^T += K_c Q_c^T (dK: dP^T += V_c dO_c^T)
-      if (c == 0) {
-        zero_acc(sacc);
-        zero_acc(dpacc);
-      }
-      const T* rows = at<T>(st, 0) + warp * 16 * LDW;
-      tile_abt_add<T, W, BN, LDW>(sacc, rows, at<T>(st, 2 * G::kA));
-      if (!dv_block)
-        tile_abt_add<T, W, BN, LDW>(dpacc, rows + BM * LDW,
-                                    at<T>(st, 2 * G::kA + G::kB));
-    } else {             // dV += T(P^T) dO_z, or dK += T(dS^T) Q_z
-      dkv_p(sacc, at<int>(st, S::kMain), at<float>(st, S::kMain + kVec), i0,
-            Tq, scale, in, kv);
-      if (!dv_block)
-        ds_from_dp(sacc, dpacc, at<float>(st, S::kMain + 2 * kVec), scale);
-      tile_xb<T, DC, BN, G::LDC>(acc, sacc, at<T>(st, 0));
-    }
-    __syncthreads();                     // every warp is done with it
-    if (it + 2 < steps) issue(it + 2, it & 1);
-    cp_async_commit();
-    if (++c > nc) {
-      c = 0;
-      i0 += BN;
-    }
-  }
-  cp_async_wait<0>();
-  store_acc<T>((dv_block ? dv : dk) + koff + c0, acc, krow0, Tk, D, D - c0);
 }
 
 // Launch one kernel instance for T and DP; `launch` gets the grid, the
@@ -1209,55 +1149,20 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* qv,
   });
 }
 
-// The wide instances (D above 256): one a type, grid z over the output's
-// chunks of DC columns (K4b: two blocks a chunk)
+// The wide K4a (D above 256): one instance a type, grid z over O's
+// chunks of DC columns
 template <typename T>
 cudaError_t fwd_w(const void* q, const void* k, const void* v,
                   const void* qv, const void* kv, void* o, void* lse, int B,
                   int H, int Tq, int Tk, int D, float scale, cudaStream_t s) {
   const dim3 grid((Tq + BM - 1) / BM, B * H, (D + kWideDC - 1) / kWideDC);
   auto kernel = flash_fwd_wide_kernel<T>;
-  return run(kernel, WideStage<T, 32, 1, 1>::kSmem, [&](size_t smem) {
+  return run(kernel, WideGeo<T>::kSmem, [&](size_t smem) {
     kernel<<<grid, THREADS, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(qv),
         static_cast<const int*>(kv), static_cast<T*>(o),
         static_cast<float*>(lse), H, Tq, Tk, D, scale);
-  });
-}
-
-template <typename T>
-cudaError_t dq_w(const void* q, const void* k, const void* v,
-                 const void* qv, const void* kv, const void* dout,
-                 const void* lse, const void* di, void* dq_, int B, int H,
-                 int Tq, int Tk, int D, float scale, cudaStream_t s) {
-  const dim3 grid((Tq + BM - 1) / BM, B * H, (D + kWideDC - 1) / kWideDC);
-  auto kernel = flash_dq_wide_kernel<T>;
-  return run(kernel, WideStage<T, 16, 2, 1>::kSmem, [&](size_t smem) {
-    kernel<<<grid, THREADS, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const int*>(qv),
-        static_cast<const int*>(kv), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(di),
-        static_cast<T*>(dq_), H, Tq, Tk, D, scale);
-  });
-}
-
-template <typename T>
-cudaError_t dkv_w(const void* q, const void* k, const void* v,
-                  const void* qv, const void* kv, const void* dout,
-                  const void* lse, const void* di, void* dk, void* dv, int B,
-                  int H, int Tq, int Tk, int D, float scale, cudaStream_t s) {
-  const dim3 grid((Tk + BM - 1) / BM, B * H,
-                  2 * ((D + kWideDC - 1) / kWideDC));
-  auto kernel = flash_dkv_wide_kernel<T>;
-  return run(kernel, WideStage<T, 16, 2, 3>::kSmem, [&](size_t smem) {
-    kernel<<<grid, THREADS, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const int*>(qv),
-        static_cast<const int*>(kv), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(di),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, D, scale);
   });
 }
 
@@ -1281,7 +1186,8 @@ cudaError_t dq_d256(bool bf16, const void* q, const void* k, const void* v,
                     const void* lse, const void* di, void* dq_, int B, int H,
                     int Tq, int Tk, int D, float scale, cudaStream_t s);
 // The wide instances (D above 256) in float32 (bf16 false) or bf16,
-// defined in flash_attn_wide.cu and called by flash_attn.cu's dispatch.
+// K4a's defined in flash_attn_wide.cu, K4b's and K4c's in
+// flash_attn_wide_bwd.cu, and called by flash_attn.cu's dispatch.
 cudaError_t fwd_wide(bool bf16, const void* q, const void* k,
                      const void* v, const void* qv, const void* kv, void* o,
                      void* lse, int B, int H, int Tq, int Tk, int D,
@@ -1295,6 +1201,9 @@ cudaError_t dq_wide(bool bf16, const void* q, const void* k, const void* v,
                     const void* qv, const void* kv, const void* dout,
                     const void* lse, const void* di, void* dq_, int B, int H,
                     int Tq, int Tk, int D, float scale, cudaStream_t s);
+// The attributes (registers, local memory) of the wide K4b (kernel 1) or
+// K4c (2) instance, defined in flash_attn_wide_bwd.cu.
+cudaError_t wide_bwd_attrs(bool bf16, int kernel, cudaFuncAttributes* attr);
 // The bf16 instances at DP 32, 64, 96, 128 and 192 (dp), defined in
 // flash_attn_bf16.cu and called by flash_attn.cu's dispatch.
 cudaError_t fwd_bf16(int dp, const void* q, const void* k, const void* v,

@@ -67,13 +67,14 @@ def auto_flash_head_dim(dk: int) -> bool:
     --adim 512 --aheads 2 --frames 512 1024 2048 4096``: the train step's
     ratio is 1.048 at 512 frames, 1.064 at 1024, 1.094 at 2048 and 1.180
     at 4096; no-grad inference 0.988, 0.960, 0.939 and 0.834.
-    At 384 and 512 (adim 384 and 512 over one head, the wide instances)
-    likewise, on the same card and power limit (``NVIDIA H100 80GB HBM3,
-    700.00 W``): with ``fs2_sweep.py --aheads 1 --frames 512 1024 2048
-    4096`` the float32 train step's ratio at dk 384 is 1.124, 1.242, 1.383
-    and 1.652, no-grad inference 1.000, 1.067, 1.058 and 1.116; with
-    ``--adim 512 --aheads 1`` at dk 512 1.190, 1.282, 1.480 and 1.819,
-    inference 1.053, 1.050, 1.096 and 1.162.  Flash wins neither there."""
+    At 384 and 512 (adim 384 and 512 over one head, the wide instances,
+    whose backward passes run as thread-block clusters) likewise, on the
+    same card and power limit (``NVIDIA H100 80GB HBM3, 700.00 W``): with
+    ``fs2_sweep.py --aheads 1 --frames 512 1024 2048 4096`` the float32
+    train step's ratio at dk 384 is 1.092, 1.134, 1.229 and 1.361, no-grad
+    inference 1.038, 1.087, 1.096 and 1.145; with ``--adim 512 --aheads
+    1`` at dk 512 1.112, 1.144, 1.241 and 1.430, inference 1.053, 1.081,
+    1.096 and 1.156.  Flash wins neither there."""
     return flash_head_dim_supported(dk) and dk <= 128
 
 

@@ -7,12 +7,12 @@ Counterpart of the Pallas TPU flash-attention kernel that
 (B, H, T, D), contiguous, all float32 or all bfloat16; the masks are
 per-row validities ``q_valid`` (B, Tq) and ``kv_valid`` (B, Tk), and the
 pair (i, j) is allowed iff ``q_valid[i] == kv_valid[j]`` (jax's segment
-ids).  D is a multiple of 16 in [16, 640]: the kernels have instances at
+ids).  D is a multiple of 16 in [16, 1024]: the kernels have instances at
 padded widths 32, 64, 96, 128, 192 (the FastSpeech2 recipes' adim 384
 over 2 heads) and 256 (adim 512 over 2 heads), and a width between two
 of them runs at the wider one with zero columns (``k4_padded_dim``);
 above 256 (adim 384 over one head, 512 over one) the "wide" instances
-take every width, padded to a multiple of 128.
+take every width, padded to a multiple of 128 (``k4_padded_dim``).
 
 On CUDA tensors the wrappers launch the kernels of
 ``parakeet_tpu_torch/csrc/flash_attn.cu`` (``flash_attention_forward``,
@@ -51,11 +51,18 @@ and makes one pass over the keys with the online softmax (at D = 192 and
 256 with Q resident in shared memory); K4c owns query rows and streams
 key tiles; K4b owns key rows and streams query tiles (at D = 192 and 256
 two blocks of one launch share each 64 keys, one forming dV and one dK,
-so that each holds one accumulator).  Above D = 256 nothing stays
-resident: a block owns one chunk of 256 output columns (the grid's z),
+so that each holds one accumulator).  Above D = 256 K4a keeps nothing
+resident: a block owns one chunk of 256 columns of O (the grid's z) and
 forms each tile's scores over all of D in steps of 64 (float32) or 128
-(bf16) columns of every operand (tiles of 32 keys in K4a, 16 rows in
-K4b and K4c), and then the product over its chunk.  ``k4_smem_bytes``
+(bf16) columns of Q and K, then the product over its chunk.  K4b and
+K4c run there as thread-block clusters, one a row block, of one block
+for each chunk of at most 256 output columns (``k4_wide_split``): each
+block keeps its columns of the row block's two operands resident,
+streams tiles of its columns of the other two, forms the partial S and
+dP over its columns (one warpgroup each), and the cluster adds the
+partials in a fixed order through distributed shared memory, so that
+every block holds the same S and dP, formed once; K4b's warpgroups then
+form dV and dK, K4c's each half of dQ's columns.  ``k4_smem_bytes``
 counts a block's shared memory as the kernels' geometry does.  The
 backward passes use the final lse, so they round where the plain
 versions do, and they have no atomics: two runs give bit-identical
@@ -79,7 +86,8 @@ __all__ = ["flash_attention", "flash_attention_forward",
            "flash_attention_dkv", "flash_attention_dq",
            "flash_attention_reference", "flash_attention_dkv_reference",
            "flash_attention_dq_reference", "flash_head_dim_supported",
-           "k4_padded_dim", "k4a_block_k", "k4_smem_bytes", "MASK_VALUE",
+           "k4_padded_dim", "k4a_block_k", "k4_smem_bytes",
+           "k4_wide_split", "k4_wide_bwd_attrs", "MASK_VALUE",
            "MAX_HEAD_DIM", "SMEM_LIMIT"]
 
 # jax's DEFAULT_MASK_VALUE (-0.7 * float32 max, in float64) as float32
@@ -90,11 +98,15 @@ SMEM_LIMIT = 232448
 
 
 # the widest head K4 takes (csrc/flash_attn.cu's kMaxD)
-MAX_HEAD_DIM = 640
+MAX_HEAD_DIM = 1024
+# the most output columns a block of the wide K4b's and K4c's clusters
+# owns (csrc/flash_attn.cuh's kWideW), and the most blocks a cluster may
+# have (the portable cluster size)
+WIDE_CHUNK, MAX_CLUSTER = 256, 8
 
 
 def flash_head_dim_supported(dk: int) -> bool:
-    """Head widths K4 takes: multiples of 16 in [16, 640]."""
+    """Head widths K4 takes: multiples of 16 in [16, 1024]."""
     return dk % 16 == 0 and 16 <= dk <= MAX_HEAD_DIM
 
 
@@ -128,19 +140,26 @@ def k4_smem_bytes(kernel: str, dtype: torch.dtype, dk: int) -> int:
     pitch DP + 16 bytes; K4a Q resident above DP = 128, two stages of a K
     and a V tile and the tile's kv_valid; K4b and K4c two resident strips
     of 64 rows and two stages of two tiles and 3 (K4b) or 1 (K4c) vectors
-    of 32-bit values.  Above DP = 256 (``WideStage``, the same at every
-    width): two stages, each the larger of a chunk step's 256-byte rows
-    (64 of each of 1 (K4a) or 2 operands of the block, 32 (K4a) or 16 of
-    each of the tile's) and an out step's tile rows of 256 columns, then
-    the vectors."""
+    of 32-bit values.  Above DP = 256, the same at every width: K4a
+    (``WideGeo``) two stages, each the larger of a chunk step's
+    256-byte rows (64 of Q and 32 of K) and an out step's 32 rows of V
+    over 256 columns, then kv_valid; K4b and K4c (``ClusterGeo``), a
+    block of a cluster, rows of up to 256 columns at a pitch of 256 + 16
+    bytes: two resident strips of 64 rows, two stages of two tiles of 16
+    rows in float32 or 32 in bf16 and their vectors, then two slots of
+    the S and dP partials, 64 by 16 or 32 float32 each."""
     dp = k4_padded_dim(dk)
     size = 4 if dtype == _F32 else 2
     nvec = {"K4a": 1, "K4b": 3, "K4c": 1}[kernel]
-    if dp > 256:
+    if dp > 256 and kernel == "K4a":
         row = 256 + 16                           # a chunk step's pitch, bytes
-        nops, bn = (1, 32) if kernel == "K4a" else (2, 16)
-        out = bn * (256 + 16 // size) * size
-        return 2 * (max(nops * (64 + bn) * row, out) + 4 * nvec * bn)
+        out = 32 * (256 + 16 // size) * size
+        return 2 * (max((64 + 32) * row, out) + 4 * 32)
+    if dp > 256:
+        pitch = (WIDE_CHUNK + 16 // size) * size
+        bn = 16 if dtype == _F32 else 32
+        slots = 2 * 2 * 64 * bn * 4              # S and dP partials, twice
+        return 2 * 64 * pitch + 2 * (2 * bn * pitch + 4 * nvec * bn) + slots
     pitch = (dp + 16 // size) * size
     if kernel == "K4a":
         bn = k4a_block_k(dtype, dk)
@@ -152,6 +171,22 @@ def k4_smem_bytes(kernel: str, dtype: torch.dtype, dk: int) -> int:
         bn = 32 if dp > 96 else 64
     return 2 * 64 * pitch + 2 * (2 * bn * pitch + 4 * nvec * bn)
 
+
+
+def k4_wide_split(dk: int) -> list:
+    """The column chunks ``[(c0, width), ...]`` of the wide K4b's and K4c's
+    cluster at head width ``dk`` (above 256), one a block in rank order
+    (csrc/flash_attn_wide_bwd.cu's ``wide_split``): C = ceil(DP / 256)
+    blocks over the padded width DP, each DP / C columns rounded up to 32
+    and the last the rest, so that they cover [0, ``k4_padded_dim(dk)``)
+    once: 2 x 192 at DP 384, 2 x 256 at 512, 224 + 224 + 192 at 640, 3 x
+    256 at 768, 4 x 224 at 896, 4 x 256 at 1024."""
+    dp = k4_padded_dim(dk)
+    if dp <= 256:
+        raise ValueError(f"head width {dk} runs no cluster (DP {dp})")
+    blocks = -(-dp // WIDE_CHUNK)
+    chunk = -(-(dp // blocks) // 32) * 32
+    return [(c0, min(chunk, dp - c0)) for c0 in range(0, dp, chunk)]
 
 def _scores(q, k, q_valid, kv_valid, sm_scale):
     """float32 scores with the additive segment mask, (B, H, Tq, Tk)."""
@@ -357,6 +392,21 @@ def flash_attention_dq(q, k, v, q_valid, kv_valid, do, lse, di, *,
 
 flash_attention_dq.launches = 0
 
+
+
+def k4_wide_bwd_attrs(kernel: str, dtype: torch.dtype) -> tuple:
+    """(registers a thread, local memory bytes) of the wide ``kernel``
+    ('K4b' or 'K4c') instance in ``dtype``, as ``cudaFuncGetAttributes``
+    gives them for the card's build: local memory is where ptxas spills,
+    so a kernel that spills nothing has 0."""
+    regs, local = ctypes.c_int(), ctypes.c_longlong()
+    fn = kernel_call("flash_attn_wide_bwd_attrs",
+                     (_I, _I, ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_longlong)))
+    check_launch("flash_attn_wide_bwd_attrs", fn(
+        {"K4b": 1, "K4c": 2}[kernel], int(dtype == _BF16),
+        ctypes.byref(regs), ctypes.byref(local)))
+    return regs.value, local.value
 
 class _FlashAttention(torch.autograd.Function):
     """K4a forward; K4b and K4c backward.  The Function owns what the

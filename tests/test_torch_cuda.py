@@ -564,18 +564,24 @@ def _k4_inputs(cuda, b, h, tq, tk, d, dtype, key_lengths, mask_rows, seed):
     # D = 240, padded to DP = 256 with zero columns
     (2, 2, 300, 300, 240, (300, 17), True),
     (2, 2, 130, 211, 240, (211, 100), False),
-    # the wide instances: adim 384 over one head (D = 384, two chunks of
-    # 256 columns, the second half zero), adim 512 over one (D = 512), a
-    # ragged length past several tiles with masked query rows, then Tq !=
-    # Tk; D = 320 and 448 (zero columns in a chunk step too) and 640
-    # (three chunks)
+    # the wide instances: adim 384 over one head (D = 384: K4a two chunks
+    # of 256 columns, the second half zero; K4b and K4c clusters of three
+    # blocks of 128 columns), adim 512 over one (D = 512, clusters of
+    # four), a ragged length past several tiles with masked query rows,
+    # then Tq != Tk; D = 320 and 448 (zero columns in a chunk step and in
+    # the last block of a cluster), 272 (the last block 16 columns), 640
+    # (three chunks, five blocks), and the widest, 768 and 1024 (clusters
+    # of six and eight blocks)
     (2, 1, 333, 333, 384, (333, 250), True),
     (2, 2, 130, 211, 384, (211, 100), False),
     (2, 1, 333, 333, 512, (333, 250), True),
     (2, 2, 130, 211, 512, (211, 100), False),
     (2, 1, 300, 300, 320, (300, 17), True),
     (2, 1, 130, 211, 448, (211, 100), False),
-    (1, 2, 200, 200, 640, (200,), False)])
+    (1, 1, 150, 150, 272, (150,), False),
+    (1, 2, 200, 200, 640, (200,), False),
+    (2, 1, 300, 300, 768, (300, 17), True),
+    (2, 1, 130, 211, 1024, (211, 100), False)])
 def test_k4_matches_plain_versions(cuda, dtype, b, h, tq, tk, d,
                                    key_lengths, mask_rows):
     """K4a against the plain version unblocked and blocked at its own key
@@ -650,12 +656,12 @@ def test_k4_autograd_matches_autograd_of_the_plain_version(cuda):
 
 
 def test_k4_rejects_what_it_does_not_take(cuda):
-    """Head widths past 640 (jax's kernel takes 768) and widths that are
+    """Head widths past 1024 (jax's kernel takes 1152) and widths that are
     not multiples of 16 raise, in the wrapper and in the core; float16
     and tensors on two devices too."""
     from parakeet_tpu_torch.nn.flash import make_flash_attn_core
     from parakeet_tpu_torch.ops.kernels import flash_attn as k4
-    for d in (656, 768, 200):
+    for d in (1040, 1152, 200):
         q, k, v, qv, kv, _ = _k4_inputs(cuda, 1, 1, 64, 64, d,
                                         torch.float32, (64,), False, 0)
         with pytest.raises(NotImplementedError, match="K4"):
@@ -676,8 +682,8 @@ def test_k4_rejects_what_it_does_not_take(cuda):
 def test_k4_shared_memory_matches_the_kernels(cuda, dtype):
     """The launcher's ``k4_smem_bytes`` is the kernels' own count
     (``flash_attn_smem``: 0 K4a, 1 K4b, 2 K4c), within the card's 227 KB,
-    at every head width K4 takes (DP 384, 512 and 640 too); widths it
-    refuses give -1."""
+    at every head width K4 takes (DP 384 to 1024 too); widths it refuses
+    give -1."""
     import ctypes
 
     from parakeet_tpu_torch.ops.kernels import flash_attn as k4
@@ -690,8 +696,19 @@ def test_k4_shared_memory_matches_the_kernels(cuda, dtype):
         for i, name in enumerate(("K4a", "K4b", "K4c")):
             want = k4.k4_smem_bytes(name, dtype, d)
             assert fn(i, bf16, d) == want <= k4.SMEM_LIMIT, (name, d)
-    assert fn(0, bf16, 656) == fn(0, bf16, 200) == fn(3, bf16, 64) == -1
+    assert fn(0, bf16, 1040) == fn(0, bf16, 200) == fn(3, bf16, 64) == -1
     assert fn(3, bf16, 384) == -1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_wide_backward_spills_nothing(cuda, dtype):
+    """The wide K4b and K4c (the cluster kernels above head width 256) use
+    no local memory, where ptxas would spill (``cudaFuncGetAttributes``
+    through ``k4_wide_bwd_attrs``), within 255 registers a thread."""
+    from parakeet_tpu_torch.ops.kernels import flash_attn as k4
+    for name in ("K4b", "K4c"):
+        regs, local = k4.k4_wide_bwd_attrs(name, dtype)
+        assert 0 < regs <= 255 and local == 0, (name, regs, local)
 
 
 # ---- captured programs: K1 and K4a inside a CUDA graph, the engine's grid

@@ -187,15 +187,15 @@ def test_plain_k4a_blocked_matches_pallas_flash_kernel():
 
 
 def test_auto_core_runs_dense_at_head_widths_k4_does_not_take(monkeypatch):
-    """dk = 768 (adim 768, one head), a width K4 does not take (jax's
-    kernel does), at T = 1024: 'auto' runs the dense path, bit for bit,
-    and never reaches K4; 'flash' raises there."""
-    h, d, t = 1, 768, 1024
+    """dk = 1152 (adim 1152, one head), a width K4 does not take (jax's
+    kernel does: a multiple of 128), at T = 1024: 'auto' runs the dense
+    path, bit for bit, and never reaches K4; 'flash' raises there."""
+    h, d, t = 1, 1152, 1024
     core = tflash.make_auto_attn_core()
     dense, auto = _mha_pair(h, d, core, 15, rate=0.1)
 
     def no_k4(*args, **kwargs):
-        raise AssertionError("K4 reached at dk = 768")
+        raise AssertionError("K4 reached at dk = 1152")
 
     monkeypatch.setattr(tflash, "flash_attention", no_k4)
     x = torch.from_numpy(_np(16, 1, t, d))

@@ -37,18 +37,19 @@ def _row_mask(lengths, t):
 
 
 def test_k4_takes_head_width_192():
-    """Every multiple of 16 in [16, 640] is taken (widths between two
+    """Every multiple of 16 in [16, 1024] is taken (widths between two
     instances run at the wider one: 144-192 at 192, 208-256 at 256, and
-    above 256 at the next multiple of 128); past 640 (jax's kernel also
-    takes 768) and off the multiples of 16 K4 refuses."""
+    above 256 at the next multiple of 128); past 1024 (jax's kernel also
+    takes 1152) and off the multiples of 16 K4 refuses."""
     assert k4.flash_head_dim_supported(DK)
-    assert all(k4.flash_head_dim_supported(d) for d in range(16, 641, 16))
+    assert all(k4.flash_head_dim_supported(d) for d in range(16, 1025, 16))
     assert not any(k4.flash_head_dim_supported(d)
-                   for d in (0, 8, 24, 200, 250, 392, 656, 768))
+                   for d in (0, 8, 24, 200, 250, 392, 1040, 1152))
     assert [k4.k4_padded_dim(d) for d in (16, 48, 128, 144, 192, 208, 256)
             ] == [32, 64, 128, 192, 192, 256, 256]
-    assert [k4.k4_padded_dim(d) for d in (272, 384, 400, 512, 528, 640)
-            ] == [384, 384, 512, 512, 640, 640]
+    assert [k4.k4_padded_dim(d) for d in (272, 384, 400, 512, 528, 640,
+                                          768, 1024)
+            ] == [384, 384, 512, 512, 640, 640, 768, 1024]
 
 
 def test_plain_k4_matches_pallas_flash_kernel_at_dk_192():

@@ -6,8 +6,8 @@ across several, so the port's plain K4a/K4b/K4c, through its flash core,
 are held against it in interpret mode, as tests/test_flash_attention.py
 runs it: o, lse (jax's saved m + log l) and every gradient, at dk 384 over
 T=200 (one block after jax's padding) and T=640 (five blocks of 128), at
-dk 512 over T=200, at dk 384 with Tq != Tk, and at dk 640 (the widest K4
-takes) over T=128.  The widths padded to the DP = 384 and 512 instances
+dk 512 over T=200, at dk 384 with Tq != Tk, and at dk 640, 768 and 1024
+(the widest K4 takes) over T=128.  The widths padded to the DP = 384 and 512 instances
 (320, 448) are held against a float64 softmax, and a FastSpeech2 at adim
 384 over one head with 'flash' against the JAX model with the same
 weights.  Inputs are drawn with numpy from a seed.
@@ -77,7 +77,9 @@ def _jax_lse(q, k, v, mask):
     (384, 640, 640, (640, 411), (640, 411)),
     (512, 200, 200, (200, 131), (200, 131)),
     (384, 130, 256, (130, 70), (256, 190)),
-    (640, 128, 128, (128, 77), (128, 77))])
+    (640, 128, 128, (128, 77), (128, 77)),
+    (768, 128, 128, (128, 77), (128, 77)),
+    (1024, 128, 128, (128, 77), (128, 77))])
 def test_plain_k4_matches_pallas_flash_kernel_at_wide_dk(dk, tq, tk,
                                                          q_lengths,
                                                          k_lengths):
@@ -85,7 +87,8 @@ def test_plain_k4_matches_pallas_flash_kernel_at_wide_dk(dk, tq, tk,
     the CPU) against jax's Pallas kernel in interpret mode at B=2, H=1:
     dk 384 over T=200 (one block of 256 after jax's padding) and T=640
     (five blocks of 128), dk 512 over T=200, dk 384 with 130 queries over
-    256 keys, and dk 640 (K4's widest) over T=128; the second item
+    256 keys, and dk 640, 768 and 1024 (K4's widest) over T=128; the
+    second item
     ragged, with the rows past its length masked too.  A masked row
     attends to the invalid keys under both segment rules, and jax's
     include any zero keys it pads T with, so o and lse are held on the
@@ -195,24 +198,53 @@ def test_padded_widths_match_a_float64_softmax(dk, padded):
 def test_shared_memory_of_the_wide_instances():
     """``k4_smem_bytes`` (the kernels' geometry; the card test holds it
     against ``flash_attn_smem``) above DP = 256 by hand, the same at every
-    wide width: two stages, each the larger of a chunk step (64 rows of
-    the block's 1 (K4a) or 2 operands and 32 (K4a) or 16 of the tile's,
-    272 bytes a row: 64 float32 or 128 bf16 columns and 16 bytes of
-    pitch) and an out step (the tile's rows of 256 columns and 16 bytes),
-    then 1 or 3 vectors of a value a tile row.  Two blocks fit an SM."""
+    wide width.  K4a: two stages, each the larger of a chunk step (64 rows
+    of Q and 32 of K, 272 bytes a row: 64 float32 or 128 bf16 columns and
+    16 bytes of pitch) and an out step (32 rows of V over 256 columns and
+    16 bytes), then kv_valid.  K4b and K4c, a block of a cluster, rows of
+    up to 256 columns at a pitch of 256 values and 16 bytes (1,040 bytes
+    float32, 528 bf16): two resident strips of 64 rows (K4b K and V, K4c
+    Q and dO), two stages of two tiles of 16 rows (float32) or 32 (bf16)
+    and 3 (K4b: q_valid, lse, di) or 1 (K4c: kv_valid) vectors of a value
+    a tile row, and two slots of the S and dP partials, 64 by 16 or 32
+    float32 each.  One block (of 8 warps) an SM."""
     chunk = 272
     out = {torch.float32: 32 * 4 * 260, torch.bfloat16: 32 * 2 * 264}
+    pitch = {torch.float32: 1040, torch.bfloat16: 528}
+    bn = {torch.float32: 16, torch.bfloat16: 32}
     for dt in (torch.float32, torch.bfloat16):
+        rows, tile, n = 64 * pitch[dt], bn[dt] * pitch[dt], bn[dt]
+        slots = 2 * 2 * 64 * n * 4
         want = {"K4a": 2 * (max(96 * chunk, out[dt]) + 128),
-                "K4b": 2 * (2 * 80 * chunk + 192),
-                "K4c": 2 * (2 * 80 * chunk + 64)}
-        for d in (272, 384, 448, 512, 640):
+                "K4b": 2 * rows + 2 * (2 * tile + 3 * 4 * n) + slots,
+                "K4c": 2 * rows + 2 * (2 * tile + 4 * n) + slots}
+        for d in (272, 384, 448, 512, 640, 768, 896, 1024):
             assert {n: k4.k4_smem_bytes(n, dt, d) for n in want} == want
     assert [k4.k4_smem_bytes(n, dt, 384) for dt in (torch.float32,
                                                      torch.bfloat16)
-            for n in ("K4a", "K4b", "K4c")] == [66816, 87424, 87168,
-                                                 52480, 87424, 87168]
-    assert 2 * (87424 + 1024) <= 233472       # an SM's 228 KB, two blocks
+            for n in ("K4a", "K4b", "K4c")] == [66816, 216448, 216192,
+                                                 52480, 168704, 168192]
+    sm = 233472                                  # an SM's 228 KB
+    assert 216448 <= k4.SMEM_LIMIT and 168192 + 1024 > sm // 2
+
+
+@pytest.mark.parametrize("dk", range(272, 1025, 16))
+def test_wide_split_covers_the_padded_width(dk):
+    """``k4_wide_split``: the wide K4b's and K4c's cluster covers [0,
+    ``k4_padded_dim(dk)``) with its blocks' column chunks once, in order,
+    each a multiple of 16 and at most 256 columns, in at most 8 blocks
+    (the portable cluster size): ceil(DP / 256) blocks, DP / C columns
+    rounded up to 32 each, the last the rest (at least 16 of them real
+    columns, below dk)."""
+    chunks = k4.k4_wide_split(dk)
+    dp = k4.k4_padded_dim(dk)
+    covered = [c for c0, w in chunks for c in range(c0, c0 + w)]
+    assert covered == list(range(dp))
+    assert all(w % 16 == 0 and 0 < w <= 256 for _, w in chunks)
+    assert len(chunks) <= k4.MAX_CLUSTER == 8
+    assert len(chunks) == -(-dp // 256) and chunks[-1][0] + 16 <= dk
+    assert [len(k4.k4_wide_split(d)) for d in (384, 512, 640, 1024)] == [
+        2, 2, 3, 4]
 
 
 @pytest.mark.parametrize("dk", [384, 512])
